@@ -1,0 +1,436 @@
+"""Export a CNN to the int8-resident serving path on the port's kernels.
+
+The CNN resident half of the reference's ``core/export.py``:
+
+1. A *layer-plan compiler* runs one calibration forward (the QAT
+   fake-quant math) over a sample batch and records a static activation
+   scale at every layer boundary (:class:`LayerPlan`).
+2. The plan's layers serve on the int8 kernels: every conv through
+   ``quant_conv`` (im2col + the CUDA ``quant_matmul`` kernel) with the
+   requantize epilogue, so activations travel between layers as int8
+   :class:`QAct` on static scales; the exit and final heads through
+   ``quant_matmul`` with fp32 output.  The glue (GroupNorm + skip + act)
+   runs on the raw int8 codes in fp32 and requantizes to the consumer's
+   scale.
+3. The plan is split at the exit heads into stage segments that the
+   serving scheduler resumes on, and served with batched early exit.
+
+One lowering serves both devices: the kernel wrappers launch the CUDA and
+Triton kernels for tensors on the card and run their plain versions for
+CPU tensors (the reference's separate jnp lowering with folded scales is
+not needed for that).  Not ported yet, each raising NotImplementedError
+that names its ROADMAP item: the dynamic-scale path (``calibrate=None``),
+factored (low-rank) layers, depthwise layers, measure-mode kernel
+selection and the static analyzer.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.quantization import quantize_params_for_serving
+from repro_torch.kernels import ops, ref
+from repro_torch.models import cnn as cnn_lib
+
+
+def _serving_bits(cfg) -> tuple[int, int]:
+    """(w_bits, a_bits) the int8 kernels run at: the chain's QAT bits when
+    they fit in int8, else 8."""
+    w_bits = cfg.w_bits if 0 < cfg.w_bits <= 8 else 8
+    a_bits = cfg.a_bits if 1 < cfg.a_bits <= 8 else 8
+    return w_bits, a_bits
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises when it names CUDA on a host
+    without a card (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: this entry point runs on the card '
+                           "unless the caller asks for device='cpu'")
+    return device
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 convs and matmuls in full precision (cuDNN would run fp32
+    convs in TF32 by default, which moves the calibration abs-max)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def to_device(tree, device):
+    """Move every tensor of a nested dict/list/tuple tree to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree
+
+
+# ------------------------------------------------ int8-resident layer plan
+
+
+@dataclass(frozen=True)
+class QAct:
+    """An int8 activation travelling between layers with its static scale.
+
+    ``scale`` is a Python float captured at export calibration and never
+    recomputed at serve time; device memory sees the int8 ``q`` alone."""
+    q: Any
+    scale: float
+
+
+def _deq(x):
+    """Dequantize (identity on tensors already fp32)."""
+    if isinstance(x, QAct):
+        return x.q.to(torch.float32) * x.scale
+    return x
+
+
+@dataclass
+class LayerPlan:
+    """The layer-plan compiler's output: per-layer static scales and kernel
+    choice, keyed by the stable layer names of models/cnn.py.  ``layers``
+    covers convs/fcs, ``glues`` the inter-layer norm/act boundaries."""
+    layers: dict
+    glues: dict
+    a_qmax: float
+
+    def summary(self) -> dict:
+        """Deployed-cost summary: MACs, launch counts, and the MAC fraction
+        served by a fp32 fallback (0 on this plan).  Counts cover the plain
+        serving path (``ServingModel.fn``); the exit heads, executed only
+        by ``fn_exits``, are reported as ``n_exit_heads`` /
+        ``exit_head_launches``."""
+        main = {n: e for n, e in self.layers.items()
+                if not n.startswith('exit')}
+        exits = {n: e for n, e in self.layers.items()
+                 if n.startswith('exit')}
+        total = sum(e['macs'] for e in main.values())
+        fallback = sum(e['macs'] for e in main.values() if e['fallback'])
+        return {
+            'n_layers': len(main),
+            'n_fallback': sum(1 for e in main.values() if e['fallback']),
+            'kernel_launches': sum(e['launches'] for e in main.values()),
+            'n_exit_heads': len(exits),
+            'exit_head_launches': sum(e['launches'] for e in exits.values()),
+            'total_macs': total,
+            'fallback_mac_fraction': fallback / max(total, 1),
+        }
+
+
+def _compile_layer_plan(params, cfg, x, a_qmax) -> LayerPlan:
+    """One calibration forward (the QAT fake-quant math) that records a
+    static activation scale at every layer boundary."""
+    layers, glues = {}, {}
+
+    def amax(v) -> float:
+        return max(float(torch.abs(v).amax()), 1e-8)
+
+    def conv_fn(p, cx, *, stride=1, quant=(0, 0), groups=1, name=None):
+        if 'u' in p:
+            raise NotImplementedError(
+                f'{name}: factored (low-rank) layers need the lowrank_conv '
+                f'kernel, not ported yet (ROADMAP, queue A: low-rank slice)')
+        if groups > 1:
+            raise NotImplementedError(
+                f'{name}: grouped/depthwise convs need the depthwise_conv '
+                f'kernel, not ported yet (ROADMAP, queue A: depthwise '
+                f'slice)')
+        y = cnn_lib.conv(p, cx, stride=stride, quant=quant)
+        kh, kw, cin, cout = p['w'].shape
+        oh, ow = y.shape[1], y.shape[2]
+        layers[name] = {
+            'sx': amax(cx) / a_qmax, 'kind': 'conv', 'fallback': False,
+            'stride': stride, 'in_shape': tuple(cx.shape), 'kernel': (kh, kw),
+            'macs': oh * ow * kh * kw * cin * cout, 'launches': 1,
+            'out_scale': amax(y) / a_qmax, 'out_shape': tuple(y.shape)}
+        return y
+
+    def fc_fn(p, cx, *, quant=(0, 0), name=None):
+        if 'u' in p:
+            raise NotImplementedError(
+                f'{name}: factored (low-rank) heads come with the low-rank '
+                f'slice (ROADMAP, queue A)')
+        y = cnn_lib.fc(p, cx, quant=quant)
+        layers[name] = {
+            'sx': amax(cx) / a_qmax, 'kind': 'fc', 'fallback': False,
+            'out_scale': None, 'in_shape': tuple(cx.shape),
+            'macs': p['w'].shape[0] * p['w'].shape[1], 'launches': 1,
+            'out_shape': tuple(y.shape)}
+        return y
+
+    def glue_fn(np_, y, *, act=None, skip=None, name=None):
+        h = cnn_lib.norm_act(np_, y, act=act, skip=skip)
+        glues[name] = amax(h) / a_qmax
+        return h
+
+    cnn_lib.cnn_forward(params, cfg, x, collect_exits=True, conv_fn=conv_fn,
+                        fc_fn=fc_fn, glue_fn=glue_fn)
+    return LayerPlan(layers=layers, glues=glues, a_qmax=a_qmax)
+
+
+def _resolve_layer_params(params, name: str):
+    """Map a stable layer name from models/cnn.py (``s0b1.conv2``,
+    ``stem``, ``exit1``, ``head``) to its param subtree."""
+    head = name.split('.')[0]
+    if head == 'stem':
+        return params['stem']
+    if head == 'head':
+        return params['head']
+    if head.startswith('exit'):
+        return params['exits'][head[4:]]
+    s, b = head[1:].split('b')
+    return params['stages'][int(s)][int(b)][name.split('.')[1]]
+
+
+def _resident_layers(plan: LayerPlan):
+    """Int8-resident layer implementations compiled from a LayerPlan.
+
+    Convs consume and produce :class:`QAct`: int8 on static scales, the
+    requantize epilogue in the kernel.  The glue normalizes the raw int8
+    codes (GroupNorm is invariant to the positive per-tensor scale, up to
+    eps) and requantizes to its calibrated output scale, which equals the
+    consumer's input scale by construction."""
+    qmax = plan.a_qmax
+
+    def as_qact(x, sx):
+        if isinstance(x, QAct):
+            return x
+        return QAct(ref.requantize(x, sx, qmax), sx)
+
+    def conv_fn(p, x, *, stride=1, quant=(0, 0), groups=1, name=None):
+        del quant, groups
+        e = plan.layers[name]
+        xq = as_qact(x, e['sx'])
+        y = ops.quant_conv_static(
+            xq.q, p['w_q'], p['scale'], p.get('b'), sx=xq.scale,
+            stride=stride, out_scale=e['out_scale'], out_qmax=qmax)
+        return QAct(y, e['out_scale'])
+
+    def fc_fn(p, x, *, quant=(0, 0), name=None):
+        del quant
+        e = plan.layers[name]
+        xq = ref.requantize(_deq(x), e['sx'], qmax)
+        return ops.quant_dense_static(xq, p['w_q'], p['scale'], p.get('b'),
+                                      sx=e['sx'])
+
+    def glue_fn(np_, y, *, act=None, skip=None, name=None):
+        s = plan.glues[name]
+        h = cnn_lib.group_norm(
+            np_, y.q.to(torch.float32) if isinstance(y, QAct) else y)
+        if skip is not None:
+            h = h + _deq(skip)
+        h = cnn_lib._ACTS[act](h)
+        return QAct(ref.requantize(h, s, qmax), s)
+
+    def pool_fn(h):
+        if isinstance(h, QAct):           # scale the (B,C) mean, not the map
+            return h.q.to(torch.float32).mean(dim=(1, 2)) * h.scale
+        return h.mean(dim=(1, 2))
+
+    return conv_fn, fc_fn, glue_fn, pool_fn
+
+
+def _make_stage_fns(cfg, kw):
+    """Split the compiled layer plan at the early-exit boundaries.
+
+    Returns ``(stage_fns, stage_exits)``: segment ``i < last`` maps
+    ``(params, carry) -> (exits, carry)`` with the boundary head's logits
+    and the int8 :class:`QAct` carry; the final segment maps
+    ``(params, carry) -> logits``.  Chaining the segments is value-identical
+    to the monolithic ``fn_exits`` (same layer names, plan entries and
+    kernels) and bit-exact at fixed batch geometry."""
+    bounds = tuple(sorted(cfg.exit_stages))
+    fns, lo = [], 0
+    for s in bounds:
+        @torch.inference_mode()
+        def seg(p, h, *, _lo=lo, _hi=s):
+            return cnn_lib.cnn_forward(p, cfg, h, collect_exits=True,
+                                       start_stage=_lo, stop_stage=_hi, **kw)
+        fns.append(seg)
+        lo = s + 1
+
+    @torch.inference_mode()
+    def final(p, h, *, _lo=lo):
+        return cnn_lib.cnn_forward(p, cfg, h, start_stage=_lo, **kw)
+    fns.append(final)
+    return tuple(fns), bounds + (None,)
+
+
+def _segment_launches(plan: LayerPlan, cfg, stage_exits) -> tuple:
+    """Kernel launches of each stage segment: the plan's layers grouped by
+    the segment that runs them (an exit head runs in the segment ending at
+    its stage, the final head in the last)."""
+    bounds = [s for s in stage_exits if s is not None]
+    last = len(cfg.stage_blocks) - 1
+
+    def stage_of(name):
+        head = name.split('.')[0]
+        if head == 'stem':
+            return 0
+        if head == 'head':
+            return last
+        if head.startswith('exit'):
+            return int(head[4:])
+        return int(head[1:].split('b')[0])
+
+    out = [0] * len(stage_exits)
+    for name, e in plan.layers.items():
+        s = stage_of(name)
+        seg = next((i for i, b in enumerate(bounds) if s <= b), len(bounds))
+        out[seg] += e['launches']
+    return tuple(out)
+
+
+def exit_confidence(head_logits):
+    """THE early-exit decision quantity: fp32 softmax max-confidence per
+    sample.  A sample exits iff ``exit_confidence(head) > threshold``,
+    strictly, everywhere."""
+    return torch.softmax(head_logits.to(torch.float32), dim=-1).amax(dim=-1)
+
+
+def early_exit_batch(logits, exits, threshold):
+    """Batched early-exit selection: (pred (B,), stage (B,) int32); stage is
+    -1 for samples that ran to the final head."""
+    pred = torch.argmax(logits, -1)
+    stage = torch.full(pred.shape, -1, dtype=torch.int32,
+                       device=logits.device)
+    taken = torch.zeros(pred.shape, dtype=torch.bool, device=logits.device)
+    for s in sorted(exits):
+        take = (exit_confidence(exits[s]) > threshold) & ~taken
+        pred = torch.where(take, torch.argmax(exits[s], -1), pred)
+        stage = torch.where(take, torch.full_like(stage, s), stage)
+        taken |= take
+    return pred, stage
+
+
+@dataclass
+class ServingModel:
+    """A compiled int8 serving endpoint for a compressed model."""
+    cfg: Any
+    params: Any                # int8 tree: {'w_q', 'scale'(, 'b')} leaves
+    fn: Callable               # (params, x) -> logits
+    fn_exits: Callable | None = None   # (params, x) -> (logits, exits)
+    plan: LayerPlan | None = None
+    exit_threshold: float = 0.9
+    stage_fns: tuple | None = None     # layer plan split at exit boundaries
+    stage_exits: tuple = ()            # exit stage each segment ends at
+    segment_launches: tuple = ()       # kernel launches per segment
+    device: torch.device = torch.device('cpu')
+
+    def serve(self, x):
+        return self.fn(self.params, x)
+
+    def serve_early_exit(self, x, threshold=None):
+        """(pred, stage) per sample; requires exported exit heads.
+        ``threshold=None`` uses the model's operating point."""
+        if self.fn_exits is None:
+            raise ValueError('model was exported without exit heads')
+        if x.shape[0] == 0:
+            z = torch.zeros((0,), dtype=torch.int32, device=self.device)
+            return z, z
+        if threshold is None:
+            threshold = self.exit_threshold
+        logits, exits = self.fn_exits(self.params, x)
+        return early_exit_batch(logits, exits, threshold)
+
+    @property
+    def n_stages(self) -> int:
+        """Number of stage-resumable segments (0 = no exit heads)."""
+        return len(self.stage_fns) if self.stage_fns else 0
+
+    def run_stage(self, i: int, carry):
+        """Run segment ``i``: ``carry`` is the input batch for ``i == 0``,
+        else the carry segment ``i - 1`` returned (an int8 ``QAct``).
+        Intermediate segments return ``(exits, carry)``; the last returns
+        logits."""
+        if not self.stage_fns:
+            raise ValueError('model was exported without exit heads '
+                             '(no stage boundaries to resume at)')
+        return self.stage_fns[i](self.params, carry)
+
+    def serve_stages(self, x):
+        """Chain every stage segment: ``(logits, exits)``, value-identical
+        to ``fn_exits(params, x)``."""
+        exits, h = {}, x
+        for i in range(self.n_stages - 1):
+            seg_exits, h = self.run_stage(i, h)
+            exits.update(seg_exits)
+        return self.run_stage(self.n_stages - 1, h), exits
+
+    def summary(self) -> dict | None:
+        """The layer plan's deployed-cost summary."""
+        return None if self.plan is None else self.plan.summary()
+
+
+def calibrate_exit_threshold(model: ServingModel, x, quantile=0.5):
+    """The confidence threshold at which a ``quantile`` fraction of the
+    batch ``x`` exits at its earliest head.  Pure: the caller decides where
+    the value lives."""
+    if model.fn_exits is None:
+        raise ValueError('model was exported without exit heads')
+    _, exits = model.fn_exits(model.params, x)
+    conf = exit_confidence(exits[min(exits)])
+    return float(torch.quantile(conf, 1.0 - quantile)) - 1e-6
+
+
+def export_cnn(params, cfg, *, device='cuda', calibrate=None,
+               tracer=None) -> ServingModel:
+    """Compile a CNN to the int8-resident serving path on ``device``.
+
+    ``calibrate`` (a sample input batch) sets the static activation scales.
+    Parameters and the batch are moved to ``device``; on CUDA every conv
+    and head runs the ``quant_matmul`` kernel and the calibration forward
+    runs ``fake_quant_fused`` on the 2-D head weights.  ``tracer`` (an
+    ``obs.trace.Tracer``) records an ``export.calibrate`` span."""
+    from repro_torch.obs.trace import as_tracer
+    tracer = as_tracer(tracer)
+    if calibrate is None:
+        raise NotImplementedError(
+            'the dynamic-scale export (calibrate=None) is not ported yet '
+            '(ROADMAP, queue A: dynamic-scale export); pass a calibration '
+            'batch')
+    device = resolve_device(device)
+    params = to_device(params, device)
+    calibrate = calibrate.to(device)
+    w_bits, a_bits = _serving_bits(cfg)
+    a_qmax = 2.0 ** (a_bits - 1) - 1.0
+    with _full_fp32(), torch.no_grad():
+        qparams = quantize_params_for_serving(params, bits=w_bits)
+        with tracer.span('export.calibrate', track='export',
+                         config=cfg.name, batch=int(calibrate.shape[0])):
+            plan = _compile_layer_plan(params, cfg, calibrate, a_qmax)
+    conv_fn, fc_fn, glue_fn, pool_fn = _resident_layers(plan)
+    kw = dict(conv_fn=conv_fn, fc_fn=fc_fn, glue_fn=glue_fn, pool_fn=pool_fn)
+
+    @torch.inference_mode()
+    def fn(p, x):
+        return cnn_lib.cnn_forward(p, cfg, x, **kw)
+
+    @torch.inference_mode()
+    def fn_exits(p, x):
+        return cnn_lib.cnn_forward(p, cfg, x, collect_exits=True, **kw)
+
+    stage_fns, stage_exits, seg_launches = None, (), ()
+    if cfg.exit_stages:
+        stage_fns, stage_exits = _make_stage_fns(cfg, kw)
+        seg_launches = _segment_launches(plan, cfg, stage_exits)
+    return ServingModel(cfg=cfg, params=qparams, fn=fn,
+                        fn_exits=fn_exits if cfg.exit_stages else None,
+                        plan=plan, stage_fns=stage_fns,
+                        stage_exits=stage_exits,
+                        segment_launches=seg_launches, device=device)

@@ -1,0 +1,148 @@
+"""Fixed-point uniform quantization-aware training (the paper's Q pass).
+
+DoReFa-style symmetric per-channel weight quantization and per-tensor
+activation quantization with straight-through estimators, in PyTorch.
+``quantize_weight`` is the single weight quantizer: QAT
+(``fake_quant_weight``) and serving export (``quantize_params_for_serving``,
+``ops.prequantize_weight``) all route through it.
+
+Divisions by a Python scalar go through ``ref.true_div``: the reference
+runs these functions eagerly at export, where ``x / c`` is one IEEE
+division, while torch's CUDA ``tensor / python_float`` multiplies by a
+reciprocal.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ref import true_div
+
+
+def _ste(x_q, x):
+    """Straight-through estimator: forward x_q, gradient of identity."""
+    return x + (x_q - x).detach()
+
+
+# Counts weight abs-max (scale) computations.  The export tests use it to
+# prove that serving recomputes no weight scale per call.
+WEIGHT_SCALE_COMPUTATIONS = [0]
+
+
+def _reduced_dims(ndim: int, axis) -> tuple | None:
+    if axis is None:
+        return None
+    kept = {a % ndim for a in ((axis,) if isinstance(axis, int)
+                               else tuple(axis))}
+    return tuple(i for i in range(ndim) if i not in kept)
+
+
+def quantize_weight(w, bits: int, *, axis=-1):
+    """Symmetric per-channel int quantization. Returns (int_values, scale).
+
+    ``axis`` is the axis (or tuple of axes) that keep their own scale
+    (None = per-tensor).  bits=1 follows DoReFa binary weights
+    (sign * mean|w|)."""
+    WEIGHT_SCALE_COMPUTATIONS[0] += 1
+    red = _reduced_dims(w.dim(), axis)
+    if bits == 1:
+        dims = tuple(range(w.dim())) if red is None else red
+        scale = torch.abs(w).mean(dim=dims, keepdim=True) if dims \
+            else torch.abs(w)
+        q = torch.sign(w)
+        q = torch.where(q == 0, torch.ones_like(q), q)
+        return q.to(torch.int8), scale
+    qmax = 2.0 ** (bits - 1) - 1.0
+    if red is None:
+        amax = torch.abs(w).amax()
+    elif red:
+        amax = torch.abs(w).amax(dim=red, keepdim=True)
+    else:
+        amax = torch.abs(w)
+    scale = true_div(torch.clamp_min(amax, 1e-8), qmax)
+    q = torch.clamp(torch.round(w / scale), -qmax - 1.0, qmax)
+    return q.to(torch.int8 if bits <= 8 else torch.int32), scale
+
+
+class _KernelFakeQuantSTE(torch.autograd.Function):
+    """The fused fake-quant kernel under a straight-through estimator: the
+    backward pass is the identity."""
+
+    @staticmethod
+    def forward(ctx, w, bits):
+        from repro_torch.kernels.ops import fake_quant
+        return fake_quant(w.contiguous(), bits).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant_weight(w, bits: int, *, axis=-1, use_kernel=None):
+    """Quantize->dequantize with STE (QAT forward for weights).
+
+    On a CUDA tensor the 2-D last-axis case runs the fused fake-quant
+    kernel (kernels/fake_quant.py); the CPU, other shapes and axes, and the
+    bits=1 DoReFa grid stay on plain tensor ops."""
+    if bits <= 0 or bits >= 32:
+        return w
+    if use_kernel is None:
+        use_kernel = (w.is_cuda and w.dim() == 2 and bits > 1
+                      and axis in (-1, 1))
+    if use_kernel:
+        return _KernelFakeQuantSTE.apply(w, bits)
+    q, scale = quantize_weight(w, bits, axis=axis)
+    return _ste(q.to(w.dtype) * scale.to(w.dtype), w)
+
+
+def fake_quant_act(x, bits: int, *, amax: float | None = None):
+    """Activation fake-quant: symmetric uniform with a per-tensor abs-max
+    clip of the current batch (or a given ``amax``); the scale carries no
+    gradient."""
+    if bits <= 0 or bits >= 32:
+        return x
+    qmax = 2.0 ** (bits - 1) - 1.0
+    s = torch.abs(x).amax() if amax is None else \
+        torch.full((), amax, dtype=x.dtype, device=x.device)
+    s = true_div(torch.clamp_min(s, 1e-8).detach(), qmax)
+    xq = torch.clamp(torch.round(x / s), -qmax - 1.0, qmax) * s
+    return _ste(xq.to(x.dtype), x)
+
+
+def quantize_params_for_serving(params, bits: int = 8):
+    """Convert every matmul/conv weight to int8 + per-out-channel scales.
+
+    Dense weights (d,f) and scan-stacked (G,d,f) keep their scale shape
+    with the reduced axis kept as 1; 4D NHWC conv weights (KH,KW,CIN,COUT)
+    get flat (COUT,) scales, as quant_conv consumes them.  Norm params,
+    biases and recurrent conv taps (under a 'conv' key) stay as they are.
+    The reference's MoE expert branch is not ported yet."""
+    def quant(v, flat_scale=False):
+        v = v.to(torch.float32)
+        if flat_scale:
+            q, scale = quantize_weight(v, bits, axis=-1)
+            scale = scale.reshape(-1)
+        else:
+            kept = tuple(i for i in range(v.dim()) if i != v.dim() - 2)
+            q, scale = quantize_weight(v, bits, axis=kept)
+        return q.to(torch.int8), scale.to(torch.float32)
+
+    def convert(node, name=''):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if name != 'conv' and k == 'w' and \
+                        isinstance(v, torch.Tensor) and v.dim() in (2, 3):
+                    out['w_q'], out['scale'] = quant(v)
+                elif k == 'w' and isinstance(v, torch.Tensor) \
+                        and v.dim() == 4:
+                    out['w_q'], out['scale'] = quant(v, flat_scale=True)
+                else:
+                    out[k] = convert(v, k)
+            return out
+        if isinstance(node, list):
+            return [convert(v, name) for v in node]
+        if isinstance(node, tuple):
+            return tuple(convert(v, name) for v in node)
+        return node
+
+    return convert(params)

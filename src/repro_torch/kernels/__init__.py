@@ -1,0 +1,42 @@
+"""Hand-written Hopper kernels of the port, with their plain versions.
+
+=====================  ====================================================
+Kernel                 Replaces (src/repro/kernels/)
+=====================  ====================================================
+``quant_matmul``       ``quant_matmul.py`` ``_qmm_kernel``: W8A8 GEMM with
+(CUDA C++,             int32 accumulation and the fused dequant + bias +
+``csrc/``)             ReLU (+ requantize) epilogue; serves every conv
+                       through the im2col lowering in ``quant_conv.py``
+                       and every dense head
+``fake_quant_fused``   ``fake_quant.py`` ``_fused_kernel``: per-column
+(Triton)               symmetric fake quant of a 2-D weight
+=====================  ====================================================
+
+Each wrapper launches its kernel for a CUDA tensor and runs the plain
+version for a CPU tensor.  :func:`counts` reads the launch and plain-call
+counters and :func:`reset_counts` zeroes them, so a run can show which
+path served it.
+"""
+from __future__ import annotations
+
+
+def _wrappers() -> dict:
+    """``{kernel: (wrapper, plain version)}`` for every ported kernel."""
+    from repro_torch.kernels import fake_quant, quant_matmul
+    return {'quant_matmul': (quant_matmul.quant_matmul,
+                             quant_matmul.quant_matmul_plain),
+            'fake_quant_fused': (fake_quant.fake_quant_fused,
+                                 fake_quant.fake_quant_plain)}
+
+
+def counts() -> dict:
+    """``{kernel: {'launches': n, 'plain_calls': m}}`` since the last
+    reset."""
+    return {k: {'launches': w.launches, 'plain_calls': p.calls}
+            for k, (w, p) in _wrappers().items()}
+
+
+def reset_counts() -> None:
+    for w, p in _wrappers().values():
+        w.launches = 0
+        p.calls = 0

@@ -1,0 +1,64 @@
+"""Public entry points over the kernels (the subset the int8-resident CNN
+path uses).
+
+The device of the tensor decides: a CUDA tensor goes to the hand-written
+kernel (or raises), a CPU tensor to the kernel's plain version.  The
+reference's ``use_pallas`` switch is gone for that reason.
+
+* :func:`prequantize_weight` — per-out-channel weight quantization, run
+  once at export; (w_q, sw) are static at serve time.
+* :func:`quant_conv_static` / :func:`quant_dense_static` — int8 conv/dense
+  on an activation already quantized on a static scale; with
+  ``out_scale`` the output stays int8 on that static grid.
+* :func:`quant_matmul`, :func:`fake_quant` — the kernels themselves.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fake_quant import fake_quant_fused
+from repro_torch.kernels.quant_conv import quant_conv
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: F401
+from repro_torch.kernels.tiling import VMEM_BUDGET
+
+
+def fake_quant(w, bits=8):
+    """Fake-quantize a 2-D w on the fused single-stripe kernel.
+
+    The reference switches to a two-pass amax->quantize pair when a (K, 256)
+    column stripe would not fit its VMEM budget; that pair is not ported
+    yet (ROADMAP, queue A: two-pass fake_quant), and no weight of the
+    ported configurations reaches it."""
+    if w.shape[0] * min(256, w.shape[1]) * 4 > VMEM_BUDGET // 2:
+        raise NotImplementedError(
+            f'fake_quant of a {tuple(w.shape)} weight needs the two-pass '
+            f'kernel, which is not ported yet (ROADMAP: two-pass '
+            f'fake_quant)')
+    return fake_quant_fused(w, bits=bits)
+
+
+def prequantize_weight(w, *, bits: int = 8):
+    """Per-out-channel (last dim) symmetric int8 weight quantization, through
+    core.quantization.quantize_weight (the single weight quantizer).
+    Returns (w_q int8, sw (out,) fp32)."""
+    from repro_torch.core.quantization import quantize_weight
+    w_q, scale = quantize_weight(w.to(torch.float32), bits, axis=-1)
+    return w_q.to(torch.int8), scale.reshape(-1).to(torch.float32)
+
+
+def quant_conv_static(x_q, w_q, sw, bias=None, *, sx, stride=1, relu=False,
+                      out_scale=None, out_qmax=127.0):
+    """Int8 conv on an already-quantized activation with a static scale
+    ``sx`` (a Python float from export calibration); no abs-max runs."""
+    return quant_conv(x_q, w_q, sx, sw, bias, stride=stride, relu=relu,
+                      out_scale=out_scale, out_qmax=out_qmax)
+
+
+def quant_dense_static(x_q, w_q, sw, bias=None, *, sx, relu=False,
+                       out_scale=None, out_qmax=127.0):
+    """Int8 dense on a statically-quantized activation: x_q int8 (M,K);
+    returns fp32 (M,N), or int8 when ``out_scale`` is set."""
+    sxv = torch.full((x_q.shape[0],), float(sx), dtype=torch.float32,
+                     device=x_q.device)
+    return quant_matmul(x_q, w_q, sxv, sw.reshape(-1), bias, relu=relu,
+                        out_scale=out_scale, out_qmax=out_qmax)

@@ -14,6 +14,12 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORCE_FLAG = '--xla_force_host_platform_device_count'
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'gpu: needs a CUDA card; skips without one (decided by a '
+                   'fixture when the test runs)')
+
+
 def backend_initialized() -> bool:
     """True once jax has instantiated a backend in THIS process — the
     device count is locked from then on, so XLA_FLAGS edits are silently

@@ -1,0 +1,246 @@
+"""Kernel-level parity of the PyTorch port against the JAX package.
+
+The same numpy inputs go through the reference's Pallas kernels (interpret
+mode on the CPU, ``use_pallas=True``) and the port's kernel wrappers, which
+run their plain versions for CPU tensors.  Tolerances: int8 codes must be
+identical; fp32 outputs within rtol 1e-6 (XLA may contract
+``acc * scale + bias`` into an FMA inside jit, torch eager does not, so
+fp32 results can differ by an ulp); fake quant and the weight quantizer
+bit-exact.  The kernels themselves are held against their plain versions
+on a card by tests/test_torch_gpu.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantization as jq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.fake_quant import fake_quant_fused as j_fake_quant_fused
+from repro.kernels.quant_conv import im2col_nhwc as j_im2col
+from repro.kernels import tiling as jtiling
+from repro_torch.core import quantization as tq
+from repro_torch.kernels import _build, counts, ops, ref, reset_counts, tiling
+from repro_torch.kernels.quant_conv import im2col_nhwc
+
+torch.set_num_threads(1)
+
+
+def _i8(rng, *shape):
+    return rng.integers(-128, 128, size=shape).astype(np.int8)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _assert_same(port, jax_out):
+    port = port.numpy()
+    jax_out = np.asarray(jax_out)
+    assert port.dtype == jax_out.dtype and port.shape == jax_out.shape
+    if port.dtype == np.int8:
+        np.testing.assert_array_equal(port, jax_out)
+    else:
+        np.testing.assert_allclose(port, jax_out, rtol=1e-6, atol=1e-6)
+
+
+EPILOGUES = [dict(), dict(bias=True, relu=True),
+             dict(bias=True, out_scale=0.37), dict(relu=True, out_scale=1.3)]
+
+
+@pytest.mark.parametrize('mkn', [(37, 27, 13), (9, 64, 5), (16, 33, 128)])
+@pytest.mark.parametrize('epi', range(len(EPILOGUES)))
+def test_quant_matmul_matches_reference(mkn, epi):
+    m, k, n = mkn
+    rng = np.random.default_rng(m * 100 + k + epi)
+    x, w = _i8(rng, m, k), _i8(rng, k, n)
+    sx = (rng.random(m) * 1e-2).astype(np.float32)
+    sw = (rng.random(n) * 1e-2).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    e = dict(EPILOGUES[epi])
+    bias = b if e.pop('bias', False) else None
+    want = jops.quant_matmul(x, w, sx, sw, bias, use_pallas=True, **e)
+    got = ops.quant_matmul(_t(x), _t(w), _t(sx), _t(sw),
+                           None if bias is None else _t(bias), **e)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('case', [
+    dict(shape=(2, 7, 8, 3), k=3, cout=5, out_scale=0.5, relu=True),
+    dict(shape=(1, 8, 8, 4), k=3, cout=6, out_scale=None, relu=False,
+         bias=False),
+    dict(shape=(2, 6, 5, 3), k=1, cout=4, out_scale=0.2, relu=False)])
+def test_quant_conv_matches_reference(stride, case):
+    rng = np.random.default_rng(7 + stride)
+    x = _i8(rng, *case['shape'])
+    w = _i8(rng, case['k'], case['k'], case['shape'][-1], case['cout'])
+    sw = (rng.random(case['cout']) * 1e-2).astype(np.float32)
+    b = rng.standard_normal(case['cout']).astype(np.float32)
+    kw = dict(sx=0.05, stride=stride, relu=case['relu'],
+              out_scale=case['out_scale'])
+    if not case.get('bias', True):
+        b = None
+    want = jops.quant_conv_static(x, w, sw, b, use_pallas=True, **kw)
+    got = ops.quant_conv_static(_t(x), _t(w), _t(sw),
+                                None if b is None else _t(b), **kw)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_quant_conv_ref_matches_reference(stride):
+    """The fp32-conv oracle (dequantize, then a SAME conv): rtol 1e-5, as
+    XLA and torch order the conv's fp32 sums differently."""
+    rng = np.random.default_rng(11 + stride)
+    x, w = _i8(rng, 2, 8, 7, 3), _i8(rng, 3, 3, 3, 5)
+    sw = (rng.random(5) * 1e-2).astype(np.float32)
+    b = rng.standard_normal(5).astype(np.float32)
+    want = jref.quant_conv_ref(jnp.asarray(x), jnp.asarray(w), 0.05,
+                               jnp.asarray(sw), jnp.asarray(b),
+                               stride=stride, relu=True)
+    got = ref.quant_conv_ref(_t(x), _t(w), 0.05, _t(sw), _t(b),
+                             stride=stride, relu=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    # the int8 kernel path computes the same conv up to fp32 rounding
+    np.testing.assert_allclose(
+        ops.quant_conv_static(_t(x), _t(w), _t(sw), _t(b), sx=0.05,
+                              stride=stride, relu=True).numpy(),
+        got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('geom', [((2, 7, 8, 3), 3, 2), ((1, 8, 8, 2), 3, 1),
+                                  ((2, 5, 6, 3), 1, 2)])
+def test_im2col_matches_reference(geom):
+    shape, k, stride = geom
+    x = _i8(np.random.default_rng(3), *shape)
+    want, hw = j_im2col(jnp.asarray(x), k, k, stride)
+    got, hw2 = im2col_nhwc(_t(x), k, k, stride)
+    assert hw == hw2
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('bits', [2, 4, 8])
+def test_fake_quant_fused_matches_reference(bits):
+    w = np.random.default_rng(bits).standard_normal((40, 13)).astype(
+        np.float32)
+    want = j_fake_quant_fused(jnp.asarray(w), bits=bits, interpret=True)
+    got = ops.fake_quant(_t(w), bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _assert_scales(got, want, bits, maxulp):
+    """Bit-exact for bits >= 2 (an abs-max is order-free).  The bits=1
+    DoReFa scale is a mean, which XLA and torch sum in different fp32
+    orders (a few ulps over tens of terms): held to ``maxulp`` units in
+    the last place."""
+    got, want = np.asarray(got), np.asarray(want)
+    if bits == 1:
+        np.testing.assert_array_max_ulp(got, want, maxulp=maxulp)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('bits', [1, 2, 4, 8])
+@pytest.mark.parametrize('shape', [(3, 3, 4, 6), (12, 7)])
+def test_quantize_weight_matches_reference(bits, shape):
+    w = np.random.default_rng(bits).standard_normal(shape).astype(np.float32)
+    q_want, s_want = jq.quantize_weight(jnp.asarray(w), bits, axis=-1)
+    q_got, s_got = tq.quantize_weight(_t(w), bits, axis=-1)
+    np.testing.assert_array_equal(q_got.numpy(), np.asarray(q_want))
+    _assert_scales(s_got.numpy(), s_want, bits, maxulp=4)
+    fq_want = jq.fake_quant_weight(jnp.asarray(w), bits, axis=-1)
+    fq_got = tq.fake_quant_weight(_t(w), bits, axis=-1)
+    _assert_scales(fq_got.numpy(), fq_want, bits, maxulp=4)
+
+
+@pytest.mark.parametrize('bits', [1, 2, 4, 8])
+def test_quantize_params_for_serving_matches_reference(bits):
+    rng = np.random.default_rng(bits)
+    tree = {'stem': {'w': rng.standard_normal((3, 3, 3, 8)),
+                     'b': rng.standard_normal(8)},
+            'stages': [[{'conv1': {'w': rng.standard_normal((1, 1, 8, 4))},
+                         'n1': {'scale': np.ones(4)}}]],
+            'head': {'w': rng.standard_normal((4, 10)),
+                     'b': np.zeros(10)}}
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+    want = jq.quantize_params_for_serving(
+        jax.tree.map(jnp.asarray, tree), bits=bits)
+    from repro_torch.interop import from_jax_params, to_numpy
+    got = to_numpy(tq.quantize_params_for_serving(from_jax_params(tree),
+                                                  bits=bits))
+    flat_w, tree_w = jax.tree.flatten(want)
+    flat_g, tree_g = jax.tree.flatten(got)
+    assert tree_w == tree_g
+    for a, b in zip(flat_w, flat_g):
+        if b.dtype == np.int8:
+            np.testing.assert_array_equal(b, np.asarray(a))
+        else:
+            _assert_scales(b, a, bits, maxulp=4)
+
+
+def test_fake_quant_act_matches_reference():
+    x = np.random.default_rng(0).standard_normal((2, 5, 5, 3)).astype(
+        np.float32)
+    for bits in (4, 8):
+        want = jq.fake_quant_act(jnp.asarray(x), bits)
+        got = tq.fake_quant_act(_t(x), bits)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_requantize_matches_jitted_reference():
+    """The reference requantizes inside jit, where XLA turns ``y / s`` for a
+    static ``s`` into ``y * fp32(1/s)``; ref.requantize multiplies by the
+    same reciprocal, so the codes agree everywhere, ties included."""
+    rng = np.random.default_rng(1)
+    for s in (0.0123456, 3.3, 0.37):
+        y = (rng.standard_normal(20000) * 60 * s).astype(np.float32)
+        y[:64] = (np.arange(64) - 32 + 0.5) * np.float32(s)   # near ties
+        want = jax.jit(lambda a, _s=s: jref.requantize(a, _s))(y)
+        got = ref.requantize(_t(y), s)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_round_half_to_even_on_both_sides():
+    ties = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5], np.float32)
+    np.testing.assert_array_equal(torch.round(_t(ties)).numpy(),
+                                  np.asarray(jnp.round(ties)))
+    np.testing.assert_array_equal(torch.round(_t(ties)).numpy(),
+                                  [-2, -2, -0, 0, 2, 2])
+
+
+def test_tiling_matches_reference():
+    for dim in (1, 7, 127, 128, 131, 256, 1000):
+        assert tiling.pad_to(dim) == jtiling.pad_to(dim)
+        assert tiling.batch_slots(dim) == jtiling.batch_slots(dim)
+        assert tiling.fit_or_pad(128, dim) == jtiling.fit_or_pad(128, dim)
+    assert tiling.SMEM_BUDGET == 227 * 1024
+    with pytest.raises(ValueError):
+        tiling.fit_block(128, 131)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    reset_counts()
+    x = torch.zeros((4, 8), dtype=torch.int8)
+    ops.quant_matmul(x, torch.zeros((8, 3), dtype=torch.int8),
+                     torch.ones(4), torch.ones(3))
+    ops.fake_quant(torch.ones((8, 3)))
+    c = counts()
+    assert c['quant_matmul'] == {'launches': 0, 'plain_calls': 1}
+    assert c['fake_quant_fused'] == {'launches': 0, 'plain_calls': 1}
+    reset_counts()
+    assert counts()['quant_matmul']['plain_calls'] == 0
+
+
+def test_two_pass_fake_quant_is_not_ported():
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ops.fake_quant(torch.zeros((8192, 256)))
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(_build.shutil, 'which', lambda _: None)
+    monkeypatch.setattr(_build.os.path, 'exists', lambda _: False)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _build.nvcc()
