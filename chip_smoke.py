@@ -6,30 +6,47 @@
 Phases, in order; any failure exits non-zero and no result is printed:
 
 1. Card and build: the card's name and power limit, then every CUDA
-   source under ``src/repro_torch/kernels/csrc`` compiled with nvcc
-   (registers, shared memory and spills from ptxas, and the seconds).
-2. Kernels against their plain versions on the card at main-path shapes:
-   ``quant_matmul`` at the stem, a stage-0 conv, a stage-3 conv and a
-   head, each with the int8 requantize epilogue and with fp32 output, and
-   ``fake_quant_fused`` at the three head weights.  Outputs must be
-   identical bit for bit.  Each case prints the kernel's time, the plain
-   version's, a library yardstick the port never calls
-   (``torch._int_mm`` + a torch epilogue, where its shape rules allow) and
-   the bound: bytes once in and once out at 3.35 TB/s against the int8
-   (or fp32) operations at the card's peak.
-3. End to end, the port's main path: resnet34-cifar with exit heads at
-   the default stages, ``export_cnn(device='cuda', calibrate=<32
-   images>)``, the exit threshold calibrated, and 256 Poisson requests
-   served through ``ContinuousBatchScheduler`` at 32 slots.  Every
-   request must complete, the quant_matmul launches while serving must
-   equal the plan's launches per executed segment, the plain versions
-   must not run, 16 sampled requests must be bit-exact against the
-   monolithic ``fn_exits`` on the request alone at the same slot geometry,
-   and the served logits must agree with the port's plain CPU path on a
-   small batch.
-4. The ``{"kernels": [...]}`` line: each ported kernel with its launches
-   on the main path and its time, plain time, library time and bound,
-   summed over the calls one full-depth 32-slot pass makes.
+   source under ``src/repro_torch/kernels/csrc`` compiled with nvcc, all
+   at once (registers, shared memory and spills from ptxas, and the
+   seconds).
+2. Kernels against their plain versions on the card at main-path shapes,
+   bit for bit: ``quant_matmul`` at the stem, a stage-0 conv, a stage-3
+   conv and a head (int8 and fp32 output); ``fake_quant_fused`` at the
+   three head weights; ``depthwise_conv`` at every mobilenetv2-cifar
+   depthwise shape at 32 slots plus a channel-multiplier case;
+   ``lowrank_conv`` at the factored resnet34-cifar shapes inside the fused
+   envelope (ranks from the real factorization at energy 0.6), at both
+   M tiles (64 and 32 rows), the measurement behind ``pick_bm``.  Each
+   case prints the wrapper call's time, the kernel's device time
+   (torch.profiler), the plain version's time, a library yardstick the
+   port never calls (``torch._int_mm`` or a grouped ``F.conv2d`` plus a
+   torch epilogue) and the bound: bytes once in and once out at 3.35 TB/s
+   against the operations at the card's peak.  The launch term of the
+   low-rank cost model is measured here: one wrapper call at the head
+   shape.
+3. End to end, three paths, each at full width and depth with random
+   weights from seed 0, exit heads at the default stages, W8A8,
+   ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
+   threshold calibrated, and 256 Poisson requests served through
+   ``ContinuousBatchScheduler`` at 32 slots:
+   (a) ``resnet34-cifar``; (b) ``mobilenetv2-cifar``, its depthwise layers
+   on ``depthwise_conv``; (c) ``resnet34-cifar`` factored
+   (``factorize(energy=0.6, min_rank=2)``) and exported with
+   ``select_kernels='fused'``, its factored convs inside the envelope on
+   ``lowrank_conv`` and the rest chained on ``quant_matmul``.  The kernel
+   counts are set to 0 just before each path and read just after.  On
+   every path: every request completes, the launches of each kernel while
+   serving equal the plan's per executed segment, the plain versions do
+   not run, each kernel of the path was launched, 16 sampled requests are
+   bit-exact against the monolithic ``fn_exits`` on the request alone at
+   the same slot geometry, and the served logits agree with the port's
+   plain CPU path on a small batch, on the same static scales, within
+   4e-2 x max|logit|.
+4. The ``{"kernels": [...]}`` line: the four ported kernels, each summed
+   over the calls one full-depth 32-slot pass of the path it serves makes
+   (``quant_matmul`` and ``fake_quant_fused``: path (a); ``depthwise_conv``:
+   path (b); ``lowrank_conv``: path (c)), with its launches over the three
+   paths' runs.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 This script imports no JAX and nothing of the JAX package.
@@ -49,12 +66,23 @@ sys.path.insert(0, os.path.join(HERE, 'src'))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
-CONFIG = 'resnet34-cifar'
+CUDA_CORE_OPS_PER_S = FP32_OPS_PER_S   # the guide's CUDA-core rate; the
+#                                depthwise kernel's int32 multiply-adds
+#                                issue at this rate or below
 SLOTS = 32
 N_REQUESTS = 256
 RATE = 2000.0                  # Poisson arrivals per second
 N_ORACLE = 16
 SEED = 0
+LOWRANK = dict(energy=0.6, min_rank=2)
+PATHS = (
+    dict(key='resnet34', config='resnet34-cifar', factorize=False,
+         kernels=('quant_matmul', 'fake_quant_fused')),
+    dict(key='mobilenetv2', config='mobilenetv2-cifar', factorize=False,
+         kernels=('quant_matmul', 'fake_quant_fused', 'depthwise_conv')),
+    dict(key='resnet34-lowrank', config='resnet34-cifar', factorize=True,
+         kernels=('quant_matmul', 'fake_quant_fused', 'lowrank_conv')),
+)
 
 
 def fail(msg):
@@ -80,7 +108,7 @@ def bound(nbytes, ops, peak):
 
 def time_ms(torch, fn, iters=20):
     """Mean milliseconds per call over ``iters`` calls, CUDA events, after
-    one warm-up call."""
+    one warm-up call.  A call shorter than its host work reads as that."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -91,6 +119,26 @@ def time_ms(torch, fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fns, match, iters=10):
+    """Device milliseconds of the kernels whose name contains ``match``,
+    per run of every call in ``fns``, under torch.profiler (None when the
+    profiler recorded no such kernel: then it is not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, 'device_time_total', 0.0)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and match in e.key)
+    return total / 1e3 / iters if total else None
 
 
 def profile_device(torch, fn):
@@ -120,6 +168,15 @@ def same_bits(torch, a, b):
     return bool(torch.equal(a, b))
 
 
+def max_err(torch, a, b):
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def rand_i8(torch, g, *shape):
+    return torch.randint(-128, 128, shape, generator=g, device='cuda',
+                         dtype=torch.int32).to(torch.int8)
+
+
 # ------------------------------------------------------------------ phase 1
 
 
@@ -137,8 +194,7 @@ def phase_build():
                                             line))
             elif 'registers' in line or 'spill' in line:
                 print('[build]     ' + line.strip())
-        if 'spill stores' in i['log'] and \
-                re.search(r'[1-9]\d* bytes spill stores', i['log']):
+        if re.search(r'[1-9]\d* bytes spill stores', i['log']):
             print(f'[build] WARNING: {name} spills registers')
     print(f'[build] {len(info)} CUDA source(s) in {secs:.2f} s')
 
@@ -174,18 +230,18 @@ def qmm_case(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax=127.0,
     got = quant_matmul(x, w, sx, sw, bias, **kw)
     want = quant_matmul_plain(x, w, sx, sw, bias, **kw)
     torch.cuda.synchronize()
-    err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
     M, K = x.shape
     N = w.shape[1]
     nbytes = M * K + K * N + 4 * (M + N) + (4 * N if bias is not None else 0) \
         + M * N * (1 if out_scale else 4)
     b_ms, b_by = bound(nbytes, 2 * M * N * K, INT8_OPS_PER_S)
     lib = qmm_library(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax)
+    call = lambda: quant_matmul(x, w, sx, sw, bias, **kw)  # noqa: E731
     return {
         'shape': (M, K, N), 'int8_out': out_scale is not None,
-        'exact': same_bits(torch, got, want), 'max_abs_err': err,
-        'ms': time_ms(torch, lambda: quant_matmul(x, w, sx, sw, bias, **kw),
-                      iters),
+        'exact': same_bits(torch, got, want),
+        'max_abs_err': max_err(torch, got, want), 'call': call,
+        'ms': time_ms(torch, call, iters),
         'plain_ms': time_ms(torch, lambda: quant_matmul_plain(
             x, w, sx, sw, bias, **kw), iters),
         'library_ms': None if lib is None else time_ms(torch, lib, iters),
@@ -201,101 +257,344 @@ def fq_case(torch, w, bits=8, iters=20):
     K, N = w.shape
     # abs, max, div, rint, two clips, mul per element; w in, output out
     b_ms, b_by = bound(8 * K * N, 7 * K * N, FP32_OPS_PER_S)
+    call = lambda: fake_quant_fused(w, bits=bits)  # noqa: E731
     return {'shape': (K, N), 'exact': same_bits(torch, got, want),
-            'max_abs_err': float((got - want).abs().max()),
-            'ms': time_ms(torch, lambda: fake_quant_fused(w, bits=bits),
-                          iters),
+            'max_abs_err': max_err(torch, got, want), 'call': call,
+            'ms': time_ms(torch, call, iters),
             'plain_ms': time_ms(torch, lambda: fake_quant_plain(w, bits=bits),
                                 iters),
             'library_ms': None, 'bound_ms': b_ms, 'bound_by': b_by}
 
 
+def dw_library(torch, x, w, sx, sw, bias, stride, relu, out_scale,
+               out_qmax):
+    """The yardstick: ``F.conv2d(groups=CIN)`` on the fp32 codes (exact:
+    every partial sum is an integer below 2**24) plus a torch epilogue."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import requantize, same_pads
+    B, H, W, C = x.shape
+    kh, kw, _, n = w.shape
+    (ph, pw), _ = same_pads(H, W, kh, kw, stride)
+    wf = w.permute(3, 2, 0, 1).to(torch.float32).contiguous()
+    scale = torch.full((), sx, dtype=torch.float32, device='cuda') * sw
+
+    def call():
+        xf = F.pad(x.permute(0, 3, 1, 2).to(torch.float32),
+                   (pw[0], pw[1], ph[0], ph[1]))
+        y = F.conv2d(xf, wf, stride=stride, groups=C).permute(0, 2, 3, 1)
+        y = y * scale
+        if bias is not None:
+            y = y + bias
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+        return requantize(y, out_scale, out_qmax) if out_scale else y
+    return call
+
+
+def dw_case(torch, x, w, sx, sw, bias, *, stride, relu=False,
+            out_scale=None, out_qmax=127.0, iters=20):
+    from repro_torch.kernels.depthwise_conv import (depthwise_conv,
+                                                    depthwise_conv_plain)
+    kw = dict(stride=stride, relu=relu, out_scale=out_scale,
+              out_qmax=out_qmax)
+    got = depthwise_conv(x, w, sx, sw, bias, **kw)
+    want = depthwise_conv_plain(x, w, sx, sw, bias, **kw)
+    lib = dw_library(torch, x, w, sx, sw, bias, stride, relu, out_scale,
+                     out_qmax)
+    lib_out = lib()
+    torch.cuda.synchronize()
+    n = w.shape[3]
+    nbytes = x.numel() + w.numel() + 4 * n * (1 + (bias is not None)) + \
+        got.numel() * got.element_size()
+    b_ms, b_by = bound(nbytes, 2 * w.shape[0] * w.shape[1] * got.numel(),
+                       CUDA_CORE_OPS_PER_S)
+    call = lambda: depthwise_conv(x, w, sx, sw, bias, **kw)  # noqa: E731
+    return {'shape': tuple(x.shape) + (n, stride),
+            'int8_out': out_scale is not None,
+            'exact': same_bits(torch, got, want),
+            'library_agrees': same_bits(torch, lib_out, want),
+            'max_abs_err': max_err(torch, got, want), 'call': call,
+            'ms': time_ms(torch, call, iters),
+            'plain_ms': time_ms(torch, lambda: depthwise_conv_plain(
+                x, w, sx, sw, bias, **kw), iters),
+            'library_ms': time_ms(torch, lib, iters),
+            'bound_ms': b_ms, 'bound_by': b_by}
+
+
+def lr_library(torch, x, u, v, su, sv, bu, bv, sx, h_scale, relu,
+               out_scale, h_qmax, out_qmax):
+    """The yardstick: two ``torch._int_mm`` calls with torch epilogues
+    (u's columns and v's rows zero-padded to a multiple of 8 once, outside
+    the call: zero codes add nothing), or None where M, K1 or N falls
+    outside _int_mm's shape rules."""
+    from repro_torch.kernels.ref import requantize
+    M, K1 = x.shape
+    R, N = v.shape
+    if M <= 16 or K1 % 8 or N % 8:
+        return None
+    r8 = -(-R // 8) * 8
+    up = torch.zeros((K1, r8), dtype=torch.int8, device='cuda')
+    up[:, :R] = u
+    vp = torch.zeros((r8, N), dtype=torch.int8, device='cuda')
+    vp[:R] = v
+    s_u = torch.zeros(r8, device='cuda')
+    s_u[:R] = torch.full((), sx, dtype=torch.float32, device='cuda') * su
+    b_u = torch.zeros(r8, device='cuda')
+    b_u[:R] = bu
+    s_v = torch.full((), h_scale, dtype=torch.float32, device='cuda') * sv
+
+    def call():
+        h = torch._int_mm(x, up).to(torch.float32) * s_u + b_u
+        h = requantize(h, h_scale, h_qmax)
+        y = torch._int_mm(h, vp).to(torch.float32) * s_v + bv
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+        return requantize(y, out_scale, out_qmax) if out_scale else y
+    return call
+
+
+def lr_case(torch, x, u, v, su, sv, bu, bv, *, sx, h_scale, relu=False,
+            out_scale=None, h_qmax=127.0, out_qmax=127.0, bm=None,
+            iters=20):
+    from repro_torch.kernels.lowrank_conv import (lowrank_conv,
+                                                  lowrank_conv_plain)
+    kw = dict(sx=sx, h_scale=h_scale, relu=relu, out_scale=out_scale,
+              h_qmax=h_qmax, out_qmax=out_qmax)
+    got = lowrank_conv(x, u, v, su, sv, bu, bv, bm=bm, **kw)
+    want = lowrank_conv_plain(x, u, v, su, sv, bu, bv, **kw)
+    torch.cuda.synchronize()
+    (M, K1), (R, N) = x.shape, v.shape
+    nbytes = M * K1 + K1 * R + R * N + 8 * (R + N) + \
+        got.numel() * got.element_size()
+    b_ms, b_by = bound(nbytes, 2 * M * R * (K1 + N), INT8_OPS_PER_S)
+    lib = lr_library(torch, x, u, v, su, sv, bu, bv, sx, h_scale, relu,
+                     out_scale, h_qmax, out_qmax)
+    call = lambda: lowrank_conv(x, u, v, su, sv, bu, bv, bm=bm, **kw)  # noqa
+    return {'shape': (M, K1, R, N), 'int8_out': out_scale is not None,
+            'exact': same_bits(torch, got, want),
+            'max_abs_err': max_err(torch, got, want), 'call': call,
+            'ms': time_ms(torch, call, iters),
+            'plain_ms': time_ms(torch, lambda: lowrank_conv_plain(
+                x, u, v, su, sv, bu, bv, **kw), iters),
+            'library_ms': None if lib is None else time_ms(torch, lib, iters),
+            'bound_ms': b_ms, 'bound_by': b_by}
+
+
 def fmt_case(name, c):
     lib = 'n/a' if c['library_ms'] is None else f"{c['library_ms']:.4f}"
+    dev = c.get('device_ms')
     return (f"[kernel] {name} {c['shape']}"
             + (f" {'int8' if c['int8_out'] else 'fp32'}-out"
                if 'int8_out' in c else '')
             + f": exact={c['exact']} max_abs_err={c['max_abs_err']:g} "
-              f"ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-              f"library_ms={lib} bound_ms={c['bound_ms']:.4f} "
-              f"({c['bound_by']})")
+              f"ms={c['ms']:.4f}"
+            + ('' if 'device_ms' not in c else
+               f" device_ms={'not measured' if dev is None else f'{dev:.4f}'}")
+            + f" plain_ms={c['plain_ms']:.4f} library_ms={lib} "
+              f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})")
 
 
-def phase_kernels(torch):
+def need_exact(c, name):
+    if not c['exact']:
+        fail(f'{name} disagrees with its plain version at {c["shape"]}')
+
+
+# mobilenetv2-cifar's depthwise layers at 32 slots: (input NHWC, stride)
+DW_SHAPES = [((SLOTS, 32, 32, 96), 1), ((SLOTS, 32, 32, 96), 2),
+             ((SLOTS, 16, 16, 144), 1), ((SLOTS, 16, 16, 144), 2),
+             ((SLOTS, 8, 8, 192), 1), ((SLOTS, 8, 8, 192), 2),
+             ((SLOTS, 4, 4, 384), 1)]
+
+
+def lowrank_shapes(params):
+    """The fused-envelope shapes of a factored resnet34-cifar at 32 slots,
+    one per (stage, K1, COUT), with the rank the factorization gave, and
+    every rank by stage."""
+    from repro_torch.kernels.lowrank_conv import fits_fused
+    shapes, ranks = {}, {}
+    for s, blocks in enumerate(params['stages']):
+        hw = 32 >> s
+        for blk in blocks:
+            for k in ('conv1', 'conv2', 'proj'):
+                p = blk.get(k)
+                if p is None or 'u' not in p:
+                    continue
+                kh, kw, cin, r = p['u']['w'].shape
+                n = p['v']['w'].shape[-1]
+                ranks.setdefault(s, []).append(r)
+                key = (s, kh * kw * cin, n)
+                if fits_fused(r, n) and key not in shapes:
+                    shapes[key] = (SLOTS * hw * hw, kh * kw * cin, r, n)
+    return list(shapes.values()), ranks
+
+
+def phase_kernels(torch, factored):
+    """Returns the launch term (us) the low-rank cost model is priced
+    with: one quant_matmul wrapper call at the head shape."""
+    from repro_torch.kernels.lowrank_conv import pick_bm
     g = torch.Generator(device='cuda').manual_seed(SEED)
-
-    def i8(*shape):
-        return torch.randint(-128, 128, shape, generator=g, device='cuda',
-                             dtype=torch.int32).to(torch.int8)
 
     def f32(*shape, scale=1.0):
         return torch.rand(shape, generator=g, device='cuda') * scale
 
     cases = [('stem', 32 * 32 * 32, 27, 64), ('stage0', 32768, 576, 64),
              ('stage3', 512, 4608, 512), ('head', 32, 512, 10)]
+    launch_us = None
     for name, M, K, N in cases:
-        x, w = i8(M, K), i8(K, N)
+        x, w = rand_i8(torch, g, M, K), rand_i8(torch, g, K, N)
         sx, sw = f32(M, scale=1e-2), f32(N, scale=1e-2)
         bias = torch.randn(N, generator=g, device='cuda')
         for out_scale in (0.37, None):
             c = qmm_case(torch, x, w, sx, sw, bias, True, out_scale)
+            c['device_ms'] = device_ms(torch, [c['call']], 'qmm_kernel')
             print(fmt_case(f'quant_matmul[{name}]', c))
-            if not c['exact']:
-                fail(f'quant_matmul disagrees with its plain version at '
-                     f'{name} {c["shape"]}')
+            need_exact(c, 'quant_matmul')
+            if name == 'head' and out_scale is None:
+                launch_us = c['ms'] * 1e3
+    print(f'[kernel] launch term (one quant_matmul wrapper call at the head '
+          f'shape, the cost model\'s launch_us): {launch_us:.1f} us')
     for K in (128, 256, 512):
         w = torch.randn((K, 10), generator=g, device='cuda')
         c = fq_case(torch, w)
         print(fmt_case('fake_quant_fused[head]', c))
-        if not c['exact']:
-            fail(f'fake_quant_fused disagrees with its plain version at '
-                 f'{c["shape"]}')
+        need_exact(c, 'fake_quant_fused')
+
+    dw = [(shape, stride, 1) for shape, stride in DW_SHAPES] + \
+        [((SLOTS, 16, 16, 48), 1, 2)]          # channel multiplier 2
+    for shape, stride, mult in dw:
+        n = shape[-1] * mult
+        x, w = rand_i8(torch, g, *shape), rand_i8(torch, g, 3, 3, 1, n)
+        sw, bias = f32(n, scale=1e-2), torch.randn(n, generator=g,
+                                                   device='cuda')
+        c = dw_case(torch, x, w, 0.05, sw, bias, stride=stride,
+                    out_scale=0.37, out_qmax=127.0)
+        c['device_ms'] = device_ms(torch, [c['call']], 'dw_kernel')
+        print(fmt_case(f'depthwise_conv[x{mult}]', c)
+              + f" library_agrees={c['library_agrees']}")
+        need_exact(c, 'depthwise_conv')
+
+    shapes, ranks = lowrank_shapes(factored)
+    print('[kernel] resnet34-cifar ranks at energy 0.6, min_rank 2, by '
+          'stage: ' + '; '.join(f's{s}: {sorted(r)}'
+                                 for s, r in sorted(ranks.items())))
+    for M, K1, R, N in shapes:
+        x, u, v = (rand_i8(torch, g, M, K1), rand_i8(torch, g, K1, R),
+                   rand_i8(torch, g, R, N))
+        su, sv = f32(R, scale=1e-3), f32(N, scale=1e-2)
+        bu, bv = (torch.randn(R, generator=g, device='cuda'),
+                  torch.randn(N, generator=g, device='cuda'))
+        for bm, out_scale in ((64, 0.37), (32, 0.37), (pick_bm(M), None)):
+            c = lr_case(torch, x, u, v, su, sv, bu, bv, sx=0.05,
+                        h_scale=0.9, relu=True, out_scale=out_scale, bm=bm)
+            c['device_ms'] = device_ms(torch, [c['call']], 'lr_kernel')
+            print(fmt_case(f'lowrank_conv[bm={bm}'
+                           + (', picked' if bm == pick_bm(M) else '') + ']',
+                           c))
+            need_exact(c, 'lowrank_conv')
+    return launch_us
 
 
 # ------------------------------------------------------------------ phase 3
 
 
-def phase_serve(torch):
-    import numpy as np
+def path_model(torch, spec):
+    """(family, params, cfg) of one path: random weights from SEED, the
+    low-rank factorization where the path asks for it, exit heads at the
+    default stages, W8A8."""
     from repro_torch.configs.cnn import CNN_REGISTRY
-    from repro_torch.core.export import calibrate_exit_threshold, export_cnn
     from repro_torch.core.family import CNNFamily
     from repro_torch.data import SyntheticImages
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    cfg = CNN_REGISTRY[spec['config']]
+    params = fam.init(torch.Generator().manual_seed(SEED), cfg)
+    if spec['factorize']:
+        params, cfg, _ = fam.factorize(params, cfg, **LOWRANK)
+    params, cfg = fam.add_exits(torch.Generator().manual_seed(SEED + 1),
+                                params, cfg, fam.default_exit_points(cfg))
+    return fam, params, cfg.replace(w_bits=8, a_bits=8)
+
+
+def share_scales(src, dst):
+    """Give layer plan ``dst`` the static scales of ``src`` (same model)."""
+    for name, e in src.layers.items():
+        for key in ('sx', 'out_scale', 'h_scale'):
+            if key in e:
+                dst.layers[name][key] = e[key]
+    dst.glues.update(src.glues)
+
+
+def print_model_selection(model, launch_us):
+    """What ``select_kernels='model'`` would pick for each factored conv on
+    the H100 cost model, with the measured launch term."""
+    from repro_torch.kernels.lowrank_conv import lowering_costs
+    picks = {'fused': 0, 'chained': 0}
+    for name, e in model.plan.layers.items():
+        if not (e['kind'] == 'conv' and e['factored']):
+            continue
+        B, _, _, C = e['in_shape']
+        _, oh, ow, n = e['out_shape']
+        kh, kw = e['kernel']
+        m, k1 = B * oh * ow, kh * kw * C
+        if 'envelope' in e['selection']['why']:
+            pick, why = 'chained', e['selection']['why']
+        else:
+            c = lowering_costs(m, k1, e['rank'], n, launch_us=launch_us)
+            pick = 'fused' if c['fused_us'] <= c['chained_us'] else 'chained'
+            why = (f"fused {c['fused_us']:.1f} us vs chained "
+                   f"{c['chained_us']:.1f} us")
+        picks[pick] += 1
+        print(f"[plan]   {name}: rank {e['rank']} (M={m}, K1={k1}, N={n}) "
+              f"served {'fused' if e['fused'] else 'chained'}; 'model' "
+              f"would pick {pick} ({why})")
+    print(f"[plan] 'model' selection at launch_us={launch_us:.1f}: {picks}")
+
+
+def serve_path(torch, spec, launch_us):
+    import numpy as np
+    from repro_torch.core.export import calibrate_exit_threshold, export_cnn
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      exit_decisions)
 
-    fam = CNNFamily(SyntheticImages(), device='cuda')
-    cfg = CNN_REGISTRY[CONFIG]
-    params = fam.init(torch.Generator().manual_seed(SEED), cfg)
-    params, cfg = fam.add_exits(torch.Generator().manual_seed(SEED + 1),
-                                params, cfg, fam.default_exit_points(cfg))
-    cfg = cfg.replace(w_bits=8, a_bits=8)
+    tag = f"[serve:{spec['key']}]"
+    fam, params, cfg = path_model(torch, spec)
     stream = fam.eval_batches(N_REQUESTS // 64 + 1, 64)
     xs = torch.cat([x for x, _ in stream])
     calib, xs = xs[:SLOTS], xs[SLOTS:SLOTS + N_REQUESTS]
     rng = np.random.default_rng(SEED)
     t_arr = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS))
+    select = 'fused' if spec['factorize'] else 'model'
     torch.cuda.synchronize()
 
-    # ---- the main path, counted from zero
+    # ---- the path, counted from zero
     reset_counts()
     t0 = time.perf_counter()
-    model = export_cnn(params, cfg, device='cuda', calibrate=calib)
+    model = export_cnn(params, cfg, device='cuda', calibrate=calib,
+                       select_kernels=select)
     torch.cuda.synchronize()
     t_export = time.perf_counter() - t0
     s = model.summary()
-    print(f"[serve] {CONFIG} exported in {t_export:.2f} s: {s['n_layers']} "
-          f"layers, {s['kernel_launches']} launches "
-          f"(+{s['exit_head_launches']} exit heads), "
+    print(f"{tag} {cfg.name} exported in {t_export:.2f} s "
+          f"(select_kernels={select}): {s['n_layers']} layers, "
+          f"{s['kernel_launches']} launches (+{s['exit_head_launches']} exit "
+          f"heads), {s['n_depthwise']} depthwise, {s['n_fused_lowrank']} "
+          f"fused low-rank, {s['n_chained_lowrank']} chained low-rank, "
           f"{s['total_macs'] / 1e6:.1f} MMACs/image, exit stages "
-          f"{cfg.exit_stages}, launches per segment {model.segment_launches}")
+          f"{cfg.exit_stages}")
+    print(f'{tag} launches per segment {list(model.segment_launches)}')
+    if spec['factorize']:
+        print_model_selection(model, launch_us)
+        if s['n_fused_lowrank'] == 0 or s['n_chained_lowrank'] == 0:
+            fail(f"{spec['key']}: the plan needs a fused and a chained "
+                 f"layer, has {s['n_fused_lowrank']} and "
+                 f"{s['n_chained_lowrank']}")
     threshold = calibrate_exit_threshold(model, calib)
-    print(f'[serve] calibrated exit threshold {threshold:.6f}')
+    print(f'{tag} calibrated exit threshold {threshold:.6f}')
     ContinuousBatchScheduler(model, slots=SLOTS, threshold=2.0).run_trace(
         [Request(-1 - i, xs[i], 0.0) for i in range(4)])     # warm-up
     before = counts()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     sched = ContinuousBatchScheduler(model, slots=SLOTS, threshold=threshold,
                                      max_wait=0.05)
     reqs = [Request(i, xs[i], float(t_arr[i])) for i in range(N_REQUESTS)]
@@ -303,38 +602,43 @@ def phase_serve(torch):
     completions, metrics = sched.run_trace(reqs)
     t_serve = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    main_counts = counts()
+    after = counts()
 
     m = metrics.summary()
-    print(f"[serve] served {m['n_requests']} of {N_REQUESTS} requests "
+    print(f"{tag} served {m['n_requests']} of {N_REQUESTS} requests "
           f"(Poisson {RATE:.0f}/s, {sched.slots} slots) in {t_serve:.3f} s "
           f"wall: throughput {m['throughput_rps']} req/s, p50 "
           f"{m['p50_latency_s'] * 1e3:.3f} ms, p99 "
           f"{m['p99_latency_s'] * 1e3:.3f} ms, exit mix {m['exit_mix']}, "
           f"batches {m['n_batches']}, occupancy {m['batch_occupancy']}, "
-          f"peak memory {peak / 2 ** 20:.1f} MiB")
-    print(f"[serve] execute p50 {m['p50_execute_s'] * 1e3:.3f} ms p99 "
+          f"peak memory {peak / 2 ** 20:.1f} MiB, "
+          f"{(peak - base) / 2 ** 20:.1f} MiB of it above what was "
+          f"allocated when serving began")
+    print(f"{tag} execute p50 {m['p50_execute_s'] * 1e3:.3f} ms p99 "
           f"{m['p99_execute_s'] * 1e3:.3f} ms | queue-wait p50 "
           f"{m['p50_queue_wait_s'] * 1e3:.3f} ms p99 "
           f"{m['p99_queue_wait_s'] * 1e3:.3f} ms")
     if len(completions) != N_REQUESTS:
-        fail(f'{N_REQUESTS - len(completions)} requests never completed')
-    want = sum(model.segment_launches[k] for k, _, _ in metrics.batches)
-    got = main_counts['quant_matmul']['launches'] - \
-        before['quant_matmul']['launches']
-    plain = sum(main_counts[k]['plain_calls'] - before[k]['plain_calls']
-                for k in main_counts)
-    print(f'[serve] quant_matmul launches while serving: {got} (plan: {want} '
-          f'over {len(metrics.batches)} segment batches); plain-version '
-          f'calls while serving: {plain}')
-    if got != want:
-        fail(f'serving launched quant_matmul {got} times, the plan says '
-             f'{want}')
+        fail(f'{spec["key"]}: {N_REQUESTS - len(completions)} requests '
+             f'never completed')
+    plain = sum(after[k]['plain_calls'] - before[k]['plain_calls']
+                for k in after)
+    for name in after:
+        want = sum(model.segment_launches[k].get(name, 0)
+                   for k, _, _ in metrics.batches)
+        got = after[name]['launches'] - before[name]['launches']
+        print(f'{tag} {name} launches while serving: {got} (plan: {want} '
+              f'over {len(metrics.batches)} segment batches)')
+        if got != want:
+            fail(f'{spec["key"]}: serving launched {name} {got} times, the '
+                 f'plan says {want}')
+    print(f'{tag} plain-version calls while serving: {plain}')
     if plain:
-        fail(f'the plain versions ran {plain} times while serving')
-    for name, c in main_counts.items():
-        if c['launches'] == 0:
-            fail(f'{name} was never launched on the main path')
+        fail(f'{spec["key"]}: the plain versions ran {plain} times while '
+             f'serving')
+    for name in spec['kernels']:
+        if after[name]['launches'] == 0:
+            fail(f'{spec["key"]}: {name} was never launched on this path')
 
     # the scheduler's contract: each request alone through fn_exits
     for rid in np.linspace(0, N_REQUESTS - 1, N_ORACLE).astype(int):
@@ -347,13 +651,14 @@ def phase_serve(torch):
         if int(stage[0]) != c.exit_stage or \
                 not np.array_equal(ans[0].view(np.int32),
                                    c.logits.view(np.int32)):
-            fail(f'request {rid} differs from the monolithic fn_exits oracle')
-    print(f'[serve] {N_ORACLE} sampled requests bit-exact against fn_exits '
+            fail(f'{spec["key"]}: request {rid} differs from the '
+                 f'monolithic fn_exits oracle')
+    print(f'{tag} {N_ORACLE} sampled requests bit-exact against fn_exits '
           f'on the request alone at {SLOTS} slots')
     seg_ms = {}
     for _, k, _, _, cost in metrics.batch_samples:
         seg_ms.setdefault(k, []).append(cost * 1e3)
-    print('[serve] execute ms per segment batch (mean of n): ' + ', '.join(
+    print(f'{tag} execute ms per segment batch (mean of n): ' + ', '.join(
         f'seg{k} {sum(v) / len(v):.3f} (n={len(v)})'
         for k, v in sorted(seg_ms.items())))
 
@@ -364,98 +669,195 @@ def phase_serve(torch):
             [Request(i, xs[i], float(t_arr[i])) for i in range(N_REQUESTS)])
     wall, busy, top = profile_device(torch, serve_again)
     if busy is None:
-        print(f'[profile] serving wall {wall:.3f} ms; device time not '
+        print(f'{tag} profile: serving wall {wall:.3f} ms; device time not '
               f'measured (the profiler recorded no device activity)')
     else:
-        print(f'[profile] serving wall {wall:.3f} ms, device kernels '
+        print(f'{tag} profile: serving wall {wall:.3f} ms, device kernels '
               f'{busy:.3f} ms: device busy {busy / wall:.1%}, idle '
               f'{1 - busy / wall:.1%} (profiled run)')
         for ms, n, name in top[:8]:
-            print(f'[profile]   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+            print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
 
-    # served logits against the port's plain CPU path on a small batch
+    # served logits against the port's plain CPU path on a small batch.
+    # Each export calibrates its own static scales with an fp32 forward
+    # whose conv sums the card and the CPU round differently, and a
+    # fake-quant code that flips there moves every later abs-max scale; so
+    # the CPU model serves on the card's scales, and the two then run the
+    # same int8 math (the own-scale difference is printed beside it).
     small = calib[:4]
-    gpu = export_cnn(params, cfg, device='cuda', calibrate=small)
-    cpu = export_cnn(params, cfg, device='cpu', calibrate=small.cpu())
+    gpu = export_cnn(params, cfg, device='cuda', calibrate=small,
+                     select_kernels=select)
+    cpu = export_cnn(params, cfg, device='cpu', calibrate=small.cpu(),
+                     select_kernels=select)
     lg_gpu = gpu.serve(small).cpu()
+    own = float((lg_gpu - cpu.serve(small.cpu())).abs().max())
+    share_scales(gpu.plan, cpu.plan)
     lg_cpu = cpu.serve(small.cpu())
     if tuple(lg_gpu.shape) != (4, cfg.num_classes) or \
             not bool(torch.isfinite(lg_gpu).all()):
-        fail(f'served logits malformed: shape {tuple(lg_gpu.shape)}')
+        fail(f'{spec["key"]}: served logits malformed: shape '
+             f'{tuple(lg_gpu.shape)}')
     scale = max(float(lg_cpu.abs().max()), 1.0)
     diff = float((lg_gpu - lg_cpu).abs().max())
-    print(f'[serve] card vs CPU plain path on 4 images: max |diff| {diff:.3e} '
-          f'(max |logit| {scale:.3e}, tolerance 4e-2 x that)')
+    print(f'{tag} card vs CPU plain path on 4 images, same static scales: '
+          f'max |diff| {diff:.3e} (max |logit| {scale:.3e}, tolerance 4e-2 '
+          f'x that); each calibrated on its own device: {own:.3e}')
     if diff > 4e-2 * scale:
-        fail('served logits disagree with the CPU plain path')
-    return model, params, main_counts
+        fail(f'{spec["key"]}: served logits disagree with the CPU plain '
+             f'path')
+    return model, params, {k: after[k]['launches'] for k in after}
 
 
 # ------------------------------------------------------------------ phase 4
 
 
-def phase_report(torch, model, params, main_counts):
-    """Time each kernel over the calls one full-depth pass makes."""
+def pass_calls(torch, model, g):
+    """Inputs for every kernel call one full-depth pass of ``model`` makes:
+    ``{kernel: [(plan entry, params), ...]}``."""
     from repro_torch.core.export import _resolve_layer_params
-    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
-    qmax = model.plan.a_qmax
-    calls = []
+    from repro_torch.core.export import layer_kernel_launches
+    out = {}
     for name, e in model.plan.layers.items():
-        p = _resolve_layer_params(model.params, name)
+        for k in layer_kernel_launches(e):
+            out.setdefault(k, []).append(
+                (e, _resolve_layer_params(model.params, name)))
+    return out
+
+
+def qmm_pass_cases(torch, model, g):
+    """One quant_matmul case per call of a pass (a chained factored conv
+    is two calls: u with the h_scale requantize, then v)."""
+    qmax = model.plan.a_qmax
+    cases = []
+
+    def add(M, K, w, sw, bias, sx, out_scale):
+        x = rand_i8(torch, g, M, K)
+        cases.append(qmm_case(torch, x, w, torch.full((M,), sx, device='cuda'),
+                              sw.reshape(-1), bias, False, out_scale, qmax,
+                              iters=10))
+
+    for e, p in pass_calls(torch, model, g).get('quant_matmul', []):
         if e['kind'] == 'conv':
             B, H, W, C = e['in_shape']
             kh, kw = e['kernel']
             _, oh, ow, n = e['out_shape']
-            M, K = B * oh * ow, kh * kw * C
-            w = p['w_q'].reshape(K, n)
-            out_scale = e['out_scale']
+            M = B * oh * ow
+            if e['factored']:
+                u, v = p['u'], p['v']
+                r = e['rank']
+                add(M, kh * kw * C, u['w_q'].reshape(-1, r), u['scale'],
+                    u['b'], e['sx'], e['h_scale'])
+                add(M, r, v['w_q'].reshape(r, n), v['scale'], v['b'],
+                    e['h_scale'], e['out_scale'])
+            else:
+                add(M, kh * kw * C, p['w_q'].reshape(-1, n), p['scale'],
+                    p.get('b'), e['sx'], e['out_scale'])
         else:
             M, K = e['in_shape']
-            w, n, out_scale = p['w_q'], p['w_q'].shape[1], None
-        x = torch.randint(-128, 128, (M, K), generator=g, device='cuda',
-                          dtype=torch.int32).to(torch.int8)
-        sx = torch.full((M,), e['sx'], device='cuda')
-        calls.append(qmm_case(torch, x, w, sx, p['scale'].reshape(-1),
-                              p.get('b'), False, out_scale, qmax, iters=10))
-    bad = [c['shape'] for c in calls if not c['exact']]
-    if bad:
-        fail(f'quant_matmul disagrees with its plain version at {bad}')
-    fq = [fq_case(torch, params[k]['w'] if k == 'head'
-                  else params['exits'][k]['w'])
-          for k in ['head'] + sorted(params['exits'])]
-    if not all(c['exact'] for c in fq):
-        fail('fake_quant_fused disagrees with its plain version')
+            if e['factored']:
+                u, v = p['u'], p['v']
+                r = u['w_q'].shape[1]
+                add(M, K, u['w_q'], u['scale'], u.get('b'), e['sx'],
+                    e['h_scale'])
+                add(M, r, v['w_q'], v['scale'], v.get('b'), e['h_scale'],
+                    None)
+            else:
+                add(M, K, p['w_q'], p['scale'], p.get('b'), e['sx'], None)
+    return cases
+
+
+def dw_pass_cases(torch, model, g):
+    qmax = model.plan.a_qmax
+    cases = []
+    for e, p in pass_calls(torch, model, g).get('depthwise_conv', []):
+        x = rand_i8(torch, g, *e['in_shape'])
+        cases.append(dw_case(torch, x, p['w_q'], e['sx'], p['scale'],
+                             p.get('b'), stride=e['stride'],
+                             out_scale=e['out_scale'], out_qmax=qmax,
+                             iters=10))
+    return cases
+
+
+def lr_pass_cases(torch, model, g):
+    from repro_torch.kernels.quant_conv import im2col_nhwc
+    qmax = model.plan.a_qmax
+    cases = []
+    for e, p in pass_calls(torch, model, g).get('lowrank_conv', []):
+        u, v = p['u'], p['v']
+        kh, kw, _, r = u['w_q'].shape
+        n = v['w_q'].shape[-1]
+        patches, _ = im2col_nhwc(rand_i8(torch, g, *e['in_shape']), kh, kw,
+                                 e['stride'])
+        cases.append(lr_case(torch, patches, u['w_q'].reshape(-1, r),
+                             v['w_q'].reshape(r, n), u['scale'], v['scale'],
+                             u['b'], v['b'], sx=e['sx'],
+                             h_scale=e['h_scale'], out_scale=e['out_scale'],
+                             h_qmax=qmax, out_qmax=qmax, iters=10))
+    return cases
+
+
+def phase_report(torch, served, launches):
+    """Time each kernel over the calls one full-depth pass of its path
+    makes; ``served`` maps a path key to (model, params)."""
+    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    resnet, params = served['resnet34']
+    per_kernel = {
+        'quant_matmul': qmm_pass_cases(torch, resnet, g),
+        'fake_quant_fused': [
+            fq_case(torch, params[k]['w'] if k == 'head'
+                    else params['exits'][k]['w'])
+            for k in ['head'] + sorted(params['exits'])],
+        'depthwise_conv': dw_pass_cases(torch, served['mobilenetv2'][0], g),
+        'lowrank_conv': lr_pass_cases(torch, served['resnet34-lowrank'][0],
+                                      g),
+    }
+    match = {'quant_matmul': 'qmm_kernel', 'fake_quant_fused': '_fused_kernel',
+             'depthwise_conv': 'dw_kernel', 'lowrank_conv': 'lr_kernel'}
+    for name, cs in per_kernel.items():
+        if not cs:
+            fail(f'{name}: no call on its path')
+        for c in cs:
+            print(fmt_case(f'{name}[main-path]', c))
+            need_exact(c, name)
 
     def total(cs, key):
         vals = [c[key] for c in cs]
         return None if any(v is None for v in vals) else sum(vals)
 
-    def entry(name, route, source, replaces, cs):
+    csrc = 'src/repro_torch/kernels/csrc'
+    meta = {
+        'quant_matmul': ('cuda', f'{csrc}/quant_matmul.cu',
+                         'src/repro/kernels/quant_matmul.py:109', 'resnet34'),
+        'fake_quant_fused': ('triton', 'src/repro_torch/kernels/fake_quant.py',
+                             'src/repro/kernels/fake_quant.py:101',
+                             'resnet34'),
+        'depthwise_conv': ('cuda', f'{csrc}/depthwise_conv.cu',
+                           'src/repro/kernels/depthwise_conv.py:129',
+                           'mobilenetv2'),
+        'lowrank_conv': ('cuda', f'{csrc}/lowrank_conv.cu',
+                         'src/repro/kernels/lowrank_conv.py:203',
+                         'resnet34-lowrank')}
+    out = []
+    for name, cs in per_kernel.items():
+        route, source, replaces, path = meta[name]
         has_lib = [c for c in cs if c['library_ms'] is not None]
-        return {'name': name, 'route': route, 'source': source,
-                'replaces': replaces,
-                'launches': main_counts[name]['launches'],
-                'max_abs_err': max(c['max_abs_err'] for c in cs),
-                'ms': total(cs, 'ms'), 'plain_ms': total(cs, 'plain_ms'),
-                'bound_ms': total(cs, 'bound_ms'),
-                'bound_by': max(('bytes', 'operations'), key=lambda k: sum(
-                    c['bound_ms'] for c in cs if c['bound_by'] == k)),
-                'library_ms': total(cs, 'library_ms'),
-                'calls_per_pass': len(cs),
-                'library_ms_where_defined': sum(
-                    c['library_ms'] for c in has_lib),
-                'ms_where_library_defined': sum(c['ms'] for c in has_lib)}
-
-    for c in calls:
-        print(fmt_case('quant_matmul[main-path]', c))
-    for c in fq:
-        print(fmt_case('fake_quant_fused[main-path]', c))
-    return [entry('quant_matmul', 'cuda',
-                  'src/repro_torch/kernels/csrc/quant_matmul.cu',
-                  'src/repro/kernels/quant_matmul.py:109', calls),
-            entry('fake_quant_fused', 'triton',
-                  'src/repro_torch/kernels/fake_quant.py',
-                  'src/repro/kernels/fake_quant.py:101', fq)]
+        out.append({
+            'name': name, 'route': route, 'source': source,
+            'replaces': replaces,
+            'launches': sum(launches[k][name] for k in launches),
+            'max_abs_err': max(c['max_abs_err'] for c in cs),
+            'ms': total(cs, 'ms'), 'plain_ms': total(cs, 'plain_ms'),
+            'bound_ms': total(cs, 'bound_ms'),
+            'bound_by': max(('bytes', 'operations'), key=lambda k: sum(
+                c['bound_ms'] for c in cs if c['bound_by'] == k)),
+            'library_ms': total(cs, 'library_ms'),
+            'device_ms': device_ms(torch, [c['call'] for c in cs],
+                                   match[name], iters=5),
+            'pass_of': path, 'calls_per_pass': len(cs),
+            'launches_by_path': {k: launches[k][name] for k in launches},
+            'library_ms_where_defined': sum(c['library_ms'] for c in has_lib),
+            'ms_where_library_defined': sum(c['ms'] for c in has_lib)})
+    return out
 
 
 def main():
@@ -474,9 +876,17 @@ def main():
           f'device {torch.cuda.get_device_name(0)} x '
           f'{torch.cuda.device_count()}')
     phase_build()
-    phase_kernels(torch)
-    model, params, main_counts = phase_serve(torch)
-    kernels = phase_report(torch, model, params, main_counts)
+    print(f'[time] build done at {time.perf_counter() - t_start:.1f} s')
+    launch_us = phase_kernels(torch, path_model(torch, PATHS[2])[1])
+    print(f'[time] kernels done at {time.perf_counter() - t_start:.1f} s')
+    served, launches = {}, {}
+    for spec in PATHS:
+        model, params, counted = serve_path(torch, spec, launch_us)
+        served[spec['key']] = (model, params)
+        launches[spec['key']] = counted
+        print(f"[time] path {spec['key']} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+    kernels = phase_report(torch, served, launches)
     print(f'[done] {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -5,13 +5,17 @@ The CNN resident half of the reference's ``core/export.py``:
 1. A *layer-plan compiler* runs one calibration forward (the QAT
    fake-quant math) over a sample batch and records a static activation
    scale at every layer boundary (:class:`LayerPlan`).
-2. The plan's layers serve on the int8 kernels: every conv through
-   ``quant_conv`` (im2col + the CUDA ``quant_matmul`` kernel) with the
-   requantize epilogue, so activations travel between layers as int8
-   :class:`QAct` on static scales; the exit and final heads through
-   ``quant_matmul`` with fp32 output.  The glue (GroupNorm + skip + act)
-   runs on the raw int8 codes in fp32 and requantizes to the consumer's
-   scale.
+2. The plan's layers serve on the int8 kernels, each with the requantize
+   epilogue, so activations travel between layers as int8 :class:`QAct`
+   on static scales: a plain conv through ``quant_conv`` (im2col + the
+   CUDA ``quant_matmul`` kernel); a depthwise conv (MobileNet's ``dw``)
+   on the CUDA ``depthwise_conv`` kernel; a low-rank-factored conv pair
+   either in one launch of the CUDA ``lowrank_conv`` kernel (``fused``,
+   when its rank fits the kernel's envelope and kernel selection picks
+   it) or as two ``quant_conv`` launches (``chained``); the exit and
+   final heads through ``quant_matmul`` with fp32 output (a factored
+   head chains two).  The glue (GroupNorm + skip + act) runs on the raw
+   int8 codes in fp32 and requantizes to the consumer's scale.
 3. The plan is split at the exit heads into stage segments that the
    serving scheduler resumes on, and served with batched early exit.
 
@@ -20,8 +24,9 @@ Triton kernels for tensors on the card and run their plain versions for
 CPU tensors (the reference's separate jnp lowering with folded scales is
 not needed for that).  Not ported yet, each raising NotImplementedError
 that names its ROADMAP item: the dynamic-scale path (``calibrate=None``),
-factored (low-rank) layers, depthwise layers, measure-mode kernel
-selection and the static analyzer.
+measure-mode kernel selection (``select_kernels='measure'``), grouped
+convs with per-group depth > 1 (the reference's declared fp32 fallback,
+which no configuration has) and the static analyzer.
 """
 from __future__ import annotations
 
@@ -33,7 +38,11 @@ import torch
 
 from repro_torch.core.quantization import quantize_params_for_serving
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.depthwise_conv import fits_depthwise
+from repro_torch.kernels.lowrank_conv import fits_fused, lowering_costs
 from repro_torch.models import cnn as cnn_lib
+
+SELECT_KERNELS = ('model', 'fused', 'measure')
 
 
 def _serving_bits(cfg) -> tuple[int, int]:
@@ -92,6 +101,10 @@ class QAct:
     q: Any
     scale: float
 
+    @property
+    def shape(self):
+        return self.q.shape
+
 
 def _deq(x):
     """Dequantize (identity on tensors already fp32)."""
@@ -110,10 +123,12 @@ class LayerPlan:
     a_qmax: float
 
     def summary(self) -> dict:
-        """Deployed-cost summary: MACs, launch counts, and the MAC fraction
-        served by a fp32 fallback (0 on this plan).  Counts cover the plain
-        serving path (``ServingModel.fn``); the exit heads, executed only
-        by ``fn_exits``, are reported as ``n_exit_heads`` /
+        """Deployed-cost summary: MACs, launch counts, the MAC fraction
+        served by a fp32 fallback (0 on this plan), the depthwise and
+        low-rank layer counts, and the per-layer fused-vs-chained selection
+        with its reason.  Counts cover the plain serving path
+        (``ServingModel.fn``); the exit heads, executed only by
+        ``fn_exits``, are reported as ``n_exit_heads`` /
         ``exit_head_launches``."""
         main = {n: e for n, e in self.layers.items()
                 if not n.startswith('exit')}
@@ -123,54 +138,113 @@ class LayerPlan:
         fallback = sum(e['macs'] for e in main.values() if e['fallback'])
         return {
             'n_layers': len(main),
+            'n_fused_lowrank': sum(1 for e in main.values()
+                                   if e.get('fused')),
+            'n_chained_lowrank': sum(1 for e in main.values()
+                                     if e.get('factored')
+                                     and not e.get('fused')),
+            'n_depthwise': sum(1 for e in main.values()
+                               if e.get('depthwise')),
             'n_fallback': sum(1 for e in main.values() if e['fallback']),
             'kernel_launches': sum(e['launches'] for e in main.values()),
             'n_exit_heads': len(exits),
             'exit_head_launches': sum(e['launches'] for e in exits.values()),
             'total_macs': total,
             'fallback_mac_fraction': fallback / max(total, 1),
+            'lowrank_selection': {n: e['selection'] for n, e in main.items()
+                                  if e.get('selection')},
         }
 
 
-def _compile_layer_plan(params, cfg, x, a_qmax) -> LayerPlan:
+def _select_lowering(m, k1, r, cout, *, fuse_lowrank, select_kernels):
+    """Fused or chained for one factored conv, and why."""
+    if not fits_fused(r, cout):
+        return {'choice': 'chained',
+                'why': f'rank {r} exceeds the fused envelope'}
+    if not fuse_lowrank:
+        return {'choice': 'chained',
+                'why': 'fuse_lowrank=False (forced two-launch A/B)'}
+    if select_kernels == 'fused':
+        return {'choice': 'fused', 'why': 'select_kernels=fused (forced)'}
+    c = lowering_costs(m, k1, r, cout)
+    return {'choice': 'fused' if c['fused_us'] <= c['chained_us']
+            else 'chained',
+            'why': (f"modeled fused {c['fused_us']:.1f}us vs chained "
+                    f"{c['chained_us']:.1f}us"),
+            'fused_us': c['fused_us'], 'chained_us': c['chained_us']}
+
+
+def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
+                        select_kernels='model') -> LayerPlan:
     """One calibration forward (the QAT fake-quant math) that records a
-    static activation scale at every layer boundary."""
+    static activation scale at every layer boundary and picks the serving
+    kernel per layer: plain, depthwise, or a factored pair fused or
+    chained (:func:`_select_lowering`; ``'model'`` prices both with the
+    H100 cost model ``lowering_costs`` at the calibration geometry,
+    ``'fused'`` forces one launch, ``fuse_lowrank=False`` forces two)."""
     layers, glues = {}, {}
 
     def amax(v) -> float:
         return max(float(torch.abs(v).amax()), 1e-8)
 
     def conv_fn(p, cx, *, stride=1, quant=(0, 0), groups=1, name=None):
-        if 'u' in p:
+        factored = 'u' in p
+        depthwise = groups > 1 and not factored and fits_depthwise(
+            p['w'].shape)
+        if groups > 1 and not depthwise:
             raise NotImplementedError(
-                f'{name}: factored (low-rank) layers need the lowrank_conv '
-                f'kernel, not ported yet (ROADMAP, queue A: low-rank slice)')
-        if groups > 1:
-            raise NotImplementedError(
-                f'{name}: grouped/depthwise convs need the depthwise_conv '
-                f'kernel, not ported yet (ROADMAP, queue A: depthwise '
-                f'slice)')
-        y = cnn_lib.conv(p, cx, stride=stride, quant=quant)
-        kh, kw, cin, cout = p['w'].shape
-        oh, ow = y.shape[1], y.shape[2]
-        layers[name] = {
-            'sx': amax(cx) / a_qmax, 'kind': 'conv', 'fallback': False,
-            'stride': stride, 'in_shape': tuple(cx.shape), 'kernel': (kh, kw),
-            'macs': oh * ow * kh * kw * cin * cout, 'launches': 1,
-            'out_scale': amax(y) / a_qmax, 'out_shape': tuple(y.shape)}
+                f'{name}: a grouped conv with per-group depth > 1 is the '
+                f"reference's declared fp32 fallback, not ported (ROADMAP, "
+                f'queue A: grouped-conv fallback)')
+        e = {'sx': amax(cx) / a_qmax, 'kind': 'conv', 'fallback': False,
+             'depthwise': depthwise, 'factored': factored, 'fused': False,
+             'stride': stride, 'in_shape': tuple(cx.shape), 'groups': groups,
+             'w_shape': None if factored else tuple(p['w'].shape)}
+        if factored:
+            mid = cnn_lib.conv(p['u'], cx, stride=stride, quant=quant,
+                               groups=groups)
+            y = cnn_lib.conv(p['v'], mid, quant=quant)
+            e['h_scale'] = amax(mid) / a_qmax
+            kh, kw, cin, r = p['u']['w'].shape
+            cout = p['v']['w'].shape[-1]
+            oh, ow = y.shape[1], y.shape[2]
+            e['macs'] = oh * ow * r * (kh * kw * cin + cout)
+            e['selection'] = _select_lowering(
+                y.shape[0] * oh * ow, kh * kw * cin, r, cout,
+                fuse_lowrank=fuse_lowrank, select_kernels=select_kernels)
+            e['fused'] = e['selection']['choice'] == 'fused'
+            e['launches'] = 1 if e['fused'] else 2
+            e['rank'] = r
+        else:
+            y = cnn_lib.conv(p, cx, stride=stride, quant=quant,
+                             groups=groups)
+            kh, kw, cin, cout = p['w'].shape
+            oh, ow = y.shape[1], y.shape[2]
+            e['macs'] = oh * ow * kh * kw * cin * cout
+            e['launches'] = 1
+        e['kernel'] = (kh, kw)
+        e['out_scale'] = amax(y) / a_qmax
+        e['out_shape'] = tuple(y.shape)
+        layers[name] = e
         return y
 
     def fc_fn(p, cx, *, quant=(0, 0), name=None):
+        e = {'sx': amax(cx) / a_qmax, 'kind': 'fc', 'fallback': False,
+             'factored': 'u' in p, 'fused': False, 'out_scale': None,
+             'in_shape': tuple(cx.shape)}
         if 'u' in p:
-            raise NotImplementedError(
-                f'{name}: factored (low-rank) heads come with the low-rank '
-                f'slice (ROADMAP, queue A)')
-        y = cnn_lib.fc(p, cx, quant=quant)
-        layers[name] = {
-            'sx': amax(cx) / a_qmax, 'kind': 'fc', 'fallback': False,
-            'out_scale': None, 'in_shape': tuple(cx.shape),
-            'macs': p['w'].shape[0] * p['w'].shape[1], 'launches': 1,
-            'out_shape': tuple(y.shape)}
+            mid = cnn_lib.fc(p['u'], cx, quant=quant)
+            y = cnn_lib.fc(p['v'], mid, quant=quant)
+            e['h_scale'] = amax(mid) / a_qmax
+            din, r = p['u']['w'].shape
+            e['macs'] = r * (din + p['v']['w'].shape[-1])
+            e['launches'] = 2
+        else:
+            y = cnn_lib.fc(p, cx, quant=quant)
+            e['macs'] = p['w'].shape[0] * p['w'].shape[1]
+            e['launches'] = 1
+        e['out_shape'] = tuple(y.shape)
+        layers[name] = e
         return y
 
     def glue_fn(np_, y, *, act=None, skip=None, name=None):
@@ -181,6 +255,15 @@ def _compile_layer_plan(params, cfg, x, a_qmax) -> LayerPlan:
     cnn_lib.cnn_forward(params, cfg, x, collect_exits=True, conv_fn=conv_fn,
                         fc_fn=fc_fn, glue_fn=glue_fn)
     return LayerPlan(layers=layers, glues=glues, a_qmax=a_qmax)
+
+
+def layer_kernel_launches(e) -> dict:
+    """``{kernel: launches}`` one plan entry makes per batch."""
+    if e.get('depthwise'):
+        return {'depthwise_conv': 1}
+    if e.get('fused'):
+        return {'lowrank_conv': 1}
+    return {'quant_matmul': e['launches']}
 
 
 def _resolve_layer_params(params, name: str):
@@ -212,19 +295,53 @@ def _resident_layers(plan: LayerPlan):
             return x
         return QAct(ref.requantize(x, sx, qmax), sx)
 
+    def bias_or_zeros(p):
+        b = p.get('b')
+        if b is None:
+            b = torch.zeros(p['w_q'].shape[-1], dtype=torch.float32,
+                            device=p['w_q'].device)
+        return b
+
     def conv_fn(p, x, *, stride=1, quant=(0, 0), groups=1, name=None):
         del quant, groups
         e = plan.layers[name]
         xq = as_qact(x, e['sx'])
-        y = ops.quant_conv_static(
-            xq.q, p['w_q'], p['scale'], p.get('b'), sx=xq.scale,
-            stride=stride, out_scale=e['out_scale'], out_qmax=qmax)
+        kw = dict(out_scale=e['out_scale'], out_qmax=qmax)
+        if e['depthwise']:
+            y = ops.depthwise_conv_static(
+                xq.q, p['w_q'], p['scale'], p.get('b'), sx=xq.scale,
+                stride=stride, **kw)
+        elif e['fused']:
+            u, v = p['u'], p['v']
+            y = ops.lowrank_conv_nhwc(
+                xq.q, u['w_q'], v['w_q'], u['scale'], v['scale'],
+                bias_or_zeros(u), bias_or_zeros(v), sx=xq.scale,
+                h_scale=e['h_scale'], stride=stride, h_qmax=qmax, **kw)
+        elif e['factored']:
+            u, v = p['u'], p['v']
+            h = ops.quant_conv_static(
+                xq.q, u['w_q'], u['scale'], bias_or_zeros(u), sx=xq.scale,
+                stride=stride, out_scale=e['h_scale'], out_qmax=qmax)
+            y = ops.quant_conv_static(h, v['w_q'], v['scale'],
+                                      bias_or_zeros(v), sx=e['h_scale'],
+                                      **kw)
+        else:
+            y = ops.quant_conv_static(
+                xq.q, p['w_q'], p['scale'], p.get('b'), sx=xq.scale,
+                stride=stride, **kw)
         return QAct(y, e['out_scale'])
 
     def fc_fn(p, x, *, quant=(0, 0), name=None):
         del quant
         e = plan.layers[name]
         xq = ref.requantize(_deq(x), e['sx'], qmax)
+        if e['factored']:
+            h = ops.quant_dense_static(
+                xq, p['u']['w_q'], p['u']['scale'], p['u'].get('b'),
+                sx=e['sx'], out_scale=e['h_scale'], out_qmax=qmax)
+            return ops.quant_dense_static(
+                h, p['v']['w_q'], p['v']['scale'], p['v'].get('b'),
+                sx=e['h_scale'])
         return ops.quant_dense_static(xq, p['w_q'], p['scale'], p.get('b'),
                                       sx=e['sx'])
 
@@ -272,9 +389,10 @@ def _make_stage_fns(cfg, kw):
 
 
 def _segment_launches(plan: LayerPlan, cfg, stage_exits) -> tuple:
-    """Kernel launches of each stage segment: the plan's layers grouped by
-    the segment that runs them (an exit head runs in the segment ending at
-    its stage, the final head in the last)."""
+    """``{kernel: launches}`` of each stage segment: the plan's layers
+    grouped by the segment that runs them (an exit head runs in the
+    segment ending at its stage, the final head in the last), counted per
+    kernel (:func:`layer_kernel_launches`)."""
     bounds = [s for s in stage_exits if s is not None]
     last = len(cfg.stage_blocks) - 1
 
@@ -288,11 +406,13 @@ def _segment_launches(plan: LayerPlan, cfg, stage_exits) -> tuple:
             return int(head[4:])
         return int(head[1:].split('b')[0])
 
-    out = [0] * len(stage_exits)
+    out = [{} for _ in stage_exits]
     for name, e in plan.layers.items():
         s = stage_of(name)
-        seg = next((i for i, b in enumerate(bounds) if s <= b), len(bounds))
-        out[seg] += e['launches']
+        seg = out[next((i for i, b in enumerate(bounds) if s <= b),
+                       len(bounds))]
+        for k, n in layer_kernel_launches(e).items():
+            seg[k] = seg.get(k, 0) + n
     return tuple(out)
 
 
@@ -329,7 +449,7 @@ class ServingModel:
     exit_threshold: float = 0.9
     stage_fns: tuple | None = None     # layer plan split at exit boundaries
     stage_exits: tuple = ()            # exit stage each segment ends at
-    segment_launches: tuple = ()       # kernel launches per segment
+    segment_launches: tuple = ()       # {kernel: launches} per segment
     device: torch.device = torch.device('cpu')
 
     def serve(self, x):
@@ -389,16 +509,30 @@ def calibrate_exit_threshold(model: ServingModel, x, quantile=0.5):
 
 
 def export_cnn(params, cfg, *, device='cuda', calibrate=None,
+               fuse_lowrank=True, select_kernels='model',
                tracer=None) -> ServingModel:
-    """Compile a CNN to the int8-resident serving path on ``device``.
+    """Compile a (possibly low-rank-factored) CNN to the int8-resident
+    serving path on ``device``.
 
     ``calibrate`` (a sample input batch) sets the static activation scales.
-    Parameters and the batch are moved to ``device``; on CUDA every conv
-    and head runs the ``quant_matmul`` kernel and the calibration forward
-    runs ``fake_quant_fused`` on the 2-D head weights.  ``tracer`` (an
-    ``obs.trace.Tracer``) records an ``export.calibrate`` span."""
+    Parameters and the batch are moved to ``device``; on CUDA every layer
+    runs a kernel (``quant_matmul``, ``depthwise_conv``, ``lowrank_conv``)
+    and the calibration forward runs ``fake_quant_fused`` on the 2-D head
+    weights.  A factored conv inside the fused envelope is priced fused
+    against chained: ``select_kernels='model'`` (the H100 cost model
+    ``lowering_costs``) or ``'fused'`` (forced); ``fuse_lowrank=False``
+    forces the chained pair.  ``tracer`` (an ``obs.trace.Tracer``) records
+    an ``export.calibrate`` span."""
     from repro_torch.obs.trace import as_tracer
     tracer = as_tracer(tracer)
+    if select_kernels not in SELECT_KERNELS:
+        raise ValueError(f'select_kernels must be one of {SELECT_KERNELS}, '
+                         f'got {select_kernels!r}')
+    if select_kernels == 'measure':
+        raise NotImplementedError(
+            "select_kernels='measure' times both lowerings through the "
+            "tracer's kernel.launch spans, not ported yet (ROADMAP, queue "
+            "A: measure-mode kernel selection)")
     if calibrate is None:
         raise NotImplementedError(
             'the dynamic-scale export (calibrate=None) is not ported yet '
@@ -412,8 +546,11 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
     with _full_fp32(), torch.no_grad():
         qparams = quantize_params_for_serving(params, bits=w_bits)
         with tracer.span('export.calibrate', track='export',
-                         config=cfg.name, batch=int(calibrate.shape[0])):
-            plan = _compile_layer_plan(params, cfg, calibrate, a_qmax)
+                         config=cfg.name, select_kernels=select_kernels,
+                         batch=int(calibrate.shape[0])):
+            plan = _compile_layer_plan(params, cfg, calibrate, a_qmax,
+                                       fuse_lowrank=fuse_lowrank,
+                                       select_kernels=select_kernels)
     conv_fn, fc_fn, glue_fn, pool_fn = _resident_layers(plan)
     kw = dict(conv_fn=conv_fn, fc_fn=fc_fn, glue_fn=glue_fn, pool_fn=pool_fn)
 

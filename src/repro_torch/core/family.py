@@ -1,16 +1,66 @@
-"""The CNN family adapter (the subset the serving slice needs).
+"""The CNN family adapter (the subset the serving slices need): init, exit
+heads, evaluation batches and the low-rank factorization the L pass
+applies.
 
-Training, pruning, distillation and factorization come with the
-compression chain (ROADMAP, queue A).
+Training, pruning and distillation come with the compression chain
+(ROADMAP, queue A).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.models import cnn as cnn_lib
+
+
+# ----------------------------------------------------- low-rank SVD helpers
+
+
+def _svd_split(m, energy, min_rank):
+    """Rank-truncated balanced SVD split of a (din, dout) matrix, in numpy
+    as the reference does it, so ranks and factors match it exactly.
+
+    Returns (u (din, r), v (r, dout)) as float32 numpy arrays with the
+    smallest r keeping ``energy`` of the spectral energy (floored at
+    ``min_rank``), or None when no rank saves MACs
+    (r * (din + dout) >= din * dout)."""
+    m = np.asarray(m, np.float32)
+    din, dout = m.shape
+    U, S, Vt = np.linalg.svd(m, full_matrices=False)
+    tot = float(np.sum(S ** 2))
+    if tot <= 0.0:
+        return None
+    r = int(np.searchsorted(np.cumsum(S ** 2), energy * tot) + 1)
+    r = min(max(r, min_rank), len(S))
+    if r * (din + dout) >= din * dout:
+        return None
+    s = np.sqrt(S[:r])
+    return U[:, :r] * s, s[:, None] * Vt[:r]
+
+
+def _linear_cost(tree) -> float:
+    """MAC-proportional weight volume: total size of the >=2-D tensors of a
+    tree (matmul and conv weights; biases and norm params are free)."""
+    if isinstance(tree, torch.Tensor):
+        return float(tree.numel()) if tree.dim() >= 2 else 0.0
+    if isinstance(tree, dict):
+        return sum(_linear_cost(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_linear_cost(v) for v in tree)
+    return 0.0
+
+
+def _copy_tree(tree):
+    """New dicts and lists around the same tensors (the reference's
+    ``jax.tree.map(lambda x: x, params)``)."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
 
 
 @dataclass
@@ -43,6 +93,52 @@ class CNNFamily:
             params['exits'][str(s)] = cnn_lib._fc_init(
                 gen, dim, cfg.num_classes, self.device)
         return params, cfg
+
+    def factorize(self, params, cfg, *, energy=0.95, min_rank=4):
+        """SVD-split stage convs and the head fc (the L pass's family hook);
+        returns (params, cfg, mac_scale).
+
+        Each conv w (KH,KW,CIN,COUT) flattens to (KH*KW*CIN, COUT) and, when
+        a rank r keeping ``energy`` of the spectral energy saves MACs,
+        becomes a spatial conv to r channels ('u', zero bias) chained with a
+        1x1 conv back to COUT ('v', the original bias).  Depthwise convs
+        and the stem are skipped.  The head becomes ``{'u': {'w'}, 'v':
+        {'w', 'b'}}``.  ``mac_scale`` is the stage weight-volume ratio."""
+        params = _copy_tree(params)
+        old_cost = _linear_cost(params['stages'])
+
+        def tensor(a, like):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+
+        def factor_conv(p):
+            kh, kw, cin, cout = p['w'].shape
+            uv = _svd_split(p['w'].detach().cpu().numpy().reshape(
+                kh * kw * cin, cout), energy, min_rank)
+            if uv is None:
+                return p
+            u, v = uv
+            r = u.shape[-1]
+            return {'u': {'w': tensor(u.reshape(kh, kw, cin, r), p['w']),
+                          'b': torch.zeros((r,), dtype=p['b'].dtype,
+                                           device=p['b'].device)},
+                    'v': {'w': tensor(v.reshape(1, 1, r, cout), p['w']),
+                          'b': p['b']}}
+
+        for blocks in params['stages']:
+            for blk in blocks:
+                for k, p in list(blk.items()):
+                    if (isinstance(p, dict) and 'w' in p
+                            and p['w'].dim() == 4 and k != 'dw'):
+                        blk[k] = factor_conv(p)
+        head = params['head']
+        uv = _svd_split(head['w'].detach().cpu().numpy(), energy, min_rank)
+        if uv is not None:
+            u, v = uv
+            params['head'] = {'u': {'w': tensor(u, head['w'])},
+                              'v': {'w': tensor(v, head['w']),
+                                    'b': head['b']}}
+        scale = _linear_cost(params['stages']) / max(old_cost, 1.0)
+        return params, cfg, scale
 
     def eval_batches(self, n, batch, seed=10_000):
         """``n`` held-out batches, batch ``i`` drawn from generator seed

@@ -10,6 +10,15 @@ Kernel                 Replaces (src/repro/kernels/)
                        and every dense head
 ``fake_quant_fused``   ``fake_quant.py`` ``_fused_kernel``: per-column
 (Triton)               symmetric fake quant of a 2-D weight
+``depthwise_conv``     ``depthwise_conv.py`` ``_dw_kernel``: direct int8
+(CUDA C++,             SAME depthwise conv (per-group input depth 1, any
+``csrc/``)             channel multiplier) with the shared epilogue;
+                       serves MobileNet's ``dw`` layers
+``lowrank_conv``       ``lowrank_conv.py`` ``_lr_kernel``: a factored
+(CUDA C++,             (u, v) conv pair in one launch, the rank
+``csrc/``)             intermediate requantized to int8 in shared memory;
+                       serves the factored layers inside the fused
+                       envelope
 =====================  ====================================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
@@ -22,11 +31,16 @@ from __future__ import annotations
 
 def _wrappers() -> dict:
     """``{kernel: (wrapper, plain version)}`` for every ported kernel."""
-    from repro_torch.kernels import fake_quant, quant_matmul
+    from repro_torch.kernels import (depthwise_conv, fake_quant,
+                                     lowrank_conv, quant_matmul)
     return {'quant_matmul': (quant_matmul.quant_matmul,
                              quant_matmul.quant_matmul_plain),
             'fake_quant_fused': (fake_quant.fake_quant_fused,
-                                 fake_quant.fake_quant_plain)}
+                                 fake_quant.fake_quant_plain),
+            'depthwise_conv': (depthwise_conv.depthwise_conv,
+                               depthwise_conv.depthwise_conv_plain),
+            'lowrank_conv': (lowrank_conv.lowrank_conv,
+                             lowrank_conv.lowrank_conv_plain)}
 
 
 def counts() -> dict:

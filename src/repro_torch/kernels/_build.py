@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/<hash>/
 lib<name>.so`` at the repository root on first use, keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one loads at once.  Sources have a plain C interface (no PyTorch
-headers), which keeps a build to seconds.  All sources are compiled in
-parallel, one nvcc process each.  The ptxas report (registers, shared
+the flags and of every file under ``csrc/`` (sources and the headers
+they share), so an edit rebuilds and an unchanged tree loads at once.
+Sources have a plain C interface (no PyTorch headers), which keeps a
+build to seconds.  All sources are compiled in parallel, one nvcc
+process each.  The ptxas report (registers, shared
 memory, spills) is kept beside each library as ``lib<name>.log``.
 """
 from __future__ import annotations
@@ -37,9 +38,14 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    key = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_ROOT / key[:16] / f'lib{name}.so'
+    """Library path keyed by the flags and by every file under ``csrc/``
+    (a source includes shared headers, so an edit to any of them must
+    rebuild every library)."""
+    h = hashlib.sha256(name.encode() + b'\0' + ' '.join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob('*') if p.is_file()):
+        h.update(b'\0' + path.relative_to(CSRC).as_posix().encode() + b'\0')
+        h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / f'lib{name}.so'
 
 
 def build_all() -> dict[str, dict]:
@@ -84,6 +90,21 @@ def load(name: str) -> ctypes.CDLL:
         lib.kernels_error_string.argtypes = [ctypes.c_int]
         lib.kernels_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_operands(kernel: str, device, want) -> None:
+    """Raise ValueError unless every ``(tensor, dtype, shape or None)`` of
+    ``want`` lies on ``device``, is contiguous and has that dtype and shape:
+    the C entry points take raw pointers and trust all four."""
+    for t, dtype, shape in want:
+        if t.device != device:
+            raise ValueError(f'{kernel}: operands on different devices')
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f'{kernel}: expected contiguous {dtype}, got '
+                             f'{t.dtype}')
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f'{kernel}: expected shape {shape}, got '
+                             f'{tuple(t.shape)}')
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

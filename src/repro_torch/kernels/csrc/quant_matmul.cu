@@ -27,73 +27,19 @@
 // takes the byte-wise staging path.  Left for later: a TMA + wgmma
 // pipeline with several stages in flight, and an implicit-GEMM im2col
 // that gathers the patches inside the kernel instead of in device memory.
-#include <cstdint>
-#include <cuda_runtime.h>
+// The staging, the warp product and the epilogue live in int8_tiles.cuh,
+// shared with the fused low-rank kernel.
+#include "int8_tiles.cuh"
 
 namespace {
+
+using namespace int8_tiles;
 
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int BK = 64;
 constexpr int LDS = BK + 16;   // smem row stride in bytes
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// xs[r][k] = x[m0 + r][k0 + k], zero outside (M, K).
-template <bool VEC>
-__device__ __forceinline__ void stage_x(int8_t (*xs)[LDS],
-                                        const int8_t* __restrict__ x, int M,
-                                        int K, int m0, int k0) {
-  if (VEC) {  // K % 16 == 0 and x 16-byte aligned: one int4 per chunk
-    for (int c = threadIdx.x; c < BM * BK / 16; c += THREADS) {
-      const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-      const int m = m0 + r, k = k0 + kc;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M && k < K)
-        v = *reinterpret_cast<const int4*>(x + (size_t)m * K + k);
-      *reinterpret_cast<int4*>(&xs[r][kc]) = v;
-    }
-  } else {
-    for (int c = threadIdx.x; c < BM * BK; c += THREADS) {
-      const int r = c / BK, kk = c % BK;
-      const int m = m0 + r, k = k0 + kk;
-      xs[r][kk] = (m < M && k < K) ? x[(size_t)m * K + k] : int8_t(0);
-    }
-  }
-}
-
-// ws[n][k] = w[k0 + k][n0 + n] (transposed: K contiguous), zero outside.
-template <bool VEC>
-__device__ __forceinline__ void stage_w(int8_t (*ws)[LDS],
-                                        const int8_t* __restrict__ w, int N,
-                                        int K, int n0, int k0) {
-  if (VEC) {  // N % 4 == 0 and w 4-byte aligned: one word of 4 columns
-    for (int c = threadIdx.x; c < BK * BN / 4; c += THREADS) {
-      const int kk = c / (BN / 4), n4 = (c % (BN / 4)) * 4;
-      const int k = k0 + kk, n = n0 + n4;
-      uint32_t v = 0;
-      if (k < K && n < N)
-        v = *reinterpret_cast<const uint32_t*>(w + (size_t)k * N + n);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ws[n4 + j][kk] = static_cast<int8_t>((v >> (8 * j)) & 0xff);
-    }
-  } else {
-    for (int c = threadIdx.x; c < BK * BN; c += THREADS) {
-      const int kk = c / BN, nn = c % BN;
-      const int k = k0 + kk, n = n0 + nn;
-      ws[nn][kk] = (k < K && n < N) ? w[(size_t)k * N + n] : int8_t(0);
-    }
-  }
-}
 
 template <bool VEC_X, bool VEC_W>
 __global__ void __launch_bounds__(THREADS)
@@ -108,7 +54,6 @@ qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int g = lane / 4, t = lane % 4;
 
   int acc[2][4][4];
 #pragma unroll
@@ -119,58 +64,32 @@ qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_x<VEC_X>(xs, x, M, K, m0, k0);
-    stage_w<VEC_W>(ws, w, N, K, n0, k0);
+    stage_rows<BM, BK, LDS, THREADS, VEC_X>(xs, x, M, K, m0, k0);
+    stage_cols<BN, BK, LDS, THREADS, VEC_W>(ws, w, N, K, n0, k0);
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t * 4]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + t * 4]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + 16 + t * 4]);
-        a[i][3] =
-            *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + j * 8 + g;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t * 4]);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
+    for (int kk = 0; kk < BK; kk += 32)
+      warp_mma_k32<2, 4, LDS, LDS>(acc, xs, ws, wm, wn, kk, lane);
     __syncthreads();
   }
 
-  // Epilogue: accumulator (i, j, r) sits at row g (+8 for r >= 2) and
-  // column 2t + (r & 1) of the warp's 16x8 sub-tile (i, j).
+  // Epilogue, one accumulator at a time (frag_row / frag_col).
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wm + i * 16 + g + (r >= 2 ? 8 : 0);
-        const int n = n0 + wn + j * 8 + t * 2 + (r & 1);
+        const int m = m0 + frag_row(wm, i, r, lane);
+        const int n = n0 + frag_col(wn, j, r, lane);
         if (m >= M || n >= N) continue;
-        const float scale = __fmul_rn(sx[m], sw[n]);
-        float y = __fmul_rn(static_cast<float>(acc[i][j][r]), scale);
-        if (bias != nullptr) y = __fadd_rn(y, bias[n]);
-        if (relu) y = fmaxf(y, 0.0f);
+        const float y = dequant(acc[i][j][r], __fmul_rn(sx[m], sw[n]), bias,
+                                n, relu);
         const size_t o = (size_t)m * N + n;
-        if (out_int8) {
-          float q = rintf(__fmul_rn(y, inv_out_scale));
-          q = fminf(fmaxf(q, -out_qmax - 1.0f), out_qmax);
-          static_cast<int8_t*>(out)[o] = static_cast<int8_t>(q);
-        } else {
+        if (out_int8)
+          static_cast<int8_t*>(out)[o] = requant(y, inv_out_scale, out_qmax);
+        else
           static_cast<float*>(out)[o] = y;
-        }
       }
 }
 
@@ -212,8 +131,4 @@ extern "C" int quant_matmul_launch(const void* x, const void* w,
     launch<false, false>(xp, wp, sxp, swp, bp, out, M, N, K, relu, out_int8,
                          inv_out_scale, out_qmax, st);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* kernels_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

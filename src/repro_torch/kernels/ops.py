@@ -10,14 +10,20 @@ reference's ``use_pallas`` switch is gone for that reason.
 * :func:`quant_conv_static` / :func:`quant_dense_static` — int8 conv/dense
   on an activation already quantized on a static scale; with
   ``out_scale`` the output stays int8 on that static grid.
+* :func:`depthwise_conv_static` — the depthwise kernel on a statically
+  quantized activation (MobileNet's grouped convs).
+* :func:`lowrank_conv_nhwc` — a factored (u, v) conv pair in one launch of
+  the fused low-rank kernel, after the im2col gather.
 * :func:`quant_matmul`, :func:`fake_quant` — the kernels themselves.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.depthwise_conv import depthwise_conv
 from repro_torch.kernels.fake_quant import fake_quant_fused
-from repro_torch.kernels.quant_conv import quant_conv
+from repro_torch.kernels.lowrank_conv import lowrank_conv
+from repro_torch.kernels.quant_conv import im2col_nhwc, quant_conv
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: F401
 from repro_torch.kernels.tiling import VMEM_BUDGET
 
@@ -62,3 +68,31 @@ def quant_dense_static(x_q, w_q, sw, bias=None, *, sx, relu=False,
                      device=x_q.device)
     return quant_matmul(x_q, w_q, sxv, sw.reshape(-1), bias, relu=relu,
                         out_scale=out_scale, out_qmax=out_qmax)
+
+
+def depthwise_conv_static(x_q, w_q, sw, bias=None, *, sx, stride=1,
+                          relu=False, out_scale=None, out_qmax=127.0):
+    """Int8 depthwise conv on a statically-quantized activation: x_q int8
+    (B,H,W,CIN) on the grid ``sx``; w_q int8 (KH,KW,1,COUT) with COUT a
+    multiple of CIN.  Returns fp32, or int8 when ``out_scale`` is set."""
+    return depthwise_conv(x_q, w_q, sx, sw.reshape(-1), bias, stride=stride,
+                          relu=relu, out_scale=out_scale, out_qmax=out_qmax)
+
+
+def lowrank_conv_nhwc(x_q, u_q, v_q, su, sv, bu, bv, *, sx, h_scale,
+                      stride=1, relu=False, out_scale=None, h_qmax=127.0,
+                      out_qmax=127.0):
+    """A factored conv pair in one launch: x_q int8 (B,H,W,CIN); u_q int8
+    (KH,KW,CIN,R); v_q int8 (1,1,R,COUT) or (R,COUT); su/bu (R,), sv/bv
+    (COUT,) fp32; ``sx``/``h_scale``/``out_scale`` static floats.  The
+    SAME im2col gather runs in PyTorch, then the fused kernel.  Returns
+    (B,OH,OW,COUT) fp32, or int8 when ``out_scale`` is set."""
+    B = x_q.shape[0]
+    kh, kw, cin, r = u_q.shape
+    n = v_q.shape[-1]
+    patches, (oh, ow) = im2col_nhwc(x_q, kh, kw, stride)
+    out = lowrank_conv(patches, u_q.reshape(kh * kw * cin, r),
+                       v_q.reshape(r, n), su.reshape(-1), sv.reshape(-1),
+                       bu, bv, sx=sx, h_scale=h_scale, relu=relu,
+                       out_scale=out_scale, h_qmax=h_qmax, out_qmax=out_qmax)
+    return out.reshape(B, oh, ow, n)

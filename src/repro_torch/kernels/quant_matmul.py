@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import quant_matmul_ref, recip32, requantize
+from repro_torch.kernels.ref import epilogue, int_matmul, recip32
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
     [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -40,14 +40,8 @@ def quant_matmul_plain(x_q, w_q, sx, sw, bias=None, *, relu=False,
                        out_scale=None, out_qmax=127.0):
     """The kernel's function in plain PyTorch, in the kernel's op order."""
     quant_matmul_plain.calls += 1
-    y = quant_matmul_ref(x_q, w_q, sx, sw)
-    if bias is not None:
-        y = y + bias
-    if relu:
-        y = torch.clamp_min(y, 0.0)
-    if out_scale is not None:
-        return requantize(y, out_scale, out_qmax)
-    return y
+    return epilogue(int_matmul(x_q, w_q), sx[:, None] * sw[None, :], bias,
+                    relu, out_scale, out_qmax)
 
 
 quant_matmul_plain.calls = 0
@@ -62,15 +56,7 @@ def _check_operands(x_q, w_q, sx, sw, bias):
             (sx, torch.float32, (M,)), (sw, torch.float32, (N,))]
     if bias is not None:
         want.append((bias, torch.float32, (N,)))
-    for t, dtype, shape in want:
-        if t.device != x_q.device:
-            raise ValueError('quant_matmul: operands on different devices')
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f'quant_matmul: expected contiguous {dtype}, '
-                             f'got {t.dtype}')
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f'quant_matmul: expected shape {shape}, got '
-                             f'{tuple(t.shape)}')
+    _build.check_operands('quant_matmul', x_q.device, want)
 
 
 def quant_matmul(x_q, w_q, sx, sw, bias=None, *, relu=False, out_scale=None,

@@ -63,15 +63,13 @@ def requantize(y, out_scale, qmax=127.0):
     return torch.clamp(q, -qmax - 1.0, qmax).to(torch.int8)
 
 
-def quant_matmul_ref(x_q, w_q, sx, sw, out_dtype=torch.float32):
-    """int8 x (M,K) @ int8 w (K,N), per-row sx (M,), per-col sw (N,).
+def int_matmul(x_q, w_q):
+    """Exact int32 product of int8 x (M,K) and w (K,N).
 
-    The product accumulates in float64 and is cast to int32: exact for any
+    It accumulates in float64 and is cast to int32: exact for any
     |acc| < 2**53, and it runs on the CPU and on CUDA, where torch has no
     general int32 matmul."""
-    acc = (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
-    scale = sx[:, None] * sw[None, :]
-    return (acc.to(torch.float32) * scale).to(out_dtype)
+    return (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
 
 
 def fake_quant_ref(w, bits: int):
@@ -83,6 +81,55 @@ def fake_quant_ref(w, bits: int):
     scale = torch.clamp_min(amax, 1e-8) * recip32(qmax)
     q = torch.clamp(torch.round(w / scale), -qmax - 1.0, qmax)
     return q * scale
+
+
+def epilogue(acc, scale, bias, relu, out_scale, out_qmax):
+    """The kernels' shared epilogue on an exact integer accumulator, in their
+    op order: ``acc * scale``, bias, ReLU, then the static requantize."""
+    y = acc.to(torch.float32) * scale
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    if out_scale is not None:
+        return requantize(y, out_scale, out_qmax)
+    return y
+
+
+def depthwise_conv_ref(x_q, w_q, sx, sw, bias=None, *, stride=1, relu=False,
+                       out_scale=None, out_qmax=127.0):
+    """The depthwise kernel's function: x_q int8 (B,H,W,CIN), w_q int8
+    (KH,KW,1,COUT) with COUT a multiple of CIN (output channel ``o`` reads
+    input channel ``o // (COUT // CIN)``), sx a static float, sw/bias
+    (COUT,).  The SAME conv runs in float64 on the raw integer codes, which
+    is exact (every partial sum is an integer far below 2**53), so the
+    accumulator equals the kernel's int32 one; then the shared epilogue
+    with ``scale = fp32(sx) * sw``."""
+    acc = conv2d_same_nhwc(x_q.to(torch.float64), w_q.to(torch.float64),
+                           stride, groups=x_q.shape[-1])
+    scale = torch.full((), sx, dtype=torch.float32, device=sw.device) * sw
+    return epilogue(acc.to(torch.int32), scale, bias, relu, out_scale,
+                    out_qmax)
+
+
+def lowrank_conv_ref(patches, u_q, v_q, su, sv, bu, bv, *, sx, h_scale,
+                     relu=False, out_scale=None, h_qmax=127.0,
+                     out_qmax=127.0):
+    """The fused low-rank kernel's function on im2col patches (M, K1): the
+    chained pair on the int path.  ``patches @ u_q`` with the epilogue
+    ``acc * (sx * su) + bu`` requantized to int8 h on ``h_scale``, then
+    ``h @ v_q`` with ``acc * (h_scale * sv) + bv`` (ReLU, requantize).
+    The reference's kernel is bit-exact with this chained pair
+    (src/repro/kernels/lowrank_conv.py), not with its own dequantized
+    ``lowrank_conv_ref``."""
+    def scale(s, sw):       # the kernels' per-element fp32(s) * sw[n]
+        return torch.full((patches.shape[0], 1), s, dtype=torch.float32,
+                          device=sw.device) * sw[None, :]
+
+    h = epilogue(int_matmul(patches, u_q), scale(sx, su), bu, False,
+                 h_scale, h_qmax)
+    return epilogue(int_matmul(h, v_q), scale(h_scale, sv), bv, relu,
+                    out_scale, out_qmax)
 
 
 def quant_conv_ref(x_q, w_q, sx, sw, bias=None, *, stride=1, relu=False,

@@ -6,6 +6,8 @@ Poisson trace of requests through the continuous-batching scheduler.
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; without a card it exits with an error instead of falling back.
+Every registered config serves: ``mobilenetv2-cifar`` puts its depthwise
+layers on the ``depthwise_conv`` kernel.
 The model is a raw init with exit heads at the default points (QAT steps
 come with the compression-chain port).  Prints the layer plan, the
 throughput, p50/p99 latency, the exit mix and the kernel launch counts.
@@ -113,9 +115,10 @@ def main(argv=None):
     s = model.summary()
     print(f"layer plan: {s['n_layers']} layers, {s['kernel_launches']} "
           f"kernel launches (+{s['exit_head_launches']} exit heads), "
-          f"{s['total_macs'] / 1e6:.1f} MMACs/image, fallback MACs "
-          f"{s['fallback_mac_fraction']:.1%}; segment launches "
-          f"{model.segment_launches}")
+          f"{s['n_fused_lowrank']} fused low-rank, {s['n_depthwise']} "
+          f"depthwise, {s['total_macs'] / 1e6:.1f} MMACs/image, fallback "
+          f"MACs {s['fallback_mac_fraction']:.1%}; segment launches "
+          f"{list(model.segment_launches)}")
     _serve_trace(model, fam, cfg, args)
 
 

@@ -13,12 +13,15 @@ when there is no card (decided when the test runs, never at import).
 import pytest
 import torch
 
-from repro_torch.configs.cnn import RESNET8_CIFAR
+from repro_torch.configs.cnn import MOBILENET_SMALL_CIFAR, RESNET8_CIFAR
 from repro_torch.core.export import export_cnn
 from repro_torch.core.family import CNNFamily
 from repro_torch.data import SyntheticImages
 from repro_torch.kernels import counts, reset_counts
+from repro_torch.kernels.depthwise_conv import (depthwise_conv,
+                                                depthwise_conv_plain)
 from repro_torch.kernels.fake_quant import fake_quant_fused, fake_quant_plain
+from repro_torch.kernels.lowrank_conv import lowrank_conv, lowrank_conv_plain
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from repro_torch.serving import ContinuousBatchScheduler, Request
 
@@ -57,6 +60,51 @@ def test_quant_matmul_kernel_bit_exact(cuda_device, mkn):
         assert torch.equal(_bits(got), _bits(want))
 
 
+def _i8(g, *shape):
+    return torch.randint(-128, 128, shape, generator=g, device='cuda',
+                         dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize('geom', [((32, 32, 32, 96), 1, 1),
+                                  ((32, 16, 16, 144), 2, 1),
+                                  ((3, 7, 9, 5), 2, 1), ((2, 8, 8, 6), 1, 2)])
+def test_depthwise_conv_kernel_bit_exact(cuda_device, geom):
+    shape, stride, mult = geom
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n = shape[-1] * mult
+    x, w = _i8(g, *shape), _i8(g, 3, 3, 1, n)
+    sw = torch.rand(n, generator=g, device=cuda_device) * 1e-2
+    b = torch.randn(n, generator=g, device=cuda_device)
+    for kw in (dict(), dict(relu=True, out_scale=0.37)):
+        reset_counts()
+        got = depthwise_conv(x, w, 0.05, sw, b, stride=stride, **kw)
+        assert counts()['depthwise_conv'] == {'launches': 1,
+                                              'plain_calls': 0}
+        want = depthwise_conv_plain(x, w, 0.05, sw, b, stride=stride, **kw)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize('mkrn', [(32768, 576, 30, 64), (2048, 2304, 118, 256),
+                                  (512, 256, 40, 512), (77, 27, 5, 13)])
+@pytest.mark.parametrize('bm', [32, 64])
+def test_lowrank_conv_kernel_bit_exact(cuda_device, mkrn, bm):
+    m, k1, r, n = mkrn
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x, u, v = _i8(g, m, k1), _i8(g, k1, r), _i8(g, r, n)
+    su = torch.rand(r, generator=g, device=cuda_device) * 1e-3
+    sv = torch.rand(n, generator=g, device=cuda_device) * 1e-2
+    bu, bv = (torch.randn(r, generator=g, device=cuda_device),
+              torch.randn(n, generator=g, device=cuda_device))
+    for kw in (dict(), dict(relu=True, out_scale=0.37)):
+        reset_counts()
+        got = lowrank_conv(x, u, v, su, sv, bu, bv, sx=0.05, h_scale=0.9,
+                           bm=bm, **kw)
+        assert counts()['lowrank_conv'] == {'launches': 1, 'plain_calls': 0}
+        want = lowrank_conv_plain(x, u, v, su, sv, bu, bv, sx=0.05,
+                                  h_scale=0.9, **kw)
+        assert torch.equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize('kn', [(128, 10), (512, 10), (1000, 77)])
 def test_fake_quant_kernel_bit_exact(cuda_device, kn):
     w = torch.randn(kn, device=cuda_device)
@@ -92,6 +140,40 @@ def test_scheduler_on_card_launches_the_plan(cuda_device):
             [Request(i, xs[i], 1e-4 * i) for i in range(8)])
     assert len(completions) == 8
     assert counts()['quant_matmul'] == {
-        'launches': sum(model.segment_launches[k]
+        'launches': sum(model.segment_launches[k]['quant_matmul']
                         for k, _, _ in metrics.batches),
         'plain_calls': 0}
+
+
+@pytest.mark.parametrize('base', [MOBILENET_SMALL_CIFAR, RESNET8_CIFAR],
+                         ids=lambda c: c.name)
+def test_scheduler_on_card_launches_each_kernel_of_the_plan(cuda_device,
+                                                            base):
+    """MobileNet serves its depthwise layers on depthwise_conv; factored
+    resnet8 (energy 0.6, every rank in the envelope) its factored convs on
+    lowrank_conv.  Per kernel, launches equal the plan's."""
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    params = fam.init(torch.Generator().manual_seed(0), base)
+    cfg = base
+    if base.kind == 'resnet':
+        params, cfg, _ = fam.factorize(params, cfg, energy=0.6, min_rank=2)
+    params, cfg = fam.add_exits(torch.Generator().manual_seed(1), params,
+                                cfg, fam.default_exit_points(cfg))
+    cfg = cfg.replace(w_bits=8, a_bits=8)
+    xs = fam.eval_batches(1, 8)[0][0]
+    model = export_cnn(params, cfg, device=cuda_device, calibrate=xs,
+                       select_kernels='fused')
+    reset_counts()
+    completions, metrics = ContinuousBatchScheduler(
+        model, slots=8, threshold=2.0).run_trace(
+            [Request(i, xs[i], 1e-4 * i) for i in range(8)])
+    assert len(completions) == 8
+    want = {}
+    for k, _, _ in metrics.batches:
+        for name, n in model.segment_launches[k].items():
+            want[name] = want.get(name, 0) + n
+    got = counts()
+    used = 'depthwise_conv' if base.kind == 'mobilenet' else 'lowrank_conv'
+    assert want[used] > 0
+    for name, c in got.items():
+        assert c == {'launches': want.get(name, 0), 'plain_calls': 0}, name

@@ -19,10 +19,13 @@ from repro.core import quantization as jq
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fake_quant import fake_quant_fused as j_fake_quant_fused
+from repro.kernels.lowrank_conv import fits_fused as j_fits_fused
 from repro.kernels.quant_conv import im2col_nhwc as j_im2col
 from repro.kernels import tiling as jtiling
 from repro_torch.core import quantization as tq
 from repro_torch.kernels import _build, counts, ops, ref, reset_counts, tiling
+from repro_torch.kernels.lowrank_conv import (fits_fused, lowering_costs,
+                                              pick_bm)
 from repro_torch.kernels.quant_conv import im2col_nhwc
 
 torch.set_num_threads(1)
@@ -109,6 +112,99 @@ def test_quant_conv_ref_matches_reference(stride):
         ops.quant_conv_static(_t(x), _t(w), _t(sw), _t(b), sx=0.05,
                               stride=stride, relu=True).numpy(),
         got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+DW_CASES = [
+    dict(shape=(2, 7, 9, 5), mult=1, bias=True, relu=True, out_scale=0.5),
+    dict(shape=(1, 8, 8, 6), mult=2, bias=False, relu=False, out_scale=None),
+    dict(shape=(2, 6, 5, 8), mult=1, bias=True, relu=False, out_scale=None),
+    dict(shape=(1, 5, 6, 3), mult=2, bias=True, relu=True, out_scale=1.3)]
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('case', range(len(DW_CASES)))
+def test_depthwise_conv_matches_reference(stride, case):
+    """Odd H and W, COUT not a multiple of 8, a channel multiplier of 2,
+    with and without bias, ReLU and the int8 requantize epilogue."""
+    c = DW_CASES[case]
+    rng = np.random.default_rng(31 + 2 * case + stride)
+    n = c['shape'][-1] * c['mult']
+    x, w = _i8(rng, *c['shape']), _i8(rng, 3, 3, 1, n)
+    sw = (rng.random(n) * 1e-2).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32) if c['bias'] else None
+    kw = dict(sx=0.05, stride=stride, relu=c['relu'],
+              out_scale=c['out_scale'])
+    want = jops.depthwise_conv_static(x, w, sw, b, use_pallas=True, **kw)
+    got = ops.depthwise_conv_static(_t(x), _t(w), _t(sw),
+                                    None if b is None else _t(b), **kw)
+    _assert_same(got, want)
+
+
+LR_CASES = [dict(shape=(2, 7, 8, 6), k=3, r=5, cout=13, out_scale=0.37),
+            dict(shape=(1, 8, 8, 16), k=3, r=30, cout=20, out_scale=None),
+            dict(shape=(2, 5, 6, 8), k=1, r=12, cout=10, out_scale=1.3)]
+
+
+def _lr_operands(case, seed):
+    c = LR_CASES[case]
+    rng = np.random.default_rng(seed)
+    r, n = c['r'], c['cout']
+    return (_i8(rng, *c['shape']), _i8(rng, c['k'], c['k'], c['shape'][-1], r),
+            _i8(rng, 1, 1, r, n), (rng.random(r) * 1e-2).astype(np.float32),
+            (rng.random(n) * 1e-2).astype(np.float32),
+            rng.standard_normal(r).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('case', range(len(LR_CASES)))
+def test_lowrank_conv_matches_reference(stride, case):
+    """Rank not a multiple of 8, ragged COUT, stride 2, ReLU, int8 and
+    fp32 outputs, against the reference's fused Pallas kernel."""
+    ops_ = _lr_operands(case, 41 + 2 * case + stride)
+    kw = dict(sx=0.05, h_scale=0.9, stride=stride, relu=case != 1,
+              out_scale=LR_CASES[case]['out_scale'])
+    want = jops.lowrank_conv_nhwc(*ops_, use_pallas=True, **kw)
+    got = ops.lowrank_conv_nhwc(*map(_t, ops_), **kw)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize('out_scale', [None, 0.37])
+def test_lowrank_plain_equals_chained_pair(out_scale):
+    """The fused plain version is the port's chained pair, bit for bit."""
+    x, u, v, su, sv, bu, bv = map(_t, _lr_operands(0, 5))
+    fused = ops.lowrank_conv_nhwc(x, u, v, su, sv, bu, bv, sx=0.05,
+                                  h_scale=0.9, stride=2, relu=True,
+                                  out_scale=out_scale)
+    h = ops.quant_conv_static(x, u, su, bu, sx=0.05, stride=2,
+                              out_scale=0.9)
+    chained = ops.quant_conv_static(h, v, sv, bv, sx=0.9, relu=True,
+                                    out_scale=out_scale)
+    if fused.dtype == torch.float32:
+        fused, chained = fused.view(torch.int32), chained.view(torch.int32)
+    assert torch.equal(fused, chained)
+
+
+def test_fits_fused_matches_reference():
+    for r in (1, 7, 30, 64, 127, 128, 129, 206, 300):
+        for cout in (10, 64, 512):
+            assert fits_fused(r, cout) == j_fits_fused(r, cout), (r, cout)
+
+
+def test_lowering_costs_price_the_h100_kernels():
+    """Same MACs either way; the chained pair moves h through device memory
+    and pays a second launch, so it is never the cheaper one here."""
+    for m, k1, r, n in [(32768, 576, 30, 64), (2048, 2304, 118, 256),
+                        (512, 256, 40, 512)]:
+        c = lowering_costs(m, k1, r, n)
+        assert c['chained_bytes'] - c['fused_bytes'] == 2 * m * r
+        assert c['fused_us'] < c['chained_us']
+        assert c['macs'] == m * r * (k1 + n)
+    cheap = lowering_costs(2048, 2304, 118, 256, launch_us=0.0)
+    assert cheap['chained_us'] - cheap['fused_us'] < \
+        lowering_costs(2048, 2304, 118, 256)['chained_us'] - \
+        lowering_costs(2048, 2304, 118, 256)['fused_us']
+    assert [pick_bm(m) for m in (512, 2048, 8192, 32768)] == [32, 32, 64, 64]
 
 
 @pytest.mark.parametrize('geom', [((2, 7, 8, 3), 3, 2), ((1, 8, 8, 2), 3, 1),
@@ -227,11 +323,18 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.quant_matmul(x, torch.zeros((8, 3), dtype=torch.int8),
                      torch.ones(4), torch.ones(3))
     ops.fake_quant(torch.ones((8, 3)))
+    ops.depthwise_conv_static(torch.zeros((1, 4, 4, 2), dtype=torch.int8),
+                              torch.zeros((3, 3, 1, 2), dtype=torch.int8),
+                              torch.ones(2), sx=1.0)
+    x, u, v, su, sv, bu, bv = map(_t, _lr_operands(0, 1))
+    ops.lowrank_conv_nhwc(x, u, v, su, sv, bu, bv, sx=0.05, h_scale=0.9)
     c = counts()
     assert c['quant_matmul'] == {'launches': 0, 'plain_calls': 1}
-    assert c['fake_quant_fused'] == {'launches': 0, 'plain_calls': 1}
+    for k in ('fake_quant_fused', 'depthwise_conv', 'lowrank_conv'):
+        assert c[k] == {'launches': 0, 'plain_calls': 1}, k
     reset_counts()
-    assert counts()['quant_matmul']['plain_calls'] == 0
+    assert all(v == {'launches': 0, 'plain_calls': 0}
+               for v in counts().values())
 
 
 def test_two_pass_fake_quant_is_not_ported():
@@ -244,3 +347,20 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, 'exists', lambda _: False)
     with pytest.raises(RuntimeError, match='nvcc'):
         _build.nvcc()
+
+
+def test_build_key_covers_shared_headers(monkeypatch, tmp_path):
+    """Each library's cache key hashes every file under csrc/, so an edit
+    to a shared header gives every kernel a new library path."""
+    import shutil
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, 'CSRC', csrc)
+    names = ('quant_matmul', 'lowrank_conv', 'depthwise_conv')
+    before = {n: _build._lib_path(n) for n in names}
+    assert len(set(before.values())) == len(names)
+    assert before == {n: _build._lib_path(n) for n in names}
+    header = csrc / 'int8_tiles.cuh'
+    header.write_text(header.read_text() + '\n// edited\n')
+    after = {n: _build._lib_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)

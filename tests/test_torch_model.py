@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.cnn import RESNET8_CIFAR, VGG8_CIFAR
+from repro.configs.cnn import MOBILENET_SMALL_CIFAR, RESNET8_CIFAR, VGG8_CIFAR
 from repro.core.family import CNNFamily as JFamily
 from repro.data import SyntheticImages as JImages
 from repro.models import cnn as jcnn
@@ -158,3 +158,58 @@ def test_param_tree_layout_matches_reference(name):
     shapes_t = jax.tree.map(lambda a: a.shape, to_numpy(tp))
     shapes_j = jax.tree.map(lambda a: a.shape, jp)
     assert shapes_t == shapes_j
+
+
+def _walk(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (i,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize('base', [RESNET8_CIFAR, MOBILENET_SMALL_CIFAR],
+                         ids=lambda c: c.name)
+def test_factorize_matches_reference(base):
+    """Both packages split with numpy's SVD on the same weights: the same
+    tree, the same ranks, factors within 1e-6, the same MAC scale.  The
+    stem and MobileNet's depthwise convs stay whole."""
+    p, cfg = _params(base, False)
+    jp, _, jscale = JFamily(JImages()).factorize(
+        jax.tree.map(jnp.asarray, p), cfg, energy=0.6, min_rank=2)
+    tp, _, tscale = CNNFamily(SyntheticImages()).factorize(
+        from_jax_params(p), cfg, energy=0.6, min_rank=2)
+    want, got = dict(_walk(jax.tree.map(np.asarray, jp))), dict(
+        _walk(to_numpy(tp)))
+    assert set(got) == set(want)
+    assert any('u' in k for k in got), 'nothing was factored'
+    assert not any('u' in k for k in got if 'dw' in k or 'stem' in k)
+    for k, a in want.items():
+        assert got[k].shape == a.shape, k
+        np.testing.assert_allclose(got[k], a, rtol=0, atol=1e-6,
+                                   err_msg=str(k))
+    assert tscale == pytest.approx(jscale, rel=1e-12)
+    # the input tree is left as it was
+    assert 'w' in from_jax_params(p)['stages'][0][0][
+        'conv1' if base.kind == 'resnet' else 'expand']
+
+
+@pytest.mark.parametrize('qat', [False, True])
+def test_factored_forward_matches_reference(qat):
+    """The forward over factored {'u', 'v'} convs and a factored head, fp32
+    and QAT, within the dense forward's tolerance."""
+    p, cfg = _params(RESNET8_CIFAR, True)
+    p, cfg, _ = JFamily(JImages()).factorize(
+        jax.tree.map(jnp.asarray, p), cfg, energy=0.6, min_rank=2)
+    p = jax.tree.map(np.asarray, p)
+    if qat:
+        cfg = cfg.replace(w_bits=8, a_bits=8)
+    x = _x()
+    want = np.asarray(jax.jit(lambda p_, x_: jcnn.cnn_forward(p_, cfg, x_))(
+        p, x))
+    got = tcnn.cnn_forward(from_jax_params(p), cfg, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.max(np.abs(want))))

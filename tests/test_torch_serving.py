@@ -154,20 +154,20 @@ def test_segment_launches_account_the_plan(setup):
     way), and the shares add up to the monolithic fn_exits."""
     _, _, x, model = setup
     s = model.summary()
-    assert sum(model.segment_launches) == \
-        s['kernel_launches'] + s['exit_head_launches']
+    assert all(set(seg) == {'quant_matmul'}
+               for seg in model.segment_launches)
+    per_seg = [seg['quant_matmul'] for seg in model.segment_launches]
+    assert sum(per_seg) == s['kernel_launches'] + s['exit_head_launches']
     h = torch.from_numpy(x)
     for k in range(model.n_stages):
         reset_counts()
         out = model.run_stage(k, h)
-        assert counts()['quant_matmul']['plain_calls'] == \
-            model.segment_launches[k]
+        assert counts()['quant_matmul']['plain_calls'] == per_seg[k]
         if k < model.n_stages - 1:
             h = out[1]
     reset_counts()
     model.fn_exits(model.params, torch.from_numpy(x))
-    assert counts()['quant_matmul']['plain_calls'] == \
-        sum(model.segment_launches)
+    assert counts()['quant_matmul']['plain_calls'] == sum(per_seg)
 
 
 def _oracle(model, x, threshold):
@@ -248,9 +248,29 @@ def test_scheduler_empty_trace_and_no_exit_heads(setup):
 
 
 def test_export_refuses_unported_paths(setup):
+    """What is still to be ported raises and names its ROADMAP item: the
+    dynamic-scale export, measure-mode kernel selection and grouped convs
+    with per-group depth > 1; an unknown selection mode is an error."""
     p, cfg, x, _ = setup
+    xt = torch.from_numpy(x)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=None)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=xt,
+                   select_kernels='measure')
+    with pytest.raises(ValueError, match='select_kernels'):
+        export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=xt,
+                   select_kernels='fastest')
+    from repro_torch.configs.cnn import MOBILENET_SMALL_CIFAR
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.data import SyntheticImages
+    mp = CNNFamily(SyntheticImages()).init(torch.Generator().manual_seed(0),
+                                           MOBILENET_SMALL_CIFAR)
+    dw = mp['stages'][0][0]['dw']
+    dw['w'] = dw['w'].repeat(1, 1, 2, 1)          # per-group depth 2
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        export_cnn(mp, MOBILENET_SMALL_CIFAR, device='cpu',
+                   calibrate=xt[:2])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             export_cnn(from_jax_params(p), cfg,
