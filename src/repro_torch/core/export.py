@@ -39,7 +39,8 @@ import torch
 from repro_torch.core.quantization import quantize_params_for_serving
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.depthwise_conv import fits_depthwise
-from repro_torch.kernels.lowrank_conv import fits_fused, lowering_costs
+from repro_torch.kernels.lowrank_conv import (LAUNCH_US, fits_fused,
+                                              lowering_costs)
 from repro_torch.models import cnn as cnn_lib
 
 SELECT_KERNELS = ('model', 'fused', 'measure')
@@ -156,8 +157,10 @@ class LayerPlan:
         }
 
 
-def _select_lowering(m, k1, r, cout, *, fuse_lowrank, select_kernels):
-    """Fused or chained for one factored conv, and why."""
+def _select_lowering(m, k1, r, cout, *, fuse_lowrank, select_kernels,
+                     launch_us=LAUNCH_US):
+    """Fused or chained for one factored conv, and why (``launch_us``: the
+    cost model's per-launch term)."""
     if not fits_fused(r, cout):
         return {'choice': 'chained',
                 'why': f'rank {r} exceeds the fused envelope'}
@@ -166,7 +169,7 @@ def _select_lowering(m, k1, r, cout, *, fuse_lowrank, select_kernels):
                 'why': 'fuse_lowrank=False (forced two-launch A/B)'}
     if select_kernels == 'fused':
         return {'choice': 'fused', 'why': 'select_kernels=fused (forced)'}
-    c = lowering_costs(m, k1, r, cout)
+    c = lowering_costs(m, k1, r, cout, launch_us=launch_us)
     return {'choice': 'fused' if c['fused_us'] <= c['chained_us']
             else 'chained',
             'why': (f"modeled fused {c['fused_us']:.1f}us vs chained "
@@ -175,17 +178,21 @@ def _select_lowering(m, k1, r, cout, *, fuse_lowrank, select_kernels):
 
 
 def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
-                        select_kernels='model') -> LayerPlan:
+                        select_kernels='model', record=None) -> LayerPlan:
     """One calibration forward (the QAT fake-quant math) that records a
     static activation scale at every layer boundary and picks the serving
     kernel per layer: plain, depthwise, or a factored pair fused or
     chained (:func:`_select_lowering`; ``'model'`` prices both with the
     H100 cost model ``lowering_costs`` at the calibration geometry,
-    ``'fused'`` forces one launch, ``fuse_lowrank=False`` forces two)."""
+    ``'fused'`` forces one launch, ``fuse_lowrank=False`` forces two).
+    ``record`` (a list) receives ``(name, key, tensor)`` for every scale in
+    forward order (:func:`calibration_tensors`)."""
     layers, glues = {}, {}
 
-    def amax(v) -> float:
-        return max(float(torch.abs(v).amax()), 1e-8)
+    def scale(name, key, v) -> float:
+        if record is not None:
+            record.append((name, key, v))
+        return max(float(torch.abs(v).amax()), 1e-8) / a_qmax
 
     def conv_fn(p, cx, *, stride=1, quant=(0, 0), groups=1, name=None):
         factored = 'u' in p
@@ -196,15 +203,15 @@ def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
                 f'{name}: a grouped conv with per-group depth > 1 is the '
                 f"reference's declared fp32 fallback, not ported (ROADMAP, "
                 f'queue A: grouped-conv fallback)')
-        e = {'sx': amax(cx) / a_qmax, 'kind': 'conv', 'fallback': False,
+        e = {'sx': scale(name, 'sx', cx), 'kind': 'conv', 'fallback': False,
              'depthwise': depthwise, 'factored': factored, 'fused': False,
              'stride': stride, 'in_shape': tuple(cx.shape), 'groups': groups,
              'w_shape': None if factored else tuple(p['w'].shape)}
         if factored:
             mid = cnn_lib.conv(p['u'], cx, stride=stride, quant=quant,
                                groups=groups)
+            e['h_scale'] = scale(name, 'h_scale', mid)
             y = cnn_lib.conv(p['v'], mid, quant=quant)
-            e['h_scale'] = amax(mid) / a_qmax
             kh, kw, cin, r = p['u']['w'].shape
             cout = p['v']['w'].shape[-1]
             oh, ow = y.shape[1], y.shape[2]
@@ -223,19 +230,19 @@ def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
             e['macs'] = oh * ow * kh * kw * cin * cout
             e['launches'] = 1
         e['kernel'] = (kh, kw)
-        e['out_scale'] = amax(y) / a_qmax
+        e['out_scale'] = scale(name, 'out_scale', y)
         e['out_shape'] = tuple(y.shape)
         layers[name] = e
         return y
 
     def fc_fn(p, cx, *, quant=(0, 0), name=None):
-        e = {'sx': amax(cx) / a_qmax, 'kind': 'fc', 'fallback': False,
+        e = {'sx': scale(name, 'sx', cx), 'kind': 'fc', 'fallback': False,
              'factored': 'u' in p, 'fused': False, 'out_scale': None,
              'in_shape': tuple(cx.shape)}
         if 'u' in p:
             mid = cnn_lib.fc(p['u'], cx, quant=quant)
+            e['h_scale'] = scale(name, 'h_scale', mid)
             y = cnn_lib.fc(p['v'], mid, quant=quant)
-            e['h_scale'] = amax(mid) / a_qmax
             din, r = p['u']['w'].shape
             e['macs'] = r * (din + p['v']['w'].shape[-1])
             e['launches'] = 2
@@ -249,12 +256,67 @@ def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
 
     def glue_fn(np_, y, *, act=None, skip=None, name=None):
         h = cnn_lib.norm_act(np_, y, act=act, skip=skip)
-        glues[name] = amax(h) / a_qmax
+        glues[name] = scale(name, 'glue', h)
         return h
 
     cnn_lib.cnn_forward(params, cfg, x, collect_exits=True, conv_fn=conv_fn,
                         fc_fn=fc_fn, glue_fn=glue_fn)
     return LayerPlan(layers=layers, glues=glues, a_qmax=a_qmax)
+
+
+def calibration_tensors(params, cfg, x) -> list:
+    """The calibration forward's scale sources, in forward order, on the
+    device of ``x``: ``(name, key, fp32 tensor)`` with ``key`` the plan
+    entry the tensor's abs-max sets (a layer's ``'sx'``, ``'h_scale'`` or
+    ``'out_scale'``, or ``'glue'`` for ``plan.glues[name]``).  The ``'sx'``
+    and ``'h_scale'`` tensors are the activations the forward
+    fake-quantizes, so two exports' plans can be compared code by code."""
+    record = []
+    a_qmax = 2.0 ** (_serving_bits(cfg)[1] - 1) - 1.0
+    with _full_fp32(), torch.no_grad():
+        _compile_layer_plan(to_device(params, x.device), cfg, x, a_qmax,
+                            record=record)
+    return record
+
+
+def compare_calibrations(a: list, b: list, a_qmax: float = 127.0) -> dict:
+    """Two calibration forwards of one model on one batch (records of
+    :func:`calibration_tensors`, on any devices), in forward order.
+
+    Returns ``rel``, each scale's relative difference, and ``flip``, the
+    index of the first fake-quantized activation (``'sx'`` or
+    ``'h_scale'``) whose codes differ, or None.  At that activation:
+    ``at`` (name and key), ``codes`` that differ of ``of``, ``step`` the
+    largest code change, and ``tie`` the largest distance of a differing
+    code's x/scale from a rounding tie (k + 0.5), on the nearer side.  The
+    codes are ``fake_quant_act``'s, computed on the CPU: the same IEEE
+    divisions every device runs."""
+    if [r[:2] for r in a] != [r[:2] for r in b]:
+        raise ValueError('the two calibration forwards differ in order')
+
+    def codes(v):
+        s = ref.true_div(torch.clamp_min(v.abs().amax(), 1e-8), a_qmax)
+        t = v / s
+        return torch.clamp(torch.round(t), -a_qmax - 1.0, a_qmax), t
+
+    out = {'rel': [], 'flip': None}
+    for i, ((name, key, u), (_, _, v)) in enumerate(zip(a, b)):
+        u, v = u.detach().cpu(), v.detach().cpu()
+        su = max(float(u.abs().amax()), 1e-8)
+        sv = max(float(v.abs().amax()), 1e-8)
+        out['rel'].append(abs(su - sv) / sv)
+        if out['flip'] is not None or key not in ('sx', 'h_scale'):
+            continue
+        (cu, tu), (cv, tv) = codes(u), codes(v)
+        differ = cu != cv
+        if bool(differ.any()):
+            tie = torch.minimum((tu - torch.floor(tu) - 0.5).abs(),
+                                (tv - torch.floor(tv) - 0.5).abs())[differ]
+            out.update(flip=i, at=f'{name} {key}', codes=int(differ.sum()),
+                       of=differ.numel(),
+                       step=float((cu - cv).abs().max()),
+                       tie=float(tie.max()))
+    return out
 
 
 def layer_kernel_launches(e) -> dict:

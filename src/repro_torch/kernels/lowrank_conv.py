@@ -137,12 +137,13 @@ def _check_operands(patches, u_q, v_q, su, sv, bu, bv):
 
 def lowrank_conv(patches, u_q, v_q, su, sv, bu, bv, *, sx, h_scale,
                  relu=False, out_scale=None, h_qmax=127.0, out_qmax=127.0,
-                 bm=None):
+                 _bm=None):
     """patches int8 (M,K1); u_q int8 (K1,R); v_q int8 (R,N); su/bu fp32
     (R,); sv/bv fp32 (N,) (zeros where a half has no bias); ``sx``,
     ``h_scale`` and ``out_scale`` static Python floats.  Returns fp32
-    (M,N), or int8 when ``out_scale`` is set.  ``bm`` (32 or 64) fixes the
-    kernel's M tile; None picks it from M (:func:`pick_bm`)."""
+    (M,N), or int8 when ``out_scale`` is set.  The kernel's M tile comes
+    from M (:func:`pick_bm`); ``_bm`` (32 or 64) overrides it, for the
+    tile measurement in chip_smoke.py and the tests only."""
     if not patches.is_cuda:
         return lowrank_conv_plain(patches, u_q, v_q, su, sv, bu, bv, sx=sx,
                                   h_scale=h_scale, relu=relu,
@@ -160,9 +161,9 @@ def lowrank_conv(patches, u_q, v_q, su, sv, bu, bv, *, sx, h_scale,
         return out
     if K1 == 0:
         raise ValueError('lowrank_conv: K1 must be positive')
-    bm = pick_bm(M) if bm is None else bm
+    bm = pick_bm(M) if _bm is None else _bm
     if bm not in (32, 64):
-        raise ValueError(f'lowrank_conv: bm must be 32 or 64, got {bm}')
+        raise ValueError(f'lowrank_conv: _bm must be 32 or 64, got {bm}')
     rc = _launcher()(
         patches.data_ptr(), u_q.data_ptr(), v_q.data_ptr(), su.data_ptr(),
         bu.data_ptr(), sv.data_ptr(), bv.data_ptr(), out.data_ptr(),

@@ -98,7 +98,7 @@ def test_lowrank_conv_kernel_bit_exact(cuda_device, mkrn, bm):
     for kw in (dict(), dict(relu=True, out_scale=0.37)):
         reset_counts()
         got = lowrank_conv(x, u, v, su, sv, bu, bv, sx=0.05, h_scale=0.9,
-                           bm=bm, **kw)
+                           _bm=bm, **kw)
         assert counts()['lowrank_conv'] == {'launches': 1, 'plain_calls': 0}
         want = lowrank_conv_plain(x, u, v, su, sv, bu, bv, sx=0.05,
                                   h_scale=0.9, **kw)
