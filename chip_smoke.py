@@ -23,8 +23,15 @@ Phases, in order; any failure exits non-zero and no result is printed:
    torch epilogue) and the bound: bytes once in and once out at 3.35 TB/s
    against the operations at the card's peak.  The launch term of the
    low-rank cost model is measured here: one wrapper call at the head
-   shape.
-3. End to end, three paths, each at full width and depth with random
+   shape.  Then ``decode_attention`` and ``decode_attention_int8`` at
+   tinyllama-1.1b's heads (H 32, K 4, D 64): B 1 and 8, S 584 (the served
+   cache) and 2048, a valid prefix and a case with a hole; fp32, bf16 and
+   an int8 cache under bf16 q, each within ``DECODE_TOL`` x max|plain|
+   (fp32 1e-5; bf16 output 8e-3, about one bf16 ulp), the yardstick
+   ``F.scaled_dot_product_attention(enable_gqa=True)`` on the same masked
+   cache (dequantized first for int8), the bound the valid slots' k/v
+   (and scale) bytes plus q and the output once at 3.35 TB/s.
+3. End to end, three CNN paths, each at full width and depth with random
    weights from seed 0, exit heads at the default stages, W8A8,
    ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
    threshold calibrated, and 256 Poisson requests served through
@@ -44,6 +51,19 @@ Phases, in order; any failure exits non-zero and no result is printed:
    differs, which must lie at a rounding tie, and within ``SCALE_RTOL``
    after it); and the served logits agree with the port's plain CPU path
    on a small batch, on the same static scales, within 4e-2 x max|logit|.
+   Then two LM decode paths through the functions ``launch/serve.py``
+   uses, ``tinyllama-1.1b`` at full width and depth, random weights from a
+   CUDA generator seeded 0, batch 8, prompt 512, 64 greedy decode tokens,
+   after a warm-up: (d) bf16 weights and cache on ``decode_attention``;
+   (e) ``export_lm`` int8 weights and ``kv_cache_bits=8`` on
+   ``decode_attention_int8``.  Counted from zero: the path's kernel
+   launches 22 x 64 times, the other decode kernel and the plain versions
+   never.  Printed: prefill ms, ms/token, tokens/s, peak memory, and under
+   the profiler 8 more steps' device busy share and the kernel's share of
+   device time.  Gates: the first-step logits within ``LM_PLAIN_TOL`` x
+   max|logit| of the same model on the kernels' plain versions on the
+   card; a 2-layer fp32 cut of the config (batch 2, prompt 32, 4 steps,
+   TF32 off) within ``LM_CPU_TOL`` of the port's CPU path.
 4. Every kernel call of one full-depth 32-slot pass of each path, held
    bit for bit against its plain version on the card at its own shapes
    and timed (``fake_quant_fused``: each path's head and exit weights).
@@ -52,13 +72,17 @@ Phases, in order; any failure exits non-zero and no result is printed:
    (a); ``depthwise_conv``: path (b); ``lowrank_conv`` and
    ``fake_quant_fused``, whose factored head adds a weight: path (c)),
    every path's pass under ``by_path``, and
-   its launches over the three paths' runs.
+   its launches over the three paths' runs.  Then every decode-attention
+   call of one decode step of (d) and (e), 22 each, held against its
+   plain version within ``DECODE_TOL`` and timed; the line adds both
+   decode kernels, summed over that step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 This script imports no JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -90,6 +114,25 @@ SCALE_RTOL_EXACT = 1e-5
 TIE_TOL = 1e-4
 SCALE_RTOL = 5e-2
 LOWRANK = dict(energy=0.6, min_rank=2)
+# LM decode serving (paths d and e): tinyllama-1.1b at full width and depth,
+# random weights from a CUDA generator seeded SEED, batch 8, prompt 512, 64
+# greedy decode tokens, a cache of 512 + 64 + 8 slots
+LM_ARCH = 'tinyllama-1.1b'
+LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 512, 64
+LM_PROFILE_STEPS = 8           # the cache's 8 spare slots, under the profiler
+LM_PATHS = (
+    dict(key='tinyllama-bf16', int8_weights=False, kv_cache_bits=0,
+         kernel='decode_attention', other='decode_attention_int8'),
+    dict(key='tinyllama-int8', int8_weights=True, kv_cache_bits=8,
+         kernel='decode_attention_int8', other='decode_attention'),
+)
+# Decode attention against its plain version, max|kernel - plain| over
+# max|plain|: fp32 sums in another order; a bf16 output within about one
+# bf16 ulp (the int8-KV path serves bf16 q and output)
+DECODE_TOL = {'fp32': 1e-5, 'bf16': 8e-3, 'int8': 8e-3}
+LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
+LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
+LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
 PATHS = (
     dict(key='resnet34', config='resnet34-cifar', factorize=False,
          kernels=('quant_matmul', 'fake_quant_fused')),
@@ -203,12 +246,15 @@ def phase_build():
     for name, i in info.items():
         print(f"[build] {name}: {'built' if i['built'] else 'cached'} "
               f"-> {os.path.relpath(i['path'], HERE)}")
-        for line in i['log'].splitlines():
+        fn, spill = '?', ''
+        for line in i['log'].splitlines():       # one line per kernel
             if 'Compiling entry' in line:
-                print('[build]   ' + re.sub(r".*function '([^']+)'.*", r'\1',
-                                            line))
-            elif 'registers' in line or 'spill' in line:
-                print('[build]     ' + line.strip())
+                fn = re.sub(r".*function '([^']+)'.*", r'\1', line)
+            elif 'spill stores' in line:
+                spill = line.strip()
+            elif 'registers' in line:
+                regs = re.sub(r'.*Used (\d+) registers.*', r'\1', line)
+                print(f'[build]   {fn}: {regs} registers; {spill}')
         if re.search(r'[1-9]\d* bytes spill stores', i['log']):
             print(f'[build] WARNING: {name} spills registers')
     print(f'[build] {len(info)} CUDA source(s) in {secs:.2f} s')
@@ -509,6 +555,122 @@ def phase_kernels(torch, factored):
     return launch_us
 
 
+def da_inputs(torch, g, B, S, kind, valid_len, hole=False, H=32, K=4, D=64):
+    """Decode-attention operands at tinyllama's head shapes: ``kind`` fp32,
+    bf16 (q, k, v in that type) or int8 (bf16 q, an int8 cache with fp32
+    scales from ``kv_quantize``).  Returns (args, valid)."""
+    from repro_torch.models.attention import kv_quantize
+    q = torch.randn((B, H, D), generator=g, device='cuda')
+    k = torch.randn((B, S, K, D), generator=g, device='cuda')
+    v = torch.randn((B, S, K, D), generator=g, device='cuda')
+    valid = torch.arange(S, device='cuda') < valid_len
+    if hole:
+        valid[S // 3:S // 3 + 16] = False
+    if kind == 'int8':
+        kq, ks = kv_quantize(k)
+        vq, vs = kv_quantize(v)
+        return (q.to(torch.bfloat16), kq, vq, ks, vs), valid
+    dt = torch.float32 if kind == 'fp32' else torch.bfloat16
+    return (q.to(dt), k.to(dt), v.to(dt)), valid
+
+
+def da_library(torch, args, valid):
+    """The yardstick the port never calls: ``F.scaled_dot_product_attention
+    (enable_gqa=True)`` on the same masked cache (the int8 cache
+    dequantized first, inside the call)."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import kv_dequantize
+    q = args[0]
+    mask = valid[None, None, None, :]
+
+    def call():
+        if len(args) == 5:
+            k = kv_dequantize(args[1], args[3], q.dtype)
+            v = kv_dequantize(args[2], args[4], q.dtype)
+        else:
+            k, v = args[1], args[2]
+        o = F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        return o[:, :, 0, :]
+    return call
+
+
+def da_case(torch, args, valid, kind, iters=20):
+    """Decode-attention kernel vs its plain version on one call: the error
+    relative to max|plain| against DECODE_TOL, and times.  Bound: the k/v
+    rows of the valid slots (and their scales), q, the mask and the output
+    once at 3.35 TB/s, against 4*B*H*D flops a valid slot at the card's
+    fp32 rate."""
+    from repro_torch.kernels import decode_attention as da
+    int8 = len(args) == 5
+    fn = da.decode_attention_int8 if int8 else da.decode_attention
+    plain = da.decode_attention_int8_plain if int8 else \
+        da.decode_attention_plain
+    got = fn(*args, valid)
+    want = plain(*args, valid)
+    lib = da_library(torch, args, valid)
+    lib_out = lib()
+    torch.cuda.synchronize()
+    q = args[0]
+    B, H, D = q.shape
+    S, K = args[1].shape[1], args[1].shape[2]
+    n_valid = int(valid.sum())
+    kv_bytes = B * n_valid * K * (2 * D * args[1].element_size()
+                                  + (8 if int8 else 0))
+    nbytes = kv_bytes + 2 * q.numel() * q.element_size() + S
+    b_ms, b_by = bound(nbytes, 4 * B * H * D * n_valid, FP32_OPS_PER_S)
+    scale = float(want.float().abs().max())
+    err = max_err(torch, got, want)
+    call = lambda: fn(*args, valid)  # noqa: E731
+    return {'shape': (B, H, K, D, S), 'kind': kind, 'n_valid': n_valid,
+            'max_abs_err': err, 'rel_err': err / scale,
+            'within': err <= DECODE_TOL[kind] * scale,
+            'library_rel_err': max_err(torch, lib_out, want) / scale,
+            'call': call, 'ms': time_ms(torch, call, iters),
+            'plain_ms': time_ms(torch, lambda: plain(*args, valid), iters),
+            'library_ms': time_ms(torch, lib, iters),
+            'bound_ms': b_ms, 'bound_by': b_by}
+
+
+def fmt_da_case(name, c):
+    dev = c.get('device_ms')
+    return (f"[kernel] {name} {c['kind']} (B,H,K,D,S)={c['shape']} "
+            f"valid={c['n_valid']}: rel_err={c['rel_err']:.3e} (limit "
+            f"{DECODE_TOL[c['kind']]:g}) ms={c['ms']:.4f}"
+            + ('' if 'device_ms' not in c else ' device_ms=' + (
+                'not measured' if dev is None else f'{dev:.4f}'))
+            + f" plain_ms={c['plain_ms']:.4f} library_ms="
+              f"{c['library_ms']:.4f} (library rel_err "
+              f"{c['library_rel_err']:.2e}) bound_ms={c['bound_ms']:.5f} "
+              f"({c['bound_by']})")
+
+
+def need_within(c, name):
+    if not c['within']:
+        fail(f"{name} disagrees with its plain version at {c['shape']} "
+             f"({c['kind']}): rel_err {c['rel_err']:.3e}")
+
+
+def phase_decode_kernels(torch):
+    """Both decode-attention kernels against their plain versions at
+    tinyllama's shapes: B 1 and 8, S 584 (the served cache) and 2048, a
+    valid prefix, and a case with a hole; fp32, bf16 and int8-KV."""
+    g = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    for kind in ('fp32', 'bf16', 'int8'):
+        for B, S in ((1, 584), (8, 584), (8, 2048)):
+            for hole in ((False, True) if (B, S) == (8, 584) else (False,)):
+                args, valid = da_inputs(torch, g, B, S, kind,
+                                        valid_len=S * 7 // 8, hole=hole)
+                c = da_case(torch, args, valid, kind)
+                c['device_ms'] = device_ms(torch, [c['call']],
+                                           'decode_kernel')
+                name = 'decode_attention_int8' if kind == 'int8' else \
+                    'decode_attention'
+                print(fmt_da_case(name + ('[hole]' if hole else ''), c))
+                need_within(c, name)
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -757,6 +919,249 @@ def serve_path(torch, spec, launch_us):
         calib_cmp
 
 
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Serve with the decode kernels' plain versions in place of the
+    kernels (models/attention.py calls them through kernels.ops); for the
+    comparison only, never on a counted path."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    saved = ops.decode_attention, ops.decode_attention_int8
+    ops.decode_attention = da.decode_attention_plain
+    ops.decode_attention_int8 = da.decode_attention_int8_plain
+    try:
+        yield
+    finally:
+        ops.decode_attention, ops.decode_attention_int8 = saved
+
+
+def check_lm_against_cpu(torch, tag, spec):
+    """A 2-layer cut of the full-width config in fp32 (weights from the same
+    CUDA generator, int8-exported on the card for path e) against the port's
+    CPU path on the same weights: prefill and LM_CUT['tokens'] decode steps,
+    both fed the CPU's greedy tokens, every step's logits within LM_CPU_TOL
+    x max|logit|, TF32 off."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.export import to_device
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.launch import serve
+    cfg = get_config(LM_ARCH).replace(num_layers=LM_CUT['layers'],
+                                      dtype='float32',
+                                      kv_cache_bits=spec['kv_cache_bits'])
+    model, params = serve.build(cfg, 'cuda', seed=SEED,
+                                int8_weights=spec['int8_weights'])
+    prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
+        torch.Generator().manual_seed(SEED + 2), LM_CUT['batch'],
+        LM_CUT['prompt'])['tokens']
+    max_len = LM_CUT['prompt'] + LM_CUT['tokens'] + 8
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        feed = None
+        for dev, p in (('cpu', to_device(params, 'cpu')), ('cuda', params)):
+            reset_counts()
+            with torch.inference_mode():
+                logits, cache = model.prefill(p, {'tokens': prompt.to(dev)},
+                                              max_len=max_len)
+                out = [logits.cpu()]
+                tok = torch.zeros((LM_CUT['batch'],), dtype=torch.int64,
+                                  device=dev)
+                for t in range(LM_CUT['tokens']):
+                    if feed is not None:
+                        tok = feed[t].to(dev)
+                    logits, cache = model.decode_step(
+                        p, tok, LM_CUT['prompt'] + t, cache)
+                    out.append(logits.cpu())
+                    tok = torch.argmax(logits, -1)
+            runs[dev] = (out, counts()[spec['kernel']])
+            if feed is None:
+                feed = [torch.zeros(LM_CUT['batch'], dtype=torch.int64)] + \
+                    [torch.argmax(lg, -1) for lg in out[1:-1]]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    n_steps = LM_CUT['tokens']
+    if runs['cuda'][1] != {'launches': LM_CUT['layers'] * n_steps,
+                           'plain_calls': 0} or \
+            runs['cpu'][1] != {'launches': 0,
+                               'plain_calls': LM_CUT['layers'] * n_steps}:
+        fail(f"{spec['key']}: the 2-layer cut ran {runs['cuda'][1]} on the "
+             f"card and {runs['cpu'][1]} on the CPU")
+    worst = 0.0
+    for a, b in zip(runs['cuda'][0], runs['cpu'][0]):
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    print(f"{tag} 2-layer fp32 cut (batch {LM_CUT['batch']}, prompt "
+          f"{LM_CUT['prompt']}, {n_steps} decode steps), card vs CPU plain "
+          f"path: max |diff| / max |logit| over prefill and every step "
+          f"{worst:.3e} (limit {LM_CPU_TOL:g})")
+    if worst > LM_CPU_TOL:
+        fail(f"{spec['key']}: the card disagrees with the CPU on the 2-layer "
+             f"cut")
+    return worst
+
+
+def serve_lm_path(torch, spec):
+    """Path (d) or (e): tinyllama-1.1b at full width and depth through the
+    functions launch/serve.py uses, counted from zero.  Returns (the
+    launches of every kernel in the counted run, the 22 decode-attention
+    calls of one more step for phase 4, readings)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import param_count
+
+    tag = f"[serve:{spec['key']}]"
+    cfg = get_config(LM_ARCH).replace(kv_cache_bits=spec['kv_cache_bits'])
+    t0 = time.perf_counter()
+    model, params = serve.build(cfg, 'cuda', seed=SEED,
+                                int8_weights=spec['int8_weights'])
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    print(f"{tag} {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {param_count(params) / 1e9:.3f} G parameters, "
+          f"{weight_bytes / 1e9:.3f} GB of weights "
+          f"({'int8 export_lm' if spec['int8_weights'] else 'bf16'}), "
+          f"kv_cache_bits {cfg.kv_cache_bits}; built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
+        torch.Generator().manual_seed(SEED + 1), LM_BATCH, LM_PROMPT,
+        'cuda')['tokens']
+    max_len = LM_PROMPT + LM_TOKENS + 8
+    zeros = torch.zeros((LM_BATCH,), dtype=torch.int64, device='cuda')
+    # warm-up (cuBLAS handles and plans, the allocator): a prefill and two
+    # steps on a cache of their own, before the count starts
+    _, warm = serve.prefill_step(model, params, prompt, max_len=max_len)
+    serve.decode(model, params, warm, zeros, pos0=LM_PROMPT, tokens=2)
+    del warm
+    torch.cuda.synchronize()
+
+    # ---- the path, counted from zero
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _, cache = serve.prefill_step(model, params, prompt, max_len=max_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = serve.decode(model, params, cache, zeros, pos0=LM_PROMPT,
+                        tokens=LM_TOKENS)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    after = counts()
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    print(f"{tag} prefill of {LM_BATCH} x {LM_PROMPT} tokens "
+          f"{t_prefill * 1e3:.3f} ms; {LM_TOKENS} greedy decode steps "
+          f"{t_decode * 1e3:.3f} ms: {t_decode / LM_TOKENS * 1e3:.3f} "
+          f"ms/token, {LM_BATCH * LM_TOKENS / t_decode:.1f} tokens/s at "
+          f"batch {LM_BATCH}; cache {cache_bytes / 2 ** 20:.1f} MiB "
+          f"({max_len} slots); peak memory {peak / 2 ** 20:.1f} MiB, "
+          f"{(peak - base) / 2 ** 20:.1f} MiB above the weights")
+    if tuple(toks.shape) != (LM_TOKENS, LM_BATCH) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{spec['key']}: the decoded tokens are malformed")
+    want = cfg.num_layers * LM_TOKENS
+    for name in (spec['kernel'], spec['other']):
+        print(f"{tag} {name}: {after[name]['launches']} launches, "
+              f"{after[name]['plain_calls']} plain calls")
+    if after[spec['kernel']]['launches'] != want:
+        fail(f"{spec['key']}: {spec['kernel']} launched "
+             f"{after[spec['kernel']]['launches']} times, want {want} "
+             f"({cfg.num_layers} layers x {LM_TOKENS} steps)")
+    if after[spec['other']]['launches']:
+        fail(f"{spec['key']}: {spec['other']} ran on this path")
+    plain = sum(c['plain_calls'] for c in after.values())
+    if plain:
+        fail(f"{spec['key']}: the plain versions ran {plain} times")
+
+    # where the time goes: the cache's spare slots, under the profiler
+    def more_steps():
+        serve.decode(model, params, cache, zeros,
+                     pos0=LM_PROMPT + LM_TOKENS, tokens=LM_PROFILE_STEPS)
+    wall, busy, top = profile_device(torch, more_steps)
+    if busy is None:
+        print(f'{tag} profile: {LM_PROFILE_STEPS} steps in {wall:.3f} ms '
+              f'wall; device time not measured (the profiler recorded no '
+              f'device activity)')
+    else:
+        kern = sum(ms for ms, _, name in top if 'decode_kernel' in name)
+        print(f'{tag} profile: {LM_PROFILE_STEPS} decode steps in '
+              f'{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} ms/token '
+              f'profiled), device kernels {busy:.3f} ms: device busy '
+              f'{busy / wall:.1%}; the decode-attention kernel {kern:.3f} '
+              f'ms, {kern / busy:.1%} of device time')
+        for ms, n, name in top[:8]:
+            print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+
+    # the first step's logits against the same model served with the
+    # plain decode attention on the card (the kernels' plain versions in
+    # their place), and beside it the reference's decode math
+    _, fresh = serve.prefill_step(model, params, prompt, max_len=max_len)
+    twins = [clone_tree(fresh), clone_tree(fresh)]
+    with torch.inference_mode():
+        lg_k, _ = model.decode_step(params, zeros, LM_PROMPT, fresh)
+        with plain_decode_attention():
+            lg_p, _ = model.decode_step(params, zeros, LM_PROMPT, twins[0])
+        lg_r, _ = model.decode_step(
+            params, zeros, LM_PROMPT, twins[1],
+            ctx={'decode_attn': attn.decode_attn_reference})
+    del twins
+    if tuple(lg_k.shape) != (LM_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(lg_k).all()):
+        fail(f"{spec['key']}: first-step logits malformed")
+    scale = float(lg_p.float().abs().max())
+    diff = max_err(torch, lg_k, lg_p)
+    agree = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
+    print(f'{tag} first-step logits, decode kernel vs the plain decode '
+          f'attention on the card: max |diff| {diff:.3e} (max |logit| '
+          f'{scale:.3e}, limit {LM_PLAIN_TOL:g} x that); greedy tokens agree '
+          f'on {agree:.0%} of the batch; against decode_attn_reference '
+          f'(q scaled in bf16, bf16 probabilities): max |diff| '
+          f'{max_err(torch, lg_k, lg_r):.3e}')
+    if diff > LM_PLAIN_TOL * scale:
+        fail(f"{spec['key']}: the kernel path disagrees with the plain "
+             f"decode attention")
+
+    # every decode-attention call of one more step, for phase 4
+    calls = []
+
+    def capture(q, nk, nv, c, cur, **kw):
+        out, c = attn.decode_attn_kernel(q, nk, nv, c, cur, **kw)
+        calls.append((q, c, attn._valid(c['meta']['pos'], int(cur), 0)))
+        return out, c
+    with torch.inference_mode():
+        model.decode_step(params, zeros, LM_PROMPT + 1, fresh,
+                          ctx={'decode_attn': capture})
+    cpu_err = check_lm_against_cpu(torch, tag, spec)
+    return {k: v['launches'] for k, v in after.items()}, calls, {
+        'prefill_ms': t_prefill * 1e3,
+        'ms_per_token': t_decode / LM_TOKENS * 1e3,
+        'tokens_per_s': LM_BATCH * LM_TOKENS / t_decode,
+        'peak_mib': peak / 2 ** 20, 'plain_diff': diff, 'cpu_err': cpu_err}
+
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -928,6 +1333,69 @@ def phase_report(torch, served, launches):
     return out
 
 
+LM_KERNEL_META = {   # name: (route, source, the TPU kernel it replaces)
+    'decode_attention': ('cuda', 'src/repro_torch/kernels/csrc/'
+                         'decode_attention.cu',
+                         'src/repro/kernels/decode_attention.py:147'),
+    'decode_attention_int8': ('cuda', 'src/repro_torch/kernels/csrc/'
+                              'decode_attention.cu',
+                              'src/repro/kernels/decode_attention.py:115'),
+}
+
+
+def lm_report(torch, lm_calls, lm_launches):
+    """Hold every decode-attention call of one decode step of each LM path
+    (22 each) against its plain version at DECODE_TOL and time them;
+    ``lm_calls`` maps a path key to its (kernel, captured calls)."""
+    per_path = {}
+    for key, (name, calls) in lm_calls.items():
+        cs = []
+        for q, c, valid in calls:
+            args = (q, c['k'], c['v'], c['k_s'], c['v_s']) if 'k_s' in c \
+                else (q, c['k'], c['v'])
+            kind = 'int8' if 'k_s' in c else (
+                'bf16' if q.dtype == torch.bfloat16 else 'fp32')
+            cs.append(da_case(torch, args, valid, kind, iters=10))
+        for i, c in enumerate(cs):
+            print(fmt_da_case(f'{name}[{key}, layer {i}]', c))
+            need_within(c, name)
+        per_path[key] = (name, cs)
+    out = []
+    for name, (route, source, replaces) in LM_KERNEL_META.items():
+        paths = {k: cs for k, (n, cs) in per_path.items() if n == name}
+        if not paths:
+            fail(f'{name}: no call on any path')
+        top = max(paths, key=lambda k: len(paths[k]))
+        cs = paths[top]
+        out.append({
+            'name': name, 'route': route, 'source': source,
+            'replaces': replaces,
+            'launches': sum(v[name] for v in lm_launches.values()),
+            'max_abs_err': max(c['max_abs_err'] for v in paths.values()
+                               for c in v),
+            'ms': sum(c['ms'] for c in cs),
+            'plain_ms': sum(c['plain_ms'] for c in cs),
+            'bound_ms': sum(c['bound_ms'] for c in cs),
+            'bound_by': max(('bytes', 'operations'), key=lambda b: sum(
+                c['bound_ms'] for c in cs if c['bound_by'] == b)),
+            'library_ms': sum(c['library_ms'] for c in cs),
+            'device_ms': device_ms(torch, [c['call'] for c in cs],
+                                   'decode_kernel', iters=5),
+            'max_rel_err': max(c['rel_err'] for v in paths.values()
+                               for c in v),
+            'pass_of': top, 'calls_per_pass': len(cs),
+            'launches_by_path': {k: v[name] for k, v in lm_launches.items()},
+            'by_path': {k: {'calls_per_pass': len(v),
+                            'within': all(c['within'] for c in v),
+                            'ms': sum(c['ms'] for c in v),
+                            'plain_ms': sum(c['plain_ms'] for c in v),
+                            'bound_ms': sum(c['bound_ms'] for c in v),
+                            'library_ms': sum(c['library_ms'] for c in v)}
+                        for k, v in paths.items()}})
+    return out
+
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -945,7 +1413,9 @@ def main():
           f'{torch.cuda.device_count()}')
     phase_build()
     print(f'[time] build done at {time.perf_counter() - t_start:.1f} s')
+    torch.backends.cuda.matmul.allow_tf32 = False
     launch_us = phase_kernels(torch, path_model(torch, PATHS[2])[1])
+    phase_decode_kernels(torch)
     print(f'[time] kernels done at {time.perf_counter() - t_start:.1f} s')
     served, launches = {}, {}
     for spec in PATHS:
@@ -954,7 +1424,15 @@ def main():
         launches[spec['key']] = counted
         print(f"[time] path {spec['key']} done at "
               f"{time.perf_counter() - t_start:.1f} s")
-    kernels = phase_report(torch, served, launches)
+    lm_calls, lm_launches = {}, {}
+    for spec in LM_PATHS:
+        counted, calls, _ = serve_lm_path(torch, spec)
+        lm_calls[spec['key']] = (spec['kernel'], calls)
+        lm_launches[spec['key']] = counted
+        print(f"[time] path {spec['key']} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+    kernels = phase_report(torch, served, launches) + \
+        lm_report(torch, lm_calls, lm_launches)
     print(f'[done] {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

@@ -27,6 +27,8 @@ that names its ROADMAP item: the dynamic-scale path (``calibrate=None``),
 measure-mode kernel selection (``select_kernels='measure'``), grouped
 convs with per-group depth > 1 (the reference's declared fp32 fallback,
 which no configuration has) and the static analyzer.
+
+:func:`export_lm` is the LM family's int8 weight export.
 """
 from __future__ import annotations
 
@@ -633,3 +635,27 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
                         plan=plan, stage_fns=stage_fns,
                         stage_exits=stage_exits,
                         segment_launches=seg_launches, device=device)
+
+
+# ------------------------------------------------------------------ LM export
+
+
+def export_lm(params, cfg) -> ServingModel:
+    """Int8 export for the LM family, on the device the params are on:
+    every matmul weight (2-D, and the scan-stacked ``(G, d, f)`` ones)
+    becomes ``{'w_q', 'scale'}`` through ``quantize_params_for_serving``,
+    which ``layers.dense`` consumes (dequantized before its product, as in
+    the reference).  Embedding tables and norms stay as they are.
+    ``fn(params, tokens)`` is the full-sequence forward; serving decodes
+    with ``launch/serve.py``."""
+    from repro_torch.models import transformer as tfm
+    w_bits, _ = _serving_bits(cfg)
+    with torch.no_grad():
+        qparams = quantize_params_for_serving(params, bits=w_bits)
+
+    @torch.inference_mode()
+    def fn(p, tokens):
+        return tfm.forward(p, cfg, tokens)
+
+    return ServingModel(cfg=cfg, params=qparams, fn=fn,
+                        device=params['embed']['table'].device)

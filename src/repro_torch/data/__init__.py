@@ -1,1 +1,2 @@
-from repro_torch.data.synthetic import SyntheticImages  # noqa: F401
+from repro_torch.data.synthetic import (SyntheticImages,  # noqa: F401
+                                       SyntheticTokens)

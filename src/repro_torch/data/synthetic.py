@@ -1,9 +1,12 @@
-"""Synthetic-but-learnable image data (no CIFAR offline).
+"""Synthetic-but-learnable datasets (no CIFAR offline).
 
-Class-conditional smooth templates + jitter + noise.  The templates come
-from the same numpy generator as the reference's, so they match it
-exactly; batches are drawn from a ``torch.Generator`` and so differ from
-the reference's ``jax.random`` batches (tests share arrays, not seeds).
+* Images: class-conditional smooth templates + jitter + noise.
+* Tokens: a Zipf-unigram + deterministic-bigram language.
+
+The templates, the unigram and the bigram rules come from the same numpy
+generator as the reference's, so they match it exactly; batches are drawn
+from a ``torch.Generator`` and so differ from the reference's
+``jax.random`` batches (tests share arrays, not seeds).
 """
 from __future__ import annotations
 
@@ -46,3 +49,32 @@ class SyntheticImages:
         noise = torch.randn(base.shape, generator=gen) * self.difficulty
         scale = 1.0 + 0.1 * torch.randn((n, 1, 1, 1), generator=gen)
         return (base * scale + noise).to(device), y.to(device)
+
+
+@dataclass
+class SyntheticTokens:
+    vocab: int
+    seed: int = 0
+    n_rules: int = 64            # deterministic bigram successor rules
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        ranks = np.arange(1, self.vocab + 1)
+        p = 1.0 / ranks
+        self.unigram = torch.from_numpy((p / p.sum()).astype(np.float32))
+        self.rule_src = torch.from_numpy(
+            rng.choice(self.vocab, self.n_rules, replace=False))
+        self.rule_dst = torch.from_numpy(rng.choice(self.vocab, self.n_rules))
+
+    def batch(self, gen: torch.Generator, n: int, seq: int, device='cpu'):
+        """{'tokens', 'labels'} (n, seq) int64 drawn from the CPU generator
+        ``gen``, placed on ``device``: Zipf tokens, then every token that
+        follows a rule source becomes that rule's destination."""
+        toks = torch.multinomial(self.unigram, n * (seq + 1),
+                                 replacement=True, generator=gen)
+        toks = toks.reshape(n, seq + 1)
+        match = toks[:, :-1, None] == self.rule_src[None, None, :]
+        dst = (match.to(torch.int64) * self.rule_dst).sum(-1)
+        toks[:, 1:] = torch.where(match.any(-1), dst, toks[:, 1:])
+        return {'tokens': toks[:, :-1].to(device),
+                'labels': toks[:, 1:].to(device)}

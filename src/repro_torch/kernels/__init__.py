@@ -19,6 +19,14 @@ Kernel                 Replaces (src/repro/kernels/)
 ``csrc/``)             intermediate requantized to int8 in shared memory;
                        serves the factored layers inside the fused
                        envelope
+``decode_attention``   ``decode_attention.py`` ``_decode_kernel``: one-token
+(CUDA C++,             GQA flash-decode over a bf16/fp32 (B,S,K,D) cache
+``csrc/``)             with a ``valid`` mask; serves every layer of every
+                       LM decode step
+``decode_attention_    ``decode_attention.py`` ``_decode_kernel_int8``: the
+int8`` (CUDA C++,      same over an int8 cache with fp32 scales per
+``csrc/``)             (token, kv head), dequantized in the kernel
+                       (``kv_cache_bits=8``)
 =====================  ====================================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
@@ -31,8 +39,8 @@ from __future__ import annotations
 
 def _wrappers() -> dict:
     """``{kernel: (wrapper, plain version)}`` for every ported kernel."""
-    from repro_torch.kernels import (depthwise_conv, fake_quant,
-                                     lowrank_conv, quant_matmul)
+    from repro_torch.kernels import (decode_attention, depthwise_conv,
+                                     fake_quant, lowrank_conv, quant_matmul)
     return {'quant_matmul': (quant_matmul.quant_matmul,
                              quant_matmul.quant_matmul_plain),
             'fake_quant_fused': (fake_quant.fake_quant_fused,
@@ -40,7 +48,12 @@ def _wrappers() -> dict:
             'depthwise_conv': (depthwise_conv.depthwise_conv,
                                depthwise_conv.depthwise_conv_plain),
             'lowrank_conv': (lowrank_conv.lowrank_conv,
-                             lowrank_conv.lowrank_conv_plain)}
+                             lowrank_conv.lowrank_conv_plain),
+            'decode_attention': (decode_attention.decode_attention,
+                                 decode_attention.decode_attention_plain),
+            'decode_attention_int8': (
+                decode_attention.decode_attention_int8,
+                decode_attention.decode_attention_int8_plain)}
 
 
 def counts() -> dict:

@@ -1,0 +1,168 @@
+"""One-token GQA decode attention: the hand-written CUDA kernels
+(``csrc/decode_attention.cu``), their wrappers and their plain versions.
+
+Replaces the reference's Pallas ``decode_attention`` / ``_decode_kernel``
+and ``decode_attention_int8`` / ``_decode_kernel_int8``
+(src/repro/kernels/decode_attention.py): the g = H / K query heads of each
+kv head attend to a (B, S, K, D) cache under a ``valid`` (S,) mask, with
+q cast to fp32 and scaled by ``D**-0.5``, fp32 logits, -1e30 for a masked
+slot, an fp32 softmax and ``acc / max(l, 1e-30)`` cast to q's dtype.  The
+int8 variant reads int8 k/v and dequantizes each element as
+``code * scale[b, s, kh]`` in fp32.  The reference transposes the cache
+to (B, K, S, D) and fits its S tile to a divisor of S; the CUDA kernel
+reads the (B, S, K, D) layout in place and masks a ragged last tile.
+
+:func:`decode_attention` and :func:`decode_attention_int8` launch their
+kernel for CUDA tensors and run :func:`decode_attention_plain` /
+:func:`decode_attention_int8_plain` for CPU tensors; ``.launches`` on each
+wrapper and ``.calls`` on each plain version count which ran.  The plain
+versions compute in the kernel's op order with a one-pass softmax (the
+kernel's online softmax gives the same function up to fp32 rounding).
+A row with no valid slot comes out as the mean of v over all S slots,
+as on the TPU; ``models.attention.decode_attn_reference`` gives zeros
+there instead.  No decode step makes such a row: the token just written
+is always valid.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)     # head_dim the kernel is instantiated for
+MAX_GROUP = 16                # largest query group H / K it takes
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_INT8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_LAUNCH = {}         # the bound C entry points, set up on first launch
+
+
+def _launcher(name, argtypes):
+    fn = _LAUNCH.get(name)
+    if fn is None:
+        fn = getattr(_build.load('decode_attention'), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _LAUNCH[name] = fn
+    return fn
+
+
+def _scale(D: int) -> float:
+    """``D**-0.5`` as the fp32 multiplier the kernels apply."""
+    return float(np.float32(D ** -0.5))
+
+
+def _attend_plain(q, kf, vf, valid):
+    """The kernels' function on fp32 k/v already dequantized: q (B,H,D),
+    kf/vf (B,S,K,D) fp32, valid (S,) bool; returns (B,H,D) in q's dtype."""
+    B, H, D = q.shape
+    K = kf.shape[2]
+    qg = q.to(torch.float32).reshape(B, K, H // K, D) * _scale(D)
+    logits = torch.einsum('bkgd,bskd->bkgs', qg, kf)
+    logits = torch.where(valid[None, None, None, :], logits,
+                         torch.full((), NEG_INF, device=logits.device))
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum('bkgs,bskd->bkgd', p, vf)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_plain(q, k, v, valid):
+    """The bf16/fp32-cache kernel's function in plain PyTorch."""
+    decode_attention_plain.calls += 1
+    return _attend_plain(q, k.to(torch.float32), v.to(torch.float32), valid)
+
+
+decode_attention_plain.calls = 0
+
+
+def decode_attention_int8_plain(q, k_q, v_q, k_s, v_s, valid):
+    """The int8-cache kernel's function in plain PyTorch."""
+    decode_attention_int8_plain.calls += 1
+    return _attend_plain(q, k_q.to(torch.float32) * k_s[..., None],
+                         v_q.to(torch.float32) * v_s[..., None], valid)
+
+
+decode_attention_int8_plain.calls = 0
+
+
+def _check(kernel, q, kv_dtype, caches, scales, valid):
+    """Shapes, dtypes, contiguity and alignment the kernels take; raises
+    ValueError on anything else (nothing falls back)."""
+    if q.dim() != 3 or any(c.dim() != 4 for c in caches):
+        raise ValueError(f'{kernel}: q must be (B,H,D) and the cache '
+                         f'(B,S,K,D), got {tuple(q.shape)} and '
+                         f'{[tuple(c.shape) for c in caches]}')
+    B, H, D = q.shape
+    S, K = caches[0].shape[1], caches[0].shape[2]
+    if caches[0].shape[0] != B or caches[0].shape[3] != D or H % K:
+        raise ValueError(f'{kernel}: q {tuple(q.shape)} does not fit the '
+                         f'cache {tuple(caches[0].shape)}')
+    if D not in HEAD_DIMS or H // K > MAX_GROUP:
+        raise ValueError(f'{kernel}: head_dim {D} and group {H // K} are '
+                         f'outside the kernel (head_dim in {HEAD_DIMS}, '
+                         f'group <= {MAX_GROUP})')
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'{kernel}: q must be fp32 or bf16, got {q.dtype}')
+    want = [(q, q.dtype, None), (valid, torch.bool, (S,))]
+    want += [(c, kv_dtype, (B, S, K, D)) for c in caches]
+    want += [(s, torch.float32, (B, S, K)) for s in scales]
+    _build.check_operands(kernel, q.device, want)
+    if any(c.data_ptr() % 16 for c in caches):
+        raise ValueError(f'{kernel}: the cache must be 16-byte aligned')
+    if B > 65535 or S >= 2 ** 31:
+        raise ValueError(f'{kernel}: the cache is too large for the grid')
+    return B, S, H, K, D
+
+
+def decode_attention(q, k, v, valid):
+    """q (B,H,D); k, v (B,S,K,D) in q's dtype (fp32 or bf16); valid (S,)
+    bool.  Returns (B,H,D) in q's dtype."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, k, v, valid)
+    B, S, H, K, D = _check('decode_attention', q, q.dtype, (k, v), (),
+                           valid)
+    out = torch.empty_like(q)
+    rc = _launcher('decode_attention_launch', _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), B, S, H, K, D, _scale(D),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        _build.check(_build.load('decode_attention'), rc,
+                     'decode_attention launch')
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid):
+    """q (B,H,D) fp32 or bf16; k_q, v_q int8 (B,S,K,D); k_s, v_s fp32
+    (B,S,K); valid (S,) bool.  Returns (B,H,D) in q's dtype."""
+    if not q.is_cuda:
+        return decode_attention_int8_plain(q, k_q, v_q, k_s, v_s, valid)
+    B, S, H, K, D = _check('decode_attention_int8', q, torch.int8,
+                           (k_q, v_q), (k_s, v_s), valid)
+    out = torch.empty_like(q)
+    rc = _launcher('decode_attention_int8_launch', _ARGTYPES_INT8)(
+        q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_s.data_ptr(),
+        v_s.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, K, D,
+        _scale(D), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        _build.check(_build.load('decode_attention'), rc,
+                     'decode_attention_int8 launch')
+    decode_attention_int8.launches += 1
+    return out
+
+
+decode_attention_int8.launches = 0

@@ -1,5 +1,5 @@
 """Public entry points over the kernels (the subset the int8-resident CNN
-path uses).
+path and the LM decode step use).
 
 The device of the tensor decides: a CUDA tensor goes to the hand-written
 kernel (or raises), a CPU tensor to the kernel's plain version.  The
@@ -14,12 +14,16 @@ reference's ``use_pallas`` switch is gone for that reason.
   quantized activation (MobileNet's grouped convs).
 * :func:`lowrank_conv_nhwc` — a factored (u, v) conv pair in one launch of
   the fused low-rank kernel, after the im2col gather.
+* :func:`decode_attention` / :func:`decode_attention_int8` — one-token GQA
+  attention over a bf16/fp32 or an int8 KV cache (the LM decode step).
 * :func:`quant_matmul`, :func:`fake_quant` — the kernels themselves.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import (  # noqa: F401
+    decode_attention, decode_attention_int8)
 from repro_torch.kernels.depthwise_conv import depthwise_conv
 from repro_torch.kernels.fake_quant import fake_quant_fused
 from repro_torch.kernels.lowrank_conv import lowrank_conv

@@ -148,3 +148,21 @@ def quant_conv_ref(x_q, w_q, sx, sw, bias=None, *, stride=1, relu=False,
     if out_scale is not None:
         return requantize(y, out_scale, out_qmax)
     return y.to(out_dtype)
+
+
+def decode_attention_ref(q, k, v, valid):
+    """GQA decode oracle, the reference's ``decode_attention_ref``: q
+    (B,H,D); k, v (B,S,K,D); valid (B,S) bool.  q is scaled by ``D**-0.5``
+    in its own dtype, the logits and the softmax are fp32, masked slots
+    get -1e30, and the result is cast to q's dtype."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    g = H // K
+    qg = q.reshape(B, K, g, D) * (D ** -0.5)
+    logits = torch.einsum('bkgd,bskd->bkgs', qg.to(torch.float32),
+                          k.to(torch.float32))
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), -1e30, device=logits.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum('bkgs,bskd->bkgd', p, v.to(torch.float32))
+    return out.reshape(B, H, D).to(q.dtype)

@@ -1,0 +1,290 @@
+"""Attention of the LM side: GQA (global and sliding-window), in PyTorch.
+
+The reference's ``models/attention.py`` for its GQA blocks:
+
+* train/prefill — :func:`chunked_attention`, online-softmax attention over
+  KV chunks in plain torch, as the reference writes it in plain JAX (the
+  ``jax.lax.scan`` over chunks is a Python loop);
+* decode — one token against a cache.  :func:`gqa_decode` takes
+  ``ctx.get('decode_attn', ...)`` as the reference does.  The port's
+  default, :func:`decode_attn_kernel`, writes the new k/v into the ring
+  slot and runs ``ops.decode_attention`` (``ops.decode_attention_int8``
+  for an int8 cache) over the whole cache: the hand-written kernel on a
+  CUDA tensor, its plain version on a CPU tensor.
+  :func:`decode_attn_reference` is the reference's single-device math in
+  plain torch, kept for comparison.
+
+Single device only.  The reference's sequence-sharded decode
+(``axis_names``, the pmax/psum merge inside shard_map) is dropped:
+``meta['slots']`` is ``arange(Sc)`` and ``meta['total']`` equals ``Sc``,
+so the ring slot is ``cur % Sc``.  ``cur`` is the position as a Python
+int (a 0-dim tensor is read with ``int()``): the host picks the slot.
+
+In place.  JAX returns a new cache from every write; the port writes the
+cache's tensors in place and returns the same dict (the single-device form
+of the reference's donated cache buffer).  A caller that needs the cache
+before a step clones it.
+
+Not ported: MLA (deepseek-v3), cross-attention (whisper) and attention
+softcap in the kernel path (the TPU kernel has none either).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import recip32
+from repro_torch.models.layers import dense, init_dense, rope, softcap
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------- params
+
+
+def init_attention(gen, cfg, dtype=torch.float32, device='cpu', stack=()):
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(bias=cfg.qkv_bias, dtype=dtype, device=device, stack=stack)
+    return {'wq': init_dense(gen, d, H * hd, **kw),
+            'wk': init_dense(gen, d, K * hd, **kw),
+            'wv': init_dense(gen, d, K * hd, **kw),
+            'wo': init_dense(gen, H * hd, d, dtype=dtype, device=device,
+                             stack=stack)}
+
+
+# ------------------------------------------- chunked attention (prefill)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                      attn_softcap=0.0, chunk=512):
+    """Online-softmax attention over KV chunks.
+
+    q: (B,S,H,Dq)  k: (B,T,K,Dq)  v: (B,T,K,Dv)  q_pos: (S,)  k_pos: (T,)
+    Returns (B,S,H,Dv).  GQA via H = K*g.  k_pos == -1 marks padding."""
+    B, S, H, Dq = q.shape
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = H // K
+    chunk = min(chunk, T)
+    if T % chunk:
+        pad = chunk - T % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+        T += pad
+    qg = q.reshape(B, S, K, g, Dq) * (Dq ** -0.5)
+    m = torch.full((B, S, K, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, S, K, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, K, g, Dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, T, chunk):
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        pc = k_pos[c0:c0 + chunk]
+        # preferred_element_type=f32: bf16 products are exact in fp32
+        logits = torch.einsum('bskgd,bckd->bskgc', qg.to(torch.float32),
+                              kc.to(qg.dtype).to(torch.float32))
+        if attn_softcap:
+            logits = softcap(logits, attn_softcap)
+        valid = (pc[None, :] >= 0).expand(S, -1)
+        if causal:
+            valid = valid & (pc[None, :] <= q_pos[:, None])
+        if window:
+            valid = valid & (pc[None, :] > q_pos[:, None] - window)
+        logits = torch.where(valid[None, :, None, None, :], logits,
+                             torch.full((), NEG_INF, device=q.device))
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            'bskgc,bckv->bskgv', p.to(vc.dtype), vc).to(acc.dtype)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, S, H, Dv).to(q.dtype)
+
+
+# ------------------------------------------------------- decode attention
+
+
+def _ring_write(cache, new_k, new_v, cur: int):
+    """Write the new token's k/v (int8 codes and scales for an int8 cache)
+    into ring slot ``cur % Sc`` and record its position, in place."""
+    slot = cur % cache['k'].shape[1]
+    if 'k_s' in cache:
+        nk_q, nk_s = kv_quantize(new_k)
+        nv_q, nv_s = kv_quantize(new_v)
+        cache['k'][:, slot] = nk_q
+        cache['v'][:, slot] = nv_q
+        cache['k_s'][:, slot] = nk_s
+        cache['v_s'][:, slot] = nv_s
+    else:
+        cache['k'][:, slot] = new_k.to(cache['k'].dtype)
+        cache['v'][:, slot] = new_v.to(cache['v'].dtype)
+    cache['meta']['pos'][slot] = cur
+
+
+def _valid(positions, cur: int, window: int):
+    valid = (positions >= 0) & (positions <= cur)
+    if window:
+        valid = valid & (positions > cur - window)
+    return valid
+
+
+def decode_attn_kernel(q, new_k, new_v, cache, cur, *, window=0,
+                       attn_softcap=0.0):
+    """The port's decode attention: ring write, then the decode kernel over
+    the whole cache.  q: (B,H,D); new_k/new_v: (B,K,D); cache: {'k','v',
+    'meta'[, 'k_s','v_s']} with k (B,Sc,K,D).  Returns (out (B,H,D),
+    cache), the cache written in place."""
+    if attn_softcap:
+        raise NotImplementedError('attention softcap: the decode kernel has '
+                                  'none (neither has the TPU kernel)')
+    cur = int(cur)
+    _ring_write(cache, new_k, new_v, cur)
+    valid = _valid(cache['meta']['pos'], cur, window)
+    if 'k_s' in cache:
+        out = ops.decode_attention_int8(q, cache['k'], cache['v'],
+                                        cache['k_s'], cache['v_s'], valid)
+    else:
+        out = ops.decode_attention(q, cache['k'], cache['v'], valid)
+    return out, cache
+
+
+def decode_attn_reference(q, new_k, new_v, cache, cur, *, window=0,
+                          attn_softcap=0.0):
+    """The reference's single-device decode math in plain torch: ring
+    write, then attention over the dequantized cache with q scaled in its
+    own dtype and the softmax max floored at -1e29 (a row with no valid
+    slot gives zeros).  Writes the cache in place; returns (out, cache)."""
+    cur = int(cur)
+    _ring_write(cache, new_k, new_v, cur)
+    B, Sc, K, Dq = cache['k'].shape
+    H = q.shape[1]
+    g = H // K
+    Dv = cache['v'].shape[-1]
+    if 'k_s' in cache:
+        k_eff = kv_dequantize(cache['k'], cache['k_s'], q.dtype)
+        v_eff = kv_dequantize(cache['v'], cache['v_s'], q.dtype)
+    else:
+        k_eff, v_eff = cache['k'], cache['v']
+    qg = q.reshape(B, K, g, Dq) * (Dq ** -0.5)
+    logits = torch.einsum('bkgd,bskd->bkgs', qg.to(torch.float32),
+                          k_eff.to(qg.dtype).to(torch.float32))
+    if attn_softcap:
+        logits = softcap(logits, attn_softcap)
+    valid = _valid(cache['meta']['pos'], cur, window)
+    logits = torch.where(valid[None, None, None, :], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    m = torch.clamp_min(torch.amax(logits, dim=-1), -1e29)
+    p = torch.exp(logits - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum('bkgs,bskv->bkgv', p.to(v_eff.dtype),
+                     v_eff).to(torch.float32)
+    out = (o / torch.clamp_min(l, 1e-30)[..., None]).reshape(B, H, Dv)
+    return out.to(q.dtype), cache
+
+
+# ---------------------------------------------------------- GQA block apply
+
+
+def gqa_forward(p, x, positions, cfg, *, kind, quant=(0, 0)):
+    """Train/prefill attention.  Returns (out, (k, v)) for the cache fill."""
+    B, S, d = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(p['wq'], x, quant=quant).reshape(B, S, H, hd)
+    k = dense(p['wk'], x, quant=quant).reshape(B, S, K, hd)
+    v = dense(p['wv'], x, quant=quant).reshape(B, S, K, hd)
+    q = rope(q, positions, theta=cfg.rope_theta)
+    k = rope(k, positions, theta=cfg.rope_theta)
+    window = cfg.window if kind == 'local' else 0
+    out = chunked_attention(q, k, v, positions, positions, causal=True,
+                            window=window, attn_softcap=cfg.attn_softcap)
+    out = dense(p['wo'], out.reshape(B, S, H * hd), quant=quant)
+    return out, (k, v)
+
+
+def gqa_decode(p, x, cur, cfg, *, kind, cache, ctx, quant=(0, 0)):
+    """One-token decode.  x: (B, d).  Returns (out, cache)."""
+    B, d = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos1 = torch.full((1,), int(cur), dtype=torch.int32, device=x.device)
+    q = dense(p['wq'], x[:, None], quant=quant).reshape(B, 1, H, hd)
+    nk = dense(p['wk'], x[:, None], quant=quant).reshape(B, 1, K, hd)
+    nv = dense(p['wv'], x[:, None], quant=quant).reshape(B, 1, K, hd)
+    q = rope(q, pos1, theta=cfg.rope_theta)[:, 0]
+    nk = rope(nk, pos1, theta=cfg.rope_theta)[:, 0]
+    nv = nv[:, 0]
+    window = cfg.window if kind == 'local' else 0
+    fn = ctx.get('decode_attn', decode_attn_kernel)
+    out, cache = fn(q, nk, nv, cache, cur, window=window,
+                    attn_softcap=cfg.attn_softcap)
+    out = dense(p['wo'], out.reshape(B, H * hd), quant=quant)
+    return out, cache
+
+
+# --------------------------------------------------------- cache builders
+
+
+def make_cache_meta(n_slots: int, device='cpu'):
+    return {'slots': torch.arange(n_slots, dtype=torch.int32, device=device),
+            'pos': torch.full((n_slots,), -1, dtype=torch.int32,
+                              device=device),
+            'total': torch.tensor(n_slots, dtype=torch.int32, device=device)}
+
+
+def kv_quantize(x, axis=-1):
+    """int8-quantize along head_dim with per-(token, head) scales.
+
+    The scale is ``max(amax, 1e-8) * fp32(1/127)``: the reference divides
+    by 127.0 inside jit, where XLA folds the constant divisor into that
+    reciprocal (its prefill and serve step both run jitted)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=axis)
+    s = torch.clamp_min(amax, 1e-8) * recip32(127.0)
+    q = torch.clamp(torch.round(xf / s.unsqueeze(axis)), -128, 127)
+    return q.to(torch.int8), s
+
+
+def kv_dequantize(q, s, dtype):
+    return (q.to(torch.float32) * s[..., None]).to(dtype)
+
+
+def init_attn_cache(cfg, batch, kind, max_len, dtype, device='cpu'):
+    n = min(cfg.window, max_len) if kind == 'local' else max_len
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    c = {'meta': make_cache_meta(n, device)}
+    if cfg.kv_cache_bits == 8:
+        # int8 KV cache with per-(token, head) scales: halves the cache
+        # bytes every decode step reads
+        c['k'] = torch.zeros((batch, n, K, hd), dtype=torch.int8,
+                             device=device)
+        c['v'] = torch.zeros_like(c['k'])
+        c['k_s'] = torch.zeros((batch, n, K), dtype=torch.float32,
+                               device=device)
+        c['v_s'] = torch.zeros_like(c['k_s'])
+    else:
+        c['k'] = torch.zeros((batch, n, K, hd), dtype=dtype, device=device)
+        c['v'] = torch.zeros_like(c['k'])
+    return c
+
+
+def prefill_cache_write(cache, k, v, positions):
+    """Write prefill k/v (B,S,K,D) into a fresh cache (ring-aware), in
+    place; returns the cache."""
+    Sc = cache['k'].shape[1]
+    S = k.shape[1]
+    take = min(S, Sc)
+    kt, vt = k[:, S - take:], v[:, S - take:]
+    pt = positions[S - take:]
+    slots = torch.remainder(pt, Sc).to(torch.int64)
+    if 'k_s' in cache:
+        kq, ks = kv_quantize(kt)
+        vq, vs = kv_quantize(vt)
+        cache['k'].index_copy_(1, slots, kq)
+        cache['v'].index_copy_(1, slots, vq)
+        cache['k_s'].index_copy_(1, slots, ks)
+        cache['v_s'].index_copy_(1, slots, vs)
+    else:
+        cache['k'].index_copy_(1, slots, kt.to(cache['k'].dtype))
+        cache['v'].index_copy_(1, slots, vt.to(cache['v'].dtype))
+    cache['meta']['pos'].index_copy_(0, slots, pt.to(torch.int32))
+    return cache

@@ -1,0 +1,151 @@
+"""Core functional layers of the LM side, in PyTorch (params as nested
+dicts of tensors, the reference's trees).
+
+Every matmul routes through :func:`dense`, which applies the fixed-point
+fake quantization when ``quant=(w_bits, a_bits)`` is set, and also takes
+the int8 serving form ``{'w_q', 'scale'}`` and the factored form
+``{'u', 'v'}``.  The dense products stay ``torch.matmul``: the reference
+leaves them to XLA, outside any Pallas kernel.  The dtype flow is the
+reference's: :func:`rms_norm` and :func:`rope` compute in fp32 and cast
+back, and the int8 form dequantizes as ``w_q.to(x.dtype) *
+scale.to(x.dtype)`` before the product.
+
+Initializers take a ``torch.Generator`` and a device (weights are drawn
+where they live, full-width ones on the card) and a ``stack`` prefix that
+gives a scan-stacked ``(G, ...)`` leaf in one draw, where the reference
+vmaps the init over split keys.  The two packages draw different numbers
+from the same seed: tests carry weights across with ``interop``.
+The recurrent blocks' causal conv is not ported (no ported config has one).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quantization import fake_quant_act, fake_quant_weight
+
+# --------------------------------------------------------------------- init
+
+
+def he_init(gen, shape, fan_in, dtype=torch.float32, device='cpu'):
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device) * \
+        (1.0 / math.sqrt(max(fan_in, 1)))
+
+
+def init_dense(gen, d_in, d_out, *, bias=False, dtype=torch.float32,
+               device='cpu', stack=()):
+    p = {'w': he_init(gen, (*stack, d_in, d_out), d_in, dtype, device)}
+    if bias:
+        p['b'] = torch.zeros((*stack, d_out), dtype=dtype, device=device)
+    return p
+
+
+def init_norm(d, dtype=torch.float32, device='cpu', stack=()):
+    return {'scale': torch.ones((*stack, d), dtype=dtype, device=device)}
+
+
+# -------------------------------------------------------------------- apply
+
+
+def dense(p, x, *, quant=(0, 0)):
+    """x @ w (+b), with optional fake quant of the weight (per out-channel)
+    and the activation; also the int8 serving form {'w_q', 'scale'} and
+    the factored form {'u', 'v'} (two chained products)."""
+    if 'u' in p and 'v' in p:
+        return dense(p['v'], dense(p['u'], x, quant=quant), quant=quant)
+    w_bits, a_bits = quant
+    if 'w_q' in p:
+        w = p['w_q'].to(x.dtype) * p['scale'].to(x.dtype)
+        if a_bits:
+            x = fake_quant_act(x, a_bits)
+        y = torch.matmul(x, w)
+        if 'b' in p:
+            y = y + p['b'].to(x.dtype)
+        return y
+    w = p['w']
+    if w_bits:
+        w = fake_quant_weight(w, w_bits, axis=-1)
+    if a_bits:
+        x = fake_quant_act(x, a_bits)
+    y = torch.matmul(x, w.to(x.dtype))
+    if 'b' in p:
+        y = y + p['b'].to(x.dtype)
+    return y
+
+
+def rms_norm(p, x, eps=1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * p['scale'].to(torch.float32)).to(dt)
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------- rope
+
+
+def rope(x, positions, *, theta=10_000.0):
+    """Rotary embedding. x: (..., S, H, D) with positions (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq      # (..., S, half)
+    sin = torch.sin(ang)[..., None, :]                        # over heads
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- mlp
+
+
+def init_mlp(gen, cfg, d_ff=None, *, gated=True, dtype=torch.float32,
+             device='cpu', stack=()):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    kw = dict(dtype=dtype, device=device, stack=stack)
+    if gated:
+        return {'wi': init_dense(gen, d, f, **kw),
+                'wg': init_dense(gen, d, f, **kw),
+                'wo': init_dense(gen, f, d, **kw)}
+    return {'wi': init_dense(gen, d, f, **kw),
+            'wo': init_dense(gen, f, d, **kw)}
+
+
+def mlp(p, x, *, quant=(0, 0)):
+    if 'wg' in p:  # gated (swiglu)
+        h = F.silu(dense(p['wg'], x, quant=quant)) * \
+            dense(p['wi'], x, quant=quant)
+    else:          # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(dense(p['wi'], x, quant=quant), approximate='tanh')
+    return dense(p['wo'], h, quant=quant)
+
+
+# ---------------------------------------------------------------- embedding
+
+
+def init_embedding(gen, vocab, d, dtype=torch.float32, device='cpu'):
+    return {'table': torch.randn((vocab, d), generator=gen, dtype=dtype,
+                                 device=device) * 0.02}
+
+
+def embed(p, tokens, dtype):
+    return p['table'][tokens].to(dtype)
+
+
+def unembed(p, x, *, quant=(0, 0)):
+    w = p['table']
+    if quant[0]:
+        w = fake_quant_weight(w, quant[0], axis=0)
+    if quant[1]:
+        x = fake_quant_act(x, quant[1])
+    return torch.matmul(x, w.to(x.dtype).t())

@@ -1,0 +1,215 @@
+"""Transformer assembly of the LM side: the dense decoder subset of the
+reference's ``models/transformer.py``, in PyTorch.
+
+Layers are grouped as in the reference into (prefix, scanned groups,
+tail), and the param and cache trees keep that shape: ``params['blocks']``
+is a list of ``P`` layer trees whose leaves are stacked ``(G, ...)`` over
+the groups, and the cache is ``{'prefix', 'blocks', 'tail'}`` with the
+same stacking, so a JAX tree crosses through numpy unchanged.  The
+reference's ``jax.lax.scan`` over the groups is a Python loop over the
+stacked leading axis (each step takes views ``leaf[g]``).
+
+Three entry points: :func:`forward` (logits), :func:`prefill` (forward
+and cache build) and :func:`decode_step` (one token).  ``ctx`` carries
+injected functions (``'decode_attn'``) as in the reference.  The cache is
+written in place (see ``models/attention.py``).
+
+Dropped, each not needed on one card or by a ported config:
+``shard_act`` (identity on one device), ``remat``, ``collect_hiddens``,
+frontend ``embeds``, the encoder and cross-attention, and the MoE, MLA,
+recurrent and SSM blocks (``models.model.build_model`` refuses configs
+that need them).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed, init_embedding, init_mlp,
+                                       init_norm, mlp, rms_norm, softcap,
+                                       unembed)
+
+# ---------------------------------------------------------------- structure
+
+
+def layer_groups(cfg: ModelConfig):
+    """(n_prefix, n_groups, pattern_len, n_tail) split of the layer stack."""
+    P = len(cfg.block_pattern)
+    n_prefix = cfg.first_dense_layers
+    rest = cfg.num_layers - n_prefix
+    return n_prefix, rest // P, P, rest % P
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {'bfloat16': torch.bfloat16, 'float32': torch.float32}[name]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _at(tree, g: int):
+    """The g-th slice of every stacked leaf (views: writes reach the
+    stack)."""
+    return _map(lambda t: t[g], tree)
+
+
+def _layers(tree, cfg):
+    """``(kind, layer tree)`` for every layer in order: prefix, the scanned
+    groups (views into the stacked leaves) and tail."""
+    n_prefix, G, P, _ = layer_groups(cfg)
+    kinds = cfg.layer_kinds()
+    out = [(kinds[i], t) for i, t in enumerate(tree['prefix'])]
+    for g in range(G):
+        out += [(kinds[n_prefix + g * P + j], _at(tree['blocks'][j], g))
+                for j in range(P)]
+    tail_base = n_prefix + G * P
+    out += [(kinds[tail_base + i], t) for i, t in enumerate(tree['tail'])]
+    return out
+
+
+# --------------------------------------------------------------------- init
+
+
+def _init_layer(gen, cfg, kind, *, dtype, device, stack=()):
+    if kind not in ('global', 'local'):
+        raise NotImplementedError(f'{kind!r} blocks are not ported')
+    kw = dict(dtype=dtype, device=device, stack=stack)
+    return {'norm1': init_norm(cfg.d_model, **kw),
+            'attn': attn.init_attention(gen, cfg, **kw),
+            'norm2': init_norm(cfg.d_model, **kw),
+            'mlp': init_mlp(gen, cfg, gated=cfg.family != 'audio', **kw)}
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device='cpu'):
+    """Random params drawn from ``gen`` (a generator on ``device``): the
+    full-width weights of a served model are made where they live."""
+    dtype = torch_dtype(cfg.dtype)
+    n_prefix, G, P, R = layer_groups(cfg)
+    kinds = cfg.layer_kinds()
+    kw = dict(dtype=dtype, device=device)
+    params = {'embed': init_embedding(gen, cfg.vocab_size, cfg.d_model, **kw),
+              'final_norm': init_norm(cfg.d_model, **kw)}
+    if not cfg.tie_embeddings:
+        params['unembed'] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                           **kw)
+    params['prefix'] = [_init_layer(gen, cfg, kinds[i], **kw)
+                        for i in range(n_prefix)]
+    params['blocks'] = [_init_layer(gen, cfg, kinds[n_prefix + j], stack=(G,),
+                                    **kw) for j in range(P)] if G else []
+    tail_base = n_prefix + G * P
+    params['tail'] = [_init_layer(gen, cfg, kinds[tail_base + i], **kw)
+                      for i in range(R)]
+    return params
+
+
+# ------------------------------------------------------------ layer forward
+
+
+def layer_forward(lp, x, kind, cfg, *, positions, quant, want_cache=False):
+    """Full-sequence layer.  Returns (x, (k, v) | None)."""
+    h = rms_norm(lp['norm1'], x, cfg.norm_eps)
+    o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
+                              quant=quant)
+    x = x + o
+    x = x + mlp(lp['mlp'], rms_norm(lp['norm2'], x, cfg.norm_eps),
+                quant=quant)
+    return x, (kvs if want_cache else None)
+
+
+def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant):
+    """One-token layer step.  x: (B, d).  Returns (x, cache)."""
+    h = rms_norm(lp['norm1'], x, cfg.norm_eps)
+    o, c = attn.gqa_decode(lp['attn'], h, cur, cfg, kind=kind, cache=cache,
+                           ctx=ctx, quant=quant)
+    x = x + o
+    x = x + mlp(lp['mlp'], rms_norm(lp['norm2'], x[:, None], cfg.norm_eps),
+                quant=quant)[:, 0]
+    return x, c
+
+
+# ----------------------------------------------------------- cache builders
+
+
+def init_layer_cache(cfg, kind, batch, max_len, dtype, device='cpu'):
+    return attn.init_attn_cache(cfg, batch, kind, max_len, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch, max_len, device='cpu'):
+    dtype = torch_dtype(cfg.dtype)
+    n_prefix, G, P, R = layer_groups(cfg)
+    kinds = cfg.layer_kinds()
+
+    def stacked(kind):
+        one = init_layer_cache(cfg, kind, batch, max_len, dtype, device)
+        return _map(lambda a: a.expand((G,) + a.shape).clone(), one)
+
+    tail_base = n_prefix + G * P
+    return {
+        'prefix': [init_layer_cache(cfg, kinds[i], batch, max_len, dtype,
+                                    device) for i in range(n_prefix)],
+        'blocks': [stacked(kinds[n_prefix + j]) for j in range(P)]
+        if G else [],
+        'tail': [init_layer_cache(cfg, kinds[tail_base + i], batch, max_len,
+                                  dtype, device) for i in range(R)],
+    }
+
+
+def _fill_cache(cfg, kind, cache, kvs, positions):
+    """Insert prefill outputs into an empty cache entry (in place)."""
+    return attn.prefill_cache_write(cache, kvs[0], kvs[1], positions)
+
+
+# ------------------------------------------------------------------ forward
+
+
+def _head(params, cfg, x, quant):
+    x = rms_norm(params['final_norm'], x, cfg.norm_eps)
+    logits = unembed(params.get('unembed', params['embed']), x, quant=quant)
+    return softcap(logits, cfg.logit_softcap)
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Logits (B, S, vocab) of a token batch (B, S)."""
+    quant = (cfg.w_bits, cfg.a_bits)
+    x = embed(params['embed'], tokens, torch_dtype(cfg.dtype))
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for kind, lp in _layers(params, cfg):
+        x, _ = layer_forward(lp, x, kind, cfg, positions=positions,
+                             quant=quant)
+    return _head(params, cfg, x, quant)
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, max_len=None):
+    """Forward and cache build.  Returns (last logits (B, vocab), cache)."""
+    quant = (cfg.w_bits, cfg.a_bits)
+    x = embed(params['embed'], tokens, torch_dtype(cfg.dtype))
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache = init_cache(cfg, B, max_len or cfg.max_seq_len, x.device)
+    for (kind, lp), (_, centry) in zip(_layers(params, cfg),
+                                       _layers(cache, cfg)):
+        x, kvs = layer_forward(lp, x, kind, cfg, positions=positions,
+                               quant=quant, want_cache=True)
+        _fill_cache(cfg, kind, centry, kvs, positions)
+    return _head(params, cfg, x[:, -1:], quant)[:, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cur, cache, *, ctx=None):
+    """One decode step.  token: (B,) int; cur: the position (a Python int,
+    or a 0-dim tensor read with ``int()``).  Returns (logits (B, vocab),
+    cache), the cache written in place."""
+    ctx = ctx or {}
+    cur = int(cur)
+    quant = (cfg.w_bits, cfg.a_bits)
+    x = embed(params['embed'], token, torch_dtype(cfg.dtype))
+    for (kind, lp), (_, centry) in zip(_layers(params, cfg),
+                                       _layers(cache, cfg)):
+        x, _ = layer_decode(lp, x, kind, cfg, cur=cur, cache=centry, ctx=ctx,
+                            quant=quant)
+    return _head(params, cfg, x, quant), cache

@@ -1,6 +1,8 @@
-"""Tests of the port that need a CUDA card: each kernel bit for bit against
-its plain version at main-path shapes, and the scheduler on the card
-launching the kernels exactly as the plan counts them.
+"""Tests of the port that need a CUDA card: each int8 kernel bit for bit
+against its plain version at main-path shapes, the decode-attention
+kernels within their stated tolerance, the scheduler on the card launching
+the kernels exactly as the plan counts them, and one LM decode step on
+the card against the CPU.
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -18,6 +20,9 @@ from repro_torch.core.export import export_cnn
 from repro_torch.core.family import CNNFamily
 from repro_torch.data import SyntheticImages
 from repro_torch.kernels import counts, reset_counts
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_int8, decode_attention_int8_plain,
+    decode_attention_plain)
 from repro_torch.kernels.depthwise_conv import (depthwise_conv,
                                                 depthwise_conv_plain)
 from repro_torch.kernels.fake_quant import fake_quant_fused, fake_quant_plain
@@ -177,3 +182,98 @@ def test_scheduler_on_card_launches_each_kernel_of_the_plan(cuda_device,
     assert want[used] > 0
     for name, c in got.items():
         assert c == {'launches': want.get(name, 0), 'plain_calls': 0}, name
+
+
+def _decode_inputs(dev, B, H, K, D, S, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, H, D), (B, S, K, D), (B, S, K, D)))
+    valid = torch.arange(S, device=dev) < S - 5
+    valid[S // 3:S // 3 + 4] = False            # a hole
+    return q, k, v, valid
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize('shape', [(8, 32, 4, 64, 584), (1, 32, 4, 64, 37),
+                                   (2, 4, 2, 32, 100), (2, 12, 4, 128, 70),
+                                   (1, 16, 16, 64, 33)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda_device, shape, dtype):
+    """A ragged S (no tile divides 584, 37, 100, 70 or 33), a hole in the
+    mask, groups 8, 2, 3 and 1: fp32 within 1e-5 x max|plain|, bf16 within
+    8e-3 (about one bf16 ulp)."""
+    q, k, v, valid = _decode_inputs(cuda_device, *shape, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    reset_counts()
+    got = decode_attention(q, k, v, valid)
+    assert counts()['decode_attention'] == {'launches': 1, 'plain_calls': 0}
+    assert got.dtype == dtype
+    assert _rel_err(got, decode_attention_plain(q, k, v, valid)) <= tol
+    from repro_torch.models.attention import kv_quantize
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    got = decode_attention_int8(q, kq, vq, ks, vs, valid)
+    want = decode_attention_int8_plain(q, kq, vq, ks, vs, valid)
+    assert counts()['decode_attention_int8']['launches'] == 1
+    assert _rel_err(got, want) <= tol
+
+
+def test_decode_attention_rejects_bad_operands(cuda_device):
+    """No fallback: a wrong dtype, a non-contiguous cache, a head_dim or a
+    mask the kernel does not take raise instead of running anything."""
+    q, k, v, valid = _decode_inputs(cuda_device, 2, 8, 2, 64, 40,
+                                    torch.bfloat16)
+    reset_counts()
+    with pytest.raises(ValueError, match='expected contiguous'):
+        decode_attention(q, k.float(), v, valid)
+    with pytest.raises(ValueError, match='expected contiguous'):
+        decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                         v, valid)
+    with pytest.raises(ValueError, match='expected contiguous'):
+        decode_attention(q, k, v, valid.to(torch.int32))
+    with pytest.raises(ValueError, match='head_dim'):
+        decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                         v[..., :48].contiguous(), valid)
+    with pytest.raises(ValueError):
+        decode_attention_int8(q, k, v, k[..., 0].float(), v[..., 0].float(),
+                              valid)
+    assert counts()['decode_attention'] == {'launches': 0, 'plain_calls': 0}
+    assert counts()['decode_attention_int8'] == \
+        {'launches': 0, 'plain_calls': 0}
+
+
+@pytest.mark.parametrize('kv_bits', [0, 8])
+def test_lm_decode_step_on_card_matches_cpu(cuda_device, kv_bits):
+    """The tinyllama smoke model (fp32): prefill and one decode step on the
+    card, through the decode kernel, against the CPU's plain path on the
+    same weights; logits within 1e-4 x max|logit|, TF32 off."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.export import to_device
+    from repro_torch.launch import serve
+    cfg = get_smoke_config('tinyllama-1.1b').replace(kv_cache_bits=kv_bits)
+    model, params = serve.build(cfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, p in ((cuda_device, params),
+                       (torch.device('cpu'), to_device(params, 'cpu'))):
+            reset_counts()
+            with torch.inference_mode():
+                _, cache = model.prefill(p, {'tokens': tokens.to(dev)},
+                                         max_len=24)
+                logits, _ = model.decode_step(
+                    p, torch.tensor([3, 9], device=dev), 16, cache)
+            out[dev.type] = (logits.cpu(), counts())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    name = 'decode_attention_int8' if kv_bits else 'decode_attention'
+    assert out['cuda'][1][name] == {'launches': 2, 'plain_calls': 0}
+    assert out['cpu'][1][name] == {'launches': 0, 'plain_calls': 2}
+    assert _rel_err(out['cuda'][0], out['cpu'][0]) <= 1e-4
