@@ -23,7 +23,13 @@ Phases, in order; any failure exits non-zero and no result is printed:
    torch epilogue) and the bound: bytes once in and once out at 3.35 TB/s
    against the operations at the card's peak.  The launch term of the
    low-rank cost model is measured here: one wrapper call at the head
-   shape.  Then ``decode_attention`` and ``decode_attention_int8`` at
+   shape.  The fake-quant pair at path (f)'s shapes, bit for bit:
+   the two-pass ``fake_quant`` at tinyllama-1.1b's MLP ``wo`` (5632,
+   2048), a ragged (5000, 1000) and (4160, 256), bf16 and fp32, and
+   ``fake_quant_fused`` in bf16 at (2048, 5632), (2048, 2048) and (2048,
+   256), against the yardstick ``torch.amax`` +
+   ``torch.fake_quantize_per_channel_affine`` (on an fp32 upcast).  Then
+   ``decode_attention`` and ``decode_attention_int8`` at
    tinyllama-1.1b's heads (H 32, K 4, D 64): B 1 and 8, S 584 (the served
    cache) and 2048, a valid prefix and a case with a hole; fp32, bf16 and
    an int8 cache under bf16 q, each within ``DECODE_TOL`` x max|plain|
@@ -64,18 +70,32 @@ Phases, in order; any failure exits non-zero and no result is printed:
    max|logit| of the same model on the kernels' plain versions on the
    card; a 2-layer fp32 cut of the config (batch 2, prompt 32, 4 steps,
    TF32 off) within ``LM_CPU_TOL`` of the port's CPU path.
-4. Every kernel call of one full-depth 32-slot pass of each path, held
-   bit for bit against its plain version on the card at its own shapes
-   and timed (``fake_quant_fused``: each path's head and exit weights).
-   The ``{"kernels": [...]}`` line: the four ported kernels, each summed
-   over the pass of the path that calls it most (``quant_matmul``: path
-   (a); ``depthwise_conv``: path (b); ``lowrank_conv`` and
-   ``fake_quant_fused``, whose factored head adds a weight: path (c)),
-   every path's pass under ``by_path``, and
-   its launches over the three paths' runs.  Then every decode-attention
-   call of one decode step of (d) and (e), 22 each, held against its
-   plain version within ``DECODE_TOL`` and timed; the line adds both
-   decode kernels, summed over that step.
+   Then (f) the paper's Q pass (QAT fine-tuning) of ``tinyllama-1.1b`` at
+   full width and depth in bf16, through ``init_chain_state``, the
+   registry's ``Q`` and ``ChainState.metrics``: random weights from a
+   CUDA generator seeded 0, batches of 8 x 128 tokens, one warm-up step on
+   a clone, then 8 counted steps.  Counted from zero: the two-pass
+   ``fake_quant`` 22 launches a step (MLP ``wo``), ``fake_quant_fused``
+   132 (the other six projections), every other kernel and every plain
+   version 0.  Printed: the loss at every step (all finite, gated), the
+   params changed (gated), ms/step, tokens/s, peak memory, the Q record
+   (BitOpsCR 16 and CR 4, gated) and one profiled step's device busy
+   share and device ms by kernel.  A 2-layer fp32 cut at full width, one
+   Q-pass step on the card and on the CPU from the same params and batch
+   (TF32 off), at W8A0 and at W8A8 (``QAT_CUTS``): the loss and the new
+   params within each one's bands.
+4. Every kernel call of one full-depth 32-slot pass of each CNN path,
+   every decode-attention call of one decode step of (d) and (e) (22
+   each), and every fake-quant call of one step of (f), captured at its
+   inputs (132 fused, 22 two-pass), held against its plain version on the
+   card at its own shapes (bit for bit; the decode kernels within
+   ``DECODE_TOL``) and timed.  The ``{"kernels": [...]}`` line: every
+   ported kernel, summed over the pass or step of the path that calls it
+   most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
+   ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
+   fake-quant wrappers: (f)), every path's pass under ``by_path``, its
+   launches over all the paths' counted runs, and ``excess_ms``: those
+   launches times (its time a call less its bound a call).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 This script imports no JAX and nothing of the JAX package.
@@ -84,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -133,6 +154,33 @@ DECODE_TOL = {'fp32': 1e-5, 'bf16': 8e-3, 'int8': 8e-3}
 LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
 LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
 LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
+# LM QAT through the Q pass (path f): tinyllama-1.1b at full width and
+# depth, bf16, random weights from a CUDA generator seeded SEED, batches of
+# 8 x 128 tokens, Q at lr / 10 with weight decay 1e-4 (core/passes.py),
+# one warm-up step on a clone, then QAT_STEPS counted steps
+QAT_KEY = 'tinyllama-qat'
+QAT_HP = {'w_bits': 8, 'a_bits': 8}
+QAT_SEQ, QAT_BATCH, QAT_STEPS, QAT_LR = 128, 8, 8, 1e-3
+# fake-quant launches a step: per layer wq, wk, wv, attn wo, MLP wi and wg
+# on the fused kernel; MLP wo (5632, 2048) on the two-pass pair
+QAT_PER_LAYER = {'fake_quant_fused': 6, 'fake_quant': 1}
+# The 2-layer fp32 cut: one Q-pass step on the card and on the CPU from the
+# same params and batch, held to bands on the loss (relative) and on the new
+# params: no element more than max_lr x lr apart and at most ``share`` of
+# the elements more than QAT_NEAR_LR x lr apart (lr the Q pass's).  AdamW's
+# first step is about +-lr whatever |g| is, so an element whose gradient
+# differs in sign between the devices moves 2 x lr apart.  W8A0 holds the
+# tight bands.  W8A8 cannot: the activation fake quant (a per-tensor
+# abs-max grid) flips a code wherever the two devices' fp32 matmuls round a
+# value at a rounding tie differently, and each flip moves the gradients
+# of whole weight rows.  Emulated on the CPU at this cut (fp32 against
+# float64-rounded products), W8A8 moved the loss by 8.3e-5 of itself and
+# 1.6% of the elements by more than 1e-2 x lr, W8A0 by 0 and 2e-6.
+QAT_CUT_BATCH = 2
+QAT_NEAR_LR = 1e-2
+QAT_CUTS = (   # (hp, loss rtol, max_lr, share)
+    ({'w_bits': 8, 'a_bits': 0}, 1e-4, 2.5, 1e-3),
+    (QAT_HP, 1e-3, 2.5, 5e-2))
 PATHS = (
     dict(key='resnet34', config='resnet34-cifar', factorize=False,
          kernels=('quant_matmul', 'fake_quant_fused')),
@@ -180,9 +228,11 @@ def time_ms(torch, fn, iters=20):
 
 
 def device_ms(torch, fns, match, iters=10):
-    """Device milliseconds of the kernels whose name contains ``match``,
-    per run of every call in ``fns``, under torch.profiler (None when the
-    profiler recorded no such kernel: then it is not measured)."""
+    """Device milliseconds of the kernels whose name contains ``match`` (a
+    string, or a tuple of strings any of which may match), per run of every
+    call in ``fns``, under torch.profiler (None when the profiler recorded
+    no such kernel: then it is not measured)."""
+    match = (match,) if isinstance(match, str) else match
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
@@ -195,7 +245,8 @@ def device_ms(torch, fns, match, iters=10):
         torch.cuda.synchronize()
     total = sum(getattr(e, 'device_time_total', 0.0)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and match in e.key)
+                if e.device_type == DeviceType.CUDA
+                and any(m in e.key for m in match))
     return total / 1e3 / iters if total else None
 
 
@@ -223,6 +274,8 @@ def same_bits(torch, a, b):
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -309,22 +362,53 @@ def qmm_case(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax=127.0,
         'bound_ms': b_ms, 'bound_by': b_by}
 
 
-def fq_case(torch, w, bits=8, iters=20):
-    from repro_torch.kernels.fake_quant import (fake_quant_fused,
-                                                fake_quant_plain)
-    got = fake_quant_fused(w, bits=bits)
-    want = fake_quant_plain(w, bits=bits)
+FQ_KERNELS = {   # wrapper: (its plain version, its kernels' names)
+    'fake_quant_fused': ('fake_quant_plain', ('_fused_kernel',)),
+    'fake_quant': ('fake_quant_two_pass_plain', ('_amax_kernel',
+                                                 '_quant_kernel')),
+}
+
+
+def fq_library(torch, w, bits):
+    """The yardstick the port never calls: the column abs-max, then
+    ``torch.fake_quantize_per_channel_affine`` (fp32 only: a bf16 weight is
+    upcast first and the result cast back)."""
+    qmax = 2 ** (bits - 1) - 1
+    zero = torch.zeros(w.shape[1], dtype=torch.int32, device=w.device)
+
+    def call():
+        wf = w.float()
+        scale = torch.clamp_min(torch.amax(wf.abs(), 0), 1e-8) / qmax
+        return torch.fake_quantize_per_channel_affine(
+            wf, scale, zero, 1, -qmax - 1, qmax).to(w.dtype)
+    return call
+
+
+def fq_case(torch, w, kernel='fake_quant_fused', bits=8, iters=20):
+    """A fake-quant wrapper (``kernel``: the fused one or the two-pass
+    pair) against its plain version on one weight: bit-exactness and
+    times.  Bound: w read once and the output written once (its dtype), or
+    seven fp32 operations an element (abs, max, div, rint, two clips, mul)
+    at the card's fp32 rate."""
+    from repro_torch.kernels import fake_quant as fq
+    fn = getattr(fq, kernel)
+    plain = getattr(fq, FQ_KERNELS[kernel][0])
+    got = fn(w, bits=bits)
+    want = plain(w, bits=bits)
+    lib = fq_library(torch, w, bits)
+    lib_err = max_err(torch, lib(), want)
     torch.cuda.synchronize()
     K, N = w.shape
-    # abs, max, div, rint, two clips, mul per element; w in, output out
-    b_ms, b_by = bound(8 * K * N, 7 * K * N, FP32_OPS_PER_S)
-    call = lambda: fake_quant_fused(w, bits=bits)  # noqa: E731
-    return {'shape': (K, N), 'exact': same_bits(torch, got, want),
+    b_ms, b_by = bound(2 * w.numel() * w.element_size(), 7 * K * N,
+                       FP32_OPS_PER_S)
+    call = lambda: fn(w, bits=bits)  # noqa: E731
+    return {'shape': (K, N), 'dtype': str(w.dtype).replace('torch.', ''),
+            'exact': same_bits(torch, got, want),
             'max_abs_err': max_err(torch, got, want), 'call': call,
             'ms': time_ms(torch, call, iters),
-            'plain_ms': time_ms(torch, lambda: fake_quant_plain(w, bits=bits),
-                                iters),
-            'library_ms': None, 'bound_ms': b_ms, 'bound_by': b_by}
+            'plain_ms': time_ms(torch, lambda: plain(w, bits=bits), iters),
+            'library_ms': time_ms(torch, lib, iters),
+            'library_err': lib_err, 'bound_ms': b_ms, 'bound_by': b_by}
 
 
 def dw_library(torch, x, w, sx, sw, bias, stride, relu, out_scale,
@@ -447,6 +531,7 @@ def fmt_case(name, c):
     return (f"[kernel] {name} {c['shape']}"
             + (f" {'int8' if c['int8_out'] else 'fp32'}-out"
                if 'int8_out' in c else '')
+            + (f" {c['dtype']}" if 'dtype' in c else '')
             + f": exact={c['exact']} max_abs_err={c['max_abs_err']:g} "
               f"ms={c['ms']:.4f}"
             + ('' if 'device_ms' not in c else
@@ -519,6 +604,7 @@ def phase_kernels(torch, factored):
         c = fq_case(torch, w)
         print(fmt_case('fake_quant_fused[head]', c))
         need_exact(c, 'fake_quant_fused')
+    phase_fake_quant_kernels(torch, g)
 
     dw = [(shape, stride, 1) for shape, stride in DW_SHAPES] + \
         [((SLOTS, 16, 16, 48), 1, 2)]          # channel multiplier 2
@@ -553,6 +639,32 @@ def phase_kernels(torch, factored):
                            c))
             need_exact(c, 'lowrank_conv')
     return launch_us
+
+
+# path (f)'s fake-quant shapes: tinyllama-1.1b's MLP wo on the two-pass
+# pair (and a ragged case, and the smallest K routed there); its other six
+# projections' (K, N) on the fused kernel, in bf16 as QAT runs them
+FQ_SHAPES = {'fake_quant': [((5632, 2048), 'bf16'), ((5632, 2048), 'fp32'),
+                            ((5000, 1000), 'bf16'), ((5000, 1000), 'fp32'),
+                            ((4160, 256), 'bf16'), ((4160, 256), 'fp32')],
+             'fake_quant_fused': [((2048, 5632), 'bf16'),
+                                  ((2048, 2048), 'bf16'),
+                                  ((2048, 256), 'bf16')]}
+
+
+def phase_fake_quant_kernels(torch, g):
+    """Both fake-quant wrappers at path (f)'s shapes, bit for bit against
+    their plain versions, with the kernels' device time."""
+    dtypes = {'bf16': torch.bfloat16, 'fp32': torch.float32}
+    for kernel, cases in FQ_SHAPES.items():
+        for shape, dt in cases:
+            w = torch.randn(shape, generator=g, device='cuda').to(dtypes[dt])
+            c = fq_case(torch, w, kernel)
+            c['device_ms'] = device_ms(torch, [c['call']],
+                                       FQ_KERNELS[kernel][1])
+            print(fmt_case(kernel, c)
+                  + f" library_max_abs_err={c['library_err']:g}")
+            need_exact(c, kernel)
 
 
 def da_inputs(torch, g, B, S, kind, valid_len, hole=False, H=32, K=4, D=64):
@@ -920,19 +1032,13 @@ def serve_path(torch, spec, launch_us):
 
 
 def clone_tree(tree):
-    if isinstance(tree, dict):
-        return {k: clone_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [clone_tree(v) for v in tree]
-    return tree.clone()
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
 
 
 @contextlib.contextmanager
@@ -1162,6 +1268,201 @@ def serve_lm_path(torch, spec):
 
 
 
+def recording_family(losses, cfg, device):
+    """An LMFamily whose loss appends each step's loss (a device tensor,
+    read after the run) to ``losses``."""
+    from repro_torch.core.family import LMFamily
+    from repro_torch.data import SyntheticTokens
+
+    class Recording(LMFamily):
+        def loss(self, params, cfg, batch):
+            ce, lg = super().loss(params, cfg, batch)
+            losses.append(ce.detach())
+            return ce, lg
+    return Recording(SyntheticTokens(vocab=cfg.vocab_size), seq=QAT_SEQ,
+                     device=device)
+
+
+def check_qat_against_cpu(torch, tag):
+    """A 2-layer cut of the full-width config in fp32 (weights from a CUDA
+    generator seeded SEED): one Q-pass step from the same params and batch
+    on the card (the fake-quant kernels) and on the CPU (the reference's
+    CPU path, plain tensor ops), TF32 off, at each of QAT_CUTS' hps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.core.export import to_device
+    from repro_torch.core.passes import ChainState, Trainer
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(LM_ARCH).replace(num_layers=2, dtype='float32')
+    params = tfm.init_lm(torch.Generator(device='cuda').manual_seed(SEED),
+                         cfg, 'cuda')
+    tr = Trainer(batch=QAT_CUT_BATCH, steps=1, lr=QAT_LR, seed=SEED)
+    lr = QAT_LR / 10
+    out = []
+    for hp, loss_rtol, max_lr, share in QAT_CUTS:
+        runs = {}
+        for dev, p in (('cpu', to_device(params, 'cpu')), ('cuda', params)):
+            losses = []
+            st = ChainState(family=recording_family(losses, cfg, dev),
+                            cfg=cfg, params=p, key=SEED)
+            reset_counts()
+            t0 = time.perf_counter()
+            new = registry.get_pass('Q').apply(st, hp, tr)
+            runs[dev] = (float(losses[0]),
+                         _leaves(to_device(new.params, 'cpu')), counts(),
+                         time.perf_counter() - t0)
+        want = {k: n * cfg.num_layers for k, n in QAT_PER_LAYER.items()}
+        got = {k: runs['cuda'][2][k]['launches'] for k in want}
+        plain = sum(c['plain_calls'] for r in runs.values()
+                    for c in r[2].values())
+        if got != want or plain or any(c['launches']
+                                       for c in runs['cpu'][2].values()):
+            fail(f'{QAT_KEY}: the 2-layer cut launched {got} on the card '
+                 f'(want {want}), the plain versions ran {plain} times')
+        l_cpu, l_gpu = runs['cpu'][0], runs['cuda'][0]
+        worst, near, n = 0.0, 0, 0
+        for a, b in zip(runs['cuda'][1], runs['cpu'][1]):
+            d = (a - b).abs()
+            worst = max(worst, float(d.max()))
+            near += int((d > QAT_NEAR_LR * lr).sum())
+            n += d.numel()
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        print(f'{tag} 2-layer fp32 cut, one Q-pass step at {hp} (batch '
+              f'{QAT_CUT_BATCH} x {QAT_SEQ}), card vs CPU: loss {l_gpu:.7f} '
+              f'vs {l_cpu:.7f} (|diff| {rel:.3e} x |loss|, limit '
+              f'{loss_rtol:g}); new params max |diff| {worst / lr:.3e} x lr '
+              f'(limit {max_lr:g}), {near} of {n} elements ({near / n:.3e}) '
+              f'more than {QAT_NEAR_LR:g} x lr apart (limit {share:g}); the '
+              f'step took {runs["cuda"][3]:.3f} s on the card, '
+              f'{runs["cpu"][3]:.3f} s on the CPU')
+        if not rel <= loss_rtol:
+            fail(f"{QAT_KEY}: at {hp} the card's loss disagrees with the "
+                 f"CPU's")
+        if not (worst <= max_lr * lr and near <= share * n):
+            fail(f"{QAT_KEY}: at {hp} the card's updated params disagree "
+                 f"with the CPU's")
+        out.append({'hp': hp, 'loss_rel': rel, 'max_lr': worst / lr,
+                    'near_share': near / n})
+    return out
+
+
+def train_lm_path(torch):
+    """Path (f): the Q pass on tinyllama-1.1b at full width and depth,
+    through the functions a chain calls (``init_chain_state``, the
+    registry's Q, ``ChainState.metrics``), counted from zero.  Returns (the
+    launches of every kernel in the counted run, every fake-quant call of
+    one more step for phase 4 as (wrapper, weight), readings)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.core.passes import Trainer, init_chain_state
+    from repro_torch.kernels import counts, ops, reset_counts
+    from repro_torch.models.model import param_count
+
+    tag = f'[train:{QAT_KEY}]'
+    cfg = get_config(LM_ARCH)
+    losses = []
+    fam = recording_family(losses, cfg, 'cuda')
+    tr = Trainer(batch=QAT_BATCH, steps=QAT_STEPS, lr=QAT_LR, eval_n=1,
+                 eval_batch=QAT_BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    st = init_chain_state(fam, cfg, SEED, tr, pretrain_steps=0)
+    torch.cuda.synchronize()
+    print(f'{tag} {cfg.name}: {cfg.num_layers} layers, d_model '
+          f'{cfg.d_model}, {param_count(st.params) / 1e9:.3f} G parameters '
+          f'({cfg.dtype}); built and evaluated in '
+          f'{time.perf_counter() - t0:.2f} s; baseline {st.history[0]}')
+    qcfg = cfg.replace(**QAT_HP)
+    # warm-up (cuBLAS handles and plans, Triton's compiles, the
+    # allocator): one Q step on a clone of the params
+    tr.fit(fam, qcfg, clone_tree(st.params), lr=tr.lr / 10, steps=1)
+    torch.cuda.synchronize()
+    losses.clear()
+
+    # ---- the path, counted from zero
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new = registry.get_pass('Q').apply(st, QAT_HP, tr)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    after = counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss = [float(v) for v in losses]
+    tokens = QAT_STEPS * QAT_BATCH * QAT_SEQ
+    print(f'{tag} Q pass ({QAT_HP}, lr {tr.lr / 10:g}, weight decay '
+          f'{tr.weight_decay:g}): {QAT_STEPS} steps of {QAT_BATCH} x '
+          f'{QAT_SEQ} tokens in {t_train * 1e3:.3f} ms: '
+          f'{t_train / QAT_STEPS * 1e3:.3f} ms/step, {tokens / t_train:.1f} '
+          f'tokens/s; peak memory {peak / 2 ** 20:.1f} MiB')
+    print(f'{tag} loss by step: ' + ', '.join(f'{v:.5f}' for v in loss))
+    if len(loss) != QAT_STEPS or not all(math.isfinite(v) for v in loss):
+        fail(f'{QAT_KEY}: the losses are not {QAT_STEPS} finite values')
+    changed = sum(int((a != b).sum()) for a, b in
+                  zip(_leaves(new.params), _leaves(st.params)))
+    print(f'{tag} {changed} of {param_count(st.params)} parameters changed')
+    if not changed:
+        fail(f'{QAT_KEY}: the Q pass left the parameters as they were')
+    for name in after:
+        want = QAT_PER_LAYER.get(name, 0) * cfg.num_layers * QAT_STEPS
+        print(f"{tag} {name}: {after[name]['launches']} launches (want "
+              f"{want}), {after[name]['plain_calls']} plain calls")
+        if after[name]['launches'] != want or after[name]['plain_calls']:
+            fail(f"{QAT_KEY}: {name} launched {after[name]['launches']} "
+                 f"times, want {want} ({cfg.num_layers} layers x "
+                 f"{QAT_STEPS} steps), or its plain version ran")
+    rec = new.metrics(tr, 'Q')
+    print(f'{tag} Q history record: {rec}')
+    if rec['BitOpsCR'] != 16.0 or rec['CR'] != 4.0 or \
+            not 0.0 <= rec['acc'] <= 1.0:
+        fail(f'{QAT_KEY}: the Q record is not W8A8 over fp32 (BitOpsCR '
+             f'16, CR 4): {rec}')
+
+    # where the time goes: one more step under the profiler
+    opt = tr.optimizer(tr.lr / 10)
+    opt_state = opt.init(new.params)
+    batch = fam.train_batch(torch.Generator().manual_seed(SEED + 3),
+                            QAT_BATCH)
+
+    def one_step():
+        tr.train_step(opt, fam.loss, qcfg, new.params, opt_state, batch)
+    wall, busy, top = profile_device(torch, one_step)
+    if busy is None:
+        print(f'{tag} profile: one step in {wall:.3f} ms wall; device time '
+              f'not measured (the profiler recorded no device activity)')
+    else:
+        names = [m for _, ms_ in FQ_KERNELS.values() for m in ms_]
+        fq = sum(ms for ms, _, name in top if any(m in name for m in names))
+        print(f'{tag} profile: one step in {wall:.3f} ms wall, device '
+              f'kernels {busy:.3f} ms: device busy {busy / wall:.1%}; the '
+              f'fake-quant kernels {fq:.3f} ms, {fq / busy:.1%} of device '
+              f'time')
+        for ms, n, name in top[:12]:
+            print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+
+    # every fake-quant call of one more step, for phase 4
+    calls = []
+    saved = ops.fake_quant_fused, ops.fake_quant_two_pass
+
+    def capture(name, fn):
+        def call(w, bits=8):
+            calls.append((name, w.detach(), bits))
+            return fn(w, bits=bits)
+        return call
+    ops.fake_quant_fused = capture('fake_quant_fused', saved[0])
+    ops.fake_quant_two_pass = capture('fake_quant', saved[1])
+    try:
+        one_step()
+    finally:
+        ops.fake_quant_fused, ops.fake_quant_two_pass = saved
+    del opt_state
+    cut = check_qat_against_cpu(torch, tag)
+    return {k: v['launches'] for k, v in after.items()}, calls, {
+        'ms_per_step': t_train / QAT_STEPS * 1e3,
+        'tokens_per_s': tokens / t_train, 'peak_mib': peak / 2 ** 20,
+        'losses': loss, 'record': rec, 'cut': cut}
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1272,14 +1573,21 @@ KERNEL_META = {   # name: (route, source, the TPU kernel it replaces, match)
                        'src/repro/kernels/depthwise_conv.py:129', 'dw_kernel'),
     'lowrank_conv': ('cuda', 'src/repro_torch/kernels/csrc/lowrank_conv.cu',
                      'src/repro/kernels/lowrank_conv.py:203', 'lr_kernel'),
+    'fake_quant': ('triton', 'src/repro_torch/kernels/fake_quant.py',
+                   'src/repro/kernels/fake_quant.py:70',
+                   FQ_KERNELS['fake_quant'][1]),
 }
+# the second pallas_call a wrapper replaces (the two-pass pair's quantize)
+ALSO_REPLACES = {'fake_quant': 'src/repro/kernels/fake_quant.py:78'}
 
 
-def phase_report(torch, served, launches):
-    """Hold every kernel call one full-depth pass of each served path makes
-    against its plain version, and time them; ``served`` maps a path key to
-    (model, params).  A kernel's line reports the path that calls it most,
-    with every path's pass under ``by_path``."""
+def phase_report(torch, served, launches, qat_calls):
+    """Hold every kernel call one full-depth pass of each served path makes,
+    and every fake-quant call of one step of path (f) (``qat_calls``:
+    (wrapper, weight, bits)), against its plain version, and time them;
+    ``served`` maps a path key to (model, params).  A kernel's line reports
+    the path that calls it most, with every path's pass under
+    ``by_path``."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 7)
     per_path = {}
     for key, (model, params) in served.items():
@@ -1289,6 +1597,11 @@ def phase_report(torch, served, launches):
                                  for w in fc_weights(params)],
             'depthwise_conv': dw_pass_cases(torch, model, g),
             'lowrank_conv': lr_pass_cases(torch, model, g)}
+    per_path[QAT_KEY] = {}
+    for name, w, bits in qat_calls:
+        per_path[QAT_KEY].setdefault(name, []).append(
+            fq_case(torch, w, name, bits, iters=5))
+    for key in per_path:
         for name, cs in per_path[key].items():
             for c in cs:
                 print(fmt_case(f'{name}[{key}]', c))
@@ -1300,7 +1613,7 @@ def phase_report(torch, served, launches):
 
     out = []
     for name, (route, source, replaces, match) in KERNEL_META.items():
-        paths = {k: v[name] for k, v in per_path.items() if v[name]}
+        paths = {k: v[name] for k, v in per_path.items() if v.get(name)}
         if not paths:
             fail(f'{name}: no call on any path')
         top = max(paths, key=lambda k: len(paths[k]))
@@ -1309,6 +1622,8 @@ def phase_report(torch, served, launches):
         out.append({
             'name': name, 'route': route, 'source': source,
             'replaces': replaces,
+            **({'also_replaces': ALSO_REPLACES[name]}
+               if name in ALSO_REPLACES else {}),
             'launches': sum(launches[k][name] for k in launches),
             'max_abs_err': max(c['max_abs_err'] for v in paths.values()
                                for c in v),
@@ -1431,8 +1746,18 @@ def main():
         lm_launches[spec['key']] = counted
         print(f"[time] path {spec['key']} done at "
               f"{time.perf_counter() - t_start:.1f} s")
-    kernels = phase_report(torch, served, launches) + \
+    launches[QAT_KEY], qat_calls, _ = train_lm_path(torch)
+    print(f"[time] path {QAT_KEY} done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    kernels = phase_report(torch, served, launches, qat_calls) + \
         lm_report(torch, lm_calls, lm_launches)
+    # the time each kernel loses to its bound over all its launches in the
+    # counted runs (its device time where the profiler measured one): the
+    # order in which ROADMAP queue B redesigns the kernels
+    for k in kernels:
+        t = k['ms'] if k['device_ms'] is None else k['device_ms']
+        k['excess_ms'] = k['launches'] * (t - k['bound_ms']) / \
+            k['calls_per_pass']
     print(f'[done] {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi_line())

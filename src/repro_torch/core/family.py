@@ -1,9 +1,13 @@
-"""The CNN family adapter (the subset the serving slices need): init, exit
-heads, evaluation batches and the low-rank factorization the L pass
-applies.
+"""Family adapters: the uniform interface the compression passes use, over
+CNNs and LMs.
 
-Training, pruning and distillation come with the compression chain
-(ROADMAP, queue A).
+``CNNFamily`` is the subset the serving slices need: init, exit heads,
+evaluation batches and the low-rank factorization the L pass applies.
+``LMFamily`` is the subset the Q pass needs: init, training and evaluation
+batches, the loss, next-token accuracy and the BitOps/storage costs.
+Training the CNNs, pruning, distillation, exit heads on the LM side and
+the low-rank factorization of LMs come with the rest of the compression
+chain (ROADMAP, queue A: the chain and CNN QAT).
 """
 from __future__ import annotations
 
@@ -13,7 +17,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import bitops as bo
 from repro_torch.models import cnn as cnn_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.tree import tree_map
 
 
 # ----------------------------------------------------- low-rank SVD helpers
@@ -51,16 +58,6 @@ def _linear_cost(tree) -> float:
     if isinstance(tree, (list, tuple)):
         return sum(_linear_cost(v) for v in tree)
     return 0.0
-
-
-def _copy_tree(tree):
-    """New dicts and lists around the same tensors (the reference's
-    ``jax.tree.map(lambda x: x, params)``)."""
-    if isinstance(tree, dict):
-        return {k: _copy_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_copy_tree(v) for v in tree]
-    return tree
 
 
 @dataclass
@@ -104,7 +101,7 @@ class CNNFamily:
         1x1 conv back to COUT ('v', the original bias).  Depthwise convs
         and the stem are skipped.  The head becomes ``{'u': {'w'}, 'v':
         {'w', 'b'}}``.  ``mac_scale`` is the stage weight-volume ratio."""
-        params = _copy_tree(params)
+        params = tree_map(lambda t: t, params)     # new dicts and lists
         old_cost = _linear_cost(params['stages'])
 
         def tensor(a, like):
@@ -146,3 +143,84 @@ class CNNFamily:
         return [self.data.batch(torch.Generator().manual_seed(seed + i),
                                 batch, device=self.device)
                 for i in range(n)]
+
+
+# =============================================================== LM family
+
+
+_LM_UNPORTED = ('default_exit_points', 'add_exits', 'exit_logits',
+                'exit_loss', 'exit_stats', 'shrink', 'prune', 'factorize')
+
+
+def _unported(what):
+    raise NotImplementedError(f'LMFamily.{what} is not ported yet (ROADMAP, '
+                              f'queue A: the chain and the other passes)')
+
+
+@dataclass
+class LMFamily:
+    """The reference's ``LMFamily`` (``src/repro/core/family.py``) for the
+    Q pass.  Batches come from ``torch.Generator``s on the CPU (the
+    reference's come from keys) and are placed on ``device``, where
+    :meth:`init` also draws the weights."""
+    data: Any                           # SyntheticTokens
+    seq: int = 128
+    device: str = 'cpu'
+
+    def _fwd(self, params, cfg, batch, collect=False):
+        if collect:
+            _unported('_fwd(collect=True)')
+        return tfm.forward(params, cfg, batch['tokens'])
+
+    def init(self, gen: torch.Generator, cfg):
+        return tfm.init_lm(gen, cfg, self.device)
+
+    def train_batch(self, gen: torch.Generator, n):
+        return self.data.batch(gen, n, self.seq, self.device)
+
+    def logits_of(self, params, cfg, batch):
+        return self._fwd(params, cfg, batch)
+
+    def loss(self, params, cfg, batch):
+        """(mean next-token cross entropy in fp32, logits)."""
+        lg = self._fwd(params, cfg, batch)
+        ce = -torch.mean(torch.gather(
+            torch.log_softmax(lg.to(torch.float32), dim=-1), -1,
+            batch['labels'][..., None]))
+        return ce, lg
+
+    def eval_batches(self, n, batch, seed=10_000):
+        """``n`` held-out batches, batch ``i`` drawn from generator seed
+        ``seed + i``."""
+        return [self.data.batch(torch.Generator().manual_seed(seed + i),
+                                batch, self.seq, self.device)
+                for i in range(n)]
+
+    @torch.no_grad()
+    def accuracy(self, params, cfg, batches):
+        """Next-token top-1 accuracy (the LM analogue of classification
+        acc)."""
+        hit = tot = 0
+        for b in batches:
+            pred = torch.argmax(self._fwd(params, cfg, b), -1)
+            hit += int(torch.sum(pred == b['labels']))
+            tot += b['labels'].numel()
+        return hit / tot
+
+    def bitops(self, cfg, exit_probs=None, mac_scale=1.0):
+        # exit indices are scan-group indices -> convert to layer indices
+        ep = None
+        if exit_probs:
+            P = len(cfg.block_pattern)
+            ep = {cfg.first_dense_layers + (g + 1) * P - 1: p
+                  for g, p in exit_probs.items()}
+        return bo.lm_bitops(cfg, self.seq, exit_probs=ep) * mac_scale
+
+    def storage_bits(self, params, cfg):
+        return bo.param_storage_bits(params, cfg.w_bits)
+
+    def __getattr__(self, name):
+        """The reference's other methods raise until they are ported."""
+        if name in _LM_UNPORTED:
+            _unported(name)
+        raise AttributeError(name)

@@ -64,8 +64,11 @@ def quantize_weight(w, bits: int, *, axis=-1):
 
 
 class _KernelFakeQuantSTE(torch.autograd.Function):
-    """The fused fake-quant kernel under a straight-through estimator: the
-    backward pass is the identity."""
+    """The fake-quant kernels (``ops.fake_quant``: fused, or the two-pass
+    pair for a long K) under a straight-through estimator: the forward
+    pass returns w's dtype (fp32 math inside, as the reference's kernels),
+    the backward pass is the identity, so the gradient reaches a stacked
+    ``(G, ...)`` leaf through the view ``leaf[g]`` it was given."""
 
     @staticmethod
     def forward(ctx, w, bits):
@@ -80,9 +83,10 @@ class _KernelFakeQuantSTE(torch.autograd.Function):
 def fake_quant_weight(w, bits: int, *, axis=-1, use_kernel=None):
     """Quantize->dequantize with STE (QAT forward for weights).
 
-    On a CUDA tensor the 2-D last-axis case runs the fused fake-quant
-    kernel (kernels/fake_quant.py); the CPU, other shapes and axes, and the
-    bits=1 DoReFa grid stay on plain tensor ops."""
+    On a CUDA tensor the 2-D last-axis case runs the fake-quant kernels
+    (kernels/fake_quant.py, routed by ``ops.fake_quant``); the CPU, other
+    shapes and axes, and the bits=1 DoReFa grid stay on plain tensor ops,
+    in w's dtype, as the reference's CPU path does."""
     if bits <= 0 or bits >= 32:
         return w
     if use_kernel is None:

@@ -9,7 +9,13 @@ Kernel                 Replaces (src/repro/kernels/)
                        through the im2col lowering in ``quant_conv.py``
                        and every dense head
 ``fake_quant_fused``   ``fake_quant.py`` ``_fused_kernel``: per-column
-(Triton)               symmetric fake quant of a 2-D weight
+(Triton)               symmetric fake quant of a 2-D fp32 or bf16 weight
+                       in one pass over column stripes; QAT and export
+``fake_quant``         ``fake_quant.py`` ``_amax_kernel`` +
+(Triton, two           ``_quant_kernel``: the same function as a
+kernels)               tile-parallel abs-max and a quantize pass, for the
+                       weights the reference sends there (K * min(N, 256)
+                       * 4 B over 4 MiB: tinyllama's MLP ``wo`` in QAT)
 ``depthwise_conv``     ``depthwise_conv.py`` ``_dw_kernel``: direct int8
 (CUDA C++,             SAME depthwise conv (per-group input depth 1, any
 ``csrc/``)             channel multiplier) with the shared epilogue;
@@ -45,6 +51,8 @@ def _wrappers() -> dict:
                              quant_matmul.quant_matmul_plain),
             'fake_quant_fused': (fake_quant.fake_quant_fused,
                                  fake_quant.fake_quant_plain),
+            'fake_quant': (fake_quant.fake_quant,
+                           fake_quant.fake_quant_two_pass_plain),
             'depthwise_conv': (depthwise_conv.depthwise_conv,
                                depthwise_conv.depthwise_conv_plain),
             'lowrank_conv': (lowrank_conv.lowrank_conv,

@@ -1,5 +1,5 @@
 """Public entry points over the kernels (the subset the int8-resident CNN
-path and the LM decode step use).
+path, the LM decode step and LM QAT use).
 
 The device of the tensor decides: a CUDA tensor goes to the hand-written
 kernel (or raises), a CPU tensor to the kernel's plain version.  The
@@ -16,7 +16,9 @@ reference's ``use_pallas`` switch is gone for that reason.
   the fused low-rank kernel, after the im2col gather.
 * :func:`decode_attention` / :func:`decode_attention_int8` — one-token GQA
   attention over a bf16/fp32 or an int8 KV cache (the LM decode step).
-* :func:`quant_matmul`, :func:`fake_quant` — the kernels themselves.
+* :func:`fake_quant` — per-channel weight fake quant (QAT), on the fused
+  or the two-pass kernel as the reference routes it.
+* :func:`quant_matmul` — the kernel itself.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from repro_torch.kernels.decode_attention import (  # noqa: F401
     decode_attention, decode_attention_int8)
 from repro_torch.kernels.depthwise_conv import depthwise_conv
+from repro_torch.kernels.fake_quant import fake_quant as fake_quant_two_pass
 from repro_torch.kernels.fake_quant import fake_quant_fused
 from repro_torch.kernels.lowrank_conv import lowrank_conv
 from repro_torch.kernels.quant_conv import im2col_nhwc, quant_conv
@@ -33,18 +36,15 @@ from repro_torch.kernels.tiling import VMEM_BUDGET
 
 
 def fake_quant(w, bits=8):
-    """Fake-quantize a 2-D w on the fused single-stripe kernel.
-
-    The reference switches to a two-pass amax->quantize pair when a (K, 256)
-    column stripe would not fit its VMEM budget; that pair is not ported
-    yet (ROADMAP, queue A: two-pass fake_quant), and no weight of the
-    ported configurations reaches it."""
-    if w.shape[0] * min(256, w.shape[1]) * 4 > VMEM_BUDGET // 2:
-        raise NotImplementedError(
-            f'fake_quant of a {tuple(w.shape)} weight needs the two-pass '
-            f'kernel, which is not ported yet (ROADMAP: two-pass '
-            f'fake_quant)')
-    return fake_quant_fused(w, bits=bits)
+    """Fake-quantize a 2-D fp32 or bf16 w, routed as the reference routes
+    it: the fused single-stripe kernel when a (K, 256) fp32 column stripe
+    fits half the reference's VMEM budget, the two-pass amax -> quantize
+    pair otherwise (tinyllama's MLP ``wo``, K = 5632).  The Triton fused
+    kernel streams any K; the gate stays so that a weight takes the same
+    kernel in both packages."""
+    if w.shape[0] * min(256, w.shape[1]) * 4 <= VMEM_BUDGET // 2:
+        return fake_quant_fused(w, bits=bits)
+    return fake_quant_two_pass(w, bits=bits)
 
 
 def prequantize_weight(w, *, bits: int = 8):

@@ -29,6 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (embed, init_embedding, init_mlp,
                                        init_norm, mlp, rms_norm, softcap,
                                        unembed)
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------- structure
 
@@ -45,18 +46,10 @@ def torch_dtype(name: str) -> torch.dtype:
     return {'bfloat16': torch.bfloat16, 'float32': torch.float32}[name]
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _at(tree, g: int):
     """The g-th slice of every stacked leaf (views: writes reach the
     stack)."""
-    return _map(lambda t: t[g], tree)
+    return tree_map(lambda t: t[g], tree)
 
 
 def _layers(tree, cfg):
@@ -147,7 +140,7 @@ def init_cache(cfg: ModelConfig, batch, max_len, device='cpu'):
 
     def stacked(kind):
         one = init_layer_cache(cfg, kind, batch, max_len, dtype, device)
-        return _map(lambda a: a.expand((G,) + a.shape).clone(), one)
+        return tree_map(lambda a: a.expand((G,) + a.shape).clone(), one)
 
     tail_base = n_prefix + G * P
     return {

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: each int8 kernel bit for bit
-against its plain version at main-path shapes, the decode-attention
-kernels within their stated tolerance, the scheduler on the card launching
-the kernels exactly as the plan counts them, and one LM decode step on
-the card against the CPU.
+against its plain version at main-path shapes, both fake-quant wrappers bit
+for bit in fp32 and bf16, the decode-attention kernels within their stated
+tolerance, the scheduler on the card launching the kernels exactly as the
+plan counts them, one LM decode step and one Q-pass (QAT) step on the
+card against the CPU.
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -12,6 +13,8 @@ without JAX:
 Every test is marked ``gpu`` and skips through the ``cuda_device`` fixture
 when there is no card (decided when the test runs, never at import).
 """
+import math
+
 import pytest
 import torch
 
@@ -25,7 +28,9 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_plain)
 from repro_torch.kernels.depthwise_conv import (depthwise_conv,
                                                 depthwise_conv_plain)
-from repro_torch.kernels.fake_quant import fake_quant_fused, fake_quant_plain
+from repro_torch.kernels.fake_quant import (fake_quant, fake_quant_fused,
+                                            fake_quant_plain,
+                                            fake_quant_two_pass_plain)
 from repro_torch.kernels.lowrank_conv import lowrank_conv, lowrank_conv_plain
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 from repro_torch.serving import ContinuousBatchScheduler, Request
@@ -116,6 +121,45 @@ def test_fake_quant_kernel_bit_exact(cuda_device, kn):
     for bits in (2, 4, 8):
         got = fake_quant_fused(w, bits=bits)
         assert torch.equal(_bits(got), _bits(fake_quant_plain(w, bits=bits)))
+
+
+@pytest.mark.parametrize('kn', [(5632, 2048), (5000, 1000), (4160, 256),
+                                (300, 130), (7, 3)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fake_quant_two_pass_kernel_bit_exact(cuda_device, kn, dtype):
+    """tinyllama's MLP wo, ragged shapes (no tile divides 5000, 1000, 300,
+    130, 7 or 3) and the smallest K the routing sends here; bf16 rounds
+    its fp32 result to nearest even in the kernel's store."""
+    w = torch.randn(kn, device=cuda_device).to(dtype)
+    for bits in (2, 4, 8):
+        reset_counts()
+        got = fake_quant(w, bits=bits)
+        assert counts()['fake_quant'] == {'launches': 1, 'plain_calls': 0}
+        assert got.dtype == dtype
+        assert torch.equal(_bits(got),
+                           _bits(fake_quant_two_pass_plain(w, bits=bits)))
+
+
+@pytest.mark.parametrize('kn', [(2048, 5632), (2048, 256), (40, 13)])
+def test_fake_quant_fused_kernel_bf16_bit_exact(cuda_device, kn):
+    w = torch.randn(kn, device=cuda_device).to(torch.bfloat16)
+    for bits in (4, 8):
+        got = fake_quant_fused(w, bits=bits)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(_bits(got), _bits(fake_quant_plain(w, bits=bits)))
+
+
+def test_fake_quant_rejects_bad_operands(cuda_device):
+    """No fallback: a dtype, rank or layout the kernels do not take
+    raises instead of running anything."""
+    w = torch.randn((64, 32), device=cuda_device)
+    reset_counts()
+    for fn in (fake_quant, fake_quant_fused):
+        for bad in (w.half(), w[None], w.t(), w.to(torch.int8)):
+            with pytest.raises(ValueError, match='expected a contiguous'):
+                fn(bad)
+    assert all(c == {'launches': 0, 'plain_calls': 0}
+               for c in counts().values())
 
 
 def test_quant_matmul_rejects_bad_operands(cuda_device):
@@ -277,3 +321,68 @@ def test_lm_decode_step_on_card_matches_cpu(cuda_device, kv_bits):
     assert out['cuda'][1][name] == {'launches': 2, 'plain_calls': 0}
     assert out['cpu'][1][name] == {'launches': 0, 'plain_calls': 2}
     assert _rel_err(out['cuda'][0], out['cpu'][0]) <= 1e-4
+
+
+def test_q_pass_step_on_card_matches_cpu(cuda_device):
+    """One Q-pass step of a 2-layer fp32 tinyllama whose MLP wo (4224, 256)
+    routes to the two-pass pair, on the card (the fake-quant kernels: 12
+    fused and 2 two-pass launches a step) and on the CPU (plain tensor
+    ops), same params and batch, TF32 off.  At W8A0 the loss of the new
+    params on a held-out batch within 1e-4 x |loss| and the new params
+    within 2.5 x lr, at most 0.1% of them more than 1e-2 x lr apart
+    (AdamW's first step is about +-lr, so a gradient near 0 may flip sign
+    between devices).  At W8A8 the activation fake quant flips codes at
+    rounding ties between the two devices' matmuls, which moves whole rows
+    of gradients, so that step is held to a finite loss and the launch
+    counts."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import registry
+    from repro_torch.core.export import to_device
+    from repro_torch.core.family import LMFamily
+    from repro_torch.core.passes import ChainState, Trainer
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke_config('tinyllama-1.1b').replace(d_model=256, d_ff=4224)
+    params = tfm.init_lm(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg, cuda_device)
+    tr = Trainer(batch=2, steps=1, lr=1e-3)
+    lr = tr.lr / 10
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for a_bits in (0, 8):
+            out = {}
+            for dev in ('cpu', 'cuda'):
+                fam = LMFamily(SyntheticTokens(cfg.vocab_size), seq=32,
+                               device=dev)
+                st = ChainState(family=fam, cfg=cfg,
+                                params=to_device(params, dev), key=0)
+                reset_counts()
+                new = registry.get_pass('Q').apply(
+                    st, {'w_bits': 8, 'a_bits': a_bits}, tr)
+                launched = counts()
+                with torch.no_grad():
+                    loss, _ = fam.loss(new.params, new.cfg, fam.train_batch(
+                        torch.Generator().manual_seed(9), 2))
+                out[dev] = (float(loss), to_device(new.params, 'cpu'),
+                            launched)
+            assert out['cuda'][2]['fake_quant_fused']['launches'] == 12
+            assert out['cuda'][2]['fake_quant']['launches'] == 2
+            assert all(c == {'launches': 0, 'plain_calls': 0}
+                       for c in out['cpu'][2].values())
+            assert all(math.isfinite(o[0]) for o in out.values())
+            if a_bits:
+                continue
+            assert abs(out['cuda'][0] - out['cpu'][0]) <= \
+                1e-4 * abs(out['cpu'][0])
+            near = n = 0
+            for a, b in zip(tree_leaves(out['cuda'][1]),
+                            tree_leaves(out['cpu'][1])):
+                d = (a - b).abs()
+                assert float(d.max()) <= 2.5 * lr
+                near += int((d > 1e-2 * lr).sum())
+                n += d.numel()
+            assert near <= 1e-3 * n
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

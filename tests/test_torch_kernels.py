@@ -338,8 +338,13 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_two_pass_fake_quant_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ops.fake_quant(torch.zeros((8192, 256)))
+    """A (K, 256) stripe over the fused budget routes to the two-pass pair
+    (ported since; it used to raise), as in the reference."""
+    reset_counts()
+    w = torch.ones((8192, 256))
+    np.testing.assert_array_equal(ops.fake_quant(w).numpy(), w.numpy())
+    assert counts()['fake_quant'] == {'launches': 0, 'plain_calls': 1}
+    assert counts()['fake_quant_fused'] == {'launches': 0, 'plain_calls': 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
