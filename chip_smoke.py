@@ -19,24 +19,30 @@ Phases, in order; any failure exits non-zero and no result is printed:
    M tiles (64 and 32 rows), the measurement behind ``pick_bm``.  Each
    case prints the wrapper call's time, the kernel's device time
    (torch.profiler), the plain version's time, a library yardstick the
-   port never calls (``torch._int_mm`` or a grouped ``F.conv2d`` plus a
-   torch epilogue) and the bound: bytes once in and once out at 3.35 TB/s
-   against the operations at the card's peak.  The launch term of the
-   low-rank cost model is measured here: one wrapper call at the head
-   shape.  The fake-quant pair at path (f)'s shapes, bit for bit:
-   the two-pass ``fake_quant`` at tinyllama-1.1b's MLP ``wo`` (5632,
-   2048), a ragged (5000, 1000) and (4160, 256), bf16 and fp32, and
-   ``fake_quant_fused`` in bf16 at (2048, 5632), (2048, 2048) and (2048,
-   256), against the yardstick ``torch.amax`` +
-   ``torch.fake_quantize_per_channel_affine`` (on an fp32 upcast).  Then
+   port never calls (``torch._int_mm`` on operands zero-padded to its
+   shape rules, or a grouped ``F.conv2d``, plus a torch epilogue) and the
+   bound: bytes once in and once out at 3.35 TB/s against the operations
+   at the card's peak.  The launch term of the low-rank cost model is
+   measured here: one wrapper call at the head shape.  The fake-quant
+   wrappers at path (f)'s shapes, bit for bit: the two-pass ``fake_quant``
+   at tinyllama-1.1b's MLP ``wo`` (5632, 2048), a ragged (5000, 1000) and
+   (4160, 256), bf16 and fp32, and ``fake_quant_fused`` (the CUDA cluster
+   kernel) in bf16 at (2048, 5632), (2048, 2048) and (2048, 256), in fp32
+   at (2048, 2048) and at a (100000, 10) head whose slices fit no shared
+   memory, against the yardstick ``torch.amax`` +
+   ``torch.fake_quantize_per_channel_affine`` (on an fp32 upcast); each
+   line ends with the launch plan (BN, C, R, blocks, shared memory).  Then
    ``decode_attention`` and ``decode_attention_int8`` at
    tinyllama-1.1b's heads (H 32, K 4, D 64): B 1 and 8, S 584 (the served
    cache) and 2048, a valid prefix and a case with a hole; fp32, bf16 and
-   an int8 cache under bf16 q, each within ``DECODE_TOL`` x max|plain|
-   (fp32 1e-5; bf16 output 8e-3, about one bf16 ulp), the yardstick
-   ``F.scaled_dot_product_attention(enable_gqa=True)`` on the same masked
-   cache (dequantized first for int8), the bound the valid slots' k/v
-   (and scale) bytes plus q and the output once at 3.35 TB/s.
+   an int8 cache under bf16 q; and the int8 cache with 40 valid slots of
+   584 (whole blocks of its split masked), each within ``DECODE_TOL`` x
+   max|plain| (fp32 1e-5; bf16 output 8e-3, about one bf16 ulp), the
+   yardstick ``F.scaled_dot_product_attention(enable_gqa=True)`` on the
+   same masked cache (dequantized first for int8), the bound the valid
+   slots' k/v (and scale) bytes plus q and the output once at 3.35 TB/s;
+   each line ends with the plan (the grid, or the int8 kernel's split of S
+   over a cluster).
 3. End to end, three CNN paths, each at full width and depth with random
    weights from seed 0, exit heads at the default stages, W8A8,
    ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
@@ -151,6 +157,9 @@ LM_PATHS = (
 # max|plain|: fp32 sums in another order; a bf16 output within about one
 # bf16 ulp (the int8-KV path serves bf16 q and output)
 DECODE_TOL = {'fp32': 1e-5, 'bf16': 8e-3, 'int8': 8e-3}
+# the compiled kernel behind each decode wrapper, as the profiler names it
+DA_DEVICE_NAME = {'decode_attention': 'decode_kernel',
+                  'decode_attention_int8': 'decode_int8_split_kernel'}
 LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
 LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
 LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
@@ -316,17 +325,38 @@ def phase_build():
 # ------------------------------------------------------------------ phase 2
 
 
-def qmm_library(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax):
-    """torch._int_mm plus a torch epilogue (the yardstick), or None where
-    the product falls outside _int_mm's shape rules."""
-    from repro_torch.kernels.ref import requantize
+def int_mm_operands(torch, x, w):
+    """``torch._int_mm`` takes M > 16 and K, N multiples of 8: w (static)
+    zero-padded to (K8, N8) once, and a zeroed (M', K8) buffer for x, M'
+    at least 17.  Zero codes add nothing to the products, so the first M
+    rows and N columns of the padded product are the product."""
     M, K = x.shape
     N = w.shape[1]
-    if M <= 16 or K % 8 or N % 8:
-        return None
+    k8, n8, mp = -(-K // 8) * 8, -(-N // 8) * 8, max(M, 17)
+    wp = torch.zeros((k8, n8), dtype=torch.int8, device='cuda')
+    wp[:K, :N] = w
+    if (mp, k8) == (M, K):
+        return (lambda: x), wp
+    xp = torch.zeros((mp, k8), dtype=torch.int8, device='cuda')
+
+    def padded_x():
+        xp[:M, :K].copy_(x)
+        return xp
+    return padded_x, wp
+
+
+def qmm_library(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax):
+    """The yardstick: ``torch._int_mm`` plus a torch epilogue, the operands
+    zero-padded to _int_mm's shape rules (the activation inside the call,
+    the static weight once outside it) and the output sliced back."""
+    from repro_torch.kernels.ref import requantize
+    M = x.shape[0]
+    N = w.shape[1]
+    xin, wp = int_mm_operands(torch, x, w)
 
     def call():
-        y = torch._int_mm(x, w).to(torch.float32) * (sx[:, None] * sw)
+        acc = torch._int_mm(xin(), wp)[:M, :N]
+        y = acc.to(torch.float32) * (sx[:, None] * sw)
         if bias is not None:
             y = y + bias
         if relu:
@@ -358,12 +388,12 @@ def qmm_case(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax=127.0,
         'ms': time_ms(torch, call, iters),
         'plain_ms': time_ms(torch, lambda: quant_matmul_plain(
             x, w, sx, sw, bias, **kw), iters),
-        'library_ms': None if lib is None else time_ms(torch, lib, iters),
+        'library_ms': time_ms(torch, lib, iters),
         'bound_ms': b_ms, 'bound_by': b_by}
 
 
 FQ_KERNELS = {   # wrapper: (its plain version, its kernels' names)
-    'fake_quant_fused': ('fake_quant_plain', ('_fused_kernel',)),
+    'fake_quant_fused': ('fake_quant_plain', ('fq_cluster_kernel',)),
     'fake_quant': ('fake_quant_two_pass_plain', ('_amax_kernel',
                                                  '_quant_kernel')),
 }
@@ -468,30 +498,27 @@ def dw_case(torch, x, w, sx, sw, bias, *, stride, relu=False,
 
 def lr_library(torch, x, u, v, su, sv, bu, bv, sx, h_scale, relu,
                out_scale, h_qmax, out_qmax):
-    """The yardstick: two ``torch._int_mm`` calls with torch epilogues
-    (u's columns and v's rows zero-padded to a multiple of 8 once, outside
-    the call: zero codes add nothing), or None where M, K1 or N falls
-    outside _int_mm's shape rules."""
+    """The yardstick: two ``torch._int_mm`` calls with torch epilogues, the
+    operands zero-padded to _int_mm's shape rules (u, v and the rank's
+    scales once, outside the call; the patches inside it) and the output
+    sliced back."""
     from repro_torch.kernels.ref import requantize
-    M, K1 = x.shape
+    M = x.shape[0]
     R, N = v.shape
-    if M <= 16 or K1 % 8 or N % 8:
-        return None
-    r8 = -(-R // 8) * 8
-    up = torch.zeros((K1, r8), dtype=torch.int8, device='cuda')
-    up[:, :R] = u
-    vp = torch.zeros((r8, N), dtype=torch.int8, device='cuda')
-    vp[:R] = v
+    xin, up = int_mm_operands(torch, x, u)
+    r8 = up.shape[1]
+    vp = torch.zeros((r8, -(-N // 8) * 8), dtype=torch.int8, device='cuda')
+    vp[:R, :N] = v
     s_u = torch.zeros(r8, device='cuda')
     s_u[:R] = torch.full((), sx, dtype=torch.float32, device='cuda') * su
     b_u = torch.zeros(r8, device='cuda')
     b_u[:R] = bu
     s_v = torch.full((), h_scale, dtype=torch.float32, device='cuda') * sv
 
-    def call():
-        h = torch._int_mm(x, up).to(torch.float32) * s_u + b_u
+    def call():     # rows past M (zero patches) are computed and dropped
+        h = torch._int_mm(xin(), up).to(torch.float32) * s_u + b_u
         h = requantize(h, h_scale, h_qmax)
-        y = torch._int_mm(h, vp).to(torch.float32) * s_v + bv
+        y = torch._int_mm(h, vp)[:M, :N].to(torch.float32) * s_v + bv
         if relu:
             y = torch.clamp_min(y, 0.0)
         return requantize(y, out_scale, out_qmax) if out_scale else y
@@ -521,12 +548,11 @@ def lr_case(torch, x, u, v, su, sv, bu, bv, *, sx, h_scale, relu=False,
             'ms': time_ms(torch, call, iters),
             'plain_ms': time_ms(torch, lambda: lowrank_conv_plain(
                 x, u, v, su, sv, bu, bv, **kw), iters),
-            'library_ms': None if lib is None else time_ms(torch, lib, iters),
+            'library_ms': time_ms(torch, lib, iters),
             'bound_ms': b_ms, 'bound_by': b_by}
 
 
 def fmt_case(name, c):
-    lib = 'n/a' if c['library_ms'] is None else f"{c['library_ms']:.4f}"
     dev = c.get('device_ms')
     return (f"[kernel] {name} {c['shape']}"
             + (f" {'int8' if c['int8_out'] else 'fp32'}-out"
@@ -536,7 +562,8 @@ def fmt_case(name, c):
               f"ms={c['ms']:.4f}"
             + ('' if 'device_ms' not in c else
                f" device_ms={'not measured' if dev is None else f'{dev:.4f}'}")
-            + f" plain_ms={c['plain_ms']:.4f} library_ms={lib} "
+            + f" plain_ms={c['plain_ms']:.4f} "
+              f"library_ms={c['library_ms']:.4f} "
               f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})")
 
 
@@ -602,7 +629,9 @@ def phase_kernels(torch, factored):
     for K in (128, 256, 512):
         w = torch.randn((K, 10), generator=g, device='cuda')
         c = fq_case(torch, w)
-        print(fmt_case('fake_quant_fused[head]', c))
+        c['device_ms'] = device_ms(torch, [c['call']],
+                                   FQ_KERNELS['fake_quant_fused'][1])
+        print(fmt_case('fake_quant_fused[head]', c) + '; ' + fq_plan(w))
         need_exact(c, 'fake_quant_fused')
     phase_fake_quant_kernels(torch, g)
 
@@ -649,7 +678,21 @@ FQ_SHAPES = {'fake_quant': [((5632, 2048), 'bf16'), ((5632, 2048), 'fp32'),
                             ((4160, 256), 'bf16'), ((4160, 256), 'fp32')],
              'fake_quant_fused': [((2048, 5632), 'bf16'),
                                   ((2048, 2048), 'bf16'),
-                                  ((2048, 256), 'bf16')]}
+                                  ((2048, 256), 'bf16'),
+                                  ((2048, 2048), 'fp32'),
+                                  ((100000, 10), 'fp32')]}
+
+
+def fq_plan(w, kernel='fake_quant_fused'):
+    """The launch plan of a fake-quant wrapper on w, for its case line."""
+    K, N = w.shape
+    if kernel != 'fake_quant_fused':
+        from repro_torch.kernels.fake_quant import TILE_K, TILE_N
+        return f'2 x {-(-K // TILE_K) * -(-N // TILE_N)} programs'
+    from repro_torch.kernels.fake_quant import fused_plan
+    bn, c, r, smem, staged = fused_plan(K, N, w.element_size())
+    return (f'BN={bn} C={c} R={r} {-(-N // bn) * c} blocks, {smem} B '
+            f"shared, {'staged' if staged else 'not staged'}")
 
 
 def phase_fake_quant_kernels(torch, g):
@@ -663,7 +706,8 @@ def phase_fake_quant_kernels(torch, g):
             c['device_ms'] = device_ms(torch, [c['call']],
                                        FQ_KERNELS[kernel][1])
             print(fmt_case(kernel, c)
-                  + f" library_max_abs_err={c['library_err']:g}")
+                  + f" library_max_abs_err={c['library_err']:g}; "
+                  + fq_plan(w, kernel))
             need_exact(c, kernel)
 
 
@@ -764,23 +808,38 @@ def need_within(c, name):
              f"({c['kind']}): rel_err {c['rel_err']:.3e}")
 
 
+def da_plan(B, K, S, int8):
+    """The launch plan of a decode kernel, for its case line."""
+    if not int8:
+        return f'grid (K, B) {K * B} blocks'
+    from repro_torch.kernels.decode_attention import split_plan
+    c, spb, warps = split_plan(B, K, S)
+    return (f'split C={c} slots/block={spb} warps={warps} '
+            f'{K * B * c} blocks')
+
+
 def phase_decode_kernels(torch):
     """Both decode-attention kernels against their plain versions at
     tinyllama's shapes: B 1 and 8, S 584 (the served cache) and 2048, a
-    valid prefix, and a case with a hole; fp32, bf16 and int8-KV."""
+    valid prefix, and a case with a hole; fp32, bf16 and int8-KV; and the
+    int8 cache with a prefix of 40 valid slots (blocks 1-7 of each cluster
+    hold masked slots only)."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 11)
-    for kind in ('fp32', 'bf16', 'int8'):
-        for B, S in ((1, 584), (8, 584), (8, 2048)):
-            for hole in ((False, True) if (B, S) == (8, 584) else (False,)):
-                args, valid = da_inputs(torch, g, B, S, kind,
-                                        valid_len=S * 7 // 8, hole=hole)
-                c = da_case(torch, args, valid, kind)
-                c['device_ms'] = device_ms(torch, [c['call']],
-                                           'decode_kernel')
-                name = 'decode_attention_int8' if kind == 'int8' else \
-                    'decode_attention'
-                print(fmt_da_case(name + ('[hole]' if hole else ''), c))
-                need_within(c, name)
+    cases = [(kind, B, S, S * 7 // 8, hole)
+             for kind in ('fp32', 'bf16', 'int8')
+             for B, S in ((1, 584), (8, 584), (8, 2048))
+             for hole in ((False, True) if (B, S) == (8, 584) else (False,))]
+    cases.append(('int8', 8, 584, 40, False))
+    for kind, B, S, valid_len, hole in cases:
+        args, valid = da_inputs(torch, g, B, S, kind, valid_len=valid_len,
+                                hole=hole)
+        name = 'decode_attention_int8' if kind == 'int8' else \
+            'decode_attention'
+        c = da_case(torch, args, valid, kind)
+        c['device_ms'] = device_ms(torch, [c['call']], DA_DEVICE_NAME[name])
+        print(fmt_da_case(name + ('[hole]' if hole else ''), c) + '; '
+              + da_plan(B, args[1].shape[2], S, kind == 'int8'))
+        need_within(c, name)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1211,7 +1270,8 @@ def serve_lm_path(torch, spec):
               f'wall; device time not measured (the profiler recorded no '
               f'device activity)')
     else:
-        kern = sum(ms for ms, _, name in top if 'decode_kernel' in name)
+        kern = sum(ms for ms, _, name in top
+                   if DA_DEVICE_NAME[spec['kernel']] in name)
         print(f'{tag} profile: {LM_PROFILE_STEPS} decode steps in '
               f'{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} ms/token '
               f'profiled), device kernels {busy:.3f} ms: device busy '
@@ -1565,9 +1625,9 @@ def fc_weights(params):
 KERNEL_META = {   # name: (route, source, the TPU kernel it replaces, match)
     'quant_matmul': ('cuda', 'src/repro_torch/kernels/csrc/quant_matmul.cu',
                      'src/repro/kernels/quant_matmul.py:109', 'qmm_kernel'),
-    'fake_quant_fused': ('triton', 'src/repro_torch/kernels/fake_quant.py',
+    'fake_quant_fused': ('cuda', 'src/repro_torch/kernels/csrc/fake_quant.cu',
                          'src/repro/kernels/fake_quant.py:101',
-                         '_fused_kernel'),
+                         FQ_KERNELS['fake_quant_fused'][1]),
     'depthwise_conv': ('cuda', 'src/repro_torch/kernels/csrc/'
                        'depthwise_conv.cu',
                        'src/repro/kernels/depthwise_conv.py:129', 'dw_kernel'),
@@ -1608,8 +1668,7 @@ def phase_report(torch, served, launches, qat_calls):
                 need_exact(c, name)
 
     def total(cs, k):
-        vals = [c[k] for c in cs]
-        return None if any(v is None for v in vals) else sum(vals)
+        return sum(c[k] for c in cs)
 
     out = []
     for name, (route, source, replaces, match) in KERNEL_META.items():
@@ -1618,7 +1677,6 @@ def phase_report(torch, served, launches, qat_calls):
             fail(f'{name}: no call on any path')
         top = max(paths, key=lambda k: len(paths[k]))
         cs = paths[top]
-        has_lib = [c for c in cs if c['library_ms'] is not None]
         out.append({
             'name': name, 'route': route, 'source': source,
             'replaces': replaces,
@@ -1635,8 +1693,6 @@ def phase_report(torch, served, launches, qat_calls):
             'device_ms': device_ms(torch, [c['call'] for c in cs], match,
                                    iters=5),
             'pass_of': top, 'calls_per_pass': len(cs),
-            'library_ms_where_defined': sum(c['library_ms'] for c in has_lib),
-            'ms_where_library_defined': sum(c['ms'] for c in has_lib),
             'launches_by_path': {k: launches[k][name] for k in launches},
             'by_path': {k: {'calls_per_pass': len(v),
                             'exact': all(c['exact'] for c in v),
@@ -1695,7 +1751,7 @@ def lm_report(torch, lm_calls, lm_launches):
                 c['bound_ms'] for c in cs if c['bound_by'] == b)),
             'library_ms': sum(c['library_ms'] for c in cs),
             'device_ms': device_ms(torch, [c['call'] for c in cs],
-                                   'decode_kernel', iters=5),
+                                   DA_DEVICE_NAME[name], iters=5),
             'max_rel_err': max(c['rel_err'] for v in paths.values()
                                for c in v),
             'pass_of': top, 'calls_per_pass': len(cs),

@@ -9,8 +9,11 @@ Kernel                 Replaces (src/repro/kernels/)
                        through the im2col lowering in ``quant_conv.py``
                        and every dense head
 ``fake_quant_fused``   ``fake_quant.py`` ``_fused_kernel``: per-column
-(Triton)               symmetric fake quant of a 2-D fp32 or bf16 weight
-                       in one pass over column stripes; QAT and export
+(CUDA C++,             symmetric fake quant of a 2-D fp32 or bf16 weight
+``csrc/``)             in one launch, a cluster of blocks splitting each
+                       column stripe along K and merging the column
+                       maxima over distributed shared memory; QAT and
+                       export
 ``fake_quant``         ``fake_quant.py`` ``_amax_kernel`` +
 (Triton, two           ``_quant_kernel``: the same function as a
 kernels)               tile-parallel abs-max and a quantize pass, for the
@@ -31,8 +34,9 @@ kernels)               tile-parallel abs-max and a quantize pass, for the
                        LM decode step
 ``decode_attention_    ``decode_attention.py`` ``_decode_kernel_int8``: the
 int8`` (CUDA C++,      same over an int8 cache with fp32 scales per
-``csrc/``)             (token, kv head), dequantized in the kernel
-                       (``kv_cache_bits=8``)
+``csrc/``)             (token, kv head) (``kv_cache_bits=8``), S split
+                       over a cluster of blocks merged over distributed
+                       shared memory, one scale multiply a slot
 =====================  ====================================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain

@@ -9,38 +9,60 @@
 //     logit[h, s] = (fp32(q[b, kh*g + h]) * D**-0.5) . fp32(k[b, s, kh])
 //     a masked slot (valid[s] false) gets -1e30
 //     online softmax in fp32 over s, out = acc / max(l, 1e-30) in q's type
-// and in the int8 variant each k (v) element is code * k_s[b, s, kh] in
-// fp32.  -1e30, not -inf, as on the TPU: masked terms are corrected away by
+// and in the int8 variant k (v) is code * k_s[b, s, kh] in fp32.  -1e30,
+// not -inf, as on the TPU: masked terms are corrected away by
 // corr = exp(m_old - m_new) once a valid slot is seen, and a row whose
 // slots are all masked comes out as the mean of v over the S slots.
 //
 // What bounds it on an H100.  Each cache element is read once and used
 // for 2*g flops (g = 8 for tinyllama), far below the card's
-// operations-per-byte line, so the kernel is bound by bytes: k and v (and
-// their scales), q and the output once.  At tinyllama's decode shapes
-// (B = 8, S = 584, K = 4, D = 64, bf16) that is 4.8 MB, 1.4 us at
-// 3.35 TB/s.
+// operations-per-byte line, so both kernels are bound by bytes: k and v
+// (and their scales), q and the output once.  At tinyllama's decode
+// shapes (B = 8, S = 584, K = 4, D = 64) that is 4.8 MB in bf16, 1.4 us
+// at 3.35 TB/s, and a quarter of it for the int8 cache.
 //
-// Design.  One block per (kv-head, batch row).  The g query heads of the
-// group sit in shared memory as fp32, pre-scaled.  The block's 8 warps
-// split the S slots in tiles of 32, and each warp keeps its own (m, l, acc)
-// for the g heads.  In a tile, lane t owns slot s = tile + t and computes
-// its g logits over the whole k row (16-byte loads); the tile's max and sum
-// are warp shuffles; the probabilities go to shared memory; then lane t
-// owns D/32 channels and accumulates p * v over the tile's rows, each row
-// read coalesced by the warp.  At the end the warps' partials merge in
-// shared memory.  The cache is read in its (B, S, K, D) layout, so nothing
-// is transposed or copied (the TPU wrapper transposes it to (B, K, S, D)
-// on every call), and an S that no tile divides is masked, not fitted.
+// decode_kernel (bf16 and fp32 caches).  One block per (kv-head, batch
+// row).  The g query heads of the group sit in shared memory as fp32,
+// pre-scaled.  The block's 8 warps split the S slots in tiles of 32, and
+// each warp keeps its own (m, l, acc) for the g heads.  In a tile, lane t
+// owns slot s = tile + t and computes its g logits over the whole k row
+// (16-byte loads); the tile's max and sum are warp shuffles; the
+// probabilities go to shared memory; then lane t owns D/32 channels and
+// accumulates p * v over the tile's rows, each row read coalesced by the
+// warp.  At the end the warps' partials merge in shared memory.  The cache
+// is read in its (B, S, K, D) layout, so nothing is transposed or copied
+// (the TPU wrapper transposes it to (B, K, S, D) on every call), and an S
+// that no tile divides is masked, not fitted.  Shortfall: only B * K
+// blocks run (32 at batch 8, on 32 of the card's 132 SMs), so it cannot
+// reach the byte bound at decode shapes; the int8 kernel below shows the
+// fix.
 //
-// Shortfall: only B * K blocks run (32 at batch 8, on 32 of the card's 132
-// SMs), each walking its slots with 8 warps, so the kernel cannot reach the
-// byte bound at decode shapes.  Splitting S across blocks with a second
-// merge pass (flash-decoding) is the fix; it is not done here.
+// decode_int8_split_kernel (the int8 cache).  S is split over a
+// thread-block cluster: the grid is (K, B, C) in clusters of C blocks
+// along z, block r owning slots [r * spb, (r + 1) * spb), with C, spb and
+// the warps a block from the wrapper's plan (kernels/decode_attention.
+// split_plan: C = 8, 73 slots and 5 warps a block, 256 blocks, at
+// tinyllama's batch 8 and 584 slots).  Each warp walks 16-slot sub-tiles,
+// two lanes a slot: they copy its k and v rows and scales into shared
+// memory with 16-byte (4-byte) cp.async, double-buffered across tiles,
+// the k rows swizzled against bank conflicts, and each sums half of its
+// dot products.  The dequantization is one multiply a slot:
+// logit = ks[s] * (q . code) and acc += (p * vs[s]) * code, the codes
+// turned into fp32 four at a time (prmt).  The warps' (m, l, acc) merge in
+// shared memory, then the C blocks' over distributed shared memory, each
+// rank merging and writing 1/C of the outputs; a final cluster.sync()
+// keeps every block's shared memory alive until its peers have read it.  Every slot is
+// read, masked or not, so a row with no valid slot gives the mean of v.
+// What holds it back is latency, not bytes: a block moves 9 KB, and its
+// time goes to the chain of copy, dot products, softmax, p @ v, the two
+// merges and two cluster barriers (PERF.md).
 #include <cstdint>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -52,9 +74,6 @@ constexpr unsigned FULL = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
 }
 
 __device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
@@ -86,8 +105,6 @@ struct Args {
   const void* q;          // (B, H, D) TQ
   const void* k;          // (B, S, K, D) TKV
   const void* v;
-  const float* ks;        // (B, S, K) fp32, int8 variant only
-  const float* vs;
   const uint8_t* valid;   // (S,) bool
   void* out;              // (B, H, D) TQ
   int B, S, H, K, g;
@@ -96,22 +113,20 @@ struct Args {
 
 template <int D, int G>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (G * D + WARPS * G * 32 + WARPS * 32 +
-                          2 * WARPS * G + WARPS * G * D);
+  return sizeof(float) * (G * D + WARPS * G * 32 + 2 * WARPS * G +
+                          WARPS * G * D);
 }
 
 // G is the group size rounded up to a power of two; heads g..G-1 hold
 // zeros and are not written.
 template <typename TQ, typename TKV, int D, int G>
 __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
-  constexpr bool INT8 = std::is_same_v<TKV, int8_t>;
   constexpr int VEC = 16 / static_cast<int>(sizeof(TKV));  // per 16 bytes
   constexpr int EL = D / 32;               // channels a lane owns in p @ v
   extern __shared__ float smem[];
   float* qs = smem;                        // [G][D] scaled query group
   float* ps = qs + G * D;                  // [WARPS][G][32] probabilities
-  float* vsc = ps + WARPS * G * 32;        // [WARPS][32] v scales (int8)
-  float* mm = vsc + WARPS * 32;            // [WARPS][G] partial max
+  float* mm = ps + WARPS * G * 32;         // [WARPS][G] partial max
   float* ll = mm + WARPS * G;              // [WARPS][G] partial sum
   float* aa = ll + WARPS * G;              // [WARPS][G][D] partial acc
 
@@ -130,7 +145,6 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
                       static_cast<size_t>(kh) * D;
   const TKV* kb = static_cast<const TKV*>(a.k) + base;
   const TKV* vb = static_cast<const TKV*>(a.v) + base;
-  const size_t sbase = static_cast<size_t>(b) * S * K + kh;
 
   float m[G], l[G], acc[G][EL];
 #pragma unroll
@@ -141,7 +155,6 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
     for (int j = 0; j < EL; ++j) acc[h][j] = 0.0f;
   }
   float* pw = ps + warp * G * 32;
-  float* vw = vsc + warp * 32;
 
   for (int t0 = warp * 32; t0 < S; t0 += WARPS * 32) {
     const int s = t0 + lane;
@@ -151,18 +164,15 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
     for (int h = 0; h < G; ++h) logit[h] = 0.0f;
     if (in) {
       const TKV* kr = kb + static_cast<size_t>(s) * row;
-      const float ksc = INT8 ? a.ks[sbase + static_cast<size_t>(s) * K]
-                             : 1.0f;
 #pragma unroll 4
       for (int c = 0; c < D / VEC; ++c) {
         float e[VEC];
         load_f32<TKV, VEC>(kr + c * VEC, e);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          const float kv = INT8 ? e[i] * ksc : e[i];
 #pragma unroll
           for (int h = 0; h < G; ++h)
-            logit[h] = fmaf(qs[h * D + c * VEC + i], kv, logit[h]);
+            logit[h] = fmaf(qs[h * D + c * VEC + i], e[i], logit[h]);
         }
       }
       if (!a.valid[s]) {
@@ -188,8 +198,6 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
       m[h] = m_new;
       pw[h * 32 + lane] = p;
     }
-    if (INT8)
-      vw[lane] = in ? a.vs[sbase + static_cast<size_t>(s) * K] : 0.0f;
     __syncwarp();
 
 #pragma unroll
@@ -202,11 +210,6 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
       float ve[EL];
       load_f32<TKV, EL>(vb + static_cast<size_t>(t0 + t) * row + lane * EL,
                         ve);
-      if (INT8) {
-        const float vsc_t = vw[t];
-#pragma unroll
-        for (int j = 0; j < EL; ++j) ve[j] = ve[j] * vsc_t;
-      }
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float p = pw[h * 32 + t];
@@ -283,6 +286,403 @@ int launch_t(const Args& a, int D, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------------
+// The int8 cache: S split over a thread-block cluster.
+
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+
+struct SplitArgs {
+  const void* q;          // (B, H, D) TQ
+  const int8_t* k;        // (B, S, K, D) int8 codes
+  const int8_t* v;
+  const float* ks;        // (B, S, K) fp32 scales
+  const float* vs;
+  const uint8_t* valid;   // (S,) bool
+  void* out;              // (B, H, D) TQ
+  int B, S, H, K, g;
+  int spb;                // slots a block of the cluster owns
+  float scale;            // fp32(D**-0.5)
+};
+
+// Shared memory of the split kernel for W warps (a tile of 16 * W slots),
+// a query group padded to G and head_dim D, in bytes; the wrapper's plan
+// (kernels/decode_attention.split_smem_bytes) computes the same sum.
+//   k, v codes      2 buffers x [16W][D] int8 each
+//   q               [G][D] fp32, pre-scaled
+//   block acc       [G][D] fp32 (read by the peers over DSMEM)
+//   p * v scale     [W][G][16] fp32
+//   k, v scales     2 buffers x [16W] fp32 each
+//   block m, l      [G] fp32 each (read by the peers over DSMEM)
+// After the slot loop the warps' acc partials ([W][G][D] fp32) overlay the
+// code buffers and their (m, l) ([W][G] each) the p * v-scale rows.
+__host__ __device__ constexpr size_t split_smem(int W, int G, int D) {
+  return 64 * static_cast<size_t>(W) * D + 8 * G * D + 64 * W * G +
+         256 * W + 8 * G;
+}
+
+// One 16-byte (4-byte) async copy to shared memory, or zeros without a
+// read when use is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool use) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(use ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool use) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(use ? 4 : 0));
+}
+
+// Four int8 codes (one 32-bit word) to fp32 exactly: flip the sign bits
+// to get code + 128 as a byte, splice each byte under the exponent of
+// 2**23 (prmt) and subtract 2**23 + 128.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t x, float (&f)[4]) {
+  const uint32_t u = x ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650)) - 8388736.0f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7651)) - 8388736.0f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7652)) - 8388736.0f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7653)) - 8388736.0f;
+}
+
+// Slot t's k row is D/16 chunks of 16 bytes; chunk c sits at chunk
+// position c ^ f(t), so the 8 lanes of a 16-byte shared load phase (4
+// slots, two lanes each reading a chunk of its own half row) fall on 8
+// different bank groups.
+template <int D>
+__device__ __forceinline__ int swizzle(int t, int c) {
+  constexpr int CPR = D / 16;
+  return c ^ ((t / (8 / CPR)) & (CPR - 1));
+}
+
+// Block (kh, b, r) of the grid (K, B, C), in clusters of C along z, runs
+// the online softmax of the g heads of kv-head kh of row b over slots
+// [r * spb, min((r + 1) * spb, S)); the C ranks merge the partials.  Within
+// a block each warp walks 16-slot sub-tiles of 16 * W-slot tiles.  Lane
+// pair (2t, 2t+1) of a warp owns slot t of its sub-tile: each copies half
+// of its k and v rows and one of its two scales (double-buffered
+// cp.async; a warp copies only its own sub-tile, so warp barriers order
+// the copies) and sums half of the g dot products ks[s] * (q . code), one
+// shuffle joining the halves.
+// Then each lane owns 4 channels of D for p @ v, with 128 / D slot groups
+// in a warp.
+// Up to a group of 8, the register budget keeps two 8-warp blocks on an SM.
+template <typename TQ, int D, int G>
+__global__ void __launch_bounds__(THREADS, G <= 8 ? 2 : 1)
+decode_int8_split_kernel(const SplitArgs a) {
+  constexpr int CPR = D / 16;     // 16-byte chunks a k or v row
+  constexpr int HALF = CPR / 2;   // chunks of a half row (D >= 32)
+  constexpr int LPS = D / 4;      // lanes over one v row, 4 channels each
+  constexpr int NSG = 32 / LPS;   // slot groups of a warp in p @ v
+  extern __shared__ __align__(16) unsigned char split_buf[];
+  const int W = blockDim.x / 32, TS = 16 * W;
+  int8_t* kt = reinterpret_cast<int8_t*>(split_buf);   // [2][TS][D]
+  int8_t* vt = kt + 2 * TS * D;                      // [2][TS][D]
+  float* qs = reinterpret_cast<float*>(vt + 2 * TS * D);   // [G][D]
+  float* ba = qs + G * D;                            // [G][D]
+  float* pw = ba + G * D;                            // [W][G][16]
+  float* kss = pw + W * G * 16;                      // [2][TS]
+  float* vss = kss + 2 * TS;                         // [2][TS]
+  float* bm = vss + 2 * TS;                          // [G]
+  float* bl = bm + G;                                // [G]
+  float* wa = reinterpret_cast<float*>(split_buf);   // [W][G][D], after
+  float* wm = pw;                                    // [W][G]  the slot
+  float* wl = wm + W * G;                            // [W][G]  loop
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int S = a.S, K = a.K, g = a.g;
+  const int lo = min(S, rank * a.spb), hi = min(S, lo + a.spb);
+  const int ntiles = (hi - lo + TS - 1) / TS;
+  const int t = warp * 16 + lane / 2, half = lane % 2;   // slot in the tile
+
+  const size_t row = static_cast<size_t>(K) * D;     // bytes a slot
+  const size_t base = static_cast<size_t>(b) * S * row +
+                      static_cast<size_t>(kh) * D;
+  const size_t sbase = static_cast<size_t>(b) * S * K + kh;
+  // Every in-range slot is read, masked or not: a masked slot's weight
+  // exp(-1e30 - m) is 0 once its block has a valid slot, and a block
+  // with none gives the row the mean of v when no block has one.  Bit buf
+  // of valid_bits holds the mask of this lane's slot in buffer buf, loaded
+  // beside the copies so that its latency hides behind theirs.
+  unsigned valid_bits = 0;
+  auto copy_tile = [&](int tile, int buf) {
+    const int s = lo + tile * TS + t;
+    const bool in = s < hi;
+    valid_bits = (valid_bits & ~(1u << buf)) |
+                 (unsigned(in && a.valid[s]) << buf);
+    const size_t off = in ? base + static_cast<size_t>(s) * row : 0;
+    int8_t* kd = kt + (buf * TS + t) * D;
+    int8_t* vd = vt + (buf * TS + t) * D;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const int c = half * HALF + i;
+      cp_async16(kd + swizzle<D>(t, c) * 16, a.k + off + c * 16, in);
+      cp_async16(vd + c * 16, a.v + off + c * 16, in);
+    }
+    const size_t soff = in ? sbase + static_cast<size_t>(s) * K : 0;
+    cp_async4((half ? vss : kss) + buf * TS + t, (half ? a.vs : a.ks) + soff,
+              in);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if (ntiles > 0) copy_tile(0, 0);
+
+  const size_t head0 = static_cast<size_t>(b) * a.H +
+                       static_cast<size_t>(kh) * g;
+  const TQ* q = static_cast<const TQ*>(a.q) + head0 * D;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
+    qs[i] = i / D < g ? to_f32(q[i]) * a.scale : 0.0f;
+  __syncthreads();
+
+  float m[G], l[G], acc[G][4];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    m[h] = NEG_INF;
+    l[h] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[h][j] = 0.0f;
+  }
+  float* pwarp = pw + warp * G * 16;
+  const int sg = lane / LPS, ch = (lane % LPS) * 4;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    const int s = lo + tile * TS + t;
+    const bool in = s < hi;
+    const bool vld = (valid_bits >> buf) & 1u;
+    if (tile + 1 < ntiles) {
+      copy_tile(tile + 1, buf ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();             // a warp copies its own sub-tile's rows
+
+    // half of slot t's g dot products, joined across the lane pair
+    float logit[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) logit[h] = 0.0f;
+    const int8_t* kr = kt + (buf * TS + t) * D;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const int c = half * HALF + i;
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(kr + swizzle<D>(t, c) * 16);
+      const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float f[4];
+        i8x4_to_f32(words[j], f);
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              qs + h * D + c * 16 + j * 4);
+          logit[h] = fmaf(qv.x, f[0], logit[h]);
+          logit[h] = fmaf(qv.y, f[1], logit[h]);
+          logit[h] = fmaf(qv.z, f[2], logit[h]);
+          logit[h] = fmaf(qv.w, f[3], logit[h]);
+        }
+      }
+    }
+    const float ksc = kss[buf * TS + t], vsc = vss[buf * TS + t];
+    float corr[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      logit[h] += __shfl_xor_sync(FULL, logit[h], 1);
+      const float lg = vld ? ksc * logit[h] : NEG_INF;
+      float mx = in ? lg : NEG_INF;
+#pragma unroll
+      for (int o = 16; o > 1; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float m_new = fmaxf(m[h], mx);
+      const float p = in ? expf(lg - m_new) : 0.0f;
+      float sum = half ? 0.0f : p;       // each slot counted once
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+      corr[h] = expf(m[h] - m_new);
+      l[h] = l[h] * corr[h] + sum;
+      m[h] = m_new;
+      if (!half) pwarp[h * 16 + lane / 2] = p * vsc;
+    }
+    __syncwarp();
+
+    // p @ v: lane (sg, ch) sums slots sg, sg + NSG, ... of the sub-tile
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[h][j] *= corr[h];
+    }
+    const int n = min(16, hi - (lo + tile * TS + warp * 16));
+#pragma unroll
+    for (int k = 0; k < 16 / NSG; ++k) {
+      const int tt = sg + k * NSG;
+      if (tt >= n) break;
+      float f[4];
+      i8x4_to_f32(*reinterpret_cast<const uint32_t*>(
+                      vt + (buf * TS + warp * 16 + tt) * D + ch),
+                  f);
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const float p = pwarp[h * 16 + tt];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[h][j] = fmaf(p, f[j], acc[h][j]);
+      }
+    }
+    __syncwarp();             // before the next copy into this buffer
+  }
+  __syncthreads();            // the warps' partials overlay every buffer
+
+  // the slot groups' sums, then the warps' partials through shared memory
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int o = LPS; o < 32; o <<= 1)
+        acc[h][j] += __shfl_xor_sync(FULL, acc[h][j], o);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      wm[warp * G + h] = m[h];
+      wl[warp * G + h] = l[h];
+    }
+  }
+  if (lane < LPS) {
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wa[(warp * G + h) * D + ch + j] = acc[h][j];
+    }
+  }
+  __syncthreads();
+  // the block's (m, l) and each warp's weight exp(m_w - m), once a head
+  float* fwarp = kss;          // [W][G] (2 * TS >= W * G floats)
+  // (the loops over the warps are unrolled to WARPS with guards, so that
+  // their shared-memory loads go out together)
+  if (threadIdx.x < G) {
+    const int h = threadIdx.x;
+    float mw[WARPS], M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      mw[w] = w < W ? wm[w * G + h] : NEG_INF;
+      M = fmaxf(M, mw[w]);
+    }
+    float L = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      if (w < W) {
+        const float f = expf(mw[w] - M);
+        fwarp[w * G + h] = f;
+        L += wl[w * G + h] * f;
+      }
+    }
+    bm[h] = M;
+    bl[h] = L;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int h = i / D;
+    float A = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      if (w < W) A += wa[(w * G + h) * D + i % D] * fwarp[w * G + h];
+    }
+    ba[i] = A;
+  }
+  cluster.sync();
+
+  // The C blocks' (m, l, acc) merge over distributed shared memory, each
+  // rank writing its share of the g * D outputs with all 3 * C remote
+  // loads of an output in flight together.  (Rank 0 alone needed several
+  // rounds of remote loads for the g * D outputs while the other ranks
+  // waited at the last barrier; PERF.md has the times.)
+  {
+    TQ* out = static_cast<TQ*>(a.out) + head0 * D;
+    const int share = (g * D + C - 1) / C;
+    const int end = min(g * D, (rank + 1) * share);
+    for (int i = rank * share + threadIdx.x; i < end; i += blockDim.x) {
+      const int h = i / D;
+      float mr[MAX_CLUSTER], lr[MAX_CLUSTER], ar[MAX_CLUSTER];
+      float M = NEG_INF;
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r) {
+        mr[r] = r < C ? cluster.map_shared_rank(bm, r)[h] : NEG_INF;
+        lr[r] = r < C ? cluster.map_shared_rank(bl, r)[h] : 0.0f;
+        ar[r] = r < C ? cluster.map_shared_rank(ba, r)[i] : 0.0f;
+        M = fmaxf(M, mr[r]);
+      }
+      float L = 0.0f, A = 0.0f;
+#pragma unroll
+      for (int r = 0; r < MAX_CLUSTER; ++r) {
+        const float f = expf(mr[r] - M);
+        L += lr[r] * f;
+        A += ar[r] * f;
+      }
+      from_f32(A / fmaxf(L, 1e-30f), out + i);
+    }
+  }
+  cluster.sync();              // every block's partials stay until read
+}
+
+template <typename TQ, int D, int G>
+int launch_split_g(const SplitArgs& a, int C, int W, size_t smem,
+                   cudaStream_t st) {
+  auto kern = decode_int8_split_kernel<TQ, D, G>;
+  if (smem < split_smem(W, G, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.K, a.B, C);
+  cfg.blockDim = dim3(32 * W, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = C;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ, int D>
+int launch_split_d(const SplitArgs& a, int C, int W, size_t smem,
+                   cudaStream_t st) {
+  if (a.g <= 1) return launch_split_g<TQ, D, 1>(a, C, W, smem, st);
+  if (a.g <= 2) return launch_split_g<TQ, D, 2>(a, C, W, smem, st);
+  if (a.g <= 4) return launch_split_g<TQ, D, 4>(a, C, W, smem, st);
+  if (a.g <= 8) return launch_split_g<TQ, D, 8>(a, C, W, smem, st);
+  if (a.g <= 16) return launch_split_g<TQ, D, 16>(a, C, W, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename TQ>
+int launch_split_t(const SplitArgs& a, int D, int C, int W, size_t smem,
+                   cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_split_d<TQ, 32>(a, C, W, smem, st);
+    case 64: return launch_split_d<TQ, 64>(a, C, W, smem, st);
+    case 128: return launch_split_d<TQ, 128>(a, C, W, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q, k, v, out all fp32 (bf16 == 0) or all bf16 (bf16 == 1).
@@ -291,26 +691,34 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* out, int B, int S, int H, int K,
                                        int D, float scale, int bf16,
                                        void* stream) {
-  const Args a{q, k, v, nullptr, nullptr,
-               static_cast<const uint8_t*>(valid), out, B, S, H, K, H / K,
-               scale};
+  const Args a{q, k, v, static_cast<const uint8_t*>(valid), out, B, S, H, K,
+               H / K, scale};
   auto st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_t<__nv_bfloat16, __nv_bfloat16>(a, D, st)
               : launch_t<float, float>(a, D, st);
 }
 
-// k_q, v_q int8; k_s, v_s fp32; q and out fp32 (q_bf16 == 0) or bf16.
+// k_q, v_q int8; k_s, v_s fp32; q and out fp32 (q_bf16 == 0) or bf16.  The
+// split (C blocks of spb slots, W warps a block, smem bytes) comes from
+// kernels/decode_attention.split_plan.
 extern "C" int decode_attention_int8_launch(
     const void* q, const void* k_q, const void* v_q, const void* k_s,
     const void* v_s, const void* valid, void* out, int B, int S, int H,
-    int K, int D, float scale, int q_bf16, void* stream) {
-  const Args a{q, k_q, v_q, static_cast<const float*>(k_s),
-               static_cast<const float*>(v_s),
-               static_cast<const uint8_t*>(valid), out, B, S, H, K, H / K,
-               scale};
+    int K, int D, float scale, int q_bf16, int C, int spb, int W,
+    int smem_bytes, void* stream) {
+  if (C < 1 || C > MAX_CLUSTER || W < 1 || W > WARPS || spb < 1 ||
+      static_cast<long long>(C) * spb < S || smem_bytes < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{q, static_cast<const int8_t*>(k_q),
+                    static_cast<const int8_t*>(v_q),
+                    static_cast<const float*>(k_s),
+                    static_cast<const float*>(v_s),
+                    static_cast<const uint8_t*>(valid), out, B, S, H, K,
+                    H / K, spb, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  return q_bf16 ? launch_t<__nv_bfloat16, int8_t>(a, D, st)
-                : launch_t<float, int8_t>(a, D, st);
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  return q_bf16 ? launch_split_t<__nv_bfloat16>(a, D, C, W, smem, st)
+                : launch_split_t<float>(a, D, C, W, smem, st);
 }
 
 extern "C" const char* kernels_error_string(int code) {

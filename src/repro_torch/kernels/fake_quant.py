@@ -1,5 +1,5 @@
-"""Per-channel fake quantization: three Triton kernels behind two wrappers,
-and their plain versions.
+"""Per-channel fake quantization: a CUDA kernel over thread-block clusters
+and a Triton pair, behind two wrappers, and their plain versions.
 
 For a 2-D weight w (K, N), each column gets ``scale = max(amax, 1e-8) /
 qmax`` from its abs-max, and the output is ``clip(round(w / scale),
@@ -9,50 +9,52 @@ dtype, rounded to nearest even: the reference's kernels upcast, quantize
 and cast back the same way.
 
 * :func:`fake_quant_fused` replaces the reference's ``fake_quant_fused`` /
-  ``_fused_kernel`` (src/repro/kernels/fake_quant.py).  One program owns a
-  BN-column stripe and loops over K twice: first the abs-max, then the
-  quantize pass.  The Pallas kernel holds the whole (K, bn) stripe in
-  VMEM; a Triton program streams it through registers, so any K fits and
-  W is read twice from device memory (the second read mostly from L2).
+  ``_fused_kernel`` (src/repro/kernels/fake_quant.py) with the CUDA kernel
+  in ``csrc/fake_quant.cu``.  The Pallas kernel holds a whole (K, bn)
+  column stripe in VMEM; here a cluster of C blocks splits a BN-column
+  stripe along K, each block stages its (R, BN) slice in shared memory,
+  and the blocks exchange their column maxima through distributed shared
+  memory before each quantizes its own slice: one launch, w read from
+  device memory once.  :func:`fused_plan` picks (BN, C, R) so that the
+  grid fills the card; the CPU tests check the same plan the card runs.
 * :func:`fake_quant` replaces the reference's two-pass ``fake_quant`` /
   ``_amax_kernel`` + ``_quant_kernel``, which the reference takes when a
   (K, 256) fp32 stripe overflows its VMEM budget (kernels/ops.py routes
-  the same way).  On this card the point of two passes is parallelism,
-  not memory: at tinyllama's MLP ``wo`` (5632, 2048) the fused grid has 32
-  programs for 132 SMs, each walking K twice.  Here ``_amax_kernel`` runs
-  one program per (BK, BN) tile and merges its column maxima into a zeroed
-  fp32 (N,) buffer with ``atomic_max`` (|w| >= 0, and a max does not
-  depend on the order of its terms, so the result is deterministic);
-  ``_quant_kernel`` then quantizes one (BK, BN) tile per program.  The
-  wrapper counts one launch for the pair.
+  the same way).  Here ``_amax_kernel`` runs one Triton program per (BK,
+  BN) tile and merges its column maxima into a zeroed fp32 (N,) buffer
+  with ``atomic_max`` (|w| >= 0, and a max does not depend on the order
+  of its terms, so the result is deterministic); ``_quant_kernel`` then
+  quantizes one (BK, BN) tile per program.  The wrapper counts one launch
+  for the pair.
 
-All three are elementwise passes and a column reduction with no product
-for the tensor cores: they are bound by bytes (read w, write the output),
-which Triton's masked 2-D block loads express as well as CUDA would.
-Ragged edges are masked; nothing is padded in device memory, and masked
-loads read 0, which never wins an abs-max.
+All are elementwise passes and a column reduction with no product for the
+tensor cores: they are bound by bytes (read w, write the output).  Ragged
+edges are masked; nothing is padded in device memory.
 
 Numerics match the plain versions bit for bit: the scale multiplies by the
 fp32 reciprocal of qmax (as the reference's compiled kernels do), the
-division ``w / scale`` is IEEE-rounded (``div_rn``: Triton may lower an
-fp32 ``/`` to an approximate division), rounding is half to even
-(libdevice ``rint``), and the store's fp32 -> bf16 cast rounds to nearest
-even.
+division ``w / scale`` is IEEE-rounded (``__fdiv_rn`` in CUDA, ``div_rn``
+in Triton, which may otherwise lower an fp32 ``/`` to an approximate
+division), rounding is half to even (``rint``), and the store's fp32 ->
+bf16 cast rounds to nearest even.
 
-``triton`` is imported on the first launch, never when this module is
-imported: hosts without a card have no triton.  The kernel bodies read
-``tl``, ``libdevice`` and ``_quantize`` as module globals bound at that
-point; their annotations stay strings (``from __future__ import
-annotations``), which Triton reads as constexpr markers.
+``triton`` is imported on the first launch of the pair, never when this
+module is imported: hosts without a card have no triton.  Its kernel
+bodies read ``tl``, ``libdevice`` and ``_quantize`` as module globals bound
+at that point; their annotations stay strings (``from __future__ import
+annotations``), which Triton reads as constexpr markers.  The CUDA library
+is built on its first launch too (kernels/_build.py).
 """
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
 
-from repro_torch.kernels._build import BUILD_ROOT
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fake_quant_ref, recip32
+from repro_torch.kernels.tiling import SMEM_BUDGET
 
 tl = None            # triton.language, bound by _jit()
 libdevice = None     # triton.language.extra.libdevice, bound by _jit()
@@ -61,6 +63,19 @@ _KERNELS = {}
 
 TILE_K, TILE_N = 64, 128     # the two-pass kernels' tile (128 columns a row)
 
+# The fused kernel's launch plan (csrc/fake_quant.cu).  A stripe is BN
+# columns wide and a cluster of C blocks splits it along K; BN is a power
+# of two from 16 to 128 (the kernel's 256 threads split a stripe row
+# evenly) and C stays within the portable cluster size of 8.
+FUSED_BNS = (128, 64, 32, 16)
+FUSED_CLUSTERS = (1, 2, 4, 8)
+FUSED_MIN_BLOCKS = 132       # one block for each SM of an H100
+STATIC_SMEM = 48 * 1024      # above this a block needs the opt-in attribute
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + \
+    [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_LAUNCH = []         # the bound C entry point, set up on first launch
+
 
 def _quantize_body(w, scale, qmax):
     """``clip(rint(w / scale), -qmax-1, qmax) * scale`` on an fp32 tile,
@@ -68,28 +83,6 @@ def _quantize_body(w, scale, qmax):
     q = libdevice.rint(tl.math.div_rn(w, scale[None, :]))
     q = tl.minimum(tl.maximum(q, -qmax - 1.0), qmax)
     return q * scale[None, :]
-
-
-def _fused_kernel(w_ptr, o_ptr, K, N, qmax, inv_qmax, BK: tl.constexpr,
-                  BN: tl.constexpr):
-    cols = tl.program_id(0) * BN + tl.arange(0, BN)
-    cmask = cols < N
-    amax = tl.zeros((BN,), dtype=tl.float32)
-    for k0 in range(0, K, BK):
-        rows = k0 + tl.arange(0, BK)
-        mask = (rows[:, None] < K) & cmask[None, :]
-        w = tl.load(w_ptr + rows[:, None] * N + cols[None, :], mask=mask,
-                    other=0.0).to(tl.float32)
-        amax = tl.maximum(amax, tl.max(tl.abs(w), axis=0))
-    scale = tl.maximum(amax, 1e-8) * inv_qmax
-    for k0 in range(0, K, BK):
-        rows = k0 + tl.arange(0, BK)
-        mask = (rows[:, None] < K) & cmask[None, :]
-        offs = rows[:, None] * N + cols[None, :]
-        w = tl.load(w_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        tl.store(o_ptr + offs,
-                 _quantize(w, scale, qmax).to(o_ptr.dtype.element_ty),
-                 mask=mask)
 
 
 def _amax_kernel(w_ptr, amax_ptr, K, N, BK: tl.constexpr, BN: tl.constexpr):
@@ -121,15 +114,59 @@ def _jit():
     """Import triton and wrap the kernel bodies, once per process."""
     global tl, libdevice, _quantize
     if not _KERNELS:
-        os.environ.setdefault('TRITON_CACHE_DIR', str(BUILD_ROOT / 'triton'))
+        os.environ.setdefault('TRITON_CACHE_DIR',
+                              str(_build.BUILD_ROOT / 'triton'))
         import triton
         import triton.language
         from triton.language.extra import libdevice as _libdevice
         tl, libdevice = triton.language, _libdevice
         _quantize = triton.jit(_quantize_body)
-        for fn in (_fused_kernel, _amax_kernel, _quant_kernel):
+        for fn in (_amax_kernel, _quant_kernel):
             _KERNELS[fn.__name__] = triton.jit(fn)
     return _KERNELS
+
+
+def fused_plan(K: int, N: int, elem_bytes: int):
+    """Launch plan of the fused kernel for a (K, N) weight of ``elem_bytes``
+    bytes an element: ``(BN, C, R, smem_bytes, staged)``.
+
+    Block r of a cluster owns rows [r*R, min((r+1)*R, K)) of a BN-column
+    stripe; the grid is (ceil(N / BN), C).  Among the slices that fit
+    without the opt-in shared memory, then among those that fit
+    ``SMEM_BUDGET``, the widest stripe on the smallest cluster that runs
+    ``FUSED_MIN_BLOCKS`` blocks wins, else the plan with the most blocks
+    (small slices also let several blocks share an SM, so one block's
+    loads overlap another's stores).  Where no slice fits (a very tall,
+    narrow weight), ``staged`` is False: 16-column stripes on clusters of
+    8, each block walking its rows twice from device memory."""
+    def need(bn, r, staged):
+        return 8 * bn + (r * bn * elem_bytes if staged else 0)
+
+    for limit in (STATIC_SMEM, SMEM_BUDGET):
+        best = None
+        for bn in FUSED_BNS:
+            for c in FUSED_CLUSTERS:
+                r = -(-K // c)
+                if need(bn, r, True) > limit:
+                    continue
+                blocks = -(-N // bn) * c
+                if blocks >= FUSED_MIN_BLOCKS:
+                    return bn, c, r, need(bn, r, True), True
+                if best is None or blocks > best[0]:
+                    best = (blocks, bn, c, r)
+        if best is not None:
+            _, bn, c, r = best
+            return bn, c, r, need(bn, r, True), True
+    bn, c = FUSED_BNS[-1], FUSED_CLUSTERS[-1]
+    return bn, c, -(-K // c), need(bn, 0, False), False
+
+
+def _fused_launcher():
+    if not _LAUNCH:
+        fn = _build.load('fake_quant').fake_quant_fused_launch
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _LAUNCH.append(fn)
+    return _LAUNCH[0]
 
 
 def fake_quant_plain(w, *, bits=8):
@@ -162,8 +199,8 @@ def _check(w, name):
 
 def fake_quant_fused(w, *, bits=8):
     """Per-output-channel (last dim) symmetric fake quant of an fp32 or bf16
-    w (K, N) in one kernel: the Triton kernel for a CUDA tensor, the plain
-    version for a CPU one."""
+    w (K, N) in one launch: the CUDA cluster kernel for a CUDA tensor, the
+    plain version for a CPU one."""
     if not w.is_cuda:
         return fake_quant_plain(w, bits=bits)
     _check(w, 'fake_quant_fused')
@@ -172,11 +209,16 @@ def fake_quant_fused(w, *, bits=8):
     if K == 0 or N == 0:
         return out
     qmax = 2.0 ** (bits - 1) - 1.0
-    bn = 16 if N <= 16 else 64
-    kernel = _jit()['_fused_kernel']
-    with torch.cuda.device(w.device):
-        kernel[(-(-N // bn),)](w, out, K, N, qmax, recip32(qmax), BK=128,
-                               BN=bn, num_warps=4)
+    eb = w.element_size()
+    bn, c, r, smem, staged = fused_plan(K, N, eb)
+    vec = (N * eb) % 16 == 0 and w.data_ptr() % 16 == 0 and \
+        out.data_ptr() % 16 == 0
+    rc = _fused_launcher()(
+        w.data_ptr(), out.data_ptr(), K, N, bn, c, r, smem, int(staged),
+        int(vec), int(w.dtype == torch.bfloat16), qmax, recip32(qmax),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    if rc:
+        _build.check(_build.load('fake_quant'), rc, 'fake_quant_fused launch')
     fake_quant_fused.launches += 1
     return out
 

@@ -8,13 +8,20 @@ groups 1, 2 and 4, an S that no power-of-two tile divides, a prefix mask
 and a mask with a hole.  Tolerance: fp32 within 1e-5 x max|reference| (the
 softmax and both products sum in other orders); bf16 output within 8e-3 x
 max|reference|, about one bf16 ulp.  The CUDA kernels themselves are held
-against the plain versions on a card by tests/test_torch_gpu.py.
+against the plain versions on a card by tests/test_torch_gpu.py; here the
+int8 kernel's split of S over a cluster (``split_plan``) is checked as the
+card runs it, and a torch emulation of that split (each block's softmax
+over its slots with the scales folded, the blocks' partials merged as
+the cluster merges them) is held against the reference's Pallas kernel and the plain version.
 
 One difference is by design: a row with no valid slot comes out of the
 kernels (TPU and port alike) as the mean of v over the S slots, and out of
 the model's ``decode_attn_reference`` as zeros.  No decode step makes such
 a row: the token just written is always valid.
 """
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,8 +34,13 @@ from repro.kernels.decode_attention import \
     decode_attention_int8 as j_decode_int8
 from repro.models import attention as jattn
 from repro_torch.kernels import counts, ops, ref, reset_counts
-from repro_torch.kernels.decode_attention import (decode_attention_int8_plain,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (HEAD_DIMS, MAX_GROUP,
+                                                  NEG_INF, _scale,
+                                                  decode_attention_int8_plain,
+                                                  decode_attention_plain,
+                                                  group_pad, split_plan,
+                                                  split_smem_bytes)
+from repro_torch.kernels.tiling import SMEM_BUDGET
 from repro_torch.models import attention as tattn
 
 torch.set_num_threads(1)
@@ -168,3 +180,111 @@ def test_plain_versions_count_their_calls():
     c = counts()
     assert c['decode_attention']['launches'] == 0
     assert c['decode_attention_int8']['launches'] == 0
+
+
+@pytest.mark.parametrize('bks', [(8, 4, 584), (1, 4, 584), (1, 4, 2048),
+                                 (8, 4, 2048), (2, 2, 100), (2, 4, 37),
+                                 (1, 2, 300), (1, 16, 33), (3, 1, 1)])
+def test_split_plan_covers_every_slot_once(bks):
+    """The C blocks' slot ranges [r*spb, (r+1)*spb) cover S exactly once
+    (ragged S included); clusters stay within the portable 8, a warp for
+    each 16 slots of a block up to 8, and every block's shared memory fits
+    an H100 block for every head_dim and group the kernel takes."""
+    B, K, S = bks
+    c, spb, warps = split_plan(B, K, S)
+    assert 1 <= c <= 8 and 1 <= warps <= 8 and warps * 16 >= min(spb, 128)
+    slots = np.zeros(S, int)
+    for r in range(c):
+        slots[r * spb:min((r + 1) * spb, S)] += 1
+    assert (slots == 1).all()
+    for D in HEAD_DIMS:
+        for g in range(1, MAX_GROUP + 1):
+            assert split_smem_bytes(warps, group_pad(g), D) <= SMEM_BUDGET
+
+
+def test_split_plan_fills_the_card_at_tinyllama_shapes():
+    """Batch 8 over the served 584-slot cache: 8 blocks of 73 slots for
+    each of the 32 (kv head, row) cells, 256 blocks where one block a cell
+    ran 32.  Batch 1 keeps the portable cluster of 8: 32 blocks."""
+    assert split_plan(8, 4, 584) == (8, 73, 5)
+    assert 8 * 4 * split_plan(8, 4, 584)[0] >= 132
+    assert split_plan(1, 4, 584)[0] == 8
+    assert split_plan(1, 4, 2048) == (8, 256, 8)
+
+
+def _split_emulation(q, kq, vq, ks, vs, valid):
+    """The int8 kernel's algorithm in torch fp32 on the plan the card would
+    run: per block, logits ``ks[s] * (q . code)``, -1e30 where masked, a
+    softmax around the block's max and ``(p * vs[s]) @ code``; then the
+    cluster's merge ``exp(m_r - M)`` over the C blocks."""
+    B, H, D = q.shape
+    S, K = kq.shape[1], kq.shape[2]
+    g = H // K
+    c, spb, _ = split_plan(B, K, S)
+    qg = q.float().reshape(B, K, g, D) * _scale(D)
+    parts = []
+    for r in range(c):
+        lo, hi = min(S, r * spb), min(S, (r + 1) * spb)
+        dot = torch.einsum('bkgd,bskd->bkgs', qg, kq[:, lo:hi].float())
+        logit = ks[:, lo:hi].permute(0, 2, 1)[:, :, None, :] * dot
+        logit = torch.where(valid[lo:hi], logit, torch.tensor(NEG_INF))
+        m = logit.amax(-1, keepdim=True) if hi > lo else torch.full(
+            (B, K, g, 1), NEG_INF)
+        p = torch.exp(logit - m)
+        pv = p * vs[:, lo:hi].permute(0, 2, 1)[:, :, None, :]
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum('bkgs,bskd->bkgd', pv,
+                                   vq[:, lo:hi].float())))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = sum(l * torch.exp(m - M) for m, l, _ in parts)
+    A = sum(a * torch.exp(m - M) for m, _, a in parts)
+    return (A / torch.clamp_min(L, 1e-30)).reshape(B, H, D).to(q.dtype)
+
+
+@pytest.mark.parametrize('case,mask', [
+    ((1, 4, 2, 32, 300), 'ragged, a hole and a masked block'),
+    ((2, 8, 2, 64, 100), 'a prefix leaving the last block masked'),
+    ((1, 4, 2, 32, 300), 'no valid slot'),
+    ((1, 8, 2, 64, 584), 'prefix')])
+def test_split_emulation_matches_reference(case, mask):
+    """S = 300 splits into 8 blocks of 38 slots and a ragged 34; S = 100
+    into 2 of 50.  fp32 within 1e-5 x max|reference| of the reference's
+    Pallas kernel (interpret mode) and the plain version; the row with no
+    valid slot is the mean of v in all three."""
+    B, H, K, D, S = case
+    q, k, v = _inputs(*case, seed=S + D)
+    kq, ks = (np.array(a) for a in jattn.kv_quantize(jnp.asarray(k)))
+    vq, vs = (np.array(a) for a in jattn.kv_quantize(jnp.asarray(v)))
+    c, spb, _ = split_plan(B, K, S)
+    valid = np.zeros(S, bool)
+    if mask.startswith('ragged'):
+        valid[:S - 5] = True
+        valid[spb:2 * spb] = False                 # block 1 wholly masked
+        valid[S // 2:S // 2 + 3] = False
+    elif mask.startswith('a prefix'):
+        valid[:spb * (c - 1) - 7] = True           # the last block masked
+    elif mask == 'prefix':
+        valid[:513] = True
+    assert c > 1
+    t = [torch.from_numpy(a) for a in (q, kq, vq, ks, vs, valid)]
+    got = _split_emulation(*t)
+    pallas = j_decode_int8(q, kq, vq, ks, vs, valid, s_blk=128,
+                           interpret=True)
+    _close(got.numpy(), pallas, 1e-5)
+    _close(got.numpy(), decode_attention_int8_plain(*t).numpy(), 1e-5)
+    if not valid.any():
+        mean = (vq.astype(np.float32) * vs[..., None]).mean(axis=1)
+        _close(got.numpy(), mean.repeat(H // K, axis=1), 1e-5)
+
+
+def test_phase_script_finds_every_stamp_marker():
+    """scripts/split_kernel_phases.py times the split kernel's phases on a
+    card by inserting stamps after marker lines of the CUDA source; every
+    marker still occurs exactly once."""
+    path = os.path.join(os.path.dirname(__file__), '..', 'scripts',
+                        'split_kernel_phases.py')
+    spec = importlib.util.spec_from_file_location('split_kernel_phases', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    src = module.instrumented_source()
+    assert all(src.count(f'STAMP({i});') == 1 for i in range(7))

@@ -7,8 +7,12 @@ The same numpy weights go through the reference's Pallas kernels
 versions for CPU tensors.  Tolerance: none, the outputs are compared bit
 for bit in fp32 and in bf16 (an abs-max and a per-element quantize do not
 depend on summation order; both packages upcast bf16 to fp32, compute, and
-round the result back to nearest even).  The Triton kernels themselves are
-held against these plain versions on a card by tests/test_torch_gpu.py.
+round the result back to nearest even).  The kernels themselves are held
+against these plain versions on a card by tests/test_torch_gpu.py; here the
+fused CUDA kernel's launch plan (``fused_plan``) is checked as the card runs
+it, and a torch emulation of its cluster split (each block's partial column
+maxima over its rows, merged across the cluster) is held bit for bit
+against the reference's ``fake_quant_fused``.
 """
 import jax
 import jax.numpy as jnp
@@ -19,10 +23,15 @@ import torch
 from repro.core import quantization as jq
 from repro.kernels import ops as jops
 from repro.kernels.fake_quant import fake_quant as j_fake_quant
+from repro.kernels.fake_quant import fake_quant_fused as j_fake_quant_fused
 from repro_torch.core import quantization as tq
 from repro_torch.interop import from_jax_params, to_numpy
 from repro_torch.kernels import counts, ops, reset_counts
+from repro_torch.kernels.fake_quant import FUSED_BNS, fake_quant_fused
 from repro_torch.kernels.fake_quant import fake_quant as t_fake_quant
+from repro_torch.kernels.fake_quant import fused_plan
+from repro_torch.kernels.ref import recip32
+from repro_torch.kernels.tiling import SMEM_BUDGET
 
 torch.set_num_threads(1)
 
@@ -121,3 +130,90 @@ def test_kernel_ste_matches_reference(dtype, shape):
     (tc * got_fq.to(torch.float32)).sum().backward()
     _assert_same_bits(got_fq.detach(), want_fq)
     _assert_same_bits(tw.grad, want_g)
+
+
+# tinyllama's fused weights (2048, N), its MLP wo, ragged and narrow heads,
+# a tall head that fits no shared memory, and degenerate shapes
+PLAN_SHAPES = [(2048, 5632), (2048, 2048), (2048, 256), (5632, 2048),
+               (1000, 77), (40, 13), (100000, 10), (8192, 100), (7, 3),
+               (1, 1), (333, 1000)]
+
+
+@pytest.mark.parametrize('elem_bytes', [2, 4])
+@pytest.mark.parametrize('shape', PLAN_SHAPES)
+def test_fused_plan_covers_every_element_once(shape, elem_bytes):
+    """Stripes of BN columns and the C blocks' row ranges [r*R, (r+1)*R)
+    cover the (K, N) weight exactly once; the slice fits the shared memory
+    the plan asks for, and that fits an H100 block; clusters stay within
+    the portable 8."""
+    K, N = shape
+    bn, c, r, smem, staged = fused_plan(K, N, elem_bytes)
+    assert bn in FUSED_BNS and 256 % bn == 0 and 1 <= c <= 8
+    rows = np.zeros(K, int)
+    for rank in range(c):
+        rows[rank * r:min((rank + 1) * r, K)] += 1
+    cols = np.zeros(N, int)
+    for j in range(-(-N // bn)):
+        cols[j * bn:min((j + 1) * bn, N)] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert 8 * bn + (r * bn * elem_bytes if staged else 0) <= smem
+    assert smem <= SMEM_BUDGET
+
+
+@pytest.mark.parametrize('elem_bytes', [2, 4])
+@pytest.mark.parametrize('shape,least', [((2048, 5632), 132),
+                                         ((2048, 2048), 132),
+                                         ((2048, 256), 64)])
+def test_fused_plan_fills_the_card_at_tinyllama_shapes(shape, least,
+                                                       elem_bytes):
+    """The Q pass's 132 fused weights a step run at least 132 blocks (64
+    at N = 256), where one program a 64-column stripe ran 88, 32 and 4."""
+    K, N = shape
+    bn, c, _, _, staged = fused_plan(K, N, elem_bytes)
+    assert staged and -(-N // bn) * c >= least
+
+
+def test_fused_plan_walks_a_tall_head_from_device_memory():
+    """(100000, 10) fp32 routes to the fused kernel (4 MB, under the
+    reference's gate) and no slice of it fits shared memory."""
+    K, N = 100000, 10
+    reset_counts()
+    ops.fake_quant(torch.zeros((K, N)), 8)
+    assert counts()['fake_quant_fused']['plain_calls'] == 1
+    bn, c, r, smem, staged = fused_plan(K, N, 4)
+    assert not staged and smem == 8 * bn and r * c >= K
+
+
+def _emulate_fused(w, bits):
+    """The fused kernel's algorithm on the plan the card would run: each
+    block's column maxima over its rows, the max of the cluster's partials,
+    then each block quantizes its own rows."""
+    K, N = w.shape
+    bn, c, r, _, _ = fused_plan(K, N, w.element_size())
+    qmax = 2.0 ** (bits - 1) - 1.0
+    wf = w.float()
+    out = torch.empty_like(w)
+    for j in range(0, N, bn):
+        blocks = [wf[k * r:(k + 1) * r, j:j + bn] for k in range(c)]
+        partial = torch.stack([b.abs().amax(0) if b.shape[0] else
+                               torch.zeros(b.shape[1]) for b in blocks])
+        scale = torch.clamp_min(partial.amax(0), 1e-8) * recip32(qmax)
+        for k, b in enumerate(blocks):
+            q = torch.clamp(torch.round(b / scale), -qmax - 1.0, qmax)
+            out[k * r:(k + 1) * r, j:j + bn] = (q * scale).to(w.dtype)
+    return out
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+@pytest.mark.parametrize('shape,bits', [((40, 13), 8), ((300, 130), 4),
+                                        ((1000, 77), 8), ((2048, 256), 2)])
+def test_fused_cluster_split_matches_reference_kernel(shape, bits, dtype):
+    """Bit for bit against the reference's one-stripe Pallas kernel
+    (interpret mode): a max does not depend on how its terms are split."""
+    w = _weight(shape, dtype, seed=shape[1] + bits)
+    want = j_fake_quant_fused(w, bits=bits, interpret=True)
+    tw = from_jax_params(np.asarray(w))
+    _assert_same_bits(_emulate_fused(tw, bits), want)
+    reset_counts()
+    _assert_same_bits(fake_quant_fused(tw, bits=bits), want)
+    assert counts()['fake_quant_fused'] == {'launches': 0, 'plain_calls': 1}

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: each int8 kernel bit for bit
 against its plain version at main-path shapes, both fake-quant wrappers bit
-for bit in fp32 and bf16, the decode-attention kernels within their stated
-tolerance, the scheduler on the card launching the kernels exactly as the
+for bit in fp32 and bf16 (the fused one on every kind of launch plan), the
+decode-attention kernels within their stated tolerance (the int8 one with
+whole blocks of its split masked and with no valid slot), the scheduler on the card launching the kernels exactly as the
 plan counts them, one LM decode step and one Q-pass (QAT) step on the
 card against the CPU.
 
@@ -115,11 +116,20 @@ def test_lowrank_conv_kernel_bit_exact(cuda_device, mkrn, bm):
         assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize('kn', [(128, 10), (512, 10), (1000, 77)])
+@pytest.mark.parametrize('kn', [(128, 10), (512, 10), (1000, 77), (40, 13),
+                                (2048, 5632), (2048, 2048), (2048, 256),
+                                (100000, 10)])
 def test_fake_quant_kernel_bit_exact(cuda_device, kn):
+    """fp32 on every kind of launch plan of the cluster kernel: heads and
+    ragged shapes (element loads), tinyllama's Q-pass weights (16-byte
+    rows, many blocks) and a tall head whose slices fit no shared memory
+    (walked twice from device memory); one launch each."""
     w = torch.randn(kn, device=cuda_device)
     for bits in (2, 4, 8):
+        reset_counts()
         got = fake_quant_fused(w, bits=bits)
+        assert counts()['fake_quant_fused'] == {'launches': 1,
+                                                'plain_calls': 0}
         assert torch.equal(_bits(got), _bits(fake_quant_plain(w, bits=bits)))
 
 
@@ -140,10 +150,11 @@ def test_fake_quant_two_pass_kernel_bit_exact(cuda_device, kn, dtype):
                            _bits(fake_quant_two_pass_plain(w, bits=bits)))
 
 
-@pytest.mark.parametrize('kn', [(2048, 5632), (2048, 256), (40, 13)])
+@pytest.mark.parametrize('kn', [(2048, 5632), (2048, 2048), (2048, 256),
+                                (1000, 77), (40, 13)])
 def test_fake_quant_fused_kernel_bf16_bit_exact(cuda_device, kn):
     w = torch.randn(kn, device=cuda_device).to(torch.bfloat16)
-    for bits in (4, 8):
+    for bits in (2, 4, 8):
         got = fake_quant_fused(w, bits=bits)
         assert got.dtype == torch.bfloat16
         assert torch.equal(_bits(got), _bits(fake_quant_plain(w, bits=bits)))
@@ -264,6 +275,38 @@ def test_decode_attention_kernel_matches_plain(cuda_device, shape, dtype):
     want = decode_attention_int8_plain(q, kq, vq, ks, vs, valid)
     assert counts()['decode_attention_int8']['launches'] == 1
     assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.parametrize('shape,valid_len', [
+    ((1, 32, 4, 64, 2048), 2048 - 5), ((8, 32, 4, 64, 584), 40),
+    ((2, 12, 4, 128, 700), 100), ((8, 32, 4, 64, 584), 0),
+    ((1, 16, 16, 64, 33), 0)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_decode_attention_int8_split_matches_plain(cuda_device, shape,
+                                                   valid_len, dtype):
+    """The split-S kernel at B = 1 over 2048 slots; a valid prefix so short
+    that whole blocks of the cluster hold masked slots only; and no valid
+    slot at all, where every block reads all its slots and the output is
+    the mean of v.  fp32 within 1e-5 x max|plain|, bf16 within 8e-3."""
+    from repro_torch.models.attention import kv_quantize
+    q, k, v, _ = _decode_inputs(cuda_device, *shape, dtype)
+    S = shape[-1]
+    valid = torch.arange(S, device=cuda_device) < valid_len
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    reset_counts()
+    got = decode_attention_int8(q, kq, vq, ks, vs, valid)
+    assert counts()['decode_attention_int8'] == {'launches': 1,
+                                                 'plain_calls': 0}
+    assert got.dtype == dtype
+    want = decode_attention_int8_plain(q, kq, vq, ks, vs, valid)
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    assert _rel_err(got, want) <= tol
+    if not valid_len:
+        B, H, K, D, _ = shape
+        mean = (vq.float() * vs[..., None]).mean(1).repeat_interleave(
+            H // K, dim=1)
+        assert _rel_err(got, mean) <= tol
 
 
 def test_decode_attention_rejects_bad_operands(cuda_device):
