@@ -10,10 +10,14 @@ Phases, in order; any failure exits non-zero and no result is printed:
    at once (registers, shared memory and spills from ptxas, and the
    seconds).
 2. Kernels against their plain versions on the card at main-path shapes,
-   bit for bit: ``quant_matmul`` at the stem, a stage-0 conv, a stage-3
-   conv and a head (int8 and fp32 output); ``fake_quant_fused`` at the
-   three head weights; ``depthwise_conv`` at every mobilenetv2-cifar
-   depthwise shape at 32 slots plus a channel-multiplier case;
+   bit for bit: ``quant_matmul`` at the stem (K = 27), a conv of each
+   resnet34-cifar stage at 32 slots, two M tails, mobilenetv2's K = 24
+   and a head (int8 and fp32 output), w K-major as the export stores it,
+   each line ending with its route and plan (TMA + ``wgmma`` with K split
+   over a cluster where K % 16 == 0, else ``mma.sync``);
+   ``fake_quant_fused`` at the three head weights; ``depthwise_conv`` at
+   every mobilenetv2-cifar depthwise shape at 32 slots plus a
+   channel-multiplier case;
    ``lowrank_conv`` at the factored resnet34-cifar shapes inside the fused
    envelope (ranks from the real factorization at energy 0.6), at both
    M tiles (64 and 32 rows), the measurement behind ``pick_bm``.  Each
@@ -41,8 +45,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    yardstick ``F.scaled_dot_product_attention(enable_gqa=True)`` on the
    same masked cache (dequantized first for int8), the bound the valid
    slots' k/v (and scale) bytes plus q and the output once at 3.35 TB/s;
-   each line ends with the plan (the grid, or the int8 kernel's split of S
-   over a cluster).
+   and an fp32 cache at head_dim 128 (6 warps a block, the most its shared
+   memory allows); each line ends with the split kernel's plan (S split
+   over a cluster, the same kernel for the three caches).
 3. End to end, three CNN paths, each at full width and depth with random
    weights from seed 0, exit heads at the default stages, W8A8,
    ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
@@ -56,7 +61,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    counts are set to 0 just before each path and read just after.  On
    every path: every request completes, the launches of each kernel while
    serving equal the plan's per executed segment, the plain versions do
-   not run, each kernel of the path was launched, 16 sampled requests are
+   not run, each kernel of the path was launched, ``quant_matmul`` relaid
+   no weight (the export stores them K-major; its launches by route are
+   printed), 16 sampled requests are
    bit-exact against the monolithic ``fn_exits`` on the request alone at
    the same slot geometry; the card's calibration agrees with the CPU's
    scale by scale (to float noise up to the first fake-quant code that
@@ -95,9 +102,10 @@ Phases, in order; any failure exits non-zero and no result is printed:
    each), and every fake-quant call of one step of (f), captured at its
    inputs (132 fused, 22 two-pass), held against its plain version on the
    card at its own shapes (bit for bit; the decode kernels within
-   ``DECODE_TOL``) and timed.  The ``{"kernels": [...]}`` line: every
-   ported kernel, summed over the pass or step of the path that calls it
-   most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
+   ``DECODE_TOL``) and timed; every ``quant_matmul`` call with K % 16 ==
+   0 must take the TMA + ``wgmma`` route.  The ``{"kernels": [...]}``
+   line: every ported kernel, summed over the pass or step of the path
+   that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
    ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
    fake-quant wrappers: (f)), every path's pass under ``by_path``, its
    launches over all the paths' counted runs, and ``excess_ms``: those
@@ -158,8 +166,13 @@ LM_PATHS = (
 # bf16 ulp (the int8-KV path serves bf16 q and output)
 DECODE_TOL = {'fp32': 1e-5, 'bf16': 8e-3, 'int8': 8e-3}
 # the compiled kernel behind each decode wrapper, as the profiler names it
-DA_DEVICE_NAME = {'decode_attention': 'decode_kernel',
-                  'decode_attention_int8': 'decode_int8_split_kernel'}
+DA_DEVICE_NAME = {'decode_attention': 'decode_split_kernel',
+                  'decode_attention_int8': 'decode_split_kernel'}
+# the compiled kernels behind the quant_matmul wrapper, one for each route
+QMM_DEVICE_NAMES = ('qmm_wgmma_kernel', 'qmm_kernel')
+# quant_matmul's launches by route and weight relayouts while each CNN path
+# served, filled by serve_path
+QMM_ROUTES = {}
 LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
 LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
 LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
@@ -368,10 +381,14 @@ def qmm_library(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax):
 def qmm_case(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax=127.0,
              iters=20):
     """Kernel vs plain version on one call: bit-exactness and times."""
-    from repro_torch.kernels.quant_matmul import (quant_matmul,
+    from repro_torch.kernels.quant_matmul import (qmm_plan, qmm_route,
+                                                  quant_matmul,
                                                   quant_matmul_plain)
     kw = dict(relu=relu, out_scale=out_scale, out_qmax=out_qmax)
+    before = dict(quant_matmul.launches_by_route)
     got = quant_matmul(x, w, sx, sw, bias, **kw)
+    route = [r for r, n in quant_matmul.launches_by_route.items()
+             if n != before[r]]
     want = quant_matmul_plain(x, w, sx, sw, bias, **kw)
     torch.cuda.synchronize()
     M, K = x.shape
@@ -381,8 +398,14 @@ def qmm_case(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax=127.0,
     b_ms, b_by = bound(nbytes, 2 * M * N * K, INT8_OPS_PER_S)
     lib = qmm_library(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax)
     call = lambda: quant_matmul(x, w, sx, sw, bias, **kw)  # noqa: E731
+    if route != [qmm_route(x, w)] or (K % 16 == 0) != (route[0] == 'wgmma'):
+        fail(f'quant_matmul at {(M, K, N)} took route {route}')
+    plan = 'mma_sync 64 x 64 tiles' if route[0] == 'mma_sync' else \
+        'wgmma BM={} BN={} stages={} C={} smem={} B'.format(
+            *qmm_plan(M, N, K))
     return {
         'shape': (M, K, N), 'int8_out': out_scale is not None,
+        'route': route[0], 'plan': plan,
         'exact': same_bits(torch, got, want),
         'max_abs_err': max_err(torch, got, want), 'call': call,
         'ms': time_ms(torch, call, iters),
@@ -558,6 +581,7 @@ def fmt_case(name, c):
             + (f" {'int8' if c['int8_out'] else 'fp32'}-out"
                if 'int8_out' in c else '')
             + (f" {c['dtype']}" if 'dtype' in c else '')
+            + (f" route={c['route']}" if 'route' in c else '')
             + f": exact={c['exact']} max_abs_err={c['max_abs_err']:g} "
               f"ms={c['ms']:.4f}"
             + ('' if 'device_ms' not in c else
@@ -610,17 +634,24 @@ def phase_kernels(torch, factored):
     def f32(*shape, scale=1.0):
         return torch.rand(shape, generator=g, device='cuda') * scale
 
+    # resnet34-cifar at 32 slots: the stem, a conv of each stage, M tails,
+    # a head; mobilenetv2's K = 24; w K-major, as export_cnn stores it
     cases = [('stem', 32 * 32 * 32, 27, 64), ('stage0', 32768, 576, 64),
-             ('stage3', 512, 4608, 512), ('head', 32, 512, 10)]
+             ('stage1', 8192, 1152, 128), ('stage2', 2048, 2304, 256),
+             ('stage3', 512, 4608, 512), ('stage3 M tail', 300, 4608, 512),
+             ('stage1 M tail', 129, 1152, 128), ('K=24', 8192, 24, 144),
+             ('head', 32, 512, 10)]
     launch_us = None
     for name, M, K, N in cases:
-        x, w = rand_i8(torch, g, M, K), rand_i8(torch, g, K, N)
+        x = rand_i8(torch, g, M, K)
+        w = rand_i8(torch, g, N, K).t()          # (K, N), strides (1, K)
         sx, sw = f32(M, scale=1e-2), f32(N, scale=1e-2)
         bias = torch.randn(N, generator=g, device='cuda')
         for out_scale in (0.37, None):
             c = qmm_case(torch, x, w, sx, sw, bias, True, out_scale)
-            c['device_ms'] = device_ms(torch, [c['call']], 'qmm_kernel')
-            print(fmt_case(f'quant_matmul[{name}]', c))
+            c['device_ms'] = device_ms(torch, [c['call']], QMM_DEVICE_NAMES)
+            print(fmt_case(f'quant_matmul[{name}]', c)
+                  + f"; {c['plan']}")
             need_exact(c, 'quant_matmul')
             if name == 'head' and out_scale is None:
                 launch_us = c['ms'] * 1e3
@@ -808,37 +839,43 @@ def need_within(c, name):
              f"({c['kind']}): rel_err {c['rel_err']:.3e}")
 
 
-def da_plan(B, K, S, int8):
-    """The launch plan of a decode kernel, for its case line."""
-    if not int8:
-        return f'grid (K, B) {K * B} blocks'
-    from repro_torch.kernels.decode_attention import split_plan
-    c, spb, warps = split_plan(B, K, S)
+def da_plan(args):
+    """The split kernel's launch plan for a decode case, for its line."""
+    from repro_torch.kernels.decode_attention import (group_pad, split_plan,
+                                                      split_smem_bytes)
+    q, k = args[0], args[1]
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    elem, G = k.element_size(), group_pad(H // K)
+    c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
     return (f'split C={c} slots/block={spb} warps={warps} '
-            f'{K * B * c} blocks')
+            f'{K * B * c} blocks, {split_smem_bytes(warps, G, D, elem)} B '
+            f'shared')
 
 
 def phase_decode_kernels(torch):
-    """Both decode-attention kernels against their plain versions at
-    tinyllama's shapes: B 1 and 8, S 584 (the served cache) and 2048, a
-    valid prefix, and a case with a hole; fp32, bf16 and int8-KV; and the
-    int8 cache with a prefix of 40 valid slots (blocks 1-7 of each cluster
-    hold masked slots only)."""
+    """Both decode-attention wrappers (one split kernel) against their
+    plain versions at tinyllama's shapes: B 1 and 8, S 584 (the served
+    cache) and 2048, a valid prefix, and a case with a hole; fp32, bf16 and
+    int8-KV; the int8 cache with a prefix of 40 valid slots (blocks 1-7 of
+    each cluster hold masked slots only); and an fp32 cache at head_dim
+    128 (6 warps, the most its shared memory allows)."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 11)
-    cases = [(kind, B, S, S * 7 // 8, hole)
+    cases = [(kind, B, S, S * 7 // 8, hole, 64)
              for kind in ('fp32', 'bf16', 'int8')
              for B, S in ((1, 584), (8, 584), (8, 2048))
              for hole in ((False, True) if (B, S) == (8, 584) else (False,))]
-    cases.append(('int8', 8, 584, 40, False))
-    for kind, B, S, valid_len, hole in cases:
+    cases += [('int8', 8, 584, 40, False, 64),
+              ('fp32', 1, 2048, 2048 * 7 // 8, False, 128)]
+    for kind, B, S, valid_len, hole, D in cases:
         args, valid = da_inputs(torch, g, B, S, kind, valid_len=valid_len,
-                                hole=hole)
+                                hole=hole, H=32 if D == 64 else 16, D=D)
         name = 'decode_attention_int8' if kind == 'int8' else \
             'decode_attention'
         c = da_case(torch, args, valid, kind)
         c['device_ms'] = device_ms(torch, [c['call']], DA_DEVICE_NAME[name])
         print(fmt_da_case(name + ('[hole]' if hole else ''), c) + '; '
-              + da_plan(B, args[1].shape[2], S, kind == 'int8'))
+              + da_plan(args))
         need_within(c, name)
 
 
@@ -933,6 +970,7 @@ def serve_path(torch, spec, launch_us):
     import numpy as np
     from repro_torch.core.export import calibrate_exit_threshold, export_cnn
     from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      exit_decisions)
 
@@ -973,6 +1011,7 @@ def serve_path(torch, spec, launch_us):
     ContinuousBatchScheduler(model, slots=SLOTS, threshold=2.0).run_trace(
         [Request(-1 - i, xs[i], 0.0) for i in range(4)])     # warm-up
     before = counts()
+    routes0 = dict(quant_matmul.launches_by_route)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     sched = ContinuousBatchScheduler(model, slots=SLOTS, threshold=threshold,
@@ -983,6 +1022,8 @@ def serve_path(torch, spec, launch_us):
     t_serve = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     after = counts()
+    routes = {r: n - routes0[r]
+              for r, n in quant_matmul.launches_by_route.items()}
 
     m = metrics.summary()
     print(f"{tag} served {m['n_requests']} of {N_REQUESTS} requests "
@@ -1012,6 +1053,14 @@ def serve_path(torch, spec, launch_us):
         if got != want:
             fail(f'{spec["key"]}: serving launched {name} {got} times, the '
                  f'plan says {want}')
+    relaid = quant_matmul.weight_relayouts
+    QMM_ROUTES[spec['key']] = {'launches_by_route': routes,
+                               'weight_relayouts': relaid}
+    print(f'{tag} quant_matmul launches by route while serving: {routes}; '
+          f'weight relayouts since export: {relaid}')
+    if relaid:
+        fail(f"{spec['key']}: quant_matmul relaid {relaid} weights: the "
+             f'export must store them K-major')
     print(f'{tag} plain-version calls while serving: {plain}')
     if plain:
         fail(f'{spec["key"]}: the plain versions ran {plain} times while '
@@ -1624,7 +1673,8 @@ def fc_weights(params):
 
 KERNEL_META = {   # name: (route, source, the TPU kernel it replaces, match)
     'quant_matmul': ('cuda', 'src/repro_torch/kernels/csrc/quant_matmul.cu',
-                     'src/repro/kernels/quant_matmul.py:109', 'qmm_kernel'),
+                     'src/repro/kernels/quant_matmul.py:109',
+                     QMM_DEVICE_NAMES),
     'fake_quant_fused': ('cuda', 'src/repro_torch/kernels/csrc/fake_quant.cu',
                          'src/repro/kernels/fake_quant.py:101',
                          FQ_KERNELS['fake_quant_fused'][1]),
@@ -1666,6 +1716,12 @@ def phase_report(torch, served, launches, qat_calls):
             for c in cs:
                 print(fmt_case(f'{name}[{key}]', c))
                 need_exact(c, name)
+        if per_path[key].get('quant_matmul'):
+            by = {}
+            for c in per_path[key]['quant_matmul']:
+                by[c['route']] = by.get(c['route'], 0) + 1
+            print(f'[report] quant_matmul[{key}]: every call of the pass '
+                  f'bit-exact, by route {by} (K % 16 == 0 on wgmma)')
 
     def total(cs, k):
         return sum(c[k] for c in cs)
@@ -1694,6 +1750,10 @@ def phase_report(torch, served, launches, qat_calls):
                                    iters=5),
             'pass_of': top, 'calls_per_pass': len(cs),
             'launches_by_path': {k: launches[k][name] for k in launches},
+            **({'serving_routes': QMM_ROUTES, 'calls_by_route': {
+                r: sum(c['route'] == r for c in cs)
+                for r in ('wgmma', 'mma_sync')}}
+               if name == 'quant_matmul' else {}),
             'by_path': {k: {'calls_per_pass': len(v),
                             'exact': all(c['exact'] for c in v),
                             'ms': total(v, 'ms'),

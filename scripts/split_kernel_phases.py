@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one int8 decode-attention launch goes, phase by phase.
 
-The split-S kernel (``decode_int8_split_kernel`` in
+The split-S kernel (``decode_split_kernel`` in
 ``src/repro_torch/kernels/csrc/decode_attention.cu``) moves about 9 KB a
 block at tinyllama's decode shapes, so its time is a chain of latencies,
 not bytes.  This script copies the source into ``build/``, has thread 0 of
@@ -54,7 +54,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 '''
 # (text in the kernel, the stamp that goes after it), applied in order
 MARKS = (
-    ('decode_int8_split_kernel(const SplitArgs a) {\n', 0),
+    ('decode_split_kernel(const SplitArgs a) {\n', 0),
     ('  __syncthreads();\n\n  float m[G], l[G], acc[G][4];\n', 1),
     ('  __syncthreads();            // the warps\' partials overlay every '
      'buffer\n', 2),
@@ -111,8 +111,9 @@ def main():
                                          device='cuda'))
         valid = torch.arange(S, device='cuda') < S * 7 // 8
         out = torch.empty_like(q)
-        c, spb, warps = da.split_plan(B, K, S)
-        smem = da.split_smem_bytes(warps, da.group_pad(H // K), D)
+        G = da.group_pad(H // K)
+        c, spb, warps = da.split_plan(B, K, S, elem=1, D=D, G=G)
+        smem = da.split_smem_bytes(warps, G, D, 1)
 
         def call():
             rc = fn(q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),

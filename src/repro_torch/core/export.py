@@ -14,8 +14,10 @@ The CNN resident half of the reference's ``core/export.py``:
    when its rank fits the kernel's envelope and kernel selection picks
    it) or as two ``quant_conv`` launches (``chained``); the exit and
    final heads through ``quant_matmul`` with fp32 output (a factored
-   head chains two).  The glue (GroupNorm + skip + act) runs on the raw
-   int8 codes in fp32 and requantizes to the consumer's scale.
+   head chains two).  Every weight a layer sends to ``quant_matmul`` is
+   stored K-major (:func:`k_major`), the layout its TMA + ``wgmma`` route
+   reads.  The glue (GroupNorm + skip + act) runs on the raw int8 codes in
+   fp32 and requantizes to the consumer's scale.
 3. The plan is split at the exit heads into stage segments that the
    serving scheduler resumes on, and served with batched early exit.
 
@@ -572,6 +574,30 @@ def calibrate_exit_threshold(model: ServingModel, x, quantile=0.5):
     return float(torch.quantile(conf, 1.0 - quantile)) - 1e-6
 
 
+def k_major(w):
+    """w's values in K-major memory, for the wgmma route of
+    ``quant_matmul``: an HWIO conv weight gets the strides of a contiguous
+    OHWI tensor, a (K, N) dense weight those of its contiguous transpose.
+    Shape and values stay; ``w.reshape(KH*KW*CIN, COUT)`` in
+    ``quant_conv`` is then a view with strides (1, K)."""
+    if w.dim() == 4:
+        return w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+    return w.t().contiguous().t()
+
+
+def _k_major_matmul_weights(qparams, plan: LayerPlan) -> None:
+    """Lay every weight the plan routes to ``quant_matmul`` (plain convs,
+    heads, both halves of a chained factored pair) out K-major, in place.
+    The depthwise and fused low-rank leaves keep their layout: those
+    kernels stage w row-major."""
+    for name, e in plan.layers.items():
+        if e.get('depthwise') or e.get('fused'):
+            continue
+        p = _resolve_layer_params(qparams, name)
+        for leaf in ((p['u'], p['v']) if e['factored'] else (p,)):
+            leaf['w_q'] = k_major(leaf['w_q'])
+
+
 def export_cnn(params, cfg, *, device='cuda', calibrate=None,
                fuse_lowrank=True, select_kernels='model',
                tracer=None) -> ServingModel:
@@ -615,6 +641,7 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
             plan = _compile_layer_plan(params, cfg, calibrate, a_qmax,
                                        fuse_lowrank=fuse_lowrank,
                                        select_kernels=select_kernels)
+    _k_major_matmul_weights(qparams, plan)
     conv_fn, fc_fn, glue_fn, pool_fn = _resident_layers(plan)
     kw = dict(conv_fn=conv_fn, fc_fn=fc_fn, glue_fn=glue_fn, pool_fn=pool_fn)
 

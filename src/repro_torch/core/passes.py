@@ -14,7 +14,9 @@ Where the port departs from the reference:
 
 * The training step runs eagerly (the reference jits it):
   :meth:`Trainer.train_step` takes one given batch, so a test can feed the
-  same batch to both packages.
+  same batch to both packages.  It and :meth:`Trainer.evaluate` (the
+  reference jits ``family.accuracy``'s forward) compute their QAT scales
+  with the jitted arithmetic (``quantization.jitted_scales``).
 * Random streams are the port's own.  ``ChainState.key`` is an integer
   seed; :func:`fold_in` derives the next one, as ``jax.random.fold_in``
   does for a key.  :meth:`Trainer.fit` draws batch ``i`` from a CPU
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import registry
+from repro_torch.core.quantization import jitted_scales
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
 from repro_torch.tree import tree_map
 
@@ -83,8 +86,10 @@ class Trainer:
                    mask=None):
         """One AdamW step on ``batch``: the reference's jitted ``step``
         (grads clipped to global norm 1, masked, applied).  Returns (params,
-        opt_state, loss); ``opt_state``'s moments are updated in place."""
-        loss, grads = value_and_grad(loss_fn, cfg, params, batch)
+        opt_state, loss); ``opt_state``'s moments are updated in place.
+        The QAT scales take the jitted step's ``* recip32(qmax)``."""
+        with jitted_scales():
+            loss, grads = value_and_grad(loss_fn, cfg, params, batch)
         grads, _ = clip_by_global_norm(grads, 1.0)
         if mask is not None:
             grads = tree_map(lambda g, m: g * m, grads, mask)
@@ -112,9 +117,11 @@ class Trainer:
         return params, float(last) if last is not None else None
 
     def evaluate(self, family, cfg, params):
-        return family.accuracy(params, cfg,
-                               family.eval_batches(self.eval_n,
-                                                   self.eval_batch))
+        """``family.accuracy`` on the held-out batches; its QAT scales take
+        the jitted forward's ``* recip32(qmax)``, as the reference's do."""
+        batches = family.eval_batches(self.eval_n, self.eval_batch)
+        with jitted_scales():
+            return family.accuracy(params, cfg, batches)
 
 
 # -------------------------------------------------------------- chain state

@@ -6,21 +6,52 @@ activation quantization with straight-through estimators, in PyTorch.
 (``fake_quant_weight``) and serving export (``quantize_params_for_serving``,
 ``ops.prequantize_weight``) all route through it.
 
-Divisions by a Python scalar go through ``ref.true_div``: the reference
-runs these functions eagerly at export, where ``x / c`` is one IEEE
-division, while torch's CUDA ``tensor / python_float`` multiplies by a
-reciprocal.
+The scale ``max(amax, 1e-8) / qmax`` is computed two ways, as in the
+reference.  Where the reference runs these functions eagerly (export
+calibration, ``quantize_params_for_serving``) it is one IEEE division
+(``ref.true_div``: torch's CUDA ``tensor / python_float`` would multiply
+by a reciprocal).  Where the reference jits them (the training step,
+``repro/core/passes.py``), XLA folds ``/ qmax`` into ``* fp32(1/qmax)``;
+inside :func:`jitted_scales`, which ``Trainer.train_step`` enters around
+its forward and backward pass and ``Trainer.evaluate`` around its
+accuracy forward, the port multiplies by ``recip32(qmax)`` too, as its
+fake-quant kernels always do.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.kernels.ref import true_div
+from repro_torch.kernels.ref import recip32, true_div
 
 
 def _ste(x_q, x):
     """Straight-through estimator: forward x_q, gradient of identity."""
     return x + (x_q - x).detach()
+
+
+# True inside jitted_scales(): the scale multiplies by recip32(qmax).
+_JITTED = [False]
+
+
+@contextlib.contextmanager
+def jitted_scales():
+    """Compute QAT scales with the reference's jitted arithmetic,
+    ``max(amax, 1e-8) * recip32(qmax)``, inside this block (the training
+    step and the evaluation forward); outside it they divide, as the reference's eager calls do.  The
+    bits=1 DoReFa mean is the same either way."""
+    prev, _JITTED[0] = _JITTED[0], True
+    try:
+        yield
+    finally:
+        _JITTED[0] = prev
+
+
+def _scale(amax, qmax: float):
+    """``max(amax, 1e-8) / qmax`` under the arithmetic in force."""
+    amax = torch.clamp_min(amax, 1e-8)
+    return amax * recip32(qmax) if _JITTED[0] else true_div(amax, qmax)
 
 
 # Counts weight abs-max (scale) computations.  The export tests use it to
@@ -58,7 +89,7 @@ def quantize_weight(w, bits: int, *, axis=-1):
         amax = torch.abs(w).amax(dim=red, keepdim=True)
     else:
         amax = torch.abs(w)
-    scale = true_div(torch.clamp_min(amax, 1e-8), qmax)
+    scale = _scale(amax, qmax)
     q = torch.clamp(torch.round(w / scale), -qmax - 1.0, qmax)
     return q.to(torch.int8 if bits <= 8 else torch.int32), scale
 
@@ -107,7 +138,7 @@ def fake_quant_act(x, bits: int, *, amax: float | None = None):
     qmax = 2.0 ** (bits - 1) - 1.0
     s = torch.abs(x).amax() if amax is None else \
         torch.full((), amax, dtype=x.dtype, device=x.device)
-    s = true_div(torch.clamp_min(s, 1e-8).detach(), qmax)
+    s = _scale(s.detach(), qmax)
     xq = torch.clamp(torch.round(x / s), -qmax - 1.0, qmax) * s
     return _ste(xq.to(x.dtype), x)
 

@@ -7,7 +7,9 @@ Kernel                 Replaces (src/repro/kernels/)
 (CUDA C++,             int32 accumulation and the fused dequant + bias +
 ``csrc/``)             ReLU (+ requantize) epilogue; serves every conv
                        through the im2col lowering in ``quant_conv.py``
-                       and every dense head
+                       and every dense head; TMA + ``wgmma`` with K split
+                       over a cluster where K % 16 == 0, ``mma.sync``
+                       for the rest
 ``fake_quant_fused``   ``fake_quant.py`` ``_fused_kernel``: per-column
 (CUDA C++,             symmetric fake quant of a 2-D fp32 or bf16 weight
 ``csrc/``)             in one launch, a cluster of blocks splitting each
@@ -30,19 +32,20 @@ kernels)               tile-parallel abs-max and a quantize pass, for the
                        envelope
 ``decode_attention``   ``decode_attention.py`` ``_decode_kernel``: one-token
 (CUDA C++,             GQA flash-decode over a bf16/fp32 (B,S,K,D) cache
-``csrc/``)             with a ``valid`` mask; serves every layer of every
-                       LM decode step
+``csrc/``)             with a ``valid`` mask, S split over a cluster of
+                       blocks merged over distributed shared memory;
+                       serves every layer of every LM decode step
 ``decode_attention_    ``decode_attention.py`` ``_decode_kernel_int8``: the
 int8`` (CUDA C++,      same over an int8 cache with fp32 scales per
-``csrc/``)             (token, kv head) (``kv_cache_bits=8``), S split
-                       over a cluster of blocks merged over distributed
-                       shared memory, one scale multiply a slot
+``csrc/``)             (token, kv head) (``kv_cache_bits=8``), on the
+                       same split kernel, one scale multiply a slot
 =====================  ====================================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor.  :func:`counts` reads the launch and plain-call
-counters and :func:`reset_counts` zeroes them, so a run can show which
-path served it.
+counters and :func:`reset_counts` zeroes them (and ``quant_matmul``'s
+launches by route and weight relayouts), so a run can show which path
+served it.
 """
 from __future__ import annotations
 
@@ -76,6 +79,8 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels.quant_matmul import reset_route_counts
     for w, p in _wrappers().values():
         w.launches = 0
         p.calls = 0
+    reset_route_counts()

@@ -21,41 +21,30 @@
 // shapes (B = 8, S = 584, K = 4, D = 64) that is 4.8 MB in bf16, 1.4 us
 // at 3.35 TB/s, and a quarter of it for the int8 cache.
 //
-// decode_kernel (bf16 and fp32 caches).  One block per (kv-head, batch
-// row).  The g query heads of the group sit in shared memory as fp32,
-// pre-scaled.  The block's 8 warps split the S slots in tiles of 32, and
-// each warp keeps its own (m, l, acc) for the g heads.  In a tile, lane t
-// owns slot s = tile + t and computes its g logits over the whole k row
-// (16-byte loads); the tile's max and sum are warp shuffles; the
-// probabilities go to shared memory; then lane t owns D/32 channels and
-// accumulates p * v over the tile's rows, each row read coalesced by the
-// warp.  At the end the warps' partials merge in shared memory.  The cache
-// is read in its (B, S, K, D) layout, so nothing is transposed or copied
-// (the TPU wrapper transposes it to (B, K, S, D) on every call), and an S
-// that no tile divides is masked, not fitted.  Shortfall: only B * K
-// blocks run (32 at batch 8, on 32 of the card's 132 SMs), so it cannot
-// reach the byte bound at decode shapes; the int8 kernel below shows the
-// fix.
-//
-// decode_int8_split_kernel (the int8 cache).  S is split over a
-// thread-block cluster: the grid is (K, B, C) in clusters of C blocks
-// along z, block r owning slots [r * spb, (r + 1) * spb), with C, spb and
-// the warps a block from the wrapper's plan (kernels/decode_attention.
+// decode_split_kernel, one template for the three caches.  S is split
+// over a thread-block cluster: the grid is (K, B, C) in clusters of C
+// blocks along z, block r owning slots [r * spb, (r + 1) * spb), with C, spb
+// and the warps a block from the wrapper's plan (kernels/decode_attention.
 // split_plan: C = 8, 73 slots and 5 warps a block, 256 blocks, at
-// tinyllama's batch 8 and 584 slots).  Each warp walks 16-slot sub-tiles,
-// two lanes a slot: they copy its k and v rows and scales into shared
-// memory with 16-byte (4-byte) cp.async, double-buffered across tiles,
-// the k rows swizzled against bank conflicts, and each sums half of its
-// dot products.  The dequantization is one multiply a slot:
-// logit = ks[s] * (q . code) and acc += (p * vs[s]) * code, the codes
-// turned into fp32 four at a time (prmt).  The warps' (m, l, acc) merge in
-// shared memory, then the C blocks' over distributed shared memory, each
-// rank merging and writing 1/C of the outputs; a final cluster.sync()
-// keeps every block's shared memory alive until its peers have read it.  Every slot is
-// read, masked or not, so a row with no valid slot gives the mean of v.
-// What holds it back is latency, not bytes: a block moves 9 KB, and its
-// time goes to the chain of copy, dot products, softmax, p @ v, the two
-// merges and two cluster barriers (PERF.md).
+// tinyllama's batch 8 and 584 slots, for every cache type).  Each warp
+// walks 16-slot sub-tiles, two lanes a slot: they copy its k and v rows
+// (and, for int8, its scales) into shared memory with 16-byte (4-byte)
+// cp.async, double-buffered across tiles, the k rows swizzled against bank
+// conflicts, and each sums half of its dot products.  An int8 cache folds
+// its dequantization into one multiply a slot: logit = ks[s] * (q . code)
+// and acc += (p * vs[s]) * code, the codes turned into fp32 four at a time
+// (prmt); for a bf16 or fp32 cache that multiply is compiled out.  A k or
+// v row of a 2- or 4-byte cache is 2 or 4 times as long, and so are the
+// buffers: the plan caps the warps so that a block fits (an fp32 cache at
+// head_dim 128 takes at most 6).  The warps' (m, l, acc) merge in shared
+// memory, then the C blocks' over distributed shared memory, each rank
+// merging and writing 1/C of the outputs; a final cluster.sync() keeps
+// every block's shared memory alive until its peers have read it.  Every
+// slot is read, masked or not, so a row with no valid slot gives the mean
+// of v.  What holds it back is latency, not bytes: a block moves 9 KB of
+// an int8 cache at tinyllama's shapes (18 KB in bf16), and its time goes
+// to the chain of copy, dot products, softmax, p @ v, the two merges and
+// two cluster barriers (PERF.md).
 #include <cstdint>
 #include <type_traits>
 #include <cooperative_groups.h>
@@ -81,221 +70,14 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(x);
 }
 
-// out[i] = fp32(p[i]) for N consecutive elements, in one vector load where
-// N * sizeof(T) is 4, 8 or 16 bytes (the caller keeps p aligned to that).
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  if constexpr (BYTES == 16 || BYTES == 8 || BYTES == 4) {
-    using V = std::conditional_t<BYTES == 16, uint4,
-                                 std::conditional_t<BYTES == 8, uint2,
-                                                    uint32_t>>;
-    const V u = *reinterpret_cast<const V*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f32(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f32(p[i]);
-  }
-}
-
-struct Args {
-  const void* q;          // (B, H, D) TQ
-  const void* k;          // (B, S, K, D) TKV
-  const void* v;
-  const uint8_t* valid;   // (S,) bool
-  void* out;              // (B, H, D) TQ
-  int B, S, H, K, g;
-  float scale;            // fp32(D**-0.5)
-};
-
-template <int D, int G>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (G * D + WARPS * G * 32 + 2 * WARPS * G +
-                          WARPS * G * D);
-}
-
-// G is the group size rounded up to a power of two; heads g..G-1 hold
-// zeros and are not written.
-template <typename TQ, typename TKV, int D, int G>
-__global__ void __launch_bounds__(THREADS) decode_kernel(const Args a) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(TKV));  // per 16 bytes
-  constexpr int EL = D / 32;               // channels a lane owns in p @ v
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [G][D] scaled query group
-  float* ps = qs + G * D;                  // [WARPS][G][32] probabilities
-  float* mm = ps + WARPS * G * 32;         // [WARPS][G] partial max
-  float* ll = mm + WARPS * G;              // [WARPS][G] partial sum
-  float* aa = ll + WARPS * G;              // [WARPS][G][D] partial acc
-
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int S = a.S, K = a.K, g = a.g;
-  const size_t head0 = static_cast<size_t>(b) * a.H +
-                       static_cast<size_t>(kh) * g;
-  const TQ* q = static_cast<const TQ*>(a.q) + head0 * D;
-  for (int i = threadIdx.x; i < G * D; i += THREADS)
-    qs[i] = i / D < g ? to_f32(q[i]) * a.scale : 0.0f;
-  __syncthreads();
-
-  const size_t row = static_cast<size_t>(K) * D;   // elements per slot
-  const size_t base = static_cast<size_t>(b) * S * row +
-                      static_cast<size_t>(kh) * D;
-  const TKV* kb = static_cast<const TKV*>(a.k) + base;
-  const TKV* vb = static_cast<const TKV*>(a.v) + base;
-
-  float m[G], l[G], acc[G][EL];
-#pragma unroll
-  for (int h = 0; h < G; ++h) {
-    m[h] = NEG_INF;
-    l[h] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < EL; ++j) acc[h][j] = 0.0f;
-  }
-  float* pw = ps + warp * G * 32;
-
-  for (int t0 = warp * 32; t0 < S; t0 += WARPS * 32) {
-    const int s = t0 + lane;
-    const bool in = s < S;
-    float logit[G];
-#pragma unroll
-    for (int h = 0; h < G; ++h) logit[h] = 0.0f;
-    if (in) {
-      const TKV* kr = kb + static_cast<size_t>(s) * row;
-#pragma unroll 4
-      for (int c = 0; c < D / VEC; ++c) {
-        float e[VEC];
-        load_f32<TKV, VEC>(kr + c * VEC, e);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-#pragma unroll
-          for (int h = 0; h < G; ++h)
-            logit[h] = fmaf(qs[h * D + c * VEC + i], e[i], logit[h]);
-        }
-      }
-      if (!a.valid[s]) {
-#pragma unroll
-        for (int h = 0; h < G; ++h) logit[h] = NEG_INF;
-      }
-    }
-
-    float corr[G];
-#pragma unroll
-    for (int h = 0; h < G; ++h) {
-      float mx = in ? logit[h] : NEG_INF;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-      const float m_new = fmaxf(m[h], mx);
-      const float p = in ? expf(logit[h] - m_new) : 0.0f;
-      float sum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-      corr[h] = expf(m[h] - m_new);
-      l[h] = l[h] * corr[h] + sum;
-      m[h] = m_new;
-      pw[h * 32 + lane] = p;
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int h = 0; h < G; ++h) {
-#pragma unroll
-      for (int j = 0; j < EL; ++j) acc[h][j] *= corr[h];
-    }
-    const int n = min(32, S - t0);
-    for (int t = 0; t < n; ++t) {
-      float ve[EL];
-      load_f32<TKV, EL>(vb + static_cast<size_t>(t0 + t) * row + lane * EL,
-                        ve);
-#pragma unroll
-      for (int h = 0; h < G; ++h) {
-        const float p = pw[h * 32 + t];
-#pragma unroll
-        for (int j = 0; j < EL; ++j) acc[h][j] = fmaf(p, ve[j], acc[h][j]);
-      }
-    }
-    __syncwarp();
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int h = 0; h < G; ++h) {
-      mm[warp * G + h] = m[h];
-      ll[warp * G + h] = l[h];
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < G; ++h) {
-#pragma unroll
-    for (int j = 0; j < EL; ++j)
-      aa[(warp * G + h) * D + lane * EL + j] = acc[h][j];
-  }
-  __syncthreads();
-
-  TQ* out = static_cast<TQ*>(a.out) + head0 * D;
-  for (int i = threadIdx.x; i < g * D; i += THREADS) {
-    const int h = i / D, d = i % D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mm[w * G + h]);
-    float L = 0.0f, A = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = expf(mm[w * G + h] - M);
-      L += ll[w * G + h] * f;
-      A += aa[(w * G + h) * D + d] * f;
-    }
-    from_f32(A / fmaxf(L, 1e-30f), out + i);
-  }
-}
-
-template <typename TQ, typename TKV, int D, int G>
-int launch_g(const Args& a, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<D, G>();
-  auto kern = decode_kernel<TQ, TKV, D, G>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kern<<<dim3(a.K, a.B), THREADS, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename TQ, typename TKV, int D>
-int launch_d(const Args& a, cudaStream_t st) {
-  if (a.g <= 1) return launch_g<TQ, TKV, D, 1>(a, st);
-  if (a.g <= 2) return launch_g<TQ, TKV, D, 2>(a, st);
-  if (a.g <= 4) return launch_g<TQ, TKV, D, 4>(a, st);
-  if (a.g <= 8) return launch_g<TQ, TKV, D, 8>(a, st);
-  if (a.g <= 16) return launch_g<TQ, TKV, D, 16>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename TQ, typename TKV>
-int launch_t(const Args& a, int D, cudaStream_t st) {
-  switch (D) {
-    case 32: return launch_d<TQ, TKV, 32>(a, st);
-    case 64: return launch_d<TQ, TKV, 64>(a, st);
-    case 128: return launch_d<TQ, TKV, 128>(a, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// ---------------------------------------------------------------------
-// The int8 cache: S split over a thread-block cluster.
 
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
 
 struct SplitArgs {
   const void* q;          // (B, H, D) TQ
-  const int8_t* k;        // (B, S, K, D) int8 codes
-  const int8_t* v;
-  const float* ks;        // (B, S, K) fp32 scales
+  const void* k;          // (B, S, K, D) TKV: int8 codes, bf16 or fp32
+  const void* v;
+  const float* ks;        // (B, S, K) fp32 scales (int8 cache only)
   const float* vs;
   const uint8_t* valid;   // (S,) bool
   void* out;              // (B, H, D) TQ
@@ -305,18 +87,19 @@ struct SplitArgs {
 };
 
 // Shared memory of the split kernel for W warps (a tile of 16 * W slots),
-// a query group padded to G and head_dim D, in bytes; the wrapper's plan
-// (kernels/decode_attention.split_smem_bytes) computes the same sum.
-//   k, v codes      2 buffers x [16W][D] int8 each
+// a query group padded to G, head_dim D and a cache of ES-byte elements, in
+// bytes; the wrapper's plan (kernels/decode_attention.split_smem_bytes)
+// computes the same sum.
+//   k, v rows       2 buffers x [16W][D * ES] bytes each
 //   q               [G][D] fp32, pre-scaled
 //   block acc       [G][D] fp32 (read by the peers over DSMEM)
-//   p * v scale     [W][G][16] fp32
+//   p (* v scale)   [W][G][16] fp32
 //   k, v scales     2 buffers x [16W] fp32 each
 //   block m, l      [G] fp32 each (read by the peers over DSMEM)
 // After the slot loop the warps' acc partials ([W][G][D] fp32) overlay the
-// code buffers and their (m, l) ([W][G] each) the p * v-scale rows.
-__host__ __device__ constexpr size_t split_smem(int W, int G, int D) {
-  return 64 * static_cast<size_t>(W) * D + 8 * G * D + 64 * W * G +
+// row buffers and their (m, l) ([W][G] each) the p rows.
+__host__ __device__ constexpr size_t split_smem(int W, int G, int D, int ES) {
+  return 64 * static_cast<size_t>(W) * D * ES + 8 * G * D + 64 * W * G +
          256 * W + 8 * G;
 }
 
@@ -346,14 +129,57 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t x, float (&f)[4]) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7653)) - 8388736.0f;
 }
 
-// Slot t's k row is D/16 chunks of 16 bytes; chunk c sits at chunk
-// position c ^ f(t), so the 8 lanes of a 16-byte shared load phase (4
-// slots, two lanes each reading a chunk of its own half row) fall on 8
-// different bank groups.
-template <int D>
+// Elements 4j..4j+3 of a 16-byte chunk (its words w) to fp32: one word of
+// int8 codes, two of bf16 pairs (the low half first), or word j in fp32.
+template <typename TKV>
+__device__ __forceinline__ void chunk4_f32(const uint32_t (&w)[4], int j,
+                                           float (&f)[4]) {
+  if constexpr (std::is_same_v<TKV, int8_t>) {
+    i8x4_to_f32(w[j], f);
+  } else if constexpr (std::is_same_v<TKV, float>) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(w[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      f[2 * i] = __uint_as_float(w[2 * j + i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[2 * j + i] & 0xffff0000u);
+    }
+  }
+}
+
+// Four consecutive cache elements at p (aligned to 4 elements) to fp32.
+template <typename TKV>
+__device__ __forceinline__ void load4_f32(const unsigned char* p,
+                                          float (&f)[4]) {
+  if constexpr (std::is_same_v<TKV, int8_t>) {
+    i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), f);
+  } else if constexpr (std::is_same_v<TKV, float>) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __bfloat162float(e[i]);
+  }
+}
+
+// A k row is CPR chunks of 16 bytes; chunk c sits at chunk position
+// swizzle(t, c) in slot t's row, so that the 8 lanes of a 16-byte shared
+// load phase (4 slots, two lanes each reading a chunk of its own half row)
+// fall on 8 different bank groups.  Up to 8 chunks a row the slots of a
+// phase differ in the row's start bank group too; from 16 on the rows all
+// start in group 0, and the lane's half row enters the XOR as its third
+// bit (c / (CPR/2) is a bit above the three the XOR touches, so each row
+// stays a permutation of its chunks).
+template <int CPR>
 __device__ __forceinline__ int swizzle(int t, int c) {
-  constexpr int CPR = D / 16;
-  return c ^ ((t / (8 / CPR)) & (CPR - 1));
+  if constexpr (CPR <= 8) {
+    return c ^ ((t / (8 / CPR)) & (CPR - 1));
+  } else {
+    return c ^ ((t & 3) | (((c / (CPR / 2)) & 1) << 2));
+  }
 }
 
 // Block (kh, b, r) of the grid (K, B, C), in clusters of C along z, runs
@@ -361,25 +187,30 @@ __device__ __forceinline__ int swizzle(int t, int c) {
 // [r * spb, min((r + 1) * spb, S)); the C ranks merge the partials.  Within
 // a block each warp walks 16-slot sub-tiles of 16 * W-slot tiles.  Lane
 // pair (2t, 2t+1) of a warp owns slot t of its sub-tile: each copies half
-// of its k and v rows and one of its two scales (double-buffered
-// cp.async; a warp copies only its own sub-tile, so warp barriers order
-// the copies) and sums half of the g dot products ks[s] * (q . code), one
-// shuffle joining the halves.
+// of its k and v rows (and, for int8, one of its two scales)
+// (double-buffered cp.async; a warp copies only its own sub-tile, so warp
+// barriers order the copies) and sums half of the g dot products
+// (ks[s] *) (q . k), one shuffle joining the halves.
 // Then each lane owns 4 channels of D for p @ v, with 128 / D slot groups
 // in a warp.
 // Up to a group of 8, the register budget keeps two 8-warp blocks on an SM.
-template <typename TQ, int D, int G>
+template <typename TQ, typename TKV, int D, int G>
 __global__ void __launch_bounds__(THREADS, G <= 8 ? 2 : 1)
-decode_int8_split_kernel(const SplitArgs a) {
-  constexpr int CPR = D / 16;     // 16-byte chunks a k or v row
-  constexpr int HALF = CPR / 2;   // chunks of a half row (D >= 32)
-  constexpr int LPS = D / 4;      // lanes over one v row, 4 channels each
-  constexpr int NSG = 32 / LPS;   // slot groups of a warp in p @ v
+decode_split_kernel(const SplitArgs a) {
+  constexpr bool QUANT = std::is_same_v<TKV, int8_t>;
+  constexpr int ES = static_cast<int>(sizeof(TKV));
+  constexpr int RB = D * ES;        // bytes a k or v row
+  constexpr int CPR = RB / 16;      // 16-byte chunks a row
+  constexpr int HALF = CPR / 2;     // chunks of a half row (RB >= 32)
+  constexpr int EPC = 16 / ES;      // elements a chunk
+  static_assert(RB >= 32 && RB % 32 == 0, "a row is whole half rows");
+  constexpr int LPS = D / 4;        // lanes over one v row, 4 channels each
+  constexpr int NSG = 32 / LPS;     // slot groups of a warp in p @ v
   extern __shared__ __align__(16) unsigned char split_buf[];
   const int W = blockDim.x / 32, TS = 16 * W;
-  int8_t* kt = reinterpret_cast<int8_t*>(split_buf);   // [2][TS][D]
-  int8_t* vt = kt + 2 * TS * D;                      // [2][TS][D]
-  float* qs = reinterpret_cast<float*>(vt + 2 * TS * D);   // [G][D]
+  unsigned char* kt = split_buf;                     // [2][TS][RB]
+  unsigned char* vt = kt + 2 * TS * RB;              // [2][TS][RB]
+  float* qs = reinterpret_cast<float*>(vt + 2 * TS * RB);   // [G][D]
   float* ba = qs + G * D;                            // [G][D]
   float* pw = ba + G * D;                            // [W][G][16]
   float* kss = pw + W * G * 16;                      // [2][TS]
@@ -400,10 +231,12 @@ decode_int8_split_kernel(const SplitArgs a) {
   const int ntiles = (hi - lo + TS - 1) / TS;
   const int t = warp * 16 + lane / 2, half = lane % 2;   // slot in the tile
 
-  const size_t row = static_cast<size_t>(K) * D;     // bytes a slot
+  const size_t row = static_cast<size_t>(K) * RB;    // bytes a slot
   const size_t base = static_cast<size_t>(b) * S * row +
-                      static_cast<size_t>(kh) * D;
+                      static_cast<size_t>(kh) * RB;
   const size_t sbase = static_cast<size_t>(b) * S * K + kh;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v);
   // Every in-range slot is read, masked or not: a masked slot's weight
   // exp(-1e30 - m) is 0 once its block has a valid slot, and a block
   // with none gives the row the mean of v when no block has one.  Bit buf
@@ -416,17 +249,19 @@ decode_int8_split_kernel(const SplitArgs a) {
     valid_bits = (valid_bits & ~(1u << buf)) |
                  (unsigned(in && a.valid[s]) << buf);
     const size_t off = in ? base + static_cast<size_t>(s) * row : 0;
-    int8_t* kd = kt + (buf * TS + t) * D;
-    int8_t* vd = vt + (buf * TS + t) * D;
+    unsigned char* kd = kt + (buf * TS + t) * RB;
+    unsigned char* vd = vt + (buf * TS + t) * RB;
 #pragma unroll
     for (int i = 0; i < HALF; ++i) {
       const int c = half * HALF + i;
-      cp_async16(kd + swizzle<D>(t, c) * 16, a.k + off + c * 16, in);
-      cp_async16(vd + c * 16, a.v + off + c * 16, in);
+      cp_async16(kd + swizzle<CPR>(t, c) * 16, kg + off + c * 16, in);
+      cp_async16(vd + c * 16, vg + off + c * 16, in);
     }
-    const size_t soff = in ? sbase + static_cast<size_t>(s) * K : 0;
-    cp_async4((half ? vss : kss) + buf * TS + t, (half ? a.vs : a.ks) + soff,
-              in);
+    if constexpr (QUANT) {
+      const size_t soff = in ? sbase + static_cast<size_t>(s) * K : 0;
+      cp_async4((half ? vss : kss) + buf * TS + t,
+                (half ? a.vs : a.ks) + soff, in);
+    }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
   if (ntiles > 0) copy_tile(0, 0);
@@ -467,21 +302,21 @@ decode_int8_split_kernel(const SplitArgs a) {
     float logit[G];
 #pragma unroll
     for (int h = 0; h < G; ++h) logit[h] = 0.0f;
-    const int8_t* kr = kt + (buf * TS + t) * D;
+    const unsigned char* kr = kt + (buf * TS + t) * RB;
 #pragma unroll
     for (int i = 0; i < HALF; ++i) {
       const int c = half * HALF + i;
       const uint4 u =
-          *reinterpret_cast<const uint4*>(kr + swizzle<D>(t, c) * 16);
+          *reinterpret_cast<const uint4*>(kr + swizzle<CPR>(t, c) * 16);
       const uint32_t words[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < EPC / 4; ++j) {
         float f[4];
-        i8x4_to_f32(words[j], f);
+        chunk4_f32<TKV>(words, j, f);
 #pragma unroll
         for (int h = 0; h < G; ++h) {
           const float4 qv = *reinterpret_cast<const float4*>(
-              qs + h * D + c * 16 + j * 4);
+              qs + h * D + c * EPC + j * 4);
           logit[h] = fmaf(qv.x, f[0], logit[h]);
           logit[h] = fmaf(qv.y, f[1], logit[h]);
           logit[h] = fmaf(qv.z, f[2], logit[h]);
@@ -489,12 +324,17 @@ decode_int8_split_kernel(const SplitArgs a) {
         }
       }
     }
-    const float ksc = kss[buf * TS + t], vsc = vss[buf * TS + t];
+    float ksc = 1.0f, vsc = 1.0f;
+    if constexpr (QUANT) {
+      ksc = kss[buf * TS + t];
+      vsc = vss[buf * TS + t];
+    }
     float corr[G];
 #pragma unroll
     for (int h = 0; h < G; ++h) {
       logit[h] += __shfl_xor_sync(FULL, logit[h], 1);
-      const float lg = vld ? ksc * logit[h] : NEG_INF;
+      float lg = NEG_INF;
+      if (vld) lg = QUANT ? ksc * logit[h] : logit[h];
       float mx = in ? lg : NEG_INF;
 #pragma unroll
       for (int o = 16; o > 1; o >>= 1)
@@ -507,7 +347,7 @@ decode_int8_split_kernel(const SplitArgs a) {
       corr[h] = expf(m[h] - m_new);
       l[h] = l[h] * corr[h] + sum;
       m[h] = m_new;
-      if (!half) pwarp[h * 16 + lane / 2] = p * vsc;
+      if (!half) pwarp[h * 16 + lane / 2] = QUANT ? p * vsc : p;
     }
     __syncwarp();
 
@@ -523,9 +363,7 @@ decode_int8_split_kernel(const SplitArgs a) {
       const int tt = sg + k * NSG;
       if (tt >= n) break;
       float f[4];
-      i8x4_to_f32(*reinterpret_cast<const uint32_t*>(
-                      vt + (buf * TS + warp * 16 + tt) * D + ch),
-                  f);
+      load4_f32<TKV>(vt + (buf * TS + warp * 16 + tt) * RB + ch * ES, f);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float p = pwarp[h * 16 + tt];
@@ -632,11 +470,11 @@ decode_int8_split_kernel(const SplitArgs a) {
   cluster.sync();              // every block's partials stay until read
 }
 
-template <typename TQ, int D, int G>
+template <typename TQ, typename TKV, int D, int G>
 int launch_split_g(const SplitArgs& a, int C, int W, size_t smem,
                    cudaStream_t st) {
-  auto kern = decode_int8_split_kernel<TQ, D, G>;
-  if (smem < split_smem(W, G, D))
+  auto kern = decode_split_kernel<TQ, TKV, D, G>;
+  if (smem < split_smem(W, G, D, static_cast<int>(sizeof(TKV))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -661,64 +499,73 @@ int launch_split_g(const SplitArgs& a, int C, int W, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, int D>
+template <typename TQ, typename TKV, int D>
 int launch_split_d(const SplitArgs& a, int C, int W, size_t smem,
                    cudaStream_t st) {
-  if (a.g <= 1) return launch_split_g<TQ, D, 1>(a, C, W, smem, st);
-  if (a.g <= 2) return launch_split_g<TQ, D, 2>(a, C, W, smem, st);
-  if (a.g <= 4) return launch_split_g<TQ, D, 4>(a, C, W, smem, st);
-  if (a.g <= 8) return launch_split_g<TQ, D, 8>(a, C, W, smem, st);
-  if (a.g <= 16) return launch_split_g<TQ, D, 16>(a, C, W, smem, st);
+  if (a.g <= 1) return launch_split_g<TQ, TKV, D, 1>(a, C, W, smem, st);
+  if (a.g <= 2) return launch_split_g<TQ, TKV, D, 2>(a, C, W, smem, st);
+  if (a.g <= 4) return launch_split_g<TQ, TKV, D, 4>(a, C, W, smem, st);
+  if (a.g <= 8) return launch_split_g<TQ, TKV, D, 8>(a, C, W, smem, st);
+  if (a.g <= 16) return launch_split_g<TQ, TKV, D, 16>(a, C, W, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename TQ>
+template <typename TQ, typename TKV>
 int launch_split_t(const SplitArgs& a, int D, int C, int W, size_t smem,
                    cudaStream_t st) {
   switch (D) {
-    case 32: return launch_split_d<TQ, 32>(a, C, W, smem, st);
-    case 64: return launch_split_d<TQ, 64>(a, C, W, smem, st);
-    case 128: return launch_split_d<TQ, 128>(a, C, W, smem, st);
+    case 32: return launch_split_d<TQ, TKV, 32>(a, C, W, smem, st);
+    case 64: return launch_split_d<TQ, TKV, 64>(a, C, W, smem, st);
+    case 128: return launch_split_d<TQ, TKV, 128>(a, C, W, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The plan's limits, checked before any launch.
+bool plan_ok(int S, int C, int spb, int W, int smem_bytes) {
+  return C >= 1 && C <= MAX_CLUSTER && W >= 1 && W <= WARPS && spb >= 1 &&
+         static_cast<long long>(C) * spb >= S && smem_bytes >= 0;
+}
+
 }  // namespace
 
-// q, k, v, out all fp32 (bf16 == 0) or all bf16 (bf16 == 1).
+// q, k, v, out all fp32 (bf16 == 0) or all bf16 (bf16 == 1).  The split (C
+// blocks of spb slots, W warps a block, smem bytes) comes from
+// kernels/decode_attention.split_plan.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid,
                                        void* out, int B, int S, int H, int K,
-                                       int D, float scale, int bf16,
+                                       int D, float scale, int bf16, int C,
+                                       int spb, int W, int smem_bytes,
                                        void* stream) {
-  const Args a{q, k, v, static_cast<const uint8_t*>(valid), out, B, S, H, K,
-               H / K, scale};
+  if (!plan_ok(S, C, spb, W, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{q, k, v, nullptr, nullptr,
+                    static_cast<const uint8_t*>(valid), out, B, S, H, K,
+                    H / K, spb, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_t<__nv_bfloat16, __nv_bfloat16>(a, D, st)
-              : launch_t<float, float>(a, D, st);
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  return bf16 ? launch_split_t<__nv_bfloat16, __nv_bfloat16>(a, D, C, W,
+                                                             smem, st)
+              : launch_split_t<float, float>(a, D, C, W, smem, st);
 }
 
-// k_q, v_q int8; k_s, v_s fp32; q and out fp32 (q_bf16 == 0) or bf16.  The
-// split (C blocks of spb slots, W warps a block, smem bytes) comes from
-// kernels/decode_attention.split_plan.
+// k_q, v_q int8; k_s, v_s fp32; q and out fp32 (q_bf16 == 0) or bf16.
 extern "C" int decode_attention_int8_launch(
     const void* q, const void* k_q, const void* v_q, const void* k_s,
     const void* v_s, const void* valid, void* out, int B, int S, int H,
     int K, int D, float scale, int q_bf16, int C, int spb, int W,
     int smem_bytes, void* stream) {
-  if (C < 1 || C > MAX_CLUSTER || W < 1 || W > WARPS || spb < 1 ||
-      static_cast<long long>(C) * spb < S || smem_bytes < 0)
+  if (!plan_ok(S, C, spb, W, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SplitArgs a{q, static_cast<const int8_t*>(k_q),
-                    static_cast<const int8_t*>(v_q),
-                    static_cast<const float*>(k_s),
+  const SplitArgs a{q, k_q, v_q, static_cast<const float*>(k_s),
                     static_cast<const float*>(v_s),
                     static_cast<const uint8_t*>(valid), out, B, S, H, K,
                     H / K, spb, scale};
   auto st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
-  return q_bf16 ? launch_split_t<__nv_bfloat16>(a, D, C, W, smem, st)
-                : launch_split_t<float>(a, D, C, W, smem, st);
+  return q_bf16 ? launch_split_t<__nv_bfloat16, int8_t>(a, D, C, W, smem, st)
+                : launch_split_t<float, int8_t>(a, D, C, W, smem, st);
 }
 
 extern "C" const char* kernels_error_string(int code) {

@@ -121,6 +121,15 @@ __device__ __forceinline__ float dequant(int acc, float scale,
   return y;
 }
 
+// The same with the bias already loaded (b, used when has_bias).
+__device__ __forceinline__ float dequant(int acc, float scale, bool has_bias,
+                                         float b, int relu) {
+  float y = __fmul_rn(static_cast<float>(acc), scale);
+  if (has_bias) y = __fadd_rn(y, b);
+  if (relu) y = fmaxf(y, 0.0f);
+  return y;
+}
+
 // Static requantize: rint(y * inv_scale) (half to even), clipped to int8.
 __device__ __forceinline__ int8_t requant(float y, float inv_scale,
                                           float qmax) {

@@ -9,11 +9,11 @@ q cast to fp32 and scaled by ``D**-0.5``, fp32 logits, -1e30 for a masked
 slot, an fp32 softmax and ``acc / max(l, 1e-30)`` cast to q's dtype.  The
 int8 variant reads int8 k/v with an fp32 scale per (token, kv head).
 The reference transposes the cache to (B, K, S, D) and fits its S tile to
-a divisor of S; the CUDA kernels read the (B, S, K, D) layout in place and
-mask a ragged last tile.  The bf16/fp32 kernel runs one block per (kv
-head, batch row); the int8 kernel splits S over a cluster of C blocks
-(:func:`split_plan`) and folds the dequantization into one multiply a
-slot, ``ks[s] * (q . code)`` and ``(p * vs[s]) * code``.
+a divisor of S; the CUDA kernel reads the (B, S, K, D) layout in place and
+masks a ragged last tile.  One template serves the three caches: S is
+split over a cluster of C blocks (:func:`split_plan`), and an int8 cache
+folds its dequantization into one multiply a slot, ``ks[s] * (q . code)``
+and ``(p * vs[s]) * code``.
 
 :func:`decode_attention` and :func:`decode_attention_int8` launch their
 kernel for CUDA tensors and run :func:`decode_attention_plain` /
@@ -34,22 +34,24 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.tiling import SMEM_BUDGET
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)     # head_dim the kernel is instantiated for
 MAX_GROUP = 16                # largest query group H / K it takes
-# The int8 kernel's split of S over a cluster (csrc/decode_attention.cu):
-# C blocks a (kv head, batch row), doubled while the grid has fewer than
+# The kernel's split of S over a cluster (csrc/decode_attention.cu): C
+# blocks a (kv head, batch row), doubled while the grid has fewer than
 # SPLIT_MIN_BLOCKS blocks and each block keeps SPLIT_MIN_SLOTS slots, up
 # to the portable cluster size of 8 (so B = 1 runs B * K * 8 blocks: 32 at
-# tinyllama's 4 kv heads); a warp for each 16 slots of a block, up to 8.
+# tinyllama's 4 kv heads); a warp for each 16 slots of a block, up to 8 and
+# up to what the block's shared memory allows for the cache's element size.
 SPLIT_MAX_CLUSTER = 8
 SPLIT_MIN_BLOCKS = 132       # one block for each SM of an H100
 SPLIT_MIN_SLOTS = 32
 SPLIT_MAX_WARPS = 8
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_INT8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
     [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _LAUNCH = {}         # the bound C entry points, set up on first launch
@@ -64,16 +66,20 @@ def _launcher(name, argtypes):
     return fn
 
 
-def split_plan(B: int, K: int, S: int):
-    """The int8 kernel's split of S: ``(C, slots_per_block, warps)``.
-    Block r of the C in a cluster owns slots [r * slots_per_block,
-    min((r + 1) * slots_per_block, S))."""
+def split_plan(B: int, K: int, S: int, *, elem: int, D: int, G: int):
+    """The kernel's split of S: ``(C, slots_per_block, warps)`` for a cache
+    of ``elem``-byte elements (1 int8, 2 bf16, 4 fp32), head_dim D and a
+    padded query group G.  Block r of the C in a cluster
+    owns slots [r * slots_per_block, min((r + 1) * slots_per_block, S))."""
     c = 1
     while c < SPLIT_MAX_CLUSTER and B * K * c < SPLIT_MIN_BLOCKS and \
             -(-S // (2 * c)) >= SPLIT_MIN_SLOTS:
         c *= 2
     spb = max(1, -(-S // c))
-    return c, spb, min(SPLIT_MAX_WARPS, -(-spb // 16))
+    warps = min(SPLIT_MAX_WARPS, -(-spb // 16))
+    while warps > 1 and split_smem_bytes(warps, G, D, elem) > SMEM_BUDGET:
+        warps -= 1
+    return c, spb, warps
 
 
 def group_pad(g: int) -> int:
@@ -82,14 +88,14 @@ def group_pad(g: int) -> int:
     return 1 << (g - 1).bit_length()
 
 
-def split_smem_bytes(warps: int, G: int, D: int) -> int:
-    """Shared memory of an int8-kernel block with ``warps`` warps, padded
-    group G and head_dim D (the kernel's ``split_smem``): double-buffered
-    int8 k and v tiles of 16 * warps slots, the query group and the block's
-    acc in fp32, the warps' p * v-scale rows, the k and v scales and the
-    block's (m, l)."""
-    return 64 * warps * D + 8 * G * D + 64 * warps * G + 256 * warps + \
-        8 * G
+def split_smem_bytes(warps: int, G: int, D: int, elem: int) -> int:
+    """Shared memory of a block with ``warps`` warps, padded group G,
+    head_dim D and ``elem``-byte cache elements (the kernel's
+    ``split_smem``): double-buffered k and v tiles of 16 * warps rows of
+    D * elem bytes, the query group and the block's acc in fp32, the
+    warps' p rows, the k and v scales and the block's (m, l)."""
+    return 64 * warps * D * elem + 8 * G * D + 64 * warps * G + \
+        256 * warps + 8 * G
 
 
 def _scale(D: int) -> float:
@@ -170,10 +176,13 @@ def decode_attention(q, k, v, valid):
     B, S, H, K, D = _check('decode_attention', q, q.dtype, (k, v), (),
                            valid)
     out = torch.empty_like(q)
+    elem, G = k.element_size(), group_pad(H // K)
+    c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
     rc = _launcher('decode_attention_launch', _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         out.data_ptr(), B, S, H, K, D, _scale(D),
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), c, spb, warps,
+        split_smem_bytes(warps, G, D, elem),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         _build.check(_build.load('decode_attention'), rc,
@@ -193,12 +202,13 @@ def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid):
     B, S, H, K, D = _check('decode_attention_int8', q, torch.int8,
                            (k_q, v_q), (k_s, v_s), valid)
     out = torch.empty_like(q)
-    c, spb, warps = split_plan(B, K, S)
+    G = group_pad(H // K)
+    c, spb, warps = split_plan(B, K, S, elem=1, D=D, G=G)
     rc = _launcher('decode_attention_int8_launch', _ARGTYPES_INT8)(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_s.data_ptr(),
         v_s.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, K, D,
         _scale(D), int(q.dtype == torch.bfloat16), c, spb, warps,
-        split_smem_bytes(warps, group_pad(H // K), D),
+        split_smem_bytes(warps, G, D, 1),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         _build.check(_build.load('decode_attention'), rc,

@@ -9,10 +9,11 @@ and a mask with a hole.  Tolerance: fp32 within 1e-5 x max|reference| (the
 softmax and both products sum in other orders); bf16 output within 8e-3 x
 max|reference|, about one bf16 ulp.  The CUDA kernels themselves are held
 against the plain versions on a card by tests/test_torch_gpu.py; here the
-int8 kernel's split of S over a cluster (``split_plan``) is checked as the
-card runs it, and a torch emulation of that split (each block's softmax
-over its slots with the scales folded, the blocks' partials merged as
-the cluster merges them) is held against the reference's Pallas kernel and the plain version.
+kernel's split of S over a cluster (``split_plan``, for 1-, 2- and 4-byte
+caches) is checked as the card runs it, and a torch emulation of that
+split (each block's softmax over its slots with the int8 scales folded,
+the blocks' partials merged as the cluster merges them) is held against
+the reference's Pallas kernels and the plain versions.
 
 One difference is by design: a row with no valid slot comes out of the
 kernels (TPU and port alike) as the mean of v over the S slots, and out of
@@ -49,6 +50,8 @@ torch.set_num_threads(1)
 # tile, 584 is the served cache of prompt 512 + 64 tokens + 8
 CASES = [(2, 4, 4, 32, 37), (1, 4, 2, 64, 100), (2, 8, 2, 32, 64),
          (1, 8, 2, 64, 584)]
+# the int8 cache at the widest head_dim and group the kernel takes
+WIDEST_INT8 = dict(elem=1, D=max(HEAD_DIMS), G=MAX_GROUP)
 
 
 def _mask(S, kind):
@@ -191,7 +194,7 @@ def test_split_plan_covers_every_slot_once(bks):
     each 16 slots of a block up to 8, and every block's shared memory fits
     an H100 block for every head_dim and group the kernel takes."""
     B, K, S = bks
-    c, spb, warps = split_plan(B, K, S)
+    c, spb, warps = split_plan(B, K, S, **WIDEST_INT8)
     assert 1 <= c <= 8 and 1 <= warps <= 8 and warps * 16 >= min(spb, 128)
     slots = np.zeros(S, int)
     for r in range(c):
@@ -199,28 +202,61 @@ def test_split_plan_covers_every_slot_once(bks):
     assert (slots == 1).all()
     for D in HEAD_DIMS:
         for g in range(1, MAX_GROUP + 1):
-            assert split_smem_bytes(warps, group_pad(g), D) <= SMEM_BUDGET
+            assert split_smem_bytes(warps, group_pad(g), D, 1) <= \
+                SMEM_BUDGET
+
+
+@pytest.mark.parametrize('elem', [1, 2, 4], ids=['int8', 'bf16', 'fp32'])
+@pytest.mark.parametrize('bks', [(8, 4, 584), (1, 4, 584), (8, 4, 2048),
+                                 (2, 4, 37), (1, 16, 33), (3, 1, 1)])
+def test_split_plan_fits_every_cache_type(elem, bks):
+    """The plan for a 1-, 2- or 4-byte cache at every head_dim and group
+    the kernel takes: the slot split is the int8 plan's, and the warps are
+    the most of the int8 plan's that fit: a block's double-buffered k and
+    v rows (2 x 16W x D x bytes each) keep it within an H100 block's
+    shared memory."""
+    B, K, S = bks
+    c8, spb8, w8 = split_plan(B, K, S, **WIDEST_INT8)
+    for D in HEAD_DIMS:
+        for g in range(1, MAX_GROUP + 1):
+            G = group_pad(g)
+            c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
+            assert (c, spb) == (c8, spb8) and 1 <= warps <= w8
+            assert split_smem_bytes(warps, G, D, elem) <= SMEM_BUDGET
+            assert warps == w8 or split_smem_bytes(
+                warps + 1, G, D, elem) > SMEM_BUDGET
+            if elem == 1:
+                assert warps == w8
+    assert split_smem_bytes(8, 16, 128, 4) > SMEM_BUDGET
+    if w8 >= 6:
+        assert split_plan(B, K, S, elem=4, D=128, G=16)[2] == 6
 
 
 def test_split_plan_fills_the_card_at_tinyllama_shapes():
     """Batch 8 over the served 584-slot cache: 8 blocks of 73 slots for
     each of the 32 (kv head, row) cells, 256 blocks where one block a cell
     ran 32.  Batch 1 keeps the portable cluster of 8: 32 blocks."""
-    assert split_plan(8, 4, 584) == (8, 73, 5)
-    assert 8 * 4 * split_plan(8, 4, 584)[0] >= 132
-    assert split_plan(1, 4, 584)[0] == 8
-    assert split_plan(1, 4, 2048) == (8, 256, 8)
+    tl = dict(elem=1, D=64, G=8)      # tinyllama's int8 cache
+    assert split_plan(8, 4, 584, **tl) == (8, 73, 5)
+    assert 8 * 4 * split_plan(8, 4, 584, **tl)[0] >= 132
+    assert split_plan(1, 4, 584, **tl)[0] == 8
+    assert split_plan(1, 4, 2048, **tl) == (8, 256, 8)
 
 
 def _split_emulation(q, kq, vq, ks, vs, valid):
-    """The int8 kernel's algorithm in torch fp32 on the plan the card would
+    """The split kernel's algorithm in torch fp32 on the plan the card would
     run: per block, logits ``ks[s] * (q . code)``, -1e30 where masked, a
     softmax around the block's max and ``(p * vs[s]) @ code``; then the
-    cluster's merge ``exp(m_r - M)`` over the C blocks."""
+    cluster's merge ``exp(m_r - M)`` over the C blocks.  A bf16 or fp32
+    cache has no scales (``ks`` and ``vs`` None): the kernel compiles the
+    multiply out, a scale of 1 here."""
     B, H, D = q.shape
     S, K = kq.shape[1], kq.shape[2]
+    if ks is None:
+        ks = vs = torch.ones((B, S, K))
     g = H // K
-    c, spb, _ = split_plan(B, K, S)
+    c, spb, _ = split_plan(B, K, S, elem=kq.element_size(), D=D,
+                           G=group_pad(g))
     qg = q.float().reshape(B, K, g, D) * _scale(D)
     parts = []
     for r in range(c):
@@ -255,7 +291,7 @@ def test_split_emulation_matches_reference(case, mask):
     q, k, v = _inputs(*case, seed=S + D)
     kq, ks = (np.array(a) for a in jattn.kv_quantize(jnp.asarray(k)))
     vq, vs = (np.array(a) for a in jattn.kv_quantize(jnp.asarray(v)))
-    c, spb, _ = split_plan(B, K, S)
+    c, spb, _ = split_plan(B, K, S, elem=1, D=D, G=group_pad(H // K))
     valid = np.zeros(S, bool)
     if mask.startswith('ragged'):
         valid[:S - 5] = True
@@ -275,6 +311,30 @@ def test_split_emulation_matches_reference(case, mask):
     if not valid.any():
         mean = (vq.astype(np.float32) * vs[..., None]).mean(axis=1)
         _close(got.numpy(), mean.repeat(H // K, axis=1), 1e-5)
+
+
+@pytest.mark.parametrize('mask', ['hole and a masked block', 'no valid slot'])
+def test_split_emulation_float_cache_matches_reference(mask):
+    """The same split over an fp32 cache (D = 128, group 4, S = 300 in 8
+    blocks of 38 and a ragged 34), within 1e-5 x max|reference| of the
+    reference's Pallas ``decode_attention`` (interpret mode) and the plain
+    version."""
+    B, H, K, D, S = 1, 8, 2, 128, 300
+    q, k, v = _inputs(B, H, K, D, S, seed=11)
+    c, spb, _ = split_plan(B, K, S, elem=4, D=D, G=H // K)
+    assert c == 8
+    valid = np.zeros(S, bool)
+    if mask != 'no valid slot':
+        valid[:S - 5] = True
+        valid[spb:2 * spb] = False
+        valid[S // 2:S // 2 + 3] = False
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = _split_emulation(t[0], t[1], t[2], None, None,
+                           torch.from_numpy(valid))
+    pallas = j_decode(q, k, v, valid, s_blk=128, interpret=True)
+    _close(got.numpy(), pallas, 1e-5)
+    _close(got.numpy(), decode_attention_plain(
+        *t, torch.from_numpy(valid)).numpy(), 1e-5)
 
 
 def test_phase_script_finds_every_stamp_marker():

@@ -71,6 +71,37 @@ def test_quant_matmul_kernel_bit_exact(cuda_device, mkn):
         assert torch.equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize('mkn', [(32768, 576, 64), (8192, 1152, 128),
+                                 (2048, 2304, 256), (512, 4608, 512),
+                                 (300, 4608, 512), (129, 1152, 100),
+                                 (1, 64, 10), (7, 24, 96), (37, 27, 13)])
+@pytest.mark.parametrize('layout', ['k_major', 'row_major'])
+def test_quant_matmul_routes_bit_exact(cuda_device, mkn, layout):
+    """resnet34-cifar's stage shapes at 32 slots, M tails, a head, and the
+    two K % 16 != 0 shapes (K = 24, the stem's 27): bit for bit against the
+    plain version on either layout of w.  K % 16 == 0 takes the TMA +
+    wgmma kernel, the rest the mma.sync kernel; a row-major w is relaid
+    and counted on either route."""
+    from repro_torch.kernels.quant_matmul import qmm_plan
+    m, k, n = mkn
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = _i8(g, m, k)
+    w = _i8(g, k, n)
+    if layout == 'k_major':
+        w = w.t().contiguous().t()
+    sx = torch.rand(m, generator=g, device=cuda_device) * 1e-2
+    sw = torch.rand(n, generator=g, device=cuda_device) * 1e-2
+    b = torch.randn(n, generator=g, device=cuda_device)
+    route = 'wgmma' if k % 16 == 0 else 'mma_sync'
+    for kw in (dict(), dict(relu=True, out_scale=0.37)):
+        reset_counts()
+        got = quant_matmul(x, w, sx, sw, b, **kw)
+        assert quant_matmul.launches_by_route[route] == 1
+        assert quant_matmul.weight_relayouts == int(layout == 'row_major')
+        want = quant_matmul_plain(x, w, sx, sw, b, **kw)
+        assert torch.equal(_bits(got), _bits(want)), (qmm_plan(m, n, k), kw)
+
+
 def _i8(g, *shape):
     return torch.randint(-128, 128, shape, generator=g, device='cuda',
                          dtype=torch.int32).to(torch.int8)
@@ -255,12 +286,15 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize('shape', [(8, 32, 4, 64, 584), (1, 32, 4, 64, 37),
                                    (2, 4, 2, 32, 100), (2, 12, 4, 128, 70),
-                                   (1, 16, 16, 64, 33)])
+                                   (1, 16, 16, 64, 33), (1, 16, 4, 128, 700),
+                                   (8, 32, 4, 64, 2048)])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(cuda_device, shape, dtype):
-    """A ragged S (no tile divides 584, 37, 100, 70 or 33), a hole in the
-    mask, groups 8, 2, 3 and 1: fp32 within 1e-5 x max|plain|, bf16 within
-    8e-3 (about one bf16 ulp)."""
+    """A ragged S (no tile divides 584, 37, 100, 70, 33 or 700), a hole in
+    the mask, groups 8, 2, 3, 1 and 4, head_dim 128 at 88 slots a block
+    (6 warps, the most an fp32 cache takes at head_dim 128), and 2048
+    slots: fp32 within 1e-5 x max|plain|, bf16 within 8e-3 (about
+    one bf16 ulp), both on the split kernel."""
     q, k, v, valid = _decode_inputs(cuda_device, *shape, dtype)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     reset_counts()

@@ -369,3 +369,190 @@ def test_build_key_covers_shared_headers(monkeypatch, tmp_path):
     header.write_text(header.read_text() + '\n// edited\n')
     after = {n: _build._lib_path(n) for n in names}
     assert all(after[n] != before[n] for n in names)
+
+
+# ---------------------------------------------------------------- the wgmma
+# route's launch plan and the K-major weight layout
+
+PLAN_MS = (1, 2, 31, 32, 128, 129, 512, 2048, 8192, 32768)
+PLAN_RANKS = (2, 3, 8, 16, 24, 37, 64, 100, 128, 160, 255, 256)
+
+
+def _matmul_shapes(name):
+    """(K, N) of every conv and dense layer of a config that goes through
+    quant_matmul at full width (depthwise convs excluded), the exit heads'
+    included; for resnet34-cifar also the chained halves of its factored
+    convs at a sweep of ranks."""
+    from repro_torch.configs.cnn import MOBILENETV2_CIFAR, RESNET34_CIFAR
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.tree import tree_leaves
+    cfg = {'resnet34-cifar': RESNET34_CIFAR,
+           'mobilenetv2-cifar': MOBILENETV2_CIFAR}[name]
+    params = init_cnn(torch.Generator().manual_seed(0), cfg)
+    shapes = {(w, cfg.num_classes) for w in cfg.stage_widths}
+    for w in tree_leaves(params):
+        if w.dim() == 4 and w.shape[2] > 1 or w.dim() == 4 and \
+                w.shape[:2] == (1, 1):
+            shapes.add((w.shape[0] * w.shape[1] * w.shape[2], w.shape[3]))
+        elif w.dim() == 2:
+            shapes.add(tuple(w.shape))
+    if name == 'resnet34-cifar':
+        for k, n in list(shapes):
+            for r in PLAN_RANKS:
+                if r < min(k, n):
+                    shapes |= {(k, r), (r, n)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize('config', ['resnet34-cifar', 'mobilenetv2-cifar'])
+def test_qmm_plan_covers_every_output_and_k_tile_once(config):
+    """For every main-path (K, N) at M from 1 to 32768: the grid's 128-row
+    and BN-column tiles cover the output exactly once, the C ranks of a
+    cluster split the K tiles evenly and cover each once, each rank sums
+    and writes a whole share of the tile's rows, a split grid stays within
+    one block an SM, and two blocks' shared memory fits an H100 SM."""
+    from repro_torch.kernels.quant_matmul import (QMM_BK, qmm_k_tiles,
+                                                  qmm_plan, qmm_smem_bytes)
+    shapes = _matmul_shapes(config)
+    assert (4608, 512) in shapes or config != 'resnet34-cifar'
+    for K, N in shapes:
+        nk = -(-K // QMM_BK)
+        for M in PLAN_MS:
+            bm, bn, stages, c, smem = qmm_plan(M, N, K)
+            tm, tn = -(-M // bm), -(-N // bn)
+            assert bm == 128 and bn == (32 if N <= 32 else 64)
+            assert (tm - 1) * bm < M <= tm * bm
+            assert (tn - 1) * bn < N <= tn * bn
+            assert c in (1, 2, 4) and bm % c == 0
+            ks = [qmm_k_tiles(K, c, r) for r in range(c)]
+            assert [t for r in ks for t in r] == list(range(nk))
+            assert min(len(r) for r in ks) >= 1
+            assert max(len(r) for r in ks) - min(len(r) for r in ks) <= 1
+            assert c == 1 or tm * tn * c <= 132
+            assert 1 <= stages <= max(len(r) for r in ks)
+            assert smem == qmm_smem_bytes(bn, stages) <= tiling.SMEM_BUDGET
+            assert 2 * (smem + 1024) <= 228 * 1024      # two blocks an SM
+
+
+def test_qmm_sweep_script_finds_every_stamp_marker():
+    """scripts/qmm_plan_sweep.py times the wgmma kernel's phases on a card
+    by inserting stamps after marker lines of the CUDA source, in a copy
+    that also takes the plans beyond qmm_plan's (BN 128, clusters of 8);
+    every marker still occurs exactly once, every phase boundary is
+    stamped and the wider plans and the occupancy entry point are in."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), '..', 'scripts',
+                        'qmm_plan_sweep.py')
+    spec = importlib.util.spec_from_file_location('qmm_plan_sweep', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    src = module.instrumented_source()
+    for text, stamps in module.MARKS:
+        assert src.count(text + ''.join(f'  STAMP({i});\n'
+                                        for i in stamps)) == 1
+    assert all(f'STAMP({i});' in src for i in range(6))
+    for text in ('struct Wgmma<128>', 'launch_wgmma<BN_, 8>',
+                 'launch_wgmma_bn<128>', 'WG_MAX_STAGES = 8;',
+                 'quant_matmul_wgmma_max_clusters'):
+        assert text in src
+
+
+def test_qmm_plan_splits_k_where_the_output_is_small():
+    """resnet34-cifar at 32 slots, in 128 x 64 tiles: stages 0 and 1 fill
+    the card with 256 and 128 tiles and no split; stages 2 and 3 (64 and 32
+    tiles) split K over clusters of 2 and 4, 128 blocks each; the M tail
+    of stage 3 (24 tiles) over 4; a head's one tile over 4."""
+    from repro_torch.kernels.quant_matmul import qmm_plan
+    assert qmm_plan(32768, 64, 576)[1:4] == (64, 4, 1)
+    assert qmm_plan(8192, 128, 1152)[1:4] == (64, 4, 1)
+    assert qmm_plan(2048, 256, 2304)[1:4] == (64, 4, 2)
+    assert qmm_plan(512, 512, 4608)[1:4] == (64, 4, 4)
+    assert qmm_plan(300, 512, 4608)[3] == 4
+    assert qmm_plan(32, 10, 512)[1:4] == (32, 1, 4)
+
+
+def test_split_k_partials_sum_to_the_product():
+    """The kernel's split of K: the int32 partial products over each
+    rank's K tiles, summed, equal the whole product exactly."""
+    from repro_torch.kernels.quant_matmul import QMM_BK, qmm_k_tiles
+    rng = np.random.default_rng(3)
+    x, w = _t(_i8(rng, 40, 600)), _t(_i8(rng, 600, 24))
+    want = ref.int_matmul(x, w)
+    for c in (1, 2, 4, 8):
+        got = sum(ref.int_matmul(x[:, r.start * QMM_BK:r.stop * QMM_BK],
+                                 w[r.start * QMM_BK:r.stop * QMM_BK])
+                  for r in (qmm_k_tiles(600, c, q) for q in range(c)))
+        assert torch.equal(got, want)
+
+
+def test_qmm_route_and_operand_layouts():
+    """The route follows K % 16 and alignment alone; the operand check
+    takes a row-major or a K-major w and nothing else; the plain version
+    gives the same bits on the K-major copy of w."""
+    from repro_torch.kernels.quant_matmul import (_check_operands, k_major,
+                                                  qmm_route,
+                                                  quant_matmul_plain)
+    rng = np.random.default_rng(4)
+    for K, route in ((576, 'wgmma'), (27, 'mma_sync'), (24, 'mma_sync'),
+                     (16, 'wgmma')):
+        x, w = _t(_i8(rng, 33, K)), _t(_i8(rng, K, 10))
+        assert qmm_route(x, w) == route
+        wk = w.t().contiguous().t()
+        assert k_major(wk) and not k_major(w) and wk.stride() == (1, K)
+        sx, sw = torch.rand(33), torch.rand(10)
+        _check_operands(x, w, sx, sw, None)
+        _check_operands(x, wk, sx, sw, None)
+        for kw in (dict(), dict(relu=True, out_scale=0.37)):
+            want = quant_matmul_plain(x, w, sx, sw, **kw)
+            assert torch.equal(quant_matmul_plain(x, wk, sx, sw, **kw), want)
+        with pytest.raises(ValueError, match='K-major'):
+            _check_operands(x, torch.cat([w, w], 1)[:, ::2], sx, sw, None)
+    buf = torch.zeros(33 * 64 + 1, dtype=torch.int8)
+    x_off = buf[1:].view(33, 64)                 # not on 16 bytes
+    assert qmm_route(x_off, torch.zeros((64, 8), dtype=torch.int8)) == \
+        'mma_sync'
+
+
+@pytest.mark.parametrize('factorize', [False, True])
+def test_export_lays_quant_matmul_weights_out_k_major(factorize):
+    """export_cnn stores every weight its plan routes to quant_matmul
+    K-major with the same values, so quant_conv's reshape is a view with
+    strides (1, K); depthwise and fused low-rank leaves keep their
+    row-major layout."""
+    from repro_torch.configs.cnn import MOBILENET_SMALL_CIFAR, RESNET8_CIFAR
+    from repro_torch.core.export import _resolve_layer_params, export_cnn
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.core.quantization import quantize_params_for_serving
+    from repro_torch.data import SyntheticImages
+    base = RESNET8_CIFAR if factorize else MOBILENET_SMALL_CIFAR
+    fam = CNNFamily(SyntheticImages(), device='cpu')
+    params = fam.init(torch.Generator().manual_seed(0), base)
+    cfg = base
+    if factorize:
+        params, cfg, _ = fam.factorize(params, cfg, energy=0.6, min_rank=2)
+    params, cfg = fam.add_exits(torch.Generator().manual_seed(1), params,
+                                cfg, fam.default_exit_points(cfg))
+    cfg = cfg.replace(w_bits=8, a_bits=8)
+    x = fam.eval_batches(1, 4)[0][0]
+    model = export_cnn(params, cfg, device='cpu', calibrate=x,
+                       select_kernels='fused' if factorize else 'model')
+    fresh = quantize_params_for_serving(params, bits=8)
+    kinds = set()
+    for name, e in model.plan.layers.items():
+        p = _resolve_layer_params(model.params, name)
+        q = _resolve_layer_params(fresh, name)
+        pairs = [(p['u'], q['u']), (p['v'], q['v'])] if e['factored'] \
+            else [(p, q)]
+        for leaf, want in pairs:
+            w = leaf['w_q']
+            assert torch.equal(w, want['w_q'])
+            n = w.shape[-1]
+            w2 = w.reshape(-1, n)
+            routed = not (e.get('depthwise') or e.get('fused'))
+            assert (w2.stride() == (1, w2.shape[0])) == routed or n == 1
+            assert w.is_contiguous() != routed or n == 1
+            kinds.add('quant_matmul' if routed else
+                      'depthwise' if e.get('depthwise') else 'fused')
+    assert kinds == ({'quant_matmul', 'fused'} if factorize
+                     else {'quant_matmul', 'depthwise'})
