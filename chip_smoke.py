@@ -19,19 +19,25 @@ Phases, in order; any failure exits non-zero and no result is printed:
    every mobilenetv2-cifar depthwise shape at 32 slots plus a
    channel-multiplier case;
    ``lowrank_conv`` at the factored resnet34-cifar shapes inside the fused
-   envelope (ranks from the real factorization at energy 0.6), at both
-   M tiles (64 and 32 rows), the measurement behind ``pick_bm``.  Each
-   case prints the wrapper call's time, the kernel's device time
+   envelope (ranks from the real factorization at energy 0.6), u and v
+   K-major as the export stores them, each line ending with its plan
+   (``lr_plan``) and route, and beside each shape the chained lowering
+   (two ``quant_matmul`` calls, bit-exact against the fused one) timed
+   and the choice ``lowering_costs`` makes at the measured launch term;
+   then its ``mma.sync`` route, which must take them: K1 = 24 and 72
+   (K1 % 16 != 0) and stage 2's shape on patches one byte off 16.
+   Each case prints the wrapper call's time, the kernel's device time
    (torch.profiler), the plain version's time, a library yardstick the
    port never calls (``torch._int_mm`` on operands zero-padded to its
    shape rules, or a grouped ``F.conv2d``, plus a torch epilogue) and the
    bound: bytes once in and once out at 3.35 TB/s against the operations
    at the card's peak.  The launch term of the low-rank cost model is
    measured here: one wrapper call at the head shape.  The fake-quant
-   wrappers at path (f)'s shapes, bit for bit: the two-pass ``fake_quant``
+   wrappers at path (f)'s shapes, bit for bit (both launch the CUDA
+   cluster kernel): the two-pass ``fake_quant``
    at tinyllama-1.1b's MLP ``wo`` (5632, 2048), a ragged (5000, 1000) and
-   (4160, 256), bf16 and fp32, and ``fake_quant_fused`` (the CUDA cluster
-   kernel) in bf16 at (2048, 5632), (2048, 2048) and (2048, 256), in fp32
+   (4160, 256), bf16 and fp32, and ``fake_quant_fused``
+   in bf16 at (2048, 5632), (2048, 2048) and (2048, 256), in fp32
    at (2048, 2048) and at a (100000, 10) head whose slices fit no shared
    memory, against the yardstick ``torch.amax`` +
    ``torch.fake_quantize_per_channel_affine`` (on an fp32 upcast); each
@@ -61,9 +67,10 @@ Phases, in order; any failure exits non-zero and no result is printed:
    counts are set to 0 just before each path and read just after.  On
    every path: every request completes, the launches of each kernel while
    serving equal the plan's per executed segment, the plain versions do
-   not run, each kernel of the path was launched, ``quant_matmul`` relaid
-   no weight (the export stores them K-major; its launches by route are
-   printed), 16 sampled requests are
+   not run, each kernel of the path was launched, ``quant_matmul`` and
+   ``lowrank_conv`` relaid no weight (the export stores them K-major; their
+   launches by route are printed, and every ``lowrank_conv`` launch took
+   the TMA + ``wgmma`` route), 16 sampled requests are
    bit-exact against the monolithic ``fn_exits`` on the request alone at
    the same slot geometry; the card's calibration agrees with the CPU's
    scale by scale (to float noise up to the first fake-quant code that
@@ -102,8 +109,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    each), and every fake-quant call of one step of (f), captured at its
    inputs (132 fused, 22 two-pass), held against its plain version on the
    card at its own shapes (bit for bit; the decode kernels within
-   ``DECODE_TOL``) and timed; every ``quant_matmul`` call with K % 16 ==
-   0 must take the TMA + ``wgmma`` route.  The ``{"kernels": [...]}``
+   ``DECODE_TOL``) and timed, each line ending with its plan; every
+   ``quant_matmul`` call with K % 16 == 0 and every ``lowrank_conv`` call
+   must take the TMA + ``wgmma`` route.  The ``{"kernels": [...]}``
    line: every ported kernel, summed over the pass or step of the path
    that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
    ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
@@ -168,11 +176,14 @@ DECODE_TOL = {'fp32': 1e-5, 'bf16': 8e-3, 'int8': 8e-3}
 # the compiled kernel behind each decode wrapper, as the profiler names it
 DA_DEVICE_NAME = {'decode_attention': 'decode_split_kernel',
                   'decode_attention_int8': 'decode_split_kernel'}
-# the compiled kernels behind the quant_matmul wrapper, one for each route
+# the compiled kernels behind the quant_matmul and lowrank_conv wrappers,
+# one for each route
 QMM_DEVICE_NAMES = ('qmm_wgmma_kernel', 'qmm_kernel')
-# quant_matmul's launches by route and weight relayouts while each CNN path
-# served, filled by serve_path
+LR_DEVICE_NAMES = ('lr_wgmma_kernel', 'lr_kernel')
+# quant_matmul's and lowrank_conv's launches by route and weight relayouts
+# while each CNN path served, filled by serve_path
 QMM_ROUTES = {}
+LR_ROUTES = {}
 LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
 LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
 LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
@@ -184,7 +195,7 @@ QAT_KEY = 'tinyllama-qat'
 QAT_HP = {'w_bits': 8, 'a_bits': 8}
 QAT_SEQ, QAT_BATCH, QAT_STEPS, QAT_LR = 128, 8, 8, 1e-3
 # fake-quant launches a step: per layer wq, wk, wv, attn wo, MLP wi and wg
-# on the fused kernel; MLP wo (5632, 2048) on the two-pass pair
+# on the fused wrapper; MLP wo (5632, 2048) on the two-pass wrapper
 QAT_PER_LAYER = {'fake_quant_fused': 6, 'fake_quant': 1}
 # The 2-layer fp32 cut: one Q-pass step on the card and on the CPU from the
 # same params and batch, held to bands on the loss (relative) and on the new
@@ -327,7 +338,7 @@ def phase_build():
                 fn = re.sub(r".*function '([^']+)'.*", r'\1', line)
             elif 'spill stores' in line:
                 spill = line.strip()
-            elif 'registers' in line:
+            elif re.search(r'Used \d+ registers', line):
                 regs = re.sub(r'.*Used (\d+) registers.*', r'\1', line)
                 print(f'[build]   {fn}: {regs} registers; {spill}')
         if re.search(r'[1-9]\d* bytes spill stores', i['log']):
@@ -341,14 +352,15 @@ def phase_build():
 def int_mm_operands(torch, x, w):
     """``torch._int_mm`` takes M > 16 and K, N multiples of 8: w (static)
     zero-padded to (K8, N8) once, and a zeroed (M', K8) buffer for x, M'
-    at least 17.  Zero codes add nothing to the products, so the first M
-    rows and N columns of the padded product are the product."""
+    at least 17 (x copied there too where it does not start on 16 bytes).
+    Zero codes add nothing to the products, so the first M rows and N
+    columns of the padded product are the product."""
     M, K = x.shape
     N = w.shape[1]
     k8, n8, mp = -(-K // 8) * 8, -(-N // 8) * 8, max(M, 17)
     wp = torch.zeros((k8, n8), dtype=torch.int8, device='cuda')
     wp[:K, :N] = w
-    if (mp, k8) == (M, K):
+    if (mp, k8) == (M, K) and x.data_ptr() % 16 == 0:
         return (lambda: x), wp
     xp = torch.zeros((mp, k8), dtype=torch.int8, device='cuda')
 
@@ -417,8 +429,7 @@ def qmm_case(torch, x, w, sx, sw, bias, relu, out_scale, out_qmax=127.0,
 
 FQ_KERNELS = {   # wrapper: (its plain version, its kernels' names)
     'fake_quant_fused': ('fake_quant_plain', ('fq_cluster_kernel',)),
-    'fake_quant': ('fake_quant_two_pass_plain', ('_amax_kernel',
-                                                 '_quant_kernel')),
+    'fake_quant': ('fake_quant_two_pass_plain', ('fq_cluster_kernel',)),
 }
 
 
@@ -439,7 +450,7 @@ def fq_library(torch, w, bits):
 
 def fq_case(torch, w, kernel='fake_quant_fused', bits=8, iters=20):
     """A fake-quant wrapper (``kernel``: the fused one or the two-pass
-    pair) against its plain version on one weight: bit-exactness and
+    one) against its plain version on one weight: bit-exactness and
     times.  Bound: w read once and the output written once (its dtype), or
     seven fp32 operations an element (abs, max, div, rint, two clips, mul)
     at the card's fp32 rate."""
@@ -456,6 +467,7 @@ def fq_case(torch, w, kernel='fake_quant_fused', bits=8, iters=20):
                        FP32_OPS_PER_S)
     call = lambda: fn(w, bits=bits)  # noqa: E731
     return {'shape': (K, N), 'dtype': str(w.dtype).replace('torch.', ''),
+            'plan': fq_plan(w),
             'exact': same_bits(torch, got, want),
             'max_abs_err': max_err(torch, got, want), 'call': call,
             'ms': time_ms(torch, call, iters),
@@ -549,23 +561,34 @@ def lr_library(torch, x, u, v, su, sv, bu, bv, sx, h_scale, relu,
 
 
 def lr_case(torch, x, u, v, su, sv, bu, bv, *, sx, h_scale, relu=False,
-            out_scale=None, h_qmax=127.0, out_qmax=127.0, bm=None,
-            iters=20):
+            out_scale=None, h_qmax=127.0, out_qmax=127.0, iters=20):
+    """Kernel vs plain version on one call: bit-exactness, route, plan and
+    times (u and v as given: K-major, as the export stores them)."""
     from repro_torch.kernels.lowrank_conv import (lowrank_conv,
-                                                  lowrank_conv_plain)
+                                                  lowrank_conv_plain, lr_plan,
+                                                  lr_route)
     kw = dict(sx=sx, h_scale=h_scale, relu=relu, out_scale=out_scale,
               h_qmax=h_qmax, out_qmax=out_qmax)
-    got = lowrank_conv(x, u, v, su, sv, bu, bv, _bm=bm, **kw)
+    before = dict(lowrank_conv.launches_by_route)
+    got = lowrank_conv(x, u, v, su, sv, bu, bv, **kw)
+    route = [r for r, n in lowrank_conv.launches_by_route.items()
+             if n != before[r]]
     want = lowrank_conv_plain(x, u, v, su, sv, bu, bv, **kw)
     torch.cuda.synchronize()
     (M, K1), (R, N) = x.shape, v.shape
+    if route != [lr_route(x, u, v)]:
+        fail(f'lowrank_conv at {(M, K1, R, N)} took route {route}')
+    plan = 'mma_sync 32-row tiles' if route[0] == 'mma_sync' else \
+        'wgmma BM={} RP={} VN={} stages={} C={} smem={} B'.format(
+            *lr_plan(M, K1, R, N))
     nbytes = M * K1 + K1 * R + R * N + 8 * (R + N) + \
         got.numel() * got.element_size()
     b_ms, b_by = bound(nbytes, 2 * M * R * (K1 + N), INT8_OPS_PER_S)
     lib = lr_library(torch, x, u, v, su, sv, bu, bv, sx, h_scale, relu,
                      out_scale, h_qmax, out_qmax)
-    call = lambda: lowrank_conv(x, u, v, su, sv, bu, bv, _bm=bm, **kw)  # noqa
+    call = lambda: lowrank_conv(x, u, v, su, sv, bu, bv, **kw)  # noqa: E731
     return {'shape': (M, K1, R, N), 'int8_out': out_scale is not None,
+            'route': route[0], 'plan': plan,
             'exact': same_bits(torch, got, want),
             'max_abs_err': max_err(torch, got, want), 'call': call,
             'ms': time_ms(torch, call, iters),
@@ -573,6 +596,33 @@ def lr_case(torch, x, u, v, su, sv, bu, bv, *, sx, h_scale, relu=False,
                 x, u, v, su, sv, bu, bv, **kw), iters),
             'library_ms': time_ms(torch, lib, iters),
             'bound_ms': b_ms, 'bound_by': b_by}
+
+
+def lr_chained(torch, x, u, v, su, sv, bu, bv, *, sx, h_scale, relu,
+               out_scale, launch_us):
+    """The chained lowering of one factored conv (two quant_matmul calls:
+    u with the h_scale requantize, then v), bit-exact against the fused
+    kernel, timed beside it, and the choice the cost model makes."""
+    from repro_torch.kernels.lowrank_conv import lowering_costs, lowrank_conv
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    M = x.shape[0]
+    R, N = v.shape
+    sxv = torch.full((M,), sx, dtype=torch.float32, device='cuda')
+    shv = torch.full((M,), h_scale, dtype=torch.float32, device='cuda')
+
+    def call():
+        h = quant_matmul(x, u, sxv, su, bu, out_scale=h_scale)
+        return quant_matmul(h, v, shv, sv, bv, relu=relu,
+                            out_scale=out_scale)
+    fused = lowrank_conv(x, u, v, su, sv, bu, bv, sx=sx, h_scale=h_scale,
+                         relu=relu, out_scale=out_scale)
+    exact = same_bits(torch, call(), fused)
+    c = lowering_costs(M, x.shape[1], R, N, launch_us=launch_us)
+    return {'exact': exact, 'ms': time_ms(torch, call),
+            'device_ms': device_ms(torch, [call], QMM_DEVICE_NAMES),
+            'choice': 'fused' if c['fused_us'] <= c['chained_us']
+            else 'chained', 'fused_us': c['fused_us'],
+            'chained_us': c['chained_us']}
 
 
 def fmt_case(name, c):
@@ -628,7 +678,6 @@ def lowrank_shapes(params):
 def phase_kernels(torch, factored):
     """Returns the launch term (us) the low-rank cost model is priced
     with: one quant_matmul wrapper call at the head shape."""
-    from repro_torch.kernels.lowrank_conv import pick_bm
     g = torch.Generator(device='cuda').manual_seed(SEED)
 
     def f32(*shape, scale=1.0):
@@ -684,25 +733,59 @@ def phase_kernels(torch, factored):
     print('[kernel] resnet34-cifar ranks at energy 0.6, min_rank 2, by '
           'stage: ' + '; '.join(f's{s}: {sorted(r)}'
                                  for s, r in sorted(ranks.items())))
-    for M, K1, R, N in shapes:
-        x, u, v = (rand_i8(torch, g, M, K1), rand_i8(torch, g, K1, R),
-                   rand_i8(torch, g, R, N))
+    for M, K1, R, N in shapes:           # u and v K-major, as exported
+        x = rand_i8(torch, g, M, K1)
+        u, v = rand_i8(torch, g, R, K1).t(), rand_i8(torch, g, N, R).t()
         su, sv = f32(R, scale=1e-3), f32(N, scale=1e-2)
         bu, bv = (torch.randn(R, generator=g, device='cuda'),
                   torch.randn(N, generator=g, device='cuda'))
-        for bm, out_scale in ((64, 0.37), (32, 0.37), (pick_bm(M), None)):
-            c = lr_case(torch, x, u, v, su, sv, bu, bv, sx=0.05,
-                        h_scale=0.9, relu=True, out_scale=out_scale, bm=bm)
-            c['device_ms'] = device_ms(torch, [c['call']], 'lr_kernel')
-            print(fmt_case(f'lowrank_conv[bm={bm}'
-                           + (', picked' if bm == pick_bm(M) else '') + ']',
-                           c))
+        kw = dict(sx=0.05, h_scale=0.9, relu=True)
+        for out_scale in (None, 0.37):     # the int8 one beside the chain
+            c = lr_case(torch, x, u, v, su, sv, bu, bv, out_scale=out_scale,
+                        **kw)
+            c['device_ms'] = device_ms(torch, [c['call']], LR_DEVICE_NAMES)
+            print(fmt_case('lowrank_conv', c) + f"; {c['plan']}")
             need_exact(c, 'lowrank_conv')
+        ch = lr_chained(torch, x, u, v, su, sv, bu, bv, out_scale=0.37,
+                        launch_us=launch_us, **kw)
+        dev = ch['device_ms']
+        print(f"[kernel] lowrank_conv {(M, K1, R, N)} chained on two "
+              f"quant_matmul calls: exact={ch['exact']} ms={ch['ms']:.4f} "
+              f"device_ms={'not measured' if dev is None else f'{dev:.4f}'}"
+              f"; the fused call above ms={c['ms']:.4f} device_ms="
+              + ('not measured' if c['device_ms'] is None
+                 else f"{c['device_ms']:.4f}")
+              + f"; lowering_costs at launch_us={launch_us:.1f} picks "
+              f"{ch['choice']} (fused {ch['fused_us']:.1f} us, chained "
+              f"{ch['chained_us']:.1f} us)")
+        if not ch['exact']:
+            fail(f'lowrank_conv at {(M, K1, R, N)}: the chained pair '
+                 f'disagrees with the fused kernel')
+    # the mma.sync route, which TMA leaves to it: mobilenetv2's K1 = 24 and
+    # a 3x3 conv over 8 channels (K1 % 16 != 0), and stage 2's shape on
+    # patches that start one byte off 16
+    for M, K1, R, N, off in ((8192, 24, 12, 144, 0), (8192, 72, 30, 40, 0),
+                             (2048, 2304, 118, 256, 1)):
+        x = rand_i8(torch, g, M * K1 + off)[off:].view(M, K1)
+        u, v = rand_i8(torch, g, R, K1).t(), rand_i8(torch, g, N, R).t()
+        su, sv = f32(R, scale=1e-3), f32(N, scale=1e-2)
+        bu, bv = (torch.randn(R, generator=g, device='cuda'),
+                  torch.randn(N, generator=g, device='cuda'))
+        for out_scale in (None, 0.37):
+            c = lr_case(torch, x, u, v, su, sv, bu, bv, out_scale=out_scale,
+                        sx=0.05, h_scale=0.9, relu=True)
+            c['device_ms'] = device_ms(torch, [c['call']], LR_DEVICE_NAMES)
+            print(fmt_case('lowrank_conv', c) + f"; {c['plan']}"
+                  + (f'; patches {off} byte off 16' if off else ''))
+            need_exact(c, 'lowrank_conv')
+            if c['route'] != 'mma_sync':
+                fail(f"lowrank_conv at {c['shape']} took {c['route']}, "
+                     f"not mma_sync")
     return launch_us
 
 
 # path (f)'s fake-quant shapes: tinyllama-1.1b's MLP wo on the two-pass
-# pair (and a ragged case, and the smallest K routed there); its other six
+# wrapper (and a ragged case, and the smallest K routed there); its other six
 # projections' (K, N) on the fused kernel, in bf16 as QAT runs them
 FQ_SHAPES = {'fake_quant': [((5632, 2048), 'bf16'), ((5632, 2048), 'fp32'),
                             ((5000, 1000), 'bf16'), ((5000, 1000), 'fp32'),
@@ -714,12 +797,10 @@ FQ_SHAPES = {'fake_quant': [((5632, 2048), 'bf16'), ((5632, 2048), 'fp32'),
                                   ((100000, 10), 'fp32')]}
 
 
-def fq_plan(w, kernel='fake_quant_fused'):
-    """The launch plan of a fake-quant wrapper on w, for its case line."""
+def fq_plan(w):
+    """The launch plan of the fake-quant cluster kernel on w (both wrappers
+    launch it on ``fused_plan``), for a case line."""
     K, N = w.shape
-    if kernel != 'fake_quant_fused':
-        from repro_torch.kernels.fake_quant import TILE_K, TILE_N
-        return f'2 x {-(-K // TILE_K) * -(-N // TILE_N)} programs'
     from repro_torch.kernels.fake_quant import fused_plan
     bn, c, r, smem, staged = fused_plan(K, N, w.element_size())
     return (f'BN={bn} C={c} R={r} {-(-N // bn) * c} blocks, {smem} B '
@@ -738,7 +819,7 @@ def phase_fake_quant_kernels(torch, g):
                                        FQ_KERNELS[kernel][1])
             print(fmt_case(kernel, c)
                   + f" library_max_abs_err={c['library_err']:g}; "
-                  + fq_plan(w, kernel))
+                  + c['plan'])
             need_exact(c, kernel)
 
 
@@ -970,6 +1051,7 @@ def serve_path(torch, spec, launch_us):
     import numpy as np
     from repro_torch.core.export import calibrate_exit_threshold, export_cnn
     from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.lowrank_conv import lowrank_conv
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      exit_decisions)
@@ -1012,6 +1094,7 @@ def serve_path(torch, spec, launch_us):
         [Request(-1 - i, xs[i], 0.0) for i in range(4)])     # warm-up
     before = counts()
     routes0 = dict(quant_matmul.launches_by_route)
+    lr_routes0 = dict(lowrank_conv.launches_by_route)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     sched = ContinuousBatchScheduler(model, slots=SLOTS, threshold=threshold,
@@ -1024,6 +1107,8 @@ def serve_path(torch, spec, launch_us):
     after = counts()
     routes = {r: n - routes0[r]
               for r, n in quant_matmul.launches_by_route.items()}
+    lr_routes = {r: n - lr_routes0[r]
+                 for r, n in lowrank_conv.launches_by_route.items()}
 
     m = metrics.summary()
     print(f"{tag} served {m['n_requests']} of {N_REQUESTS} requests "
@@ -1061,6 +1146,15 @@ def serve_path(torch, spec, launch_us):
     if relaid:
         fail(f"{spec['key']}: quant_matmul relaid {relaid} weights: the "
              f'export must store them K-major')
+    lr_relaid = lowrank_conv.weight_relayouts
+    LR_ROUTES[spec['key']] = {'launches_by_route': lr_routes,
+                              'weight_relayouts': lr_relaid}
+    print(f'{tag} lowrank_conv launches by route while serving: '
+          f'{lr_routes}; weight relayouts since export: {lr_relaid}')
+    if lr_relaid or lr_routes['mma_sync']:
+        fail(f"{spec['key']}: lowrank_conv relaid {lr_relaid} factors or "
+             f"took mma_sync {lr_routes['mma_sync']} times: the export "
+             f'stores them K-major and every K1 is a multiple of 16')
     print(f'{tag} plain-version calls while serving: {plain}')
     if plain:
         fail(f'{spec["key"]}: the plain versions ran {plain} times while '
@@ -1482,7 +1576,7 @@ def train_lm_path(torch):
           f'({cfg.dtype}); built and evaluated in '
           f'{time.perf_counter() - t0:.2f} s; baseline {st.history[0]}')
     qcfg = cfg.replace(**QAT_HP)
-    # warm-up (cuBLAS handles and plans, Triton's compiles, the
+    # warm-up (cuBLAS handles and plans, the kernel libraries, the
     # allocator): one Q step on a clone of the params
     tr.fit(fam, qcfg, clone_tree(st.params), lr=tr.lr / 10, steps=1)
     torch.cuda.synchronize()
@@ -1682,12 +1776,14 @@ KERNEL_META = {   # name: (route, source, the TPU kernel it replaces, match)
                        'depthwise_conv.cu',
                        'src/repro/kernels/depthwise_conv.py:129', 'dw_kernel'),
     'lowrank_conv': ('cuda', 'src/repro_torch/kernels/csrc/lowrank_conv.cu',
-                     'src/repro/kernels/lowrank_conv.py:203', 'lr_kernel'),
-    'fake_quant': ('triton', 'src/repro_torch/kernels/fake_quant.py',
+                     'src/repro/kernels/lowrank_conv.py:203',
+                     LR_DEVICE_NAMES),
+    'fake_quant': ('cuda', 'src/repro_torch/kernels/csrc/fake_quant.cu',
                    'src/repro/kernels/fake_quant.py:70',
                    FQ_KERNELS['fake_quant'][1]),
 }
-# the second pallas_call a wrapper replaces (the two-pass pair's quantize)
+# the second pallas_call a wrapper replaces (the reference's two-pass
+# quantize)
 ALSO_REPLACES = {'fake_quant': 'src/repro/kernels/fake_quant.py:78'}
 
 
@@ -1714,7 +1810,8 @@ def phase_report(torch, served, launches, qat_calls):
     for key in per_path:
         for name, cs in per_path[key].items():
             for c in cs:
-                print(fmt_case(f'{name}[{key}]', c))
+                print(fmt_case(f'{name}[{key}]', c)
+                      + (f"; {c['plan']}" if 'plan' in c else ''))
                 need_exact(c, name)
         if per_path[key].get('quant_matmul'):
             by = {}
@@ -1722,6 +1819,14 @@ def phase_report(torch, served, launches, qat_calls):
                 by[c['route']] = by.get(c['route'], 0) + 1
             print(f'[report] quant_matmul[{key}]: every call of the pass '
                   f'bit-exact, by route {by} (K % 16 == 0 on wgmma)')
+        if per_path[key].get('lowrank_conv'):
+            cs = per_path[key]['lowrank_conv']
+            off = [c['shape'] for c in cs if c['route'] != 'wgmma']
+            if off:
+                fail(f'lowrank_conv[{key}]: calls off the wgmma route at '
+                     f'{off}')
+            print(f'[report] lowrank_conv[{key}]: all {len(cs)} calls of the '
+                  f'pass bit-exact, every one on the wgmma route')
 
     def total(cs, k):
         return sum(c[k] for c in cs)
@@ -1750,10 +1855,11 @@ def phase_report(torch, served, launches, qat_calls):
                                    iters=5),
             'pass_of': top, 'calls_per_pass': len(cs),
             'launches_by_path': {k: launches[k][name] for k in launches},
-            **({'serving_routes': QMM_ROUTES, 'calls_by_route': {
-                r: sum(c['route'] == r for c in cs)
-                for r in ('wgmma', 'mma_sync')}}
-               if name == 'quant_matmul' else {}),
+            **({'serving_routes': {'quant_matmul': QMM_ROUTES,
+                                   'lowrank_conv': LR_ROUTES}[name],
+                'calls_by_route': {r: sum(c['route'] == r for c in cs)
+                                   for r in ('wgmma', 'mma_sync')}}
+               if name in ('quant_matmul', 'lowrank_conv') else {}),
             'by_path': {k: {'calls_per_pass': len(v),
                             'exact': all(c['exact'] for c in v),
                             'ms': total(v, 'ms'),

@@ -14,16 +14,16 @@ The CNN resident half of the reference's ``core/export.py``:
    when its rank fits the kernel's envelope and kernel selection picks
    it) or as two ``quant_conv`` launches (``chained``); the exit and
    final heads through ``quant_matmul`` with fp32 output (a factored
-   head chains two).  Every weight a layer sends to ``quant_matmul`` is
-   stored K-major (:func:`k_major`), the layout its TMA + ``wgmma`` route
-   reads.  The glue (GroupNorm + skip + act) runs on the raw int8 codes in
-   fp32 and requantizes to the consumer's scale.
+   head chains two).  Every weight a layer sends to ``quant_matmul`` or
+   ``lowrank_conv`` is stored K-major (:func:`k_major`), the layout their
+   TMA + ``wgmma`` routes read.  The glue (GroupNorm + skip + act) runs on
+   the raw int8 codes in fp32 and requantizes to the consumer's scale.
 3. The plan is split at the exit heads into stage segments that the
    serving scheduler resumes on, and served with batched early exit.
 
-One lowering serves both devices: the kernel wrappers launch the CUDA and
-Triton kernels for tensors on the card and run their plain versions for
-CPU tensors (the reference's separate jnp lowering with folded scales is
+One lowering serves both devices: the kernel wrappers launch the CUDA
+kernels for tensors on the card and run their plain versions for CPU
+tensors (the reference's separate jnp lowering with folded scales is
 not needed for that).  Not ported yet, each raising NotImplementedError
 that names its ROADMAP item: the dynamic-scale path (``calibrate=None``),
 measure-mode kernel selection (``select_kernels='measure'``), grouped
@@ -587,11 +587,12 @@ def k_major(w):
 
 def _k_major_matmul_weights(qparams, plan: LayerPlan) -> None:
     """Lay every weight the plan routes to ``quant_matmul`` (plain convs,
-    heads, both halves of a chained factored pair) out K-major, in place.
-    The depthwise and fused low-rank leaves keep their layout: those
-    kernels stage w row-major."""
+    heads, both halves of a chained factored pair) or to ``lowrank_conv``
+    (both halves of a fused pair) out K-major, in place: the s8
+    tensor-core operands of both kernels are K-major.  The depthwise leaves
+    keep their layout: that kernel reads w row-major."""
     for name, e in plan.layers.items():
-        if e.get('depthwise') or e.get('fused'):
+        if e.get('depthwise'):
             continue
         p = _resolve_layer_params(qparams, name)
         for leaf in ((p['u'], p['v']) if e['factored'] else (p,)):

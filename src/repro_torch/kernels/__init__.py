@@ -17,10 +17,11 @@ Kernel                 Replaces (src/repro/kernels/)
                        maxima over distributed shared memory; QAT and
                        export
 ``fake_quant``         ``fake_quant.py`` ``_amax_kernel`` +
-(Triton, two           ``_quant_kernel``: the same function as a
-kernels)               tile-parallel abs-max and a quantize pass, for the
-                       weights the reference sends there (K * min(N, 256)
-                       * 4 B over 4 MiB: tinyllama's MLP ``wo`` in QAT)
+(CUDA C++,             ``_quant_kernel``: the same function, for the
+``csrc/``)             weights the reference sends to its two passes
+                       (K * min(N, 256) * 4 B over 4 MiB: tinyllama's MLP
+                       ``wo`` in QAT), served by the cluster kernel of
+                       ``fake_quant_fused`` in one read of w
 ``depthwise_conv``     ``depthwise_conv.py`` ``_dw_kernel``: direct int8
 (CUDA C++,             SAME depthwise conv (per-group input depth 1, any
 ``csrc/``)             channel multiplier) with the shared epilogue;
@@ -29,7 +30,9 @@ kernels)               tile-parallel abs-max and a quantize pass, for the
 (CUDA C++,             (u, v) conv pair in one launch, the rank
 ``csrc/``)             intermediate requantized to int8 in shared memory;
                        serves the factored layers inside the fused
-                       envelope
+                       envelope; TMA + ``wgmma`` with K1 split over a
+                       cluster where K1 % 16 == 0, ``mma.sync`` for the
+                       rest
 ``decode_attention``   ``decode_attention.py`` ``_decode_kernel``: one-token
 (CUDA C++,             GQA flash-decode over a bf16/fp32 (B,S,K,D) cache
 ``csrc/``)             with a ``valid`` mask, S split over a cluster of
@@ -43,9 +46,9 @@ int8`` (CUDA C++,      same over an int8 cache with fp32 scales per
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor.  :func:`counts` reads the launch and plain-call
-counters and :func:`reset_counts` zeroes them (and ``quant_matmul``'s
-launches by route and weight relayouts), so a run can show which path
-served it.
+counters and :func:`reset_counts` zeroes them (and the launches by route
+and weight relayouts of ``quant_matmul`` and ``lowrank_conv``), so a run
+can show which path served it.
 """
 from __future__ import annotations
 
@@ -79,8 +82,9 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.quant_matmul import reset_route_counts
+    from repro_torch.kernels import lowrank_conv, quant_matmul
     for w, p in _wrappers().values():
         w.launches = 0
         p.calls = 0
-    reset_route_counts()
+    quant_matmul.reset_route_counts()
+    lowrank_conv.reset_route_counts()

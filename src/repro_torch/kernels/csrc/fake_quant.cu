@@ -1,9 +1,12 @@
 // Per-column symmetric fake quantization for Hopper (sm_90a) in one launch
 // over thread-block clusters, bound to Python with ctypes.
 //
-// Replaces the TPU kernel in src/repro/kernels/fake_quant.py
-// (`fake_quant_fused` / `_fused_kernel`): for a 2-D weight w (K, N) in fp32
-// or bf16, each column gets
+// Replaces the TPU kernels in src/repro/kernels/fake_quant.py
+// (`fake_quant_fused` / `_fused_kernel`, and the two-pass `fake_quant` /
+// `_amax_kernel` + `_quant_kernel`, which the reference takes where a
+// (K, 256) fp32 stripe overflows its VMEM; a cluster's shared memory holds
+// it, so both wrappers of kernels/fake_quant.py launch this kernel): for a
+// 2-D weight w (K, N) in fp32 or bf16, each column gets
 //     scale = max(amax, 1e-8) * fp32(1/qmax)       amax = max_k |w[k, n]|
 //     out   = clip(rint(w / scale), -qmax-1, qmax) * scale
 // in fp32, stored in w's dtype (bf16 rounded to nearest even).  The
@@ -15,15 +18,17 @@
 //
 // What bounds it on an H100.  Seven fp32 operations an element against
 // reading w once and writing the output once: bytes.  At tinyllama's
-// (2048, 5632) bf16 that is 46 MB, 13.8 us at 3.35 TB/s.  The Pallas
-// kernel holds a whole (K, bn) column stripe in VMEM; one SM's shared
-// memory cannot, and one block per stripe leaves most of the 132 SMs idle
-// at N = 2048 or 256 (32 and 4 stripes of 64 columns).
+// (2048, 5632) or (5632, 2048) bf16 that is 46 MB, 13.8 us at 3.35 TB/s.
+// The Pallas kernel holds a whole (K, bn) column stripe in VMEM; one SM's
+// shared memory cannot, and one block per stripe leaves most of the 132
+// SMs idle at N = 2048 or 256 (32 and 4 stripes of 64 columns).
 //
 // Design.  The grid is (ceil(N / BN), C) in clusters of C blocks along K;
 // block r of a cluster owns rows [r*R, min((r+1)*R, K)) of a BN-column
-// stripe, and the launch plan (kernels/fake_quant.fused_plan) picks BN, C
-// and R so that enough blocks run.  Each block
+// stripe, and the launch plan (kernels/fake_quant.fused_plan, which takes
+// the non-portable cluster of 16 where K is tall, so that a tall weight
+// keeps 128-byte stripe rows in small slices) picks BN, C and R so that
+// enough blocks run.  Each block
 //   1. copies its (R, BN) slice into shared memory once (16-byte cp.async
 //      where the rows are 16-byte aligned, element loads otherwise),
 //   2. reduces its column |w| maxima (warp shuffles, then a shared-memory
@@ -50,7 +55,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+constexpr int MAX_CLUSTER = 16;  // above the portable 8 by opt-in
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -214,14 +219,30 @@ fq_cluster_kernel(const T* __restrict__ w, T* __restrict__ out, int K, int N,
 template <typename T, int BN, bool VEC, bool STAGED>
 int launch(const void* w, void* out, int K, int N, int C, int R,
            size_t smem, float qmax, float inv_qmax, cudaStream_t st) {
+  // The kernel's attributes, set once for each device: the most dynamic
+  // shared memory a launch has asked for, and the opt-in to non-portable
+  // clusters (C = 16).
+  static size_t allowed[64] = {};
+  static bool non_portable[64] = {};
   auto kern = fq_cluster_kernel<T, BN, VEC, STAGED>;
   if (smem < smem_need<T, BN, STAGED>(R))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > 48 * 1024 && smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[dev] = smem;
+  }
+  if (C > 8 && !non_portable[dev]) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    non_portable[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + BN - 1) / BN, C, 1);
@@ -235,9 +256,8 @@ int launch(const void* w, void* out, int K, int N, int C, int R,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const T*>(w), static_cast<T*>(out), K, N, R,
-      qmax, inv_qmax);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(w),
+                         static_cast<T*>(out), K, N, R, qmax, inv_qmax);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

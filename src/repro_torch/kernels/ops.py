@@ -37,11 +37,12 @@ from repro_torch.kernels.tiling import VMEM_BUDGET
 
 def fake_quant(w, bits=8):
     """Fake-quantize a 2-D fp32 or bf16 w, routed as the reference routes
-    it: the fused single-stripe kernel when a (K, 256) fp32 column stripe
-    fits half the reference's VMEM budget, the two-pass amax -> quantize
-    pair otherwise (tinyllama's MLP ``wo``, K = 5632).  The Triton fused
-    kernel streams any K; the gate stays so that a weight takes the same
-    kernel in both packages."""
+    it: the fused single-stripe wrapper when a (K, 256) fp32 column stripe
+    fits half the reference's VMEM budget, the two-pass wrapper otherwise
+    (tinyllama's MLP ``wo``, K = 5632).  On the card both launch the
+    cluster kernel of ``csrc/fake_quant.cu``, which reads w once at any K;
+    the gate stays so that a weight takes the same wrapper in both
+    packages."""
     if w.shape[0] * min(256, w.shape[1]) * 4 <= VMEM_BUDGET // 2:
         return fake_quant_fused(w, bits=bits)
     return fake_quant_two_pass(w, bits=bits)
@@ -89,7 +90,9 @@ def lowrank_conv_nhwc(x_q, u_q, v_q, su, sv, bu, bv, *, sx, h_scale,
     """A factored conv pair in one launch: x_q int8 (B,H,W,CIN); u_q int8
     (KH,KW,CIN,R); v_q int8 (1,1,R,COUT) or (R,COUT); su/bu (R,), sv/bv
     (COUT,) fp32; ``sx``/``h_scale``/``out_scale`` static floats.  The
-    SAME im2col gather runs in PyTorch, then the fused kernel.  Returns
+    SAME im2col gather runs in PyTorch, then the fused kernel.  Stored
+    K-major (``core/export.k_major``), u and v reshape to views with
+    strides (1, K1) and (1, R), the layout the kernel reads.  Returns
     (B,OH,OW,COUT) fp32, or int8 when ``out_scale`` is set."""
     B = x_q.shape[0]
     kh, kw, cin, r = u_q.shape

@@ -3,7 +3,7 @@ op, in the order the kernel computes it.
 
 The CPU path runs these (a kernel wrapper takes them only for a CPU
 tensor), the CPU tests hold them against the JAX package, and
-``chip_smoke.py`` holds each CUDA/Triton kernel against them on the card.
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 Division by a static scale.  The reference runs its requantize epilogue
 and its fake-quant scale inside ``jit``, where XLA rewrites ``y / c`` for a

@@ -296,6 +296,43 @@ def test_fused_and_chained_exports_agree(path):
 
 
 @pytest.mark.parametrize('path', ['lowrank'], indirect=True)
+def test_fused_factors_are_stored_k_major(path):
+    """The export stores every fused layer's u and v K-major (the layout
+    the lowrank_conv kernels read, so serving relays nothing), with the
+    reference's values; the same model on row-major copies of the factors
+    serves the same bits."""
+    from repro_torch.core.export import _resolve_layer_params
+    from repro_torch.core.quantization import quantize_params_for_serving
+    from repro_torch.kernels.quant_matmul import k_major
+    _, p, cfg, x, model, _, _ = path
+    fresh = quantize_params_for_serving(from_jax_params(p), bits=8)
+    fused = [n for n, e in model.plan.layers.items() if e.get('fused')]
+    assert fused
+    row_major = export_cnn(from_jax_params(p), cfg, device='cpu',
+                           calibrate=torch.from_numpy(x),
+                           select_kernels='fused')
+    for n in fused:
+        leaf = _resolve_layer_params(model.params, n)
+        want = _resolve_layer_params(fresh, n)
+        r = model.plan.layers[n]['rank']
+        for half in ('u', 'v'):
+            w = leaf[half]['w_q']
+            assert torch.equal(w, want[half]['w_q'])
+            w2 = w.reshape(-1, w.shape[-1])
+            assert k_major(w2) and w2.stride() == (1, w2.shape[0])
+            assert not w.is_contiguous()
+            _resolve_layer_params(row_major.params, n)[half]['w_q'] = \
+                w.contiguous()
+        assert leaf['u']['w_q'].reshape(-1, r).stride()[0] == 1
+    xt = torch.from_numpy(x)
+    lk, ek = model.fn_exits(model.params, xt)
+    lr, er = row_major.fn_exits(row_major.params, xt)
+    assert torch.equal(lk.view(torch.int32), lr.view(torch.int32))
+    for s in ek:
+        assert torch.equal(ek[s].view(torch.int32), er[s].view(torch.int32))
+
+
+@pytest.mark.parametrize('path', ['lowrank'], indirect=True)
 def test_model_selection_prices_the_h100_kernels(path):
     """``select_kernels='model'`` prices every factored conv inside the
     envelope with the H100 cost model and records why."""

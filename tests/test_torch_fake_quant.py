@@ -9,10 +9,12 @@ for bit in fp32 and in bf16 (an abs-max and a per-element quantize do not
 depend on summation order; both packages upcast bf16 to fp32, compute, and
 round the result back to nearest even).  The kernels themselves are held
 against these plain versions on a card by tests/test_torch_gpu.py; here the
-fused CUDA kernel's launch plan (``fused_plan``) is checked as the card runs
-it, and a torch emulation of its cluster split (each block's partial column
-maxima over its rows, merged across the cluster) is held bit for bit
-against the reference's ``fake_quant_fused``.
+CUDA cluster kernel's launch plan (``fused_plan``), which both wrappers
+launch, is checked as the card runs it, and a torch emulation of its
+cluster split (each block's partial column maxima over its rows, merged
+across the cluster) is held bit for bit against the reference's
+``fake_quant_fused`` and, on the two-pass wrapper's shapes, against its
+two-pass ``fake_quant``.
 """
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,7 @@ from repro_torch.interop import from_jax_params, to_numpy
 from repro_torch.kernels import counts, ops, reset_counts
 from repro_torch.kernels.fake_quant import FUSED_BNS, fake_quant_fused
 from repro_torch.kernels.fake_quant import fake_quant as t_fake_quant
-from repro_torch.kernels.fake_quant import fused_plan
+from repro_torch.kernels.fake_quant import STATIC_SMEM, fused_plan
 from repro_torch.kernels.ref import recip32
 from repro_torch.kernels.tiling import SMEM_BUDGET
 
@@ -145,10 +147,13 @@ def test_fused_plan_covers_every_element_once(shape, elem_bytes):
     """Stripes of BN columns and the C blocks' row ranges [r*R, (r+1)*R)
     cover the (K, N) weight exactly once; the slice fits the shared memory
     the plan asks for, and that fits an H100 block; clusters stay within
-    the portable 8."""
+    the portable 8, unless K is so tall that 8 blocks cannot stage
+    128-byte stripe rows in the static shared memory: then within 16."""
     K, N = shape
     bn, c, r, smem, staged = fused_plan(K, N, elem_bytes)
-    assert bn in FUSED_BNS and 256 % bn == 0 and 1 <= c <= 8
+    tall = -(-K // 8) * 128 + 8 * (128 // elem_bytes) > STATIC_SMEM
+    assert bn in FUSED_BNS and 256 % bn == 0
+    assert c in (1, 2, 4, 8) or (tall and c == 16)
     rows = np.zeros(K, int)
     for rank in range(c):
         rows[rank * r:min((rank + 1) * r, K)] += 1
@@ -185,9 +190,9 @@ def test_fused_plan_walks_a_tall_head_from_device_memory():
 
 
 def _emulate_fused(w, bits):
-    """The fused kernel's algorithm on the plan the card would run: each
-    block's column maxima over its rows, the max of the cluster's partials,
-    then each block quantizes its own rows."""
+    """The cluster kernel's algorithm on the plan the card would run: each
+    block's column maxima over its rows, the max of the cluster's
+    partials, then each block quantizes its own rows."""
     K, N = w.shape
     bn, c, r, _, _ = fused_plan(K, N, w.element_size())
     qmax = 2.0 ** (bits - 1) - 1.0
@@ -217,3 +222,44 @@ def test_fused_cluster_split_matches_reference_kernel(shape, bits, dtype):
     reset_counts()
     _assert_same_bits(fake_quant_fused(tw, bits=bits), want)
     assert counts()['fake_quant_fused'] == {'launches': 0, 'plain_calls': 1}
+
+
+# path (f)'s weights on the two-pass wrapper: tinyllama's MLP wo, a ragged
+# case and the smallest K the routing sends there
+TWO_PASS_SHAPES = [(5632, 2048), (5000, 1000), (4160, 256)]
+
+
+@pytest.mark.parametrize('elem_bytes', [2, 4])
+@pytest.mark.parametrize('shape', TWO_PASS_SHAPES)
+def test_two_pass_plan_covers_every_element_once(shape, elem_bytes):
+    """The two-pass wrapper launches the cluster kernel on fused_plan: at
+    path (f)'s shapes its stripes and the C blocks' slices cover the
+    weight exactly once, every slice is staged in shared memory without
+    the opt-in (w is read once), the clusters are 16 (K is tall) and the
+    grid fills the card; tinyllama's MLP wo in bf16 is 64-column stripes
+    (128 bytes a row) on clusters of 16, 352-row slices, 512 blocks."""
+    K, N = shape
+    bn, c, r, smem, staged = fused_plan(K, N, elem_bytes)
+    count = np.zeros((K, N), np.int8)
+    for j in range(-(-N // bn)):
+        for rank in range(c):
+            count[rank * r:(rank + 1) * r, j * bn:(j + 1) * bn] += 1
+    assert (count == 1).all()
+    assert staged and 8 * bn + r * bn * elem_bytes <= smem <= 48 * 1024
+    assert c == 16 and 256 % bn == 0
+    assert -(-N // bn) * c >= 132 or N <= 256
+    if shape == (5632, 2048):
+        assert (bn * elem_bytes, c, r) == (128, 16, 352)
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+@pytest.mark.parametrize('shape,bits', [((4160, 256), 8), ((4160, 256), 2)])
+def test_two_pass_cluster_split_matches_reference_kernels(shape, bits, dtype):
+    """The cluster kernel's algorithm on the two-pass wrapper's plan (16
+    blocks a cluster), bit for bit against the reference's two Pallas
+    passes (interpret mode)."""
+    w = _weight(shape, dtype, seed=shape[0] + 3 * bits)
+    want = j_fake_quant(w, bits=bits, bk=128, interpret=True)
+    assert fused_plan(*shape, 2 if dtype == 'bf16' else 4)[1] == 16
+    _assert_same_bits(_emulate_fused(from_jax_params(np.asarray(w)), bits),
+                      want)

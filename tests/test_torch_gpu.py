@@ -1,8 +1,10 @@
 """Tests of the port that need a CUDA card: each int8 kernel bit for bit
-against its plain version at main-path shapes, both fake-quant wrappers bit
-for bit in fp32 and bf16 (the fused one on every kind of launch plan), the
-decode-attention kernels within their stated tolerance (the int8 one with
-whole blocks of its split masked and with no valid slot), the scheduler on the card launching the kernels exactly as the
+against its plain version at main-path shapes (quant_matmul and
+lowrank_conv on both routes and both weight layouts), both fake-quant
+wrappers bit for bit in fp32 and bf16 (the fused one on every kind of
+launch plan), the decode-attention kernels within their stated tolerance
+(the int8 one with whole blocks of its split masked and with no valid
+slot), the scheduler on the card launching the kernels exactly as the
 plan counts them, one LM decode step and one Q-pass (QAT) step on the
 card against the CPU.
 
@@ -126,35 +128,82 @@ def test_depthwise_conv_kernel_bit_exact(cuda_device, geom):
         assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize('mkrn', [(32768, 576, 30, 64), (2048, 2304, 118, 256),
-                                  (512, 256, 40, 512), (77, 27, 5, 13)])
-@pytest.mark.parametrize('bm', [32, 64])
-def test_lowrank_conv_kernel_bit_exact(cuda_device, mkrn, bm):
+# (M, K1, R, N): factored resnet34-cifar's eight fused shapes at 32 slots
+# (ranks at energy 0.6), M tails and the rest of lr_plan's plans (RP 32 to
+# 128, VN 32 and 64, clusters of 1 to 8, ranks with no K1 tile), and two
+# K1 % 16 != 0 shapes for the mma.sync route
+LR_GPU_SHAPES = [(32768, 576, 30, 64), (8192, 576, 52, 128),
+                 (8192, 1152, 59, 128), (8192, 64, 20, 128),
+                 (2048, 1152, 103, 256), (2048, 2304, 118, 256),
+                 (2048, 128, 41, 256), (512, 256, 82, 512),
+                 (300, 2304, 118, 256), (129, 1152, 64, 100), (1, 64, 2, 10),
+                 (4096, 576, 128, 200), (1000, 96, 33, 70),
+                 (40000, 144, 96, 48), (77, 27, 5, 13), (77, 72, 30, 40)]
+
+
+@pytest.mark.parametrize('mkrn', LR_GPU_SHAPES)
+@pytest.mark.parametrize('layout', ['k_major', 'row_major'])
+def test_lowrank_conv_kernel_bit_exact(cuda_device, mkrn, layout):
+    """Every plan lr_plan makes at these shapes and both routes, bit for
+    bit against the plain version, u and v K-major as the export stores
+    them or row-major (then each is relaid and counted)."""
+    from repro_torch.kernels.lowrank_conv import lr_plan
     m, k1, r, n = mkrn
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x, u, v = _i8(g, m, k1), _i8(g, k1, r), _i8(g, r, n)
+    if layout == 'k_major':
+        u, v = u.t().contiguous().t(), v.t().contiguous().t()
     su = torch.rand(r, generator=g, device=cuda_device) * 1e-3
     sv = torch.rand(n, generator=g, device=cuda_device) * 1e-2
     bu, bv = (torch.randn(r, generator=g, device=cuda_device),
               torch.randn(n, generator=g, device=cuda_device))
+    route = 'wgmma' if k1 % 16 == 0 else 'mma_sync'
     for kw in (dict(), dict(relu=True, out_scale=0.37)):
         reset_counts()
         got = lowrank_conv(x, u, v, su, sv, bu, bv, sx=0.05, h_scale=0.9,
-                           _bm=bm, **kw)
+                           **kw)
         assert counts()['lowrank_conv'] == {'launches': 1, 'plain_calls': 0}
+        assert lowrank_conv.launches_by_route[route] == 1
+        assert lowrank_conv.weight_relayouts == \
+            2 * int(layout == 'row_major')
         want = lowrank_conv_plain(x, u, v, su, sv, bu, bv, sx=0.05,
                                   h_scale=0.9, **kw)
-        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(got), _bits(want)), (lr_plan(m, k1, r, n),
+                                                      kw)
+
+
+def test_lowrank_conv_misaligned_patches_take_mma_sync(cuda_device):
+    """Patches that do not start on 16 bytes leave TMA out: the mma.sync
+    route, bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    m, k1, r, n = 300, 576, 30, 64
+    buf = _i8(g, m * k1 + 1)
+    x = buf[1:].view(m, k1)
+    u = _i8(g, r, k1).t()
+    v = _i8(g, n, r).t()
+    su = torch.rand(r, generator=g, device=cuda_device) * 1e-3
+    sv = torch.rand(n, generator=g, device=cuda_device) * 1e-2
+    bu, bv = (torch.randn(r, generator=g, device=cuda_device),
+              torch.randn(n, generator=g, device=cuda_device))
+    reset_counts()
+    got = lowrank_conv(x, u, v, su, sv, bu, bv, sx=0.05, h_scale=0.9,
+                       relu=True, out_scale=0.37)
+    assert lowrank_conv.launches_by_route == {'wgmma': 0, 'mma_sync': 1}
+    assert lowrank_conv.weight_relayouts == 0
+    want = lowrank_conv_plain(x, u, v, su, sv, bu, bv, sx=0.05, h_scale=0.9,
+                              relu=True, out_scale=0.37)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize('kn', [(128, 10), (512, 10), (1000, 77), (40, 13),
                                 (2048, 5632), (2048, 2048), (2048, 256),
-                                (100000, 10)])
+                                (100000, 10), (8192, 100)])
 def test_fake_quant_kernel_bit_exact(cuda_device, kn):
     """fp32 on every kind of launch plan of the cluster kernel: heads and
     ragged shapes (element loads), tinyllama's Q-pass weights (16-byte
-    rows, many blocks) and a tall head whose slices fit no shared memory
-    (walked twice from device memory); one launch each."""
+    rows, many blocks), a tall head whose slices fit no shared memory
+    (walked twice from device memory) and a tall narrow weight on
+    clusters of 16; one launch each."""
     w = torch.randn(kn, device=cuda_device)
     for bits in (2, 4, 8):
         reset_counts()
@@ -182,7 +231,8 @@ def test_fake_quant_two_pass_kernel_bit_exact(cuda_device, kn, dtype):
 
 
 @pytest.mark.parametrize('kn', [(2048, 5632), (2048, 2048), (2048, 256),
-                                (1000, 77), (40, 13)])
+                                (1000, 77), (40, 13), (8192, 100),
+                                (100000, 10)])
 def test_fake_quant_fused_kernel_bf16_bit_exact(cuda_device, kn):
     w = torch.randn(kn, device=cuda_device).to(torch.bfloat16)
     for bits in (2, 4, 8):

@@ -24,8 +24,8 @@ from repro.kernels.quant_conv import im2col_nhwc as j_im2col
 from repro.kernels import tiling as jtiling
 from repro_torch.core import quantization as tq
 from repro_torch.kernels import _build, counts, ops, ref, reset_counts, tiling
-from repro_torch.kernels.lowrank_conv import (fits_fused, lowering_costs,
-                                              pick_bm)
+from repro_torch.kernels.lowrank_conv import (LAUNCH_US, fits_fused,
+                                              lowering_costs, lr_plan)
 from repro_torch.kernels.quant_conv import im2col_nhwc
 
 torch.set_num_threads(1)
@@ -204,7 +204,18 @@ def test_lowering_costs_price_the_h100_kernels():
     assert cheap['chained_us'] - cheap['fused_us'] < \
         lowering_costs(2048, 2304, 118, 256)['chained_us'] - \
         lowering_costs(2048, 2304, 118, 256)['fused_us']
-    assert [pick_bm(m) for m in (512, 2048, 8192, 32768)] == [32, 32, 64, 64]
+    # the fused kernel's tensor cores run the plan's rank tile, not 128:
+    # rank 30 pays for 32 columns, rank 118 for 128
+    for m, k1, r, n, rp in [(32768, 576, 30, 64, 32),
+                            (8192, 1152, 59, 128, 64),
+                            (512, 256, 82, 512, 96),
+                            (2048, 2304, 118, 256, 128)]:
+        c = lowering_costs(m, k1, r, n)
+        assert lr_plan(m, k1, r, n)[1] == rp
+        assert c['fused_macs'] == m * rp * (k1 + n)
+        assert c['fused_us'] == pytest.approx(
+            LAUNCH_US + max(c['fused_macs'] / 989.5e6,
+                            c['fused_bytes'] / 3.35e6))
 
 
 @pytest.mark.parametrize('geom', [((2, 7, 8, 3), 3, 2), ((1, 8, 8, 2), 3, 1),
@@ -337,7 +348,7 @@ def test_cpu_tensors_take_the_plain_versions():
                for v in counts().values())
 
 
-def test_two_pass_fake_quant_is_not_ported():
+def test_wide_stripe_routes_to_the_two_pass_wrapper():
     """A (K, 256) stripe over the fused budget routes to the two-pass pair
     (ported since; it used to raise), as in the reference."""
     reset_counts()
@@ -439,7 +450,8 @@ def test_qmm_sweep_script_finds_every_stamp_marker():
     by inserting stamps after marker lines of the CUDA source, in a copy
     that also takes the plans beyond qmm_plan's (BN 128, clusters of 8);
     every marker still occurs exactly once, every phase boundary is
-    stamped and the wider plans and the occupancy entry point are in."""
+    stamped and the wider plans and the occupancy entry point are in (the
+    m64n128k32 step BN 128 runs is in the shared wgmma_tma.cuh)."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(__file__), '..', 'scripts',
@@ -452,10 +464,12 @@ def test_qmm_sweep_script_finds_every_stamp_marker():
         assert src.count(text + ''.join(f'  STAMP({i});\n'
                                         for i in stamps)) == 1
     assert all(f'STAMP({i});' in src for i in range(6))
-    for text in ('struct Wgmma<128>', 'launch_wgmma<BN_, 8>',
-                 'launch_wgmma_bn<128>', 'WG_MAX_STAGES = 8;',
-                 'quant_matmul_wgmma_max_clusters'):
+    for text in ('launch_wgmma<BN_, 8>', 'launch_wgmma_bn<128>',
+                 'WG_MAX_STAGES = 8;', 'quant_matmul_wgmma_max_clusters',
+                 '#include "wgmma_tma.cuh"'):
         assert text in src
+    # the m64n128k32 step BN 128 needs comes from the shared header
+    assert 'struct Wgmma<128>' in (_build.CSRC / 'wgmma_tma.cuh').read_text()
 
 
 def test_qmm_plan_splits_k_where_the_output_is_small():
@@ -516,10 +530,10 @@ def test_qmm_route_and_operand_layouts():
 
 @pytest.mark.parametrize('factorize', [False, True])
 def test_export_lays_quant_matmul_weights_out_k_major(factorize):
-    """export_cnn stores every weight its plan routes to quant_matmul
-    K-major with the same values, so quant_conv's reshape is a view with
-    strides (1, K); depthwise and fused low-rank leaves keep their
-    row-major layout."""
+    """export_cnn stores every weight its plan routes to quant_matmul or
+    lowrank_conv K-major with the same values, so quant_conv's and
+    lowrank_conv_nhwc's reshapes are views with strides (1, K); depthwise
+    leaves keep their row-major layout."""
     from repro_torch.configs.cnn import MOBILENET_SMALL_CIFAR, RESNET8_CIFAR
     from repro_torch.core.export import _resolve_layer_params, export_cnn
     from repro_torch.core.family import CNNFamily
@@ -549,10 +563,149 @@ def test_export_lays_quant_matmul_weights_out_k_major(factorize):
             assert torch.equal(w, want['w_q'])
             n = w.shape[-1]
             w2 = w.reshape(-1, n)
-            routed = not (e.get('depthwise') or e.get('fused'))
+            routed = not e.get('depthwise')
             assert (w2.stride() == (1, w2.shape[0])) == routed or n == 1
             assert w.is_contiguous() != routed or n == 1
-            kinds.add('quant_matmul' if routed else
-                      'depthwise' if e.get('depthwise') else 'fused')
+            kinds.add('fused' if e.get('fused') else
+                      'depthwise' if e.get('depthwise') else 'quant_matmul')
     assert kinds == ({'quant_matmul', 'fused'} if factorize
                      else {'quant_matmul', 'depthwise'})
+
+
+# ---------------------------------------------------------------- the fused
+# low-rank kernel's wgmma launch plan
+
+# factored resnet34-cifar's fused shapes at 32 slots (ranks at energy 0.6)
+LR_MAIN_SHAPES = [(32768, 576, 30, 64), (8192, 576, 52, 128),
+                  (8192, 1152, 59, 128), (8192, 64, 20, 128),
+                  (2048, 1152, 103, 256), (2048, 2304, 118, 256),
+                  (2048, 128, 41, 256), (512, 256, 82, 512)]
+
+
+@pytest.mark.parametrize('m', PLAN_MS)
+def test_lr_plan_covers_every_row_k1_tile_and_column_once(m):
+    """At M from 1 to 32768 and every (K1, R, N) of the fused envelope the
+    CNN configs make (and ragged ones): the grid's 128-row tiles cover M
+    once; the C ranks of a cluster cover every 128-byte K1 tile once,
+    every row of the h tile once and every VN-wide COUT tile once (each
+    rank at least 64 columns where C > 1); the rank tile holds R; two
+    blocks fit an SM."""
+    from repro_torch.kernels.lowrank_conv import (LR_BK, LR_RPS, LR_VNS,
+                                                  lr_h_rows, lr_k_tiles,
+                                                  lr_n_tiles, lr_smem_bytes)
+    shapes = LR_MAIN_SHAPES + [(m, k1, r, n) for k1 in (16, 72, 576, 2304)
+                               for r in (2, 31, 64, 97, 128)
+                               for n in (10, 64, 100, 512)]
+    for _, k1, r, n in shapes:
+        bm, rp, vn, stages, c, smem = lr_plan(m, k1, r, n)
+        assert bm == 128 and rp in LR_RPS and r <= rp < r + 32
+        assert vn in LR_VNS and c in (1, 2, 4, 8)
+        rows = np.zeros(-(-m // bm) * bm, int)
+        for t in range(-(-m // bm)):
+            rows[t * bm:(t + 1) * bm] += 1
+        assert (rows[:m] == 1).all()
+        nk = -(-k1 // LR_BK)
+        ks = [lr_k_tiles(k1, c, q) for q in range(c)]
+        assert sorted(t for rg in ks for t in rg) == list(range(nk))
+        hs = [lr_h_rows(c, q) for q in range(c)]
+        assert sorted(t for rg in hs for t in rg) == list(range(bm))
+        assert all(len(rg) == bm // c for rg in hs)
+        nt = -(-n // vn)
+        ns = [lr_n_tiles(n, vn, c, q) for q in range(c)]
+        assert sorted(t for rg in ns for t in rg) == list(range(nt))
+        assert c == 1 or min(len(rg) for rg in ns) * vn >= 64
+        assert 1 <= stages <= 4 and (c == 1 or stages <= max(
+            1, max(len(rg) for rg in ks)))
+        assert smem == lr_smem_bytes(rp, vn, stages, c) <= \
+            tiling.SMEM_BUDGET
+        assert 2 * (smem + 1024) <= 228 * 1024       # two blocks an SM
+
+
+@pytest.mark.parametrize('shape', LR_MAIN_SHAPES)
+def test_lr_plan_fits_the_card_in_one_wave(shape):
+    """At each fused shape of factored resnet34-cifar at 32 slots: the rank
+    tile is the rank rounded up to 32 (rank 30 pays for 32 columns, not
+    128); a split grid holds at most 132 blocks, two to an SM, so it runs
+    in one wave; the layout fits the shared-memory budget; the clusters
+    and v tiles are the ones measured fastest (scripts/lr_plan_sweep.py)."""
+    from repro_torch.kernels.lowrank_conv import lr_smem_bytes
+    m, k1, r, n = shape
+    bm, rp, vn, stages, c, smem = lr_plan(m, k1, r, n)
+    assert rp == -(-r // 32) * 32
+    blocks = c * -(-m // bm)
+    assert c == 1 or blocks <= 132
+    assert smem == lr_smem_bytes(rp, vn, stages, c) <= tiling.SMEM_BUDGET
+    assert 2 * (smem + 1024) <= 228 * 1024
+    assert (c, vn) == {32768: (1, 64), 8192: (2, 64), 2048: (4, 64),
+                       512: (8, 64)}[m]
+
+
+def test_lr_split_k_partial_h_sums_to_the_product():
+    """The kernel's split of K1: the int32 partial h tiles over each
+    rank's K1 tiles, summed, equal patches @ u exactly, and the fused
+    result from that sum equals the plain version."""
+    from repro_torch.kernels.lowrank_conv import (LR_BK, lowrank_conv_plain,
+                                                  lr_k_tiles)
+    rng = np.random.default_rng(5)
+    x, u, v = _t(_i8(rng, 40, 1200)), _t(_i8(rng, 1200, 30)), \
+        _t(_i8(rng, 30, 24))
+    su, sv = torch.rand(30) * 1e-3, torch.rand(24) * 1e-2
+    bu, bv = torch.randn(30), torch.randn(24)
+    want = ref.int_matmul(x, u)
+    for c in (1, 2, 4, 8, 16):
+        parts = [ref.int_matmul(x[:, rg.start * LR_BK:rg.stop * LR_BK],
+                                u[rg.start * LR_BK:rg.stop * LR_BK])
+                 for rg in (lr_k_tiles(1200, c, q) for q in range(c))]
+        assert torch.equal(sum(parts), want)
+    scale = torch.full((40, 1), 0.05) * su[None, :]
+    h = ref.epilogue(want, scale, bu, False, 0.9, 127.0)
+    y = ref.epilogue(ref.int_matmul(h, v), torch.full((40, 1), 0.9) *
+                     sv[None, :], bv, True, 0.37, 127.0)
+    assert torch.equal(y, lowrank_conv_plain(x, u, v, su, sv, bu, bv, sx=0.05,
+                                             h_scale=0.9, relu=True,
+                                             out_scale=0.37))
+
+
+def test_lr_route_and_operand_layouts():
+    """The route follows K1 % 16 and alignment alone; the operand check
+    takes row-major or K-major u and v and nothing else; the plain version
+    gives the same bits on K-major copies."""
+    from repro_torch.kernels.lowrank_conv import (_check_operands,
+                                                  lowrank_conv_plain,
+                                                  lr_route)
+    from repro_torch.kernels.quant_matmul import k_major
+    rng = np.random.default_rng(6)
+    for k1, route in ((576, 'wgmma'), (27, 'mma_sync'), (72, 'mma_sync'),
+                      (16, 'wgmma')):
+        x, u, v = _t(_i8(rng, 33, k1)), _t(_i8(rng, k1, 30)), \
+            _t(_i8(rng, 30, 10))
+        uk, vk = u.t().contiguous().t(), v.t().contiguous().t()
+        assert k_major(uk) and k_major(vk) and uk.stride() == (1, k1)
+        assert lr_route(x, uk, vk) == route
+        su, sv, bu, bv = torch.rand(30), torch.rand(10), torch.randn(30), \
+            torch.randn(10)
+        for a, b in ((u, v), (uk, vk), (uk, v)):
+            _check_operands(x, a, b, su, sv, bu, bv)
+        kw = dict(sx=0.05, h_scale=0.9, relu=True, out_scale=0.37)
+        assert torch.equal(lowrank_conv_plain(x, uk, vk, su, sv, bu, bv, **kw),
+                           lowrank_conv_plain(x, u, v, su, sv, bu, bv, **kw))
+        with pytest.raises(ValueError, match='K-major'):
+            _check_operands(x, torch.cat([u, u], 1)[:, ::2], v, su, sv, bu,
+                            bv)
+    buf = torch.zeros(33 * 64 + 1, dtype=torch.int8)
+    x_off = buf[1:].view(33, 64)                 # not on 16 bytes
+    w = torch.zeros((64, 8), dtype=torch.int8).t().contiguous().t()
+    assert lr_route(x_off, w, torch.zeros((8, 4), dtype=torch.int8)) == \
+        'mma_sync'
+
+
+def test_lowrank_nhwc_reshapes_k_major_factors_to_views():
+    """K-major 4-D factors as the export stores them reshape, in
+    ops.lowrank_conv_nhwc, to (K1, R) and (R, N) views with strides
+    (1, K1) and (1, R): no copy before the kernel."""
+    from repro_torch.core.export import k_major
+    u = k_major(torch.zeros((3, 3, 16, 30), dtype=torch.int8))
+    v = k_major(torch.zeros((1, 1, 30, 64), dtype=torch.int8))
+    u2, v2 = u.reshape(144, 30), v.reshape(30, 64)
+    assert u2.stride() == (1, 144) and v2.stride() == (1, 30)
+    assert u2.data_ptr() == u.data_ptr() and v2.data_ptr() == v.data_ptr()
