@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero and no result is printed:
    over a cluster where K % 16 == 0, else ``mma.sync``);
    ``fake_quant_fused`` at the three head weights; ``depthwise_conv`` at
    every mobilenetv2-cifar depthwise shape at 32 slots plus a
-   channel-multiplier case;
+   channel-multiplier case, each line ending with its route and plan
+   (``dw_plan``: the tile route, a band's halo tile staged by TMA and a
+   register window over 16-byte channel groups, required there), held bit
+   for bit in int8 and fp32 output with and without ReLU; then its general
+   route, which must take them: an odd shape (3, 7, 9, 5) at stride 2 and
+   stage 0's shape with x one byte off 16;
    ``lowrank_conv`` at the factored resnet34-cifar shapes inside the fused
    envelope (ranks from the real factorization at energy 0.6), u and v
    K-major as the export stores them, each line ending with its plan
@@ -70,7 +75,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    not run, each kernel of the path was launched, ``quant_matmul`` and
    ``lowrank_conv`` relaid no weight (the export stores them K-major; their
    launches by route are printed, and every ``lowrank_conv`` launch took
-   the TMA + ``wgmma`` route), 16 sampled requests are
+   the TMA + ``wgmma`` route, every ``depthwise_conv`` launch the tile
+   route), 16 sampled requests are
    bit-exact against the monolithic ``fn_exits`` on the request alone at
    the same slot geometry; the card's calibration agrees with the CPU's
    scale by scale (to float noise up to the first fake-quant code that
@@ -111,7 +117,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    card at its own shapes (bit for bit; the decode kernels within
    ``DECODE_TOL``) and timed, each line ending with its plan; every
    ``quant_matmul`` call with K % 16 == 0 and every ``lowrank_conv`` call
-   must take the TMA + ``wgmma`` route.  The ``{"kernels": [...]}``
+   must take the TMA + ``wgmma`` route, every ``depthwise_conv`` call the
+   tile route.  The ``{"kernels": [...]}``
    line: every ported kernel, summed over the pass or step of the path
    that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
    ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
@@ -180,10 +187,13 @@ DA_DEVICE_NAME = {'decode_attention': 'decode_split_kernel',
 # one for each route
 QMM_DEVICE_NAMES = ('qmm_wgmma_kernel', 'qmm_kernel')
 LR_DEVICE_NAMES = ('lr_wgmma_kernel', 'lr_kernel')
-# quant_matmul's and lowrank_conv's launches by route and weight relayouts
-# while each CNN path served, filled by serve_path
+DW_DEVICE_NAMES = ('dw_tile_kernel', 'dw_kernel')
+# quant_matmul's and lowrank_conv's launches by route and weight relayouts,
+# and depthwise_conv's launches by route, while each CNN path served,
+# filled by serve_path
 QMM_ROUTES = {}
 LR_ROUTES = {}
+DW_ROUTES = {}
 LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
 LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
 LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
@@ -501,26 +511,48 @@ def dw_library(torch, x, w, sx, sw, bias, stride, relu, out_scale,
     return call
 
 
+def dw_plan_str(plan):
+    if plan.route == 'general':
+        return 'general: a thread per 4 channels of a pixel'
+    return ('tile slice={} rows={} cols={} threads={} smem={} B grid={} '
+            'box={}'.format(plan.slice, plan.rows, plan.cols, plan.threads,
+                            plan.smem_bytes, plan.grid, plan.box))
+
+
 def dw_case(torch, x, w, sx, sw, bias, *, stride, relu=False,
-            out_scale=None, out_qmax=127.0, iters=20):
+            out_scale=None, out_qmax=127.0, iters=20, route=None):
+    """Kernel vs plain version on one call: bit-exactness, route, plan and
+    times; ``route``, where given, the route the call must take."""
     from repro_torch.kernels.depthwise_conv import (depthwise_conv,
-                                                    depthwise_conv_plain)
+                                                    depthwise_conv_plain,
+                                                    dw_plan, dw_route)
     kw = dict(stride=stride, relu=relu, out_scale=out_scale,
               out_qmax=out_qmax)
+    before = dict(depthwise_conv.launches_by_route)
     got = depthwise_conv(x, w, sx, sw, bias, **kw)
+    took = [r for r, n in depthwise_conv.launches_by_route.items()
+            if n != before[r]]
     want = depthwise_conv_plain(x, w, sx, sw, bias, **kw)
+    n = w.shape[3]
+    shape = tuple(x.shape) + (n, stride)
+    if took != [dw_route(x, w, stride, out_scale, out_qmax)] or (
+            route is not None and took != [route]):
+        fail(f'depthwise_conv at {shape} took route {took}'
+             + (f', not {route}' if route else ''))
     lib = dw_library(torch, x, w, sx, sw, bias, stride, relu, out_scale,
                      out_qmax)
     lib_out = lib()
     torch.cuda.synchronize()
-    n = w.shape[3]
     nbytes = x.numel() + w.numel() + 4 * n * (1 + (bias is not None)) + \
         got.numel() * got.element_size()
     b_ms, b_by = bound(nbytes, 2 * w.shape[0] * w.shape[1] * got.numel(),
                        CUDA_CORE_OPS_PER_S)
+    plan = dw_plan(*x.shape, n, w.shape[0], w.shape[1], stride)
     call = lambda: depthwise_conv(x, w, sx, sw, bias, **kw)  # noqa: E731
-    return {'shape': tuple(x.shape) + (n, stride),
-            'int8_out': out_scale is not None,
+    return {'shape': shape, 'int8_out': out_scale is not None,
+            'route': took[0],
+            'plan': dw_plan_str(plan if took[0] == plan.route else
+                                plan._replace(route='general')),
             'exact': same_bits(torch, got, want),
             'library_agrees': same_bits(torch, lib_out, want),
             'max_abs_err': max_err(torch, got, want), 'call': call,
@@ -529,6 +561,22 @@ def dw_case(torch, x, w, sx, sw, bias, *, stride, relu=False,
                 x, w, sx, sw, bias, **kw), iters),
             'library_ms': time_ms(torch, lib, iters),
             'bound_ms': b_ms, 'bound_by': b_by}
+
+
+def dw_exact(torch, x, w, sx, sw, bias, *, stride, route, **kw):
+    """One more epilogue of the kernel held bit for bit on ``route``."""
+    from repro_torch.kernels.depthwise_conv import (depthwise_conv,
+                                                    depthwise_conv_plain)
+    before = depthwise_conv.launches_by_route[route]
+    got = depthwise_conv(x, w, sx, sw, bias, stride=stride, **kw)
+    want = depthwise_conv_plain(x, w, sx, sw, bias, stride=stride, **kw)
+    torch.cuda.synchronize()
+    if depthwise_conv.launches_by_route[route] != before + 1:
+        fail(f'depthwise_conv at {tuple(x.shape)} {kw} left the {route} '
+             f'route')
+    if not same_bits(torch, got, want):
+        fail(f'depthwise_conv disagrees with its plain version at '
+             f'{tuple(x.shape)} stride {stride} {kw}')
 
 
 def lr_library(torch, x, u, v, su, sv, bu, bv, sx, h_scale, relu,
@@ -675,6 +723,57 @@ def lowrank_shapes(params):
     return list(shapes.values()), ranks
 
 
+def phase_depthwise_kernels(torch, g):
+    """``depthwise_conv`` at mobilenetv2-cifar's shapes and the x2 case on
+    the tile route, then at an odd shape and on a misaligned x on the
+    general route; each route required, every epilogue bit-exact."""
+    def f32(*shape, scale=1.0):
+        return torch.rand(shape, generator=g, device='cuda') * scale
+
+    dw = [(shape, stride, 1) for shape, stride in DW_SHAPES] + \
+        [((SLOTS, 16, 16, 48), 1, 2)]          # channel multiplier 2
+    for shape, stride, mult in dw:             # the tile route, required
+        n = shape[-1] * mult
+        x, w = rand_i8(torch, g, *shape), rand_i8(torch, g, 3, 3, 1, n)
+        sw, bias = f32(n, scale=1e-2), torch.randn(n, generator=g,
+                                                   device='cuda')
+        c = dw_case(torch, x, w, 0.05, sw, bias, stride=stride,
+                    out_scale=0.37, out_qmax=127.0, route='tile')
+        c['device_ms'] = device_ms(torch, [c['call']], DW_DEVICE_NAMES)
+        print(fmt_case(f'depthwise_conv[x{mult}]', c)
+              + f" library_agrees={c['library_agrees']}; {c['plan']}")
+        need_exact(c, 'depthwise_conv')
+        for kw in (dict(relu=True, out_scale=0.37), dict(),
+                   dict(relu=True)):
+            dw_exact(torch, x, w, 0.05, sw, bias, stride=stride,
+                     route='tile', **kw)
+    print('[kernel] depthwise_conv tile route: int8 and fp32 output, with '
+          'and without ReLU, bit-exact at every shape above')
+    # the general route, required: an odd shape, and stage 0's x one byte
+    # off 16 bytes
+    x_odd = rand_i8(torch, g, 3, 7, 9, 5)
+    w_odd = rand_i8(torch, g, 3, 3, 1, 5)
+    shape = DW_SHAPES[0][0]
+    buf = rand_i8(torch, g, math.prod(shape) + 1)
+    x_off = buf[1:].view(shape)
+    for x, w, stride in ((x_odd, w_odd, 2),
+                         (x_off, rand_i8(torch, g, 3, 3, 1, shape[-1]), 1)):
+        n = w.shape[3]
+        sw, bias = f32(n, scale=1e-2), torch.randn(n, generator=g,
+                                                   device='cuda')
+        c = dw_case(torch, x, w, 0.05, sw, bias, stride=stride,
+                    out_scale=0.37, route='general')
+        c['device_ms'] = device_ms(torch, [c['call']], DW_DEVICE_NAMES)
+        print(fmt_case('depthwise_conv[general]', c)
+              + f" library_agrees={c['library_agrees']}; {c['plan']}"
+              + ('; x one byte off 16' if x is x_off else ''))
+        need_exact(c, 'depthwise_conv')
+        for kw in (dict(relu=True, out_scale=0.37), dict(),
+                   dict(relu=True)):
+            dw_exact(torch, x, w, 0.05, sw, bias, stride=stride,
+                     route='general', **kw)
+
+
 def phase_kernels(torch, factored):
     """Returns the launch term (us) the low-rank cost model is priced
     with: one quant_matmul wrapper call at the head shape."""
@@ -715,19 +814,7 @@ def phase_kernels(torch, factored):
         need_exact(c, 'fake_quant_fused')
     phase_fake_quant_kernels(torch, g)
 
-    dw = [(shape, stride, 1) for shape, stride in DW_SHAPES] + \
-        [((SLOTS, 16, 16, 48), 1, 2)]          # channel multiplier 2
-    for shape, stride, mult in dw:
-        n = shape[-1] * mult
-        x, w = rand_i8(torch, g, *shape), rand_i8(torch, g, 3, 3, 1, n)
-        sw, bias = f32(n, scale=1e-2), torch.randn(n, generator=g,
-                                                   device='cuda')
-        c = dw_case(torch, x, w, 0.05, sw, bias, stride=stride,
-                    out_scale=0.37, out_qmax=127.0)
-        c['device_ms'] = device_ms(torch, [c['call']], 'dw_kernel')
-        print(fmt_case(f'depthwise_conv[x{mult}]', c)
-              + f" library_agrees={c['library_agrees']}")
-        need_exact(c, 'depthwise_conv')
+    phase_depthwise_kernels(torch, g)
 
     shapes, ranks = lowrank_shapes(factored)
     print('[kernel] resnet34-cifar ranks at energy 0.6, min_rank 2, by '
@@ -1051,6 +1138,7 @@ def serve_path(torch, spec, launch_us):
     import numpy as np
     from repro_torch.core.export import calibrate_exit_threshold, export_cnn
     from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.depthwise_conv import depthwise_conv
     from repro_torch.kernels.lowrank_conv import lowrank_conv
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
@@ -1095,6 +1183,7 @@ def serve_path(torch, spec, launch_us):
     before = counts()
     routes0 = dict(quant_matmul.launches_by_route)
     lr_routes0 = dict(lowrank_conv.launches_by_route)
+    dw_routes0 = dict(depthwise_conv.launches_by_route)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     sched = ContinuousBatchScheduler(model, slots=SLOTS, threshold=threshold,
@@ -1109,6 +1198,8 @@ def serve_path(torch, spec, launch_us):
               for r, n in quant_matmul.launches_by_route.items()}
     lr_routes = {r: n - lr_routes0[r]
                  for r, n in lowrank_conv.launches_by_route.items()}
+    dw_routes = {r: n - dw_routes0[r]
+                 for r, n in depthwise_conv.launches_by_route.items()}
 
     m = metrics.summary()
     print(f"{tag} served {m['n_requests']} of {N_REQUESTS} requests "
@@ -1155,6 +1246,13 @@ def serve_path(torch, spec, launch_us):
         fail(f"{spec['key']}: lowrank_conv relaid {lr_relaid} factors or "
              f"took mma_sync {lr_routes['mma_sync']} times: the export "
              f'stores them K-major and every K1 is a multiple of 16')
+    DW_ROUTES[spec['key']] = {'launches_by_route': dw_routes}
+    print(f'{tag} depthwise_conv launches by route while serving: '
+          f'{dw_routes}')
+    if dw_routes['general']:
+        fail(f"{spec['key']}: depthwise_conv took the general route "
+             f"{dw_routes['general']} times: every mobilenetv2-cifar layer "
+             f'fits the tile route')
     print(f'{tag} plain-version calls while serving: {plain}')
     if plain:
         fail(f'{spec["key"]}: the plain versions ran {plain} times while '
@@ -1732,7 +1830,7 @@ def dw_pass_cases(torch, model, g):
         cases.append(dw_case(torch, x, p['w_q'], e['sx'], p['scale'],
                              p.get('b'), stride=e['stride'],
                              out_scale=e['out_scale'], out_qmax=qmax,
-                             iters=10))
+                             iters=10, route='tile'))
     return cases
 
 
@@ -1774,7 +1872,8 @@ KERNEL_META = {   # name: (route, source, the TPU kernel it replaces, match)
                          FQ_KERNELS['fake_quant_fused'][1]),
     'depthwise_conv': ('cuda', 'src/repro_torch/kernels/csrc/'
                        'depthwise_conv.cu',
-                       'src/repro/kernels/depthwise_conv.py:129', 'dw_kernel'),
+                       'src/repro/kernels/depthwise_conv.py:129',
+                       DW_DEVICE_NAMES),
     'lowrank_conv': ('cuda', 'src/repro_torch/kernels/csrc/lowrank_conv.cu',
                      'src/repro/kernels/lowrank_conv.py:203',
                      LR_DEVICE_NAMES),
@@ -1782,6 +1881,10 @@ KERNEL_META = {   # name: (route, source, the TPU kernel it replaces, match)
                    'src/repro/kernels/fake_quant.py:70',
                    FQ_KERNELS['fake_quant'][1]),
 }
+# the routes of the wrappers that have more than one kernel
+ROUTES = {'quant_matmul': ('wgmma', 'mma_sync'),
+          'lowrank_conv': ('wgmma', 'mma_sync'),
+          'depthwise_conv': ('tile', 'general')}
 # the second pallas_call a wrapper replaces (the reference's two-pass
 # quantize)
 ALSO_REPLACES = {'fake_quant': 'src/repro/kernels/fake_quant.py:78'}
@@ -1827,6 +1930,10 @@ def phase_report(torch, served, launches, qat_calls):
                      f'{off}')
             print(f'[report] lowrank_conv[{key}]: all {len(cs)} calls of the '
                   f'pass bit-exact, every one on the wgmma route')
+        if per_path[key].get('depthwise_conv'):
+            cs = per_path[key]['depthwise_conv']
+            print(f'[report] depthwise_conv[{key}]: all {len(cs)} calls of '
+                  f'the pass bit-exact, every one on the tile route')
 
     def total(cs, k):
         return sum(c[k] for c in cs)
@@ -1856,10 +1963,11 @@ def phase_report(torch, served, launches, qat_calls):
             'pass_of': top, 'calls_per_pass': len(cs),
             'launches_by_path': {k: launches[k][name] for k in launches},
             **({'serving_routes': {'quant_matmul': QMM_ROUTES,
-                                   'lowrank_conv': LR_ROUTES}[name],
+                                   'lowrank_conv': LR_ROUTES,
+                                   'depthwise_conv': DW_ROUTES}[name],
                 'calls_by_route': {r: sum(c['route'] == r for c in cs)
-                                   for r in ('wgmma', 'mma_sync')}}
-               if name in ('quant_matmul', 'lowrank_conv') else {}),
+                                   for r in ROUTES[name]}}
+               if name in ROUTES else {}),
             'by_path': {k: {'calls_per_pass': len(v),
                             'exact': all(c['exact'] for c in v),
                             'ms': total(v, 'ms'),

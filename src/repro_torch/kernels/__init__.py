@@ -47,8 +47,9 @@ int8`` (CUDA C++,      same over an int8 cache with fp32 scales per
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor.  :func:`counts` reads the launch and plain-call
 counters and :func:`reset_counts` zeroes them (and the launches by route
-and weight relayouts of ``quant_matmul`` and ``lowrank_conv``), so a run
-can show which path served it.
+of ``quant_matmul``, ``lowrank_conv`` and ``depthwise_conv``, and the
+weight relayouts of the first two), so a run can show which path served
+it.
 """
 from __future__ import annotations
 
@@ -82,9 +83,10 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import lowrank_conv, quant_matmul
+    from repro_torch.kernels import depthwise_conv, lowrank_conv, quant_matmul
     for w, p in _wrappers().values():
         w.launches = 0
         p.calls = 0
     quant_matmul.reset_route_counts()
     lowrank_conv.reset_route_counts()
+    depthwise_conv.reset_route_counts()

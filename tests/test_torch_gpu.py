@@ -109,23 +109,49 @@ def _i8(g, *shape):
                          dtype=torch.int32).to(torch.int8)
 
 
-@pytest.mark.parametrize('geom', [((32, 32, 32, 96), 1, 1),
-                                  ((32, 16, 16, 144), 2, 1),
-                                  ((3, 7, 9, 5), 2, 1), ((2, 8, 8, 6), 1, 2)])
+# (x shape, stride, multiplier, x one byte off 16): mobilenetv2-cifar's seven
+# depthwise shapes at 32 slots and its x2 case (the tile route), odd shapes
+# and an x one byte off 16-byte alignment (the general route)
+DW_GPU_CASES = [((32, 32, 32, 96), 1, 1, False),
+                ((32, 32, 32, 96), 2, 1, False),
+                ((32, 16, 16, 144), 1, 1, False),
+                ((32, 16, 16, 144), 2, 1, False),
+                ((32, 8, 8, 192), 1, 1, False), ((32, 8, 8, 192), 2, 1, False),
+                ((32, 4, 4, 384), 1, 1, False),
+                ((32, 16, 16, 48), 1, 2, False), ((2, 9, 7, 32), 2, 2, False),
+                ((3, 7, 9, 5), 2, 1, False), ((2, 8, 8, 6), 1, 2, False),
+                ((32, 16, 16, 144), 1, 1, True)]
+
+
+@pytest.mark.parametrize('geom', DW_GPU_CASES)
 def test_depthwise_conv_kernel_bit_exact(cuda_device, geom):
-    shape, stride, mult = geom
+    """Bit for bit against the plain version in int8 and fp32 output, with
+    and without ReLU, on the route dw_route picks: the tile route at
+    mobilenetv2's shapes (and an odd plane at stride 2 with a multiplier),
+    the general route at odd channel counts and a misaligned x."""
+    from repro_torch.kernels.depthwise_conv import dw_plan
+    shape, stride, mult, misaligned = geom
     g = torch.Generator(device=cuda_device).manual_seed(0)
     n = shape[-1] * mult
     x, w = _i8(g, *shape), _i8(g, 3, 3, 1, n)
+    if misaligned:
+        buf = _i8(g, x.numel() + 1)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
     sw = torch.rand(n, generator=g, device=cuda_device) * 1e-2
     b = torch.randn(n, generator=g, device=cuda_device)
-    for kw in (dict(), dict(relu=True, out_scale=0.37)):
+    plan = dw_plan(*shape, n, 3, 3, stride)
+    assert plan.route == ('tile' if shape[-1] % 16 == 0 else 'general')
+    route = 'general' if misaligned else plan.route
+    for kw in (dict(), dict(relu=True), dict(out_scale=0.37),
+               dict(relu=True, out_scale=0.37)):
         reset_counts()
         got = depthwise_conv(x, w, 0.05, sw, b, stride=stride, **kw)
         assert counts()['depthwise_conv'] == {'launches': 1,
                                               'plain_calls': 0}
+        assert depthwise_conv.launches_by_route[route] == 1, (plan, kw)
         want = depthwise_conv_plain(x, w, 0.05, sw, b, stride=stride, **kw)
-        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(got), _bits(want)), (plan, kw)
 
 
 # (M, K1, R, N): factored resnet34-cifar's eight fused shapes at 32 slots

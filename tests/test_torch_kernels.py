@@ -118,14 +118,18 @@ DW_CASES = [
     dict(shape=(2, 7, 9, 5), mult=1, bias=True, relu=True, out_scale=0.5),
     dict(shape=(1, 8, 8, 6), mult=2, bias=False, relu=False, out_scale=None),
     dict(shape=(2, 6, 5, 8), mult=1, bias=True, relu=False, out_scale=None),
-    dict(shape=(1, 5, 6, 3), mult=2, bias=True, relu=True, out_scale=1.3)]
+    dict(shape=(1, 5, 6, 3), mult=2, bias=True, relu=True, out_scale=1.3),
+    dict(shape=(2, 8, 8, 16), mult=2, bias=True, relu=True, out_scale=0.37)]
 
 
 @pytest.mark.parametrize('stride', [1, 2])
 @pytest.mark.parametrize('case', range(len(DW_CASES)))
 def test_depthwise_conv_matches_reference(stride, case):
     """Odd H and W, COUT not a multiple of 8, a channel multiplier of 2,
-    with and without bias, ReLU and the int8 requantize epilogue."""
+    with and without bias, ReLU and the int8 requantize epilogue; the last
+    case (CIN and COUT multiples of 16, a multiplier, an even plane, so
+    the (0, 1) SAME pad at stride 2) has the shapes the CUDA tile route
+    takes."""
     c = DW_CASES[case]
     rng = np.random.default_rng(31 + 2 * case + stride)
     n = c['shape'][-1] * c['mult']
