@@ -73,10 +73,10 @@ Phases, in order; any failure exits non-zero and no result is printed:
    every path: every request completes, the launches of each kernel while
    serving equal the plan's per executed segment, the plain versions do
    not run, each kernel of the path was launched, ``quant_matmul`` and
-   ``lowrank_conv`` relaid no weight (the export stores them K-major; their
-   launches by route are printed, and every ``lowrank_conv`` launch took
-   the TMA + ``wgmma`` route, every ``depthwise_conv`` launch the tile
-   route), 16 sampled requests are
+   ``lowrank_conv`` relaid no weight (the export stores them K-major), their
+   launches by route are those of the operand rule (TMA + ``wgmma`` where
+   K % 16 == 0, ``mma.sync`` else), every ``depthwise_conv`` launch took
+   the tile route, 16 sampled requests are
    bit-exact against the monolithic ``fn_exits`` on the request alone at
    the same slot geometry; the card's calibration agrees with the CPU's
    scale by scale (to float noise up to the first fake-quant code that
@@ -110,20 +110,42 @@ Phases, in order; any failure exits non-zero and no result is printed:
    Q-pass step on the card and on the CPU from the same params and batch
    (TF32 off), at W8A0 and at W8A8 (``QAT_CUTS``): the loss and the new
    params within each one's bands.
+   Then (g) the paper's compression chain on ``resnet34-cifar`` at its
+   published widths and depth: ``Pipeline.from_sequence('DPLQE')`` with
+   the hyperparameters of ``examples/chain_cnn.py --sequence DPLQE`` (D
+   factor 0.5, P ratio 0.3, L energy 0.9, Q W2A8, E threshold 0.85),
+   batches of 64, a 30-step baseline and 10 steps a pass (D's student 30),
+   a checkpoint after every pass, counted from zero; printed: each pass's
+   record (acc, BitOpsCR, CR), last loss and wall time, the student's and
+   the pruned config, the factored weights' ranks, peak memory.  Gates:
+   the labels and finite losses; every record's BitOpsCR and CR recomputed
+   on the CPU from the checkpoints; P of checkpoint 1 and L of checkpoint 2
+   on the card equal to the CPU's bit for bit (with the smallest relative
+   importance gap at P's boundary); the ``fake_quant_fused`` calls of one
+   Q step bit-exact; one Q step from checkpoint 3 on the card and on the
+   CPU within ``CHAIN_CUTS``' bands; a second run on the checkpoints
+   applying nothing and returning the final params bit for bit.  The chain
+   is then exported with ``export_chain(calibrate=...)`` and served at its
+   own exit threshold through the same steps and gates as (a)-(c), the
+   launches by route held to the operand rule (``wgmma`` where K % 16 ==
+   0): P keeps 44-358 channels, so pruned convs and their factored halves
+   take ``mma.sync``.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), and every fake-quant call of one step of (f), captured at its
    inputs (132 fused, 22 two-pass), held against its plain version on the
    card at its own shapes (bit for bit; the decode kernels within
    ``DECODE_TOL``) and timed, each line ending with its plan; every
-   ``quant_matmul`` call with K % 16 == 0 and every ``lowrank_conv`` call
-   must take the TMA + ``wgmma`` route, every ``depthwise_conv`` call the
-   tile route.  The ``{"kernels": [...]}``
+   ``quant_matmul`` and ``lowrank_conv`` call with K (K1) % 16 == 0 must
+   take the TMA + ``wgmma`` route and every other call ``mma.sync``, every
+   ``depthwise_conv`` call the tile route; the fake-quant calls of path
+   (g)'s Q step and its export are held too.  The ``{"kernels": [...]}``
    line: every ported kernel, summed over the pass or step of the path
    that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
    ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
    fake-quant wrappers: (f)), every path's pass under ``by_path``, its
-   launches over all the paths' counted runs, and ``excess_ms``: those
+   launches over all the paths' counted runs (path (g): its chain and
+   its serving), and ``excess_ms``: those
    launches times (its time a call less its bound a call).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -224,6 +246,38 @@ QAT_NEAR_LR = 1e-2
 QAT_CUTS = (   # (hp, loss rtol, max_lr, share)
     ({'w_bits': 8, 'a_bits': 0}, 1e-4, 2.5, 1e-3),
     (QAT_HP, 1e-3, 2.5, 5e-2))
+# Path (g): the paper's chain D->P->L->Q->E on resnet34-cifar at its
+# published widths and depth, random weights from seed 0, the
+# hyperparameters of examples/chain_cnn.py --sequence DPLQE: D factor 0.5,
+# P ratio 0.3, L energy 0.9 (min_rank 4), Q W2A8, E threshold 0.85;
+# baseline 30 steps, 10 fine-tune steps a pass (D's student 30), checkpoints
+# after every pass; then exported with export_chain(calibrate=<32 images>)
+# and served as paths (a)-(c) are
+CHAIN_KEY = 'resnet34-chain'
+CHAIN_CONFIG = 'resnet34-cifar'
+CHAIN_SEQUENCE = 'DPLQE'
+CHAIN_HPS = {'D': {'factor': 0.5}, 'P': {'ratio': 0.3},
+             'L': {'energy': 0.9, 'min_rank': 4},
+             'Q': {'w_bits': 2, 'a_bits': 8}, 'E': {'threshold': 0.85}}
+CHAIN_TRAINER = dict(batch=64, steps=10, lr=2e-3, eval_n=2, eval_batch=256)
+CHAIN_PRETRAIN = 30
+CHAIN_DIFFICULTY = 0.55
+# One fine-tune step of Q's loss on the trained student (the params Q
+# starts from, checkpoint step 3), card against CPU from the same params and
+# a batch of CHAIN_CUT_BATCH images, TF32 off: (hp, bands), the bands
+# (loss rtol, max_lr, share) of QAT_CUTS.  W2A0 holds them tight (five
+# runs on an H100 80GB HBM3: the loss 6.1e-8 to 9.5e-8 x itself apart, the
+# params 4.4e-3 to 0.54 x lr, at most 33 of 7.6 M elements 1e-2 x lr
+# apart).  W2A8 flips activation codes at rounding ties, as path (f)'s
+# W8A8 does (act_code_flips prints the first: one code, exactly on a tie),
+# and each flip moves every later abs-max scale, the loss and whole rows
+# of gradients: the loss 1.4e-4 to 5.4e-3 x itself apart, 4.3% to 19.7% of
+# the elements more than 1e-2 x lr apart, so W2A8 is reported and held to
+# finite values only (bands None), as the card test of path (f)'s Q step
+# holds W8A8.
+CHAIN_CUT_BATCH = 16
+CHAIN_CUTS = (({'w_bits': 2, 'a_bits': 0}, (1e-4, 2.5, 1e-3)),
+              ({'w_bits': 2, 'a_bits': 8}, None))
 PATHS = (
     dict(key='resnet34', config='resnet34-cifar', factorize=False,
          kernels=('quant_matmul', 'fake_quant_fused')),
@@ -1134,52 +1188,52 @@ def print_model_selection(model, launch_us):
     print(f"[plan] 'model' selection at launch_us={launch_us:.1f}: {picks}")
 
 
-def serve_path(torch, spec, launch_us):
+def layer_routes(model, name, e):
+    """``{'kernel/route': launches}`` one plan entry makes a batch, by the
+    operand rule: TMA + ``wgmma`` where K (K1 for a fused pair) % 16 == 0,
+    ``mma.sync`` else (the export's operands are 16-byte aligned)."""
+    from repro_torch.core.export import _resolve_layer_params
+    if e.get('depthwise'):
+        return {}
+    p = _resolve_layer_params(model.params, name)
+
+    def route(w_q):
+        return 'wgmma' if (w_q.numel() // w_q.shape[-1]) % 16 == 0 \
+            else 'mma_sync'
+    if e.get('fused'):
+        return {f"lowrank_conv/{route(p['u']['w_q'])}": 1}
+    out = {}
+    for half in ((p['u'], p['v']) if e['factored'] else (p,)):
+        k = f"quant_matmul/{route(half['w_q'])}"
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def add_routes(store, key, routes):
+    """Add one serving run's launches by route to ``store[key]``."""
+    acc = store.setdefault(key, {'launches_by_route': {}})
+    for r, n in routes.items():
+        acc['launches_by_route'][r] = acc['launches_by_route'].get(r, 0) + n
+
+
+def serve_trace(torch, tag, spec, model, xs, t_arr, threshold, label):
+    """Serve the Poisson trace of ``xs`` once at ``threshold`` and hold the
+    run to the plan: each kernel's launches, the launches by route against
+    the operand rule, no weight relayout, no plain-version call, and the
+    sampled requests bit-exact against ``fn_exits`` on the request alone.
+    ``label`` names the threshold in the printed lines.  Returns the
+    completions, how many left at an exit head, and each kernel's launches
+    in the scheduler's run (the oracle's are not counted)."""
     import numpy as np
-    from repro_torch.core.export import calibrate_exit_threshold, export_cnn
-    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.core.export import _layer_segments
+    from repro_torch.kernels import counts
     from repro_torch.kernels.depthwise_conv import depthwise_conv
     from repro_torch.kernels.lowrank_conv import lowrank_conv
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.serving import (ContinuousBatchScheduler, Request,
                                      exit_decisions)
 
-    tag = f"[serve:{spec['key']}]"
-    fam, params, cfg = path_model(torch, spec)
-    stream = fam.eval_batches(N_REQUESTS // 64 + 1, 64)
-    xs = torch.cat([x for x, _ in stream])
-    calib, xs = xs[:SLOTS], xs[SLOTS:SLOTS + N_REQUESTS]
-    rng = np.random.default_rng(SEED)
-    t_arr = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS))
-    select = 'fused' if spec['factorize'] else 'model'
-    torch.cuda.synchronize()
-
-    # ---- the path, counted from zero
-    reset_counts()
-    t0 = time.perf_counter()
-    model = export_cnn(params, cfg, device='cuda', calibrate=calib,
-                       select_kernels=select)
-    torch.cuda.synchronize()
-    t_export = time.perf_counter() - t0
-    s = model.summary()
-    print(f"{tag} {cfg.name} exported in {t_export:.2f} s "
-          f"(select_kernels={select}): {s['n_layers']} layers, "
-          f"{s['kernel_launches']} launches (+{s['exit_head_launches']} exit "
-          f"heads), {s['n_depthwise']} depthwise, {s['n_fused_lowrank']} "
-          f"fused low-rank, {s['n_chained_lowrank']} chained low-rank, "
-          f"{s['total_macs'] / 1e6:.1f} MMACs/image, exit stages "
-          f"{cfg.exit_stages}")
-    print(f'{tag} launches per segment {list(model.segment_launches)}')
-    if spec['factorize']:
-        print_model_selection(model, launch_us)
-        if s['n_fused_lowrank'] == 0 or s['n_chained_lowrank'] == 0:
-            fail(f"{spec['key']}: the plan needs a fused and a chained "
-                 f"layer, has {s['n_fused_lowrank']} and "
-                 f"{s['n_chained_lowrank']}")
-    threshold = calibrate_exit_threshold(model, calib)
-    print(f'{tag} calibrated exit threshold {threshold:.6f}')
-    ContinuousBatchScheduler(model, slots=SLOTS, threshold=2.0).run_trace(
-        [Request(-1 - i, xs[i], 0.0) for i in range(4)])     # warm-up
+    tag = f'{tag}[{label} {threshold:.6f}]'
     before = counts()
     routes0 = dict(quant_matmul.launches_by_route)
     lr_routes0 = dict(lowrank_conv.launches_by_route)
@@ -1230,23 +1284,42 @@ def serve_path(torch, spec, launch_us):
             fail(f'{spec["key"]}: serving launched {name} {got} times, the '
                  f'plan says {want}')
     relaid = quant_matmul.weight_relayouts
-    QMM_ROUTES[spec['key']] = {'launches_by_route': routes,
-                               'weight_relayouts': relaid}
+    add_routes(QMM_ROUTES, spec['key'], routes)
+    QMM_ROUTES[spec['key']]['weight_relayouts'] = relaid
     print(f'{tag} quant_matmul launches by route while serving: {routes}; '
           f'weight relayouts since export: {relaid}')
     if relaid:
         fail(f"{spec['key']}: quant_matmul relaid {relaid} weights: the "
              f'export must store them K-major')
     lr_relaid = lowrank_conv.weight_relayouts
-    LR_ROUTES[spec['key']] = {'launches_by_route': lr_routes,
-                              'weight_relayouts': lr_relaid}
+    add_routes(LR_ROUTES, spec['key'], lr_routes)
+    LR_ROUTES[spec['key']]['weight_relayouts'] = lr_relaid
     print(f'{tag} lowrank_conv launches by route while serving: '
           f'{lr_routes}; weight relayouts since export: {lr_relaid}')
-    if lr_relaid or lr_routes['mma_sync']:
-        fail(f"{spec['key']}: lowrank_conv relaid {lr_relaid} factors or "
-             f"took mma_sync {lr_routes['mma_sync']} times: the export "
-             f'stores them K-major and every K1 is a multiple of 16')
-    DW_ROUTES[spec['key']] = {'launches_by_route': dw_routes}
+    if lr_relaid:
+        fail(f"{spec['key']}: lowrank_conv relaid {lr_relaid} factors: the "
+             f'export stores them K-major')
+    # the routes by the operand rule, each layer times the batches its
+    # segment ran
+    segment = _layer_segments(model.plan, model.cfg, model.stage_exits)
+    ran = {}
+    for k, _, _ in metrics.batches:
+        ran[k] = ran.get(k, 0) + 1
+    want_routes = {}
+    for name, e in model.plan.layers.items():
+        for r, n in layer_routes(model, name, e).items():
+            want_routes[r] = want_routes.get(r, 0) + \
+                n * ran.get(segment[name], 0)
+    want_routes = {r: n for r, n in want_routes.items() if n}
+    got_routes = {f'{kern}/{r}': n for kern, rs in
+                  (('quant_matmul', routes), ('lowrank_conv', lr_routes))
+                  for r, n in rs.items() if n}
+    print(f'{tag} launches by route while serving: {got_routes}; by the '
+          f'operand rule (wgmma where K % 16 == 0): {want_routes}')
+    if got_routes != want_routes:
+        fail(f"{spec['key']}: the launches by route {got_routes} are not "
+             f'those of the operand rule {want_routes}')
+    add_routes(DW_ROUTES, spec['key'], dw_routes)
     print(f'{tag} depthwise_conv launches by route while serving: '
           f'{dw_routes}')
     if dw_routes['general']:
@@ -1257,9 +1330,6 @@ def serve_path(torch, spec, launch_us):
     if plain:
         fail(f'{spec["key"]}: the plain versions ran {plain} times while '
              f'serving')
-    for name in spec['kernels']:
-        if after[name]['launches'] == 0:
-            fail(f'{spec["key"]}: {name} was never launched on this path')
 
     # the scheduler's contract: each request alone through fn_exits
     for rid in np.linspace(0, N_REQUESTS - 1, N_ORACLE).astype(int):
@@ -1274,16 +1344,99 @@ def serve_path(torch, spec, launch_us):
                                    c.logits.view(np.int32)):
             fail(f'{spec["key"]}: request {rid} differs from the '
                  f'monolithic fn_exits oracle')
+    early = sum(c.exit_stage != -1 for c in completions.values())
+    served = {k: after[k]['launches'] - before[k]['launches'] for k in after}
     print(f'{tag} {N_ORACLE} sampled requests bit-exact against fn_exits '
-          f'on the request alone at {SLOTS} slots')
+          f'on the request alone at {SLOTS} slots; {early} of '
+          f'{len(completions)} requests left at an exit head')
     seg_ms = {}
     for _, k, _, _, cost in metrics.batch_samples:
         seg_ms.setdefault(k, []).append(cost * 1e3)
     print(f'{tag} execute ms per segment batch (mean of n): ' + ', '.join(
         f'seg{k} {sum(v) / len(v):.3f} (n={len(v)})'
         for k, v in sorted(seg_ms.items())))
+    return completions, early, served
 
-    # where the time goes: the same trace again under the profiler
+
+def serve_path(torch, spec, launch_us, built=None):
+    """Export and serve one CNN path, counted from zero.  ``built`` is
+    (family, params, cfg, export) of a model made elsewhere, ``export``
+    taking the calibration images to the served model (path g's chain
+    through ``export_chain``); else ``path_model`` makes the model and
+    ``export_cnn`` exports it.  The trace is served at the exit threshold
+    calibrated on those images, where some requests must leave at an exit
+    head; where ``spec['own_threshold']`` is set, it is served first at the
+    model's own operating point (the chain's E threshold), which the
+    profiled run then uses."""
+    import numpy as np
+    from repro_torch.core.export import calibrate_exit_threshold, export_cnn
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.serving import ContinuousBatchScheduler, Request
+
+    tag = f"[serve:{spec['key']}]"
+    select = 'fused' if spec['factorize'] else 'model'
+    if built is None:
+        fam, params, cfg = path_model(torch, spec)
+
+        def export(calib):
+            return export_cnn(params, cfg, device='cuda', calibrate=calib,
+                              select_kernels=select)
+    else:
+        fam, params, cfg, export = built
+    stream = fam.eval_batches(N_REQUESTS // 64 + 1, 64)
+    xs = torch.cat([x for x, _ in stream])
+    calib, xs = xs[:SLOTS], xs[SLOTS:SLOTS + N_REQUESTS]
+    rng = np.random.default_rng(SEED)
+    t_arr = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS))
+    torch.cuda.synchronize()
+
+    # ---- the path, counted from zero
+    reset_counts()
+    t0 = time.perf_counter()
+    model = export(calib)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    s = model.summary()
+    print(f"{tag} {cfg.name} exported in {t_export:.2f} s "
+          f"(select_kernels={select}): {s['n_layers']} layers, "
+          f"{s['kernel_launches']} launches (+{s['exit_head_launches']} exit "
+          f"heads), {s['n_depthwise']} depthwise, {s['n_fused_lowrank']} "
+          f"fused low-rank, {s['n_chained_lowrank']} chained low-rank, "
+          f"{s['total_macs'] / 1e6:.1f} MMACs/image, exit stages "
+          f"{cfg.exit_stages}")
+    print(f'{tag} launches per segment {list(model.segment_launches)}')
+    if s['n_fused_lowrank'] + s['n_chained_lowrank']:
+        print_model_selection(model, launch_us)
+    if spec['factorize']:
+        if s['n_fused_lowrank'] == 0 or s['n_chained_lowrank'] == 0:
+            fail(f"{spec['key']}: the plan needs a fused and a chained "
+                 f"layer, has {s['n_fused_lowrank']} and "
+                 f"{s['n_chained_lowrank']}")
+    thresholds = [('calibrated', calibrate_exit_threshold(model, calib))]
+    if spec.get('own_threshold'):
+        thresholds.insert(0, ('own', model.exit_threshold))
+    print(f'{tag} exit thresholds: ' + ', '.join(
+        f'{label} {t:.6f}' for label, t in thresholds))
+    ContinuousBatchScheduler(model, slots=SLOTS, threshold=2.0).run_trace(
+        [Request(-1 - i, xs[i], 0.0) for i in range(4)])     # warm-up
+    # the path's launches: the export, the warm-up and each serving run
+    launches = {k: v['launches'] for k, v in counts().items()}
+    for label, threshold in thresholds:
+        _, early, served = serve_trace(torch, tag, spec, model, xs, t_arr,
+                                       threshold, label)
+        for k, n in served.items():
+            launches[k] += n
+        if label == 'calibrated' and not early:
+            fail(f"{spec['key']}: no request left at an exit head at the "
+                 f'calibrated threshold {threshold:.6f}')
+    for name in spec['kernels']:
+        if launches[name] == 0:
+            fail(f'{spec["key"]}: {name} was never launched on this path')
+
+
+    # where the time goes: the first run's trace again under the profiler
+    threshold = thresholds[0][1]
+
     def serve_again():
         ContinuousBatchScheduler(model, slots=SLOTS, threshold=threshold,
                                  max_wait=0.05).run_trace(
@@ -1327,8 +1480,7 @@ def serve_path(torch, spec, launch_us):
     if diff > 4e-2 * scale:
         fail(f'{spec["key"]}: served logits disagree with the CPU plain '
              f'path')
-    return model, params, {k: after[k]['launches'] for k in after}, \
-        calib_cmp
+    return model, params, launches, calib_cmp
 
 
 def clone_tree(tree):
@@ -1764,6 +1916,359 @@ def train_lm_path(torch):
         'losses': loss, 'record': rec, 'cut': cut}
 
 
+def tree_bits_equal(torch, a, b):
+    """Two trees of tensors, leaf for leaf, bit for bit (on the CPU)."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        same_bits(torch, x.detach().cpu(), y.detach().cpu())
+        for x, y in zip(la, lb))
+
+
+def factored_ranks(params):
+    """``{path: rank}`` of every low-rank pair of a CNN tree."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            if 'u' in t and 'v' in t:
+                out[path] = int(t['u']['w'].shape[-1])
+                return
+            for k, v in t.items():
+                walk(v, f'{path}.{k}' if path else k)
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, f'{path}.{i}')
+    walk(params, '')
+    return out
+
+
+def prune_gap(torch, params, ratio):
+    """The smallest relative gap, over the pruned convs, between the last
+    channel P keeps and the first it drops (float64 L2 importance)."""
+    gaps = []
+    for blocks in params['stages']:
+        for blk in blocks:
+            w = blk['conv1']['w'].detach().cpu().to(torch.float64)
+            imp = torch.sort(torch.sqrt((w * w).sum((0, 1, 2))),
+                             descending=True).values
+            keep = max(4, int(w.shape[-1] * (1 - ratio)))
+            gaps.append(float((imp[keep - 1] - imp[keep]) / imp[keep - 1]))
+    return min(gaps)
+
+
+def act_code_flips(torch, card, cpu):
+    """The activation codes of one QAT forward on the card against the
+    CPU's, site by site in forward order, from ``fake_quant_act``'s inputs
+    ``(x, bits)``, each coded as the training step codes it (the jitted
+    scale).  Returns the codes that differ over all sites, of how many,
+    and at the first site that differs: its index, the codes that differ
+    there, the largest code change, and the largest distance of a
+    differing code's x/scale from a rounding tie (k + 0.5), on the nearer
+    side."""
+    from repro_torch.core.quantization import _scale, jitted_scales
+    out = {'sites': len(card), 'differ': 0, 'of': 0, 'first': None}
+    for i, ((u, bits), (v, _)) in enumerate(zip(card, cpu)):
+        qmax = 2.0 ** (bits - 1) - 1.0
+        with jitted_scales():
+            tu, tv = (t / _scale(t.abs().amax(), qmax) for t in (u, v))
+        cu, cv = (torch.clamp(torch.round(t), -qmax - 1.0, qmax)
+                  for t in (tu, tv))
+        differ = cu != cv
+        out['differ'] += int(differ.sum())
+        out['of'] += differ.numel()
+        if out['first'] is None and bool(differ.any()):
+            tie = torch.minimum((tu - torch.floor(tu) - 0.5).abs(),
+                                (tv - torch.floor(tv) - 0.5).abs())[differ]
+            out['first'] = {'site': i, 'codes': int(differ.sum()),
+                            'of': differ.numel(),
+                            'step': float((cu - cv).abs().max()),
+                            'tie': float(tie.max())}
+    return out
+
+
+def check_chain_step_against_cpu(torch, tag, ckpt, data, tr, problems):
+    """One fine-tune step of Q's loss from checkpoint step 3 (the params Q
+    starts from), on the card and on the CPU from the same params and
+    batch, at each of CHAIN_CUTS' hps (TF32 off in both).  Where the hp
+    quantizes activations, the step's activation codes on the two devices
+    are compared too (``act_code_flips``)."""
+    from repro_torch.checkpoint import load_chain_state
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.models import cnn as cnn_lib
+    lr = tr.lr / 10
+    batch = CNNFamily(data, device='cpu').train_batch(
+        torch.Generator().manual_seed(SEED + 11), CHAIN_CUT_BATCH)
+    real_act = cnn_lib.fake_quant_act
+    out = []
+    for hp, bands in CHAIN_CUTS:
+        runs, acts = {}, {}
+        for dev in ('cpu', 'cuda'):
+            st, _ = load_chain_state(ckpt, CNNFamily(data, device=dev), 3)
+            qcfg = st.cfg.replace(**hp)
+            opt = tr.optimizer(lr)
+            b = tuple(t.to(dev) for t in batch)
+            acts[dev] = []
+
+            def recording_act(x, bits, **kw):
+                if bits > 0:
+                    acts[dev].append((x.detach().cpu(), bits))
+                return real_act(x, bits, **kw)
+            cnn_lib.fake_quant_act = recording_act
+            try:
+                params, _, loss = tr.train_step(
+                    opt, st.family.loss, qcfg, st.params,
+                    opt.init(st.params), b)
+            finally:
+                cnn_lib.fake_quant_act = real_act
+            runs[dev] = (float(loss), _leaves(params))
+        flips = act_code_flips(torch, acts['cuda'], acts['cpu']) \
+            if acts['cuda'] else None
+        if flips is not None:
+            f = flips['first']
+            print(f"{tag} the step at {hp}: activation codes of its forward "
+                  f"at {flips['sites']} sites, card vs CPU: "
+                  f"{flips['differ']} of {flips['of']} differ"
+                  + ('' if f is None else
+                     f"; the first at site {f['site']}: {f['codes']} of "
+                     f"{f['of']} codes, by at most {f['step']:g} step, the "
+                     f"farthest {f['tie']:.3e} from a rounding tie"))
+        worst, near, n = 0.0, 0, 0
+        for a, b in zip(runs['cuda'][1], runs['cpu'][1]):
+            d = (a.cpu() - b).abs()
+            worst = max(worst, float(d.max()))
+            near += int((d > QAT_NEAR_LR * lr).sum())
+            n += d.numel()
+        l_gpu, l_cpu = runs['cuda'][0], runs['cpu'][0]
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        print(f'{tag} one Q step at {hp} from the trained student (batch '
+              f'{CHAIN_CUT_BATCH}), card vs CPU: loss {l_gpu:.7f} vs '
+              f'{l_cpu:.7f} (|diff| {rel:.3e} x |loss|); new params max '
+              f'|diff| {worst / lr:.3e} x lr, {near} of {n} elements '
+              f'({near / n:.3e}) more than {QAT_NEAR_LR:g} x lr apart; '
+              + ('reported, held to finite values' if bands is None else
+                 'limits {:g}, {:g} x lr, {:g}'.format(*bands)))
+        if bands is None:
+            ok = math.isfinite(l_gpu) and all(
+                bool(torch.isfinite(t).all()) for t in runs['cuda'][1])
+        else:
+            loss_rtol, max_lr, share = bands
+            ok = rel <= loss_rtol and worst <= max_lr * lr and \
+                near <= share * n
+        if not ok:
+            problems.append(f'the Q step at {hp} disagrees with the CPU')
+        out.append({'hp': hp, 'loss_rel': rel, 'max_lr': worst / lr,
+                    'near_share': near / n, 'act_codes': flips})
+    return out
+
+
+def chain_path(torch, launch_us):
+    """Path (g): the paper's compression chain on resnet34-cifar through
+    ``Pipeline.from_sequence(CHAIN_SEQUENCE).run`` with checkpoints,
+    counted from zero; the gates on what the card computed; the finished
+    chain exported with ``export_chain(calibrate=...)`` and served through
+    ``serve_path``.  Returns (the exported model, the chain's params, the
+    launches of every kernel in the counted runs, every fake-quant call of
+    one Q step as (wrapper, weight, bits), readings)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import load_chain_state
+    from repro_torch.configs.cnn import CNN_REGISTRY
+    from repro_torch.core.chain import Pipeline
+    from repro_torch.core.export import export_chain
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.core.passes import Trainer
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import counts, ops, reset_counts
+
+    tag = f'[chain:{CHAIN_KEY}]'
+    data = SyntheticImages(difficulty=CHAIN_DIFFICULTY)
+    fam = CNNFamily(data, device='cuda')
+    cfg = CNN_REGISTRY[CHAIN_CONFIG]
+    fits = []
+
+    class Recording(Trainer):
+        """Records each fit's last loss and wall time."""
+
+        def fit(self, *args, **kw):
+            t0 = time.perf_counter()
+            params, last = super().fit(*args, **kw)
+            fits.append((last, time.perf_counter() - t0))
+            return params, last
+
+    tr = Recording(**CHAIN_TRAINER, seed=SEED)
+    walls = []
+
+    def timed(p):
+        def fn(state, hp, trainer):
+            t0 = time.perf_counter()
+            new = p.fn(state, hp, trainer)
+            torch.cuda.synchronize()
+            walls.append((p.key, t0, time.perf_counter() - t0))
+            return new
+        return dataclasses.replace(p, fn=fn)
+
+    pipe = Pipeline.from_sequence(CHAIN_SEQUENCE, CHAIN_HPS)
+    problems = []
+    with tempfile.TemporaryDirectory(prefix='chain_smoke_') as ckpt:
+        # ---- the chain, counted from zero
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = Pipeline(tuple((timed(p), hp) for p, hp in pipe.steps)).run(
+            fam, cfg, tr, key=SEED, pretrain_steps=CHAIN_PRETRAIN,
+            checkpoint_dir=ckpt)
+        torch.cuda.synchronize()
+        t_chain = time.perf_counter() - t0
+        trained = counts()
+        peak = torch.cuda.max_memory_allocated()
+        labels = [h['pass'] for h in st.history]
+        pass_wall = {'baseline': walls[0][1] - t0 if walls else t_chain}
+        pass_wall.update({k: w for k, _, w in walls})
+        print(f"{tag} {cfg.name} -> {CHAIN_SEQUENCE} {CHAIN_HPS} in "
+              f"{t_chain:.2f} s ({tr.batch} images a step, baseline "
+              f"{CHAIN_PRETRAIN} steps, {tr.steps} a pass, D's student "
+              f"{3 * tr.steps}); peak memory {peak / 2 ** 20:.1f} MiB")
+        for h, (loss, fit_s) in zip(st.history, fits):
+            print(f"{tag}   {h['pass']:8s} acc {h['acc']:.4f} BitOpsCR "
+                  f"{h['BitOpsCR']:.4f} CR {h['CR']:.4f} | last loss "
+                  f"{loss:.5f}, training {fit_s:.2f} s, pass "
+                  f"{pass_wall.get(h['pass'], 0.0):.2f} s")
+        losses = [loss for loss, _ in fits]
+        if labels != ['baseline'] + list(CHAIN_SEQUENCE) or \
+                len(losses) != len(labels) or \
+                not all(v is not None and math.isfinite(v) for v in losses):
+            fail(f'{CHAIN_KEY}: history {labels}, last losses {losses}: '
+                 f'want baseline + {CHAIN_SEQUENCE}, each loss finite')
+        for name in trained:
+            print(f"{tag} {name}: {trained[name]['launches']} launches, "
+                  f"{trained[name]['plain_calls']} plain calls in the chain")
+        if trained['fake_quant_fused']['launches'] == 0 or any(
+                c['plain_calls'] for c in trained.values()):
+            fail(f'{CHAIN_KEY}: the chain did not fake-quantize on the card '
+                 f'or ran a plain version: {trained}')
+        ranks = factored_ranks(st.params)
+        d_cpu, _ = load_chain_state(ckpt, CNNFamily(data, device='cpu'), 1)
+        p_cpu, _ = load_chain_state(ckpt, CNNFamily(data, device='cpu'), 2)
+        widths = [[b['conv1']['w'].shape[-1] for b in blocks]
+                  for blocks in p_cpu.params['stages']]
+        print(f'{tag} student {d_cpu.cfg}; after P {p_cpu.cfg}, conv1 '
+              f'widths by stage {widths}')
+        print(f'{tag} final cfg {st.cfg}; {len(ranks)} factored weights, '
+              f'ranks {ranks}; exit_probs {st.exit_probs} at threshold '
+              f'{st.exit_threshold}')
+
+        # (2) every record's BitOpsCR and CR from the card's checkpointed
+        # cfg, params and exit_probs, recomputed on the CPU
+        for k, h in enumerate(st.history):
+            c, _ = load_chain_state(ckpt, CNNFamily(data, device='cpu'), k)
+            bops = c.family.bitops(c.cfg, c.exit_probs, c.mac_scale)
+            bits = c.family.storage_bits(c.params, c.cfg)
+            want = (c.base_bitops / max(bops, 1), c.base_bits / max(bits, 1))
+            if (h['BitOpsCR'], h['CR']) != want:
+                fail(f"{CHAIN_KEY}: record {h['pass']} {h} differs from "
+                     f'the CPU recomputation {want}')
+        print(f'{tag} every record\'s BitOpsCR and CR equal the CPU\'s '
+              f'recomputation from the checkpoints')
+
+        # (3) P and L on the card's own weights equal the CPU's
+        ratio = CHAIN_HPS['P']['ratio']
+        d_gpu, _ = load_chain_state(ckpt, CNNFamily(data, device='cuda'), 1)
+        pg, cg = d_gpu.family.prune(d_gpu.params, d_gpu.cfg, ratio)
+        pc, cc = d_cpu.family.prune(d_cpu.params, d_cpu.cfg, ratio)
+        gap = prune_gap(torch, d_cpu.params, ratio)
+        same_p = cg == cc and tree_bits_equal(torch, pg, pc)
+        p_gpu, _ = load_chain_state(ckpt, CNNFamily(data, device='cuda'), 2)
+        lhp = CHAIN_HPS['L']
+        fg = p_gpu.family.factorize(p_gpu.params, p_gpu.cfg, **lhp)
+        fc = p_cpu.family.factorize(p_cpu.params, p_cpu.cfg, **lhp)
+        same_l = (factored_ranks(fg[0]) == factored_ranks(fc[0])
+                  and fg[2] == fc[2] and tree_bits_equal(torch, fg[0], fc[0]))
+        print(f'{tag} P on the card vs the CPU from checkpoint 1: bit for '
+              f'bit {same_p}, smallest relative importance gap at the '
+              f'boundary {gap:.3e}; L from checkpoint 2: ranks and factors '
+              f'equal {same_l}')
+        if not same_p:
+            problems.append('P on the card differs from the CPU')
+        if not same_l:
+            problems.append('L on the card differs from the CPU')
+
+        # (4) every fake_quant_fused call of one Q step on the card
+        q_in, _ = load_chain_state(ckpt, CNNFamily(data, device='cuda'), 3)
+        qcfg = q_in.cfg.replace(**CHAIN_HPS['Q'])
+        opt = tr.optimizer(tr.lr / 10)
+        calls = []
+        saved = ops.fake_quant_fused
+
+        def capture(w, bits=8):
+            calls.append(('fake_quant_fused', w.detach(), bits))
+            return saved(w, bits=bits)
+        opt_state = opt.init(q_in.params)
+        batch = fam.train_batch(torch.Generator().manual_seed(SEED + 5),
+                                tr.batch)
+
+        def q_step():
+            tr.train_step(opt, fam.loss, qcfg, q_in.params, opt_state, batch)
+        ops.fake_quant_fused = capture
+        try:
+            q_step()
+        finally:
+            ops.fake_quant_fused = saved
+        # where a training step's time goes: one more Q step, profiled
+        wall, busy, top = profile_device(torch, q_step)
+        if busy is None:
+            print(f'{tag} profile: one Q step in {wall:.3f} ms wall; device '
+                  f'time not measured (the profiler recorded no device '
+                  f'activity)')
+        else:
+            print(f'{tag} profile: one Q step in {wall:.3f} ms wall, device '
+                  f'kernels {busy:.3f} ms: device busy {busy / wall:.1%}')
+            for ms, n, name in top[:10]:
+                print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+        cases = [fq_case(torch, w, name, bits, iters=5)
+                 for name, w, bits in calls]
+        for c in cases:
+            need_exact(c, 'fake_quant_fused')
+        print(f'{tag} the {len(cases)} fake_quant_fused calls of one Q step '
+              f'({[tuple(w.shape) for _, w, _ in calls]}) bit-exact against '
+              f'fake_quant_plain')
+        if not cases:
+            fail(f'{CHAIN_KEY}: a Q step made no fake_quant_fused call')
+
+        # (5) one Q step on the card against the CPU
+        cut = check_chain_step_against_cpu(torch, tag, ckpt, data, tr,
+                                           problems)
+
+        # (6) resume: nothing left to apply, the final params bit for bit
+        n_fits, n_walls = len(fits), len(walls)
+        again = Pipeline(tuple((timed(p), hp) for p, hp in pipe.steps)).run(
+            fam, cfg, tr, checkpoint_dir=ckpt)
+        resumed = (len(fits) == n_fits and len(walls) == n_walls
+                   and tree_bits_equal(torch, again.params, st.params)
+                   and again.history == st.history)
+        print(f'{tag} a second run on the checkpoints applied '
+              f'{len(walls) - n_walls} passes and returned the final params '
+              f'bit for bit: {resumed}')
+        if not resumed:
+            problems.append('the resumed run is not the finished chain')
+    if problems:
+        fail(f'{CHAIN_KEY}: ' + '; '.join(problems))
+
+    # (7) the finished chain, exported and served as paths (a)-(c)
+    spec = dict(key=CHAIN_KEY, config=CHAIN_CONFIG, factorize=False,
+                kernels=('quant_matmul', 'fake_quant_fused', 'lowrank_conv'),
+                own_threshold=True)
+    model, params, served, calib_cmp = serve_path(
+        torch, spec, launch_us, built=(
+            fam, st.params, st.cfg,
+            lambda calib: export_chain(st, device='cuda', calibrate=calib)))
+    launches = {k: trained[k]['launches'] + served[k] for k in served}
+    return model, params, launches, calls, {
+        'history': st.history, 'chain_s': t_chain, 'pass_s': pass_wall,
+        'peak_mib': peak / 2 ** 20, 'ranks': ranks, 'prune_gap': gap,
+        'cut': cut, 'calibration': calib_cmp}
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -1892,24 +2397,26 @@ ALSO_REPLACES = {'fake_quant': 'src/repro/kernels/fake_quant.py:78'}
 
 def phase_report(torch, served, launches, qat_calls):
     """Hold every kernel call one full-depth pass of each served path makes,
-    and every fake-quant call of one step of path (f) (``qat_calls``:
-    (wrapper, weight, bits)), against its plain version, and time them;
-    ``served`` maps a path key to (model, params).  A kernel's line reports
-    the path that calls it most, with every path's pass under
-    ``by_path``."""
+    and every fake-quant call of one training step of paths (f) and (g)
+    (``qat_calls``: path key -> [(wrapper, weight, bits)]), against its
+    plain version, and time them; ``served`` maps a path key to (model,
+    params).  A kernel's line reports the path that calls it most, with
+    every path's pass under ``by_path``."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 7)
     per_path = {}
     for key, (model, params) in served.items():
         per_path[key] = {
             'quant_matmul': qmm_pass_cases(torch, model, g),
-            'fake_quant_fused': [fq_case(torch, w, iters=10)
+            'fake_quant_fused': [fq_case(torch, w, bits=model.cfg.w_bits,
+                                         iters=10)
                                  for w in fc_weights(params)],
             'depthwise_conv': dw_pass_cases(torch, model, g),
             'lowrank_conv': lr_pass_cases(torch, model, g)}
-    per_path[QAT_KEY] = {}
-    for name, w, bits in qat_calls:
-        per_path[QAT_KEY].setdefault(name, []).append(
-            fq_case(torch, w, name, bits, iters=5))
+    for key, calls in qat_calls.items():
+        per_path.setdefault(key, {})
+        for name, w, bits in calls:
+            per_path[key].setdefault(name, []).append(
+                fq_case(torch, w, name, bits, iters=5))
     for key in per_path:
         for name, cs in per_path[key].items():
             for c in cs:
@@ -1924,12 +2431,16 @@ def phase_report(torch, served, launches, qat_calls):
                   f'bit-exact, by route {by} (K % 16 == 0 on wgmma)')
         if per_path[key].get('lowrank_conv'):
             cs = per_path[key]['lowrank_conv']
-            off = [c['shape'] for c in cs if c['route'] != 'wgmma']
+            off = [c['shape'] for c in cs
+                   if (c['shape'][1] % 16 == 0) != (c['route'] == 'wgmma')]
             if off:
-                fail(f'lowrank_conv[{key}]: calls off the wgmma route at '
-                     f'{off}')
+                fail(f'lowrank_conv[{key}]: calls off the operand rule\'s '
+                     f'route at {off}')
+            by = {}
+            for c in cs:
+                by[c['route']] = by.get(c['route'], 0) + 1
             print(f'[report] lowrank_conv[{key}]: all {len(cs)} calls of the '
-                  f'pass bit-exact, every one on the wgmma route')
+                  f'pass bit-exact, by route {by} (K1 % 16 == 0 on wgmma)')
         if per_path[key].get('depthwise_conv'):
             cs = per_path[key]['depthwise_conv']
             print(f'[report] depthwise_conv[{key}]: all {len(cs)} calls of '
@@ -2079,7 +2590,13 @@ def main():
     launches[QAT_KEY], qat_calls, _ = train_lm_path(torch)
     print(f"[time] path {QAT_KEY} done at "
           f"{time.perf_counter() - t_start:.1f} s")
-    kernels = phase_report(torch, served, launches, qat_calls) + \
+    model, params, launches[CHAIN_KEY], chain_calls, _ = chain_path(
+        torch, launch_us)
+    served[CHAIN_KEY] = (model, params)
+    print(f"[time] path {CHAIN_KEY} done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    kernels = phase_report(torch, served, launches,
+                           {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls}) + \
         lm_report(torch, lm_calls, lm_launches)
     # the time each kernel loses to its bound over all its launches in the
     # counted runs (its device time where the profiler measured one): the

@@ -50,7 +50,7 @@ def step(cfg, params, hp, *, kernel_weights, matmul):
             return ce, lg
     try:
         st = ChainState(family=Family(SyntheticTokens(cfg.vocab_size),
-                                      seq=128), cfg=cfg, params=params, key=0)
+                                      seq=128, device='cpu'), cfg=cfg, params=params, key=0)
         new = registry.get_pass('Q').apply(st, hp, Trainer(batch=2, steps=1,
                                                            lr=1e-3))
     finally:

@@ -31,16 +31,19 @@ convs with per-group depth > 1 (the reference's declared fp32 fallback,
 which no configuration has) and the static analyzer.
 
 :func:`export_lm` is the LM family's int8 weight export.
+:func:`export_chain` exports a finished compression chain through a
+per-family serving-backend registry (:func:`register_serving_backend`),
+as the reference does.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.quantization import quantize_params_for_serving
+from repro_torch.core.quantization import (full_fp32,
+                                          quantize_params_for_serving)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.depthwise_conv import fits_depthwise
 from repro_torch.kernels.lowrank_conv import (LAUNCH_US, fits_fused,
@@ -66,21 +69,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError('no CUDA device: this entry point runs on the card '
                            "unless the caller asks for device='cpu'")
     return device
-
-
-@contextlib.contextmanager
-def _full_fp32():
-    """fp32 convs and matmuls in full precision (cuDNN would run fp32
-    convs in TF32 by default, which moves the calibration abs-max)."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def to_device(tree, device):
@@ -277,7 +265,7 @@ def calibration_tensors(params, cfg, x) -> list:
     fake-quantizes, so two exports' plans can be compared code by code."""
     record = []
     a_qmax = 2.0 ** (_serving_bits(cfg)[1] - 1) - 1.0
-    with _full_fp32(), torch.no_grad():
+    with full_fp32(), torch.no_grad():
         _compile_layer_plan(to_device(params, x.device), cfg, x, a_qmax,
                             record=record)
     return record
@@ -454,11 +442,10 @@ def _make_stage_fns(cfg, kw):
     return tuple(fns), bounds + (None,)
 
 
-def _segment_launches(plan: LayerPlan, cfg, stage_exits) -> tuple:
-    """``{kernel: launches}`` of each stage segment: the plan's layers
-    grouped by the segment that runs them (an exit head runs in the
-    segment ending at its stage, the final head in the last), counted per
-    kernel (:func:`layer_kernel_launches`)."""
+def _layer_segments(plan: LayerPlan, cfg, stage_exits) -> dict:
+    """``{layer name: segment}``: the stage segment that runs each plan
+    entry (an exit head runs in the segment ending at its stage, the final
+    head in the last)."""
     bounds = [s for s in stage_exits if s is not None]
     last = len(cfg.stage_blocks) - 1
 
@@ -472,13 +459,19 @@ def _segment_launches(plan: LayerPlan, cfg, stage_exits) -> tuple:
             return int(head[4:])
         return int(head[1:].split('b')[0])
 
+    return {name: next((i for i, b in enumerate(bounds)
+                        if stage_of(name) <= b), len(bounds))
+            for name in plan.layers}
+
+
+def _segment_launches(plan: LayerPlan, cfg, stage_exits) -> tuple:
+    """``{kernel: launches}`` of each stage segment: the plan's layers
+    grouped by :func:`_layer_segments`, counted per kernel
+    (:func:`layer_kernel_launches`)."""
     out = [{} for _ in stage_exits]
-    for name, e in plan.layers.items():
-        s = stage_of(name)
-        seg = out[next((i for i, b in enumerate(bounds) if s <= b),
-                       len(bounds))]
-        for k, n in layer_kernel_launches(e).items():
-            seg[k] = seg.get(k, 0) + n
+    for name, seg in _layer_segments(plan, cfg, stage_exits).items():
+        for k, n in layer_kernel_launches(plan.layers[name]).items():
+            out[seg][k] = out[seg].get(k, 0) + n
     return tuple(out)
 
 
@@ -634,7 +627,7 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
     calibrate = calibrate.to(device)
     w_bits, a_bits = _serving_bits(cfg)
     a_qmax = 2.0 ** (a_bits - 1) - 1.0
-    with _full_fp32(), torch.no_grad():
+    with full_fp32(), torch.no_grad():
         qparams = quantize_params_for_serving(params, bits=w_bits)
         with tracer.span('export.calibrate', track='export',
                          config=cfg.name, select_kernels=select_kernels,
@@ -687,3 +680,70 @@ def export_lm(params, cfg) -> ServingModel:
 
     return ServingModel(cfg=cfg, params=qparams, fn=fn,
                         device=params['embed']['table'].device)
+
+
+# ----------------------------------------------------- serving backends
+
+# {family class: (state, device, calibrate) -> ServingModel}.  Third-party
+# model families register here (mirroring the pass registry in
+# core/registry.py) instead of core growing isinstance branches; lookup
+# walks the MRO so subclassed families inherit their base family's backend.
+_SERVING_BACKENDS: dict[type, Callable] = {}
+
+
+def register_serving_backend(family_cls: type, backend: Callable) -> None:
+    _SERVING_BACKENDS[family_cls] = backend
+
+
+def serving_backend_for(family) -> Callable:
+    for cls in type(family).__mro__:
+        if cls in _SERVING_BACKENDS:
+            return _SERVING_BACKENDS[cls]
+    raise KeyError(
+        f'no serving backend registered for family {type(family).__name__} '
+        f'(registered: {sorted(c.__name__ for c in _SERVING_BACKENDS)}); '
+        f'call export.register_serving_backend(FamilyCls, backend)')
+
+
+def export_chain(state, *, device='cuda', calibrate=None) -> ServingModel:
+    """Export a finished ChainState for serving via the family's registered
+    backend, on ``device`` (the port's form of the reference's
+    ``use_pallas``, as in :func:`export_cnn`).  ``calibrate`` (sample
+    inputs) requests the int8-resident plan; the chain's E-pass operating
+    point (``state.exit_threshold``) is threaded into the served model.
+
+    Backends registered with the two-argument ``(state, device)`` form
+    keep working: ``calibrate`` is only forwarded (as a keyword) to
+    backends that declare it, and raises for the others."""
+    import inspect
+    backend = serving_backend_for(state.family)
+    sig = inspect.signature(backend).parameters
+    takes_calibrate = 'calibrate' in sig or any(
+        p.kind is p.VAR_KEYWORD for p in sig.values())
+    if takes_calibrate:
+        model = backend(state, device, calibrate=calibrate)
+    elif calibrate is not None:
+        raise TypeError(
+            f'serving backend {backend!r} for {type(state.family).__name__} '
+            f'does not accept calibrate= (int8-resident export); register '
+            f'a backend with a (state, device, calibrate=None) signature')
+    else:
+        model = backend(state, device)
+    if getattr(state, 'exit_threshold', None) is not None:
+        model.exit_threshold = state.exit_threshold
+    return model
+
+
+def _register_builtin_backends():
+    from repro_torch.core.family import CNNFamily, LMFamily
+    register_serving_backend(
+        CNNFamily, lambda state, device, calibrate=None: export_cnn(
+            state.params, state.cfg, device=device, calibrate=calibrate))
+    # the LM backend has no resident plan yet: it keeps the two-argument
+    # form so export_chain's calibrate guard raises instead of silently
+    # ignoring a calibration batch
+    register_serving_backend(
+        LMFamily, lambda state, device: export_lm(state.params, state.cfg))
+
+
+_register_builtin_backends()

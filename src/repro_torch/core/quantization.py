@@ -31,6 +31,24 @@ def _ste(x_q, x):
     return x + (x_q - x).detach()
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 convs and matmuls in full precision inside this block, as the
+    reference's CPU arithmetic runs them (cuDNN would run fp32 convs in
+    TF32 by default, which moves every abs-max scale).  The export's
+    calibration, ``Trainer``'s step and evaluation and
+    ``CNNFamily.exit_stats`` enter it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 # True inside jitted_scales(): the scale multiplies by recip32(qmax).
 _JITTED = [False]
 

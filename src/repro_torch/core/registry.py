@@ -10,8 +10,8 @@ closed set of passes.  This module makes passes registrable data:
   dataclass, and the transform ``fn(state, hp, trainer) -> state``.
 * a process-global registry: :func:`register` / :func:`unregister` /
   :func:`get_pass` / :func:`registered_keys`.  ``core/passes.py``
-  registers the ported passes when it is imported (Q so far; the others,
-  the chain and the planner follow in ROADMAP queue A).
+  registers D, P, Q and E and ``core/lowrank.py`` registers L when they
+  are imported (importing any ``repro_torch.core`` module imports both).
 
 Ordering: a pass ranks by ``(kind, granularity)`` — static before dynamic,
 large granularity before small (the paper's principle).  Two passes in the

@@ -8,10 +8,11 @@ Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; without a card it exits with an error instead of falling back.
 Every registered config serves: ``mobilenetv2-cifar`` puts its depthwise
 layers on the ``depthwise_conv`` kernel.
-The model is a raw init with exit heads at the default points (QAT steps
-come with the compression-chain port).  Prints the layer plan, the
-throughput, p50/p99 latency, the exit mix and the kernel launch counts.
-Only ``--server`` mode is ported.
+The model is a random init with exit heads at the default points,
+fine-tuned for ``--steps`` W8A8 QAT steps (default 60, as the reference;
+0 serves the raw init).  Prints the layer plan, the throughput, p50/p99
+latency, the exit mix and the kernel launch counts.  Only ``--server``
+mode is ported.
 """
 from __future__ import annotations
 
@@ -74,6 +75,7 @@ def main(argv=None):
     from repro_torch.configs.cnn import CNN_REGISTRY
     from repro_torch.core.export import export_cnn, resolve_device
     from repro_torch.core.family import CNNFamily
+    from repro_torch.core.passes import Trainer
     from repro_torch.data import SyntheticImages
 
     ap = argparse.ArgumentParser()
@@ -86,6 +88,8 @@ def main(argv=None):
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument('--batch', type=int, default=64,
                     help='calibration and stream batch size')
+    ap.add_argument('--steps', type=int, default=60,
+                    help='QAT fine-tune steps before export (0 = raw init)')
     ap.add_argument('--threshold', type=float, default=None,
                     help='exit threshold (default: calibrated on the stream)')
     ap.add_argument('--requests', type=int, default=256)
@@ -110,6 +114,11 @@ def main(argv=None):
     params, cfg = fam.add_exits(torch.Generator().manual_seed(args.seed + 1),
                                 params, cfg, fam.default_exit_points(cfg))
     cfg = cfg.replace(w_bits=8, a_bits=8)
+    if args.steps:
+        trainer = Trainer(batch=args.batch, steps=args.steps)
+        params, loss = trainer.fit(fam, cfg, params)
+        print(f'QAT: {args.steps} steps of {args.batch} images, last loss '
+              f'{loss:.4f}')
     calib = fam.eval_batches(1, args.batch)[0][0]
     model = export_cnn(params, cfg, device=device, calibrate=calib)
     s = model.summary()

@@ -6,7 +6,9 @@ launch plan), the decode-attention kernels within their stated tolerance
 (the int8 one with whole blocks of its split masked and with no valid
 slot), the scheduler on the card launching the kernels exactly as the
 plan counts them, one LM decode step and one Q-pass (QAT) step on the
-card against the CPU.
+card against the CPU, and the CNN compression chain on the card (its
+initial weights, P and L on the card's checkpoints against the CPU, a
+checkpoint saved on the card and read on the CPU, ``serve_cnn --steps``).
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -539,3 +541,96 @@ def test_q_pass_step_on_card_matches_cpu(cuda_device):
             assert near <= 1e-3 * n
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _leaves_of(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _same_tree_bits(a, b):
+    la, lb = _leaves_of(a), _leaves_of(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_bits(x.detach().cpu()), _bits(y.detach().cpu()))
+        for x, y in zip(la, lb))
+
+
+def test_cnn_chain_init_on_card_draws_the_cpu_weights(cuda_device):
+    """``init_chain_state`` on a card family: the weights the CPU family
+    draws from the same seed, moved to the card."""
+    from repro_torch.core.passes import Trainer, init_chain_state
+    tr = Trainer(batch=4, steps=0, eval_n=1, eval_batch=8)
+    st = {dev: init_chain_state(CNNFamily(SyntheticImages(), device=dev),
+                                RESNET8_CIFAR, 3, tr, pretrain_steps=0)
+          for dev in ('cpu', 'cuda')}
+    assert all(t.is_cuda for t in _leaves_of(st['cuda'].params))
+    assert _same_tree_bits(st['cuda'].params, st['cpu'].params)
+
+
+def test_resnet8_chain_on_card_p_and_l_match_cpu(cuda_device, tmp_path):
+    """A resnet8 DPLQE chain at steps=1 on the card, checkpointed: P of the
+    card's checkpoint after D and L of its checkpoint after P are equal on
+    the card and on the CPU, bit for bit; the chain's records are finite
+    and its E operating point reaches the exported model."""
+    from repro_torch.checkpoint import load_chain_state
+    from repro_torch.core.chain import Pipeline
+    from repro_torch.core.export import export_chain
+    from repro_torch.core.passes import Trainer
+    hps = {'D': {'factor': 0.5}, 'P': {'ratio': 0.3},
+           'L': {'energy': 0.9, 'min_rank': 4},
+           'Q': {'w_bits': 2, 'a_bits': 8}, 'E': {'threshold': 0.85}}
+    data = SyntheticImages(difficulty=0.55)
+    tr = Trainer(batch=16, steps=1, lr=2e-3, eval_n=1, eval_batch=32)
+    reset_counts()
+    st = Pipeline.from_sequence('DPLQE', hps).run(
+        CNNFamily(data, device='cuda'), RESNET8_CIFAR, tr, pretrain_steps=1,
+        checkpoint_dir=str(tmp_path))
+    assert counts()['fake_quant_fused']['launches'] > 0
+    assert [h['pass'] for h in st.history] == \
+        ['baseline', 'D', 'P', 'L', 'Q', 'E']
+    assert all(math.isfinite(h['acc']) for h in st.history)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        fam = CNNFamily(data, device=dev)
+        d, _ = load_chain_state(str(tmp_path), fam, 1)
+        p, _ = load_chain_state(str(tmp_path), fam, 2)
+        out[dev] = (fam.prune(d.params, d.cfg, 0.3),
+                    fam.factorize(p.params, p.cfg, energy=0.9, min_rank=4))
+    (pg, cg), (fg, _, sg) = out['cuda']
+    (pc, cc), (fc, _, sc) = out['cpu']
+    assert cg == cc and _same_tree_bits(pg, pc)
+    assert sg == sc and _same_tree_bits(fg, fc)
+    x = CNNFamily(data, device='cuda').eval_batches(1, 8)[0][0]
+    model = export_chain(st, device='cuda', calibrate=x)
+    assert model.exit_threshold == 0.85
+    assert model.device.type == 'cuda'
+
+
+def test_checkpoint_saved_on_card_loads_on_cpu(cuda_device, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {'w': torch.randn(5, 3, generator=g, device=cuda_device),
+            'h': [torch.randn(4, generator=g, device=cuda_device)
+                  .to(torch.bfloat16)]}
+    save_checkpoint(str(tmp_path), 1, tree)
+    got, _ = load_checkpoint(str(tmp_path), 1, tree)
+    assert all(not t.is_cuda for t in _leaves_of(got))
+    assert _same_tree_bits(got, tree)
+
+
+def test_serve_cnn_fine_tunes_and_serves_on_card(cuda_device):
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, '-m', 'repro_torch.launch.serve_cnn', '--server',
+         '--config', 'resnet8-cifar', '--requests', '16', '--steps', '2',
+         '--device', 'cuda'],
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, 'src')),
+        capture_output=True, text=True, timeout=600, cwd=root)
+    assert r.returncode == 0, r.stderr
+    assert 'QAT: 2 steps of 64 images' in r.stdout
+    assert 'served 16 requests' in r.stdout
+    assert '(plain 0)' in r.stdout and 'quant_matmul=0 ' not in r.stdout

@@ -147,7 +147,8 @@ def test_param_tree_layout_matches_reference(name):
     if cfg.stage_widths[0] > 32:          # keep the reference init small
         cfg = cfg.replace(stage_widths=(16, 32, 64, 64, 64)[
             :len(cfg.stage_blocks)])
-    fam, jfam = CNNFamily(SyntheticImages()), JFamily(JImages())
+    fam = CNNFamily(SyntheticImages(), device='cpu')
+    jfam = JFamily(JImages())
     tp, tcfg = fam.add_exits(torch.Generator().manual_seed(1),
                              fam.init(torch.Generator().manual_seed(0), cfg),
                              cfg, fam.default_exit_points(cfg))
@@ -180,7 +181,7 @@ def test_factorize_matches_reference(base):
     p, cfg = _params(base, False)
     jp, _, jscale = JFamily(JImages()).factorize(
         jax.tree.map(jnp.asarray, p), cfg, energy=0.6, min_rank=2)
-    tp, _, tscale = CNNFamily(SyntheticImages()).factorize(
+    tp, _, tscale = CNNFamily(SyntheticImages(), device='cpu').factorize(
         from_jax_params(p), cfg, energy=0.6, min_rank=2)
     want, got = dict(_walk(jax.tree.map(np.asarray, jp))), dict(
         _walk(to_numpy(tp)))

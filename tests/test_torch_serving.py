@@ -264,8 +264,8 @@ def test_export_refuses_unported_paths(setup):
     from repro_torch.configs.cnn import MOBILENET_SMALL_CIFAR
     from repro_torch.core.family import CNNFamily
     from repro_torch.data import SyntheticImages
-    mp = CNNFamily(SyntheticImages()).init(torch.Generator().manual_seed(0),
-                                           MOBILENET_SMALL_CIFAR)
+    mp = CNNFamily(SyntheticImages(), device='cpu').init(
+        torch.Generator().manual_seed(0), MOBILENET_SMALL_CIFAR)
     dw = mp['stages'][0][0]['dw']
     dw['w'] = dw['w'].repeat(1, 1, 2, 1)          # per-group depth 2
     with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -331,7 +331,14 @@ def test_serve_cli_refuses_without_a_card():
 
 
 def test_serve_cli_runs_on_the_cpu_when_asked():
-    r = _serve_cli('--device', 'cpu', '--batch', '16')
+    r = _serve_cli('--device', 'cpu', '--batch', '16', '--steps', '0')
     assert r.returncode == 0, r.stderr
     assert 'served 16 requests' in r.stdout
     assert 'quant_matmul=0 (plain' in r.stdout
+
+
+def test_serve_cli_fine_tunes_before_export():
+    r = _serve_cli('--device', 'cpu', '--batch', '16', '--steps', '2')
+    assert r.returncode == 0, r.stderr
+    assert 'QAT: 2 steps of 16 images, last loss' in r.stdout
+    assert 'served 16 requests' in r.stdout

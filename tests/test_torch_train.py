@@ -187,7 +187,7 @@ def test_registry_resolves_hps_as_the_reference():
         tq_.resolve_hp({'w_bit': 4})
     with pytest.raises(TypeError):
         tq_.resolve_hp(8)
-    assert tregistry.check_consistency() == ('Q',)
+    assert tregistry.check_consistency() == ('D', 'E', 'L', 'P', 'Q')
 
 
 def test_registry_register_and_unregister():
@@ -207,7 +207,7 @@ def test_registry_register_and_unregister():
         assert tregistry.get_pass('Z').apply('state', {'x': 3}, None) == \
             'state'
         assert seen == [3]
-        assert tregistry.registered_keys() == ('Q', 'Z')
+        assert tregistry.registered_keys() == ('D', 'E', 'L', 'P', 'Q', 'Z')
     finally:
         assert tregistry.unregister('Z') is p
     with pytest.raises(KeyError):
@@ -218,7 +218,7 @@ def test_registry_register_and_unregister():
                 dataclasses.replace(p, hp_cls=dict)):
         with pytest.raises(ValueError):
             tregistry.register(bad)
-    assert tregistry.registered_keys() == ('Q',)
+    assert tregistry.registered_keys() == ('D', 'E', 'L', 'P', 'Q')
 
 
 # ------------------------------------------- LM family and the Q pass step
@@ -253,7 +253,7 @@ def lm():
 def _families(lm):
     jcfg, cfg, _, nb = lm
     jf = _JFixed(JTokens(jcfg.vocab_size), seq=S)
-    tf = _TFixed(SyntheticTokens(cfg.vocab_size), seq=S)
+    tf = _TFixed(SyntheticTokens(cfg.vocab_size), seq=S, device='cpu')
     jf.fixed = {k: jnp.asarray(v.astype(np.int32)) for k, v in nb.items()}
     tf.fixed = {k: torch.from_numpy(v.astype(np.int64))
                 for k, v in nb.items()}
@@ -324,7 +324,8 @@ def test_chain_state_metrics_and_train_keys(lm):
     -> 8 bits a weight: 4x); ``train_keys`` masks the other gradients, so
     those params move only by weight decay."""
     _, cfg, _, _ = lm
-    fam = tfamily.LMFamily(SyntheticTokens(cfg.vocab_size), seq=S)
+    fam = tfamily.LMFamily(SyntheticTokens(cfg.vocab_size), seq=S,
+                           device='cpu')
     tr = tpasses.Trainer(batch=B, steps=1, lr=LR, eval_n=1, eval_batch=B)
     st = tpasses.init_chain_state(fam, cfg, 0, tr, pretrain_steps=0)
     assert st.key == tpasses.fold_in(0, 777)
