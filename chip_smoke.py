@@ -130,6 +130,42 @@ Phases, in order; any failure exits non-zero and no result is printed:
    launches by route held to the operand rule (``wgmma`` where K % 16 ==
    0): P keeps 44-358 channels, so pruned convs and their factored halves
    take ``mma.sync``.
+   Then the dynamic-scale exports (a'), (b'), (c') and (g'): the models of
+   (a)-(c) through ``export_cnn(calibrate=None)`` and (g)'s chain through
+   ``Pipeline.export``, counted from zero: ``fn_exits`` on a fixed batch of
+   32 images on the kernels (every ``quant_matmul`` call with K % 16 == 0
+   on ``wgmma``, every depthwise call on the tile route, no weight relaid,
+   no plain version), bit for bit against the same model with every
+   kernel call swapped for its plain version, the stage segments chained
+   bit for bit against ``fn_exits``, and against the CPU export layer by
+   layer, each CPU layer fed the card's int8 input: every dynamic scale
+   within 1e-5, every code that differs at a rounding tie, the logits
+   within 4e-2 x max|logit| (end to end on their own scales, printed);
+   (a') also served through the scheduler (req/s, p50, p99;
+   a dynamic scale depends on a request's batch mates, so its requests
+   are checked for completion only and the bit-exact gates hold at fixed
+   batches).
+   Then (h) the paper's chain on ``tinyllama-1.1b`` at its published width:
+   ``Pipeline.from_sequence('DPLQE')`` with ``examples/chain_lm.py``'s
+   hyperparameters (D factor 0.5: an 11-layer student of the 22-layer
+   bf16 teacher; P ratio 0.3: d_ff 3942; L energy 0.6, which factors every
+   stacked MLP weight; Q W8A8; E threshold 0.8), batches of 8 x 128
+   tokens, 2 baseline steps and 2 a pass (D's student 6), a checkpoint
+   after every pass, counted from zero; printed: each pass's record, last
+   loss and wall time, the peak memory, the ranks, the exit fractions, a
+   profiled Q step and the exit frontier of ``sweep_exit_thresholds``.
+   Gates: the records recomputed on the CPU from the checkpoints; the
+   110 fake-quant calls of one Q step and the 112 of one E step bit-exact;
+   the resumed run bit for bit; on a 2-layer fp32 cut at full width, P,
+   L (an fp64 Gram eigendecomposition on the card, numpy on the CPU), the
+   exit
+   decisions and a W8A8 Q step of the pruned, factored cut against the
+   CPU; some tokens leave at a head on the frontier.  Then
+   ``Pipeline.export`` and a decode through ``launch/serve.py``'s
+   functions at batch 8, prompt 512, 64 tokens on the bf16 cache (11
+   ``decode_attention`` launches a token), its first-step logits within
+   ``LM_PLAIN_TOL`` of the plain decode attention; prefill ms and
+   ms/token printed.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), and every fake-quant call of one step of (f), captured at its
@@ -139,13 +175,15 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``quant_matmul`` and ``lowrank_conv`` call with K (K1) % 16 == 0 must
    take the TMA + ``wgmma`` route and every other call ``mma.sync``, every
    ``depthwise_conv`` call the tile route; the fake-quant calls of path
-   (g)'s Q step and its export are held too.  The ``{"kernels": [...]}``
+   (g)'s Q step and its export, the calls of one pass of each dynamic
+   export at their own inputs and the fake-quant calls of one Q step of
+   (h) are held too.  The ``{"kernels": [...]}``
    line: every ported kernel, summed over the pass or step of the path
    that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
    ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
    fake-quant wrappers: (f)), every path's pass under ``by_path``, its
    launches over all the paths' counted runs (path (g): its chain and
-   its serving), and ``excess_ms``: those
+   its serving; (h): its chain and its decode), and ``excess_ms``: those
    launches times (its time a call less its bound a call).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -278,6 +316,38 @@ CHAIN_DIFFICULTY = 0.55
 CHAIN_CUT_BATCH = 16
 CHAIN_CUTS = (({'w_bits': 2, 'a_bits': 0}, (1e-4, 2.5, 1e-3)),
               ({'w_bits': 2, 'a_bits': 8}, None))
+# Path (h): the paper's chain D->P->L->Q->E on tinyllama-1.1b at its
+# published width (arXiv:2401.02385), bf16, a 22-layer teacher, random
+# weights from a CUDA generator seeded SEED, batches of 8 x 128 synthetic
+# tokens; examples/chain_lm.py's hyperparameters (D factor 0.5: an 11-layer
+# student; P ratio 0.3: d_ff 3942; Q W8A8; E threshold 0.8, heads after
+# groups 3 and 7; lr 2e-3) with L at the paper's position.  L's energy is
+# 0.6: on these near-random weights the spectrum is flat, 0.95 keeps about
+# 1900 of 2048 singular values, past the rank r < d f / (d + f) = 1348
+# below which a factorization saves MACs, so L would factor nothing; 0.6
+# keeps about 640 (path c takes 0.6 too).  Cut in steps only: H_PRETRAIN
+# baseline steps and H_STEPS a pass (D's student 3 x), checkpoints after
+# every pass; then Pipeline.export and a decode at batch 8 x (512 + 64).
+H_KEY = 'tinyllama-chain'
+H_SEQUENCE = 'DPLQE'
+H_HPS = {'D': {'factor': 0.5}, 'P': {'ratio': 0.3},
+         'L': {'energy': 0.6, 'min_rank': 8},
+         'Q': {'w_bits': 8, 'a_bits': 8}, 'E': {'threshold': 0.8}}
+H_TRAINER = dict(batch=8, steps=2, lr=2e-3, eval_n=1, eval_batch=8)
+H_PRETRAIN = 2
+# fake-quant launches a training step of the pruned, factored student: per
+# layer wq, wk, wv, attn wo and both halves of MLP wi, wg and wo, all on
+# the fused wrapper (K <= 3942 passes its gate); E adds the two adapters
+H_PER_LAYER = {'fake_quant_fused': 10, 'fake_quant': 0}
+# exit decisions, card vs CPU on the 2-layer cut: a token may leave at
+# another head only where a head's confidence lies within H_NEAR x the
+# threshold of it (random heads over 32000 tokens are about 1e-3 confident)
+H_NEAR = 1e-4
+H_UV_RTOL = 1e-4               # u @ v, card vs CPU, over max|u @ v|
+# the dynamic-scale exports (export_cnn(calibrate=None), Pipeline.export):
+# paths (a)-(c) and the chain of (g) again, on fixed batches of SLOTS
+# images; (a') is also served through the scheduler
+DYN_TOL = 4e-2                 # card vs CPU export, over max|logit|
 PATHS = (
     dict(key='resnet34', config='resnet34-cifar', factorize=False,
          kernels=('quant_matmul', 'fake_quant_fused')),
@@ -1742,20 +1812,30 @@ def check_qat_against_cpu(torch, tag):
     on the card (the fake-quant kernels) and on the CPU (the reference's
     CPU path, plain tensor ops), TF32 off, at each of QAT_CUTS' hps."""
     from repro_torch.configs import get_config
-    from repro_torch.core import registry
-    from repro_torch.core.export import to_device
-    from repro_torch.core.passes import ChainState, Trainer
-    from repro_torch.kernels import counts, reset_counts
     from repro_torch.models import transformer as tfm
     cfg = get_config(LM_ARCH).replace(num_layers=2, dtype='float32')
     params = tfm.init_lm(torch.Generator(device='cuda').manual_seed(SEED),
                          cfg, 'cuda')
+    return qat_step_against_cpu(torch, tag, QAT_KEY, cfg, params,
+                                QAT_PER_LAYER, QAT_CUTS)
+
+
+def qat_step_against_cpu(torch, tag, key, cfg, params, per_layer, cuts):
+    """One Q-pass step of ``params`` (on the card) from the same params and
+    batch on the card (the fake-quant kernels, ``per_layer`` launches of
+    each wrapper a layer) and on the CPU (plain tensor ops), TF32 off, at
+    each ``(hp, loss rtol, max_lr, share)`` of ``cuts``."""
+    from repro_torch.core import registry
+    from repro_torch.core.export import to_device
+    from repro_torch.core.passes import ChainState, Trainer
+    from repro_torch.kernels import counts, reset_counts
     tr = Trainer(batch=QAT_CUT_BATCH, steps=1, lr=QAT_LR, seed=SEED)
     lr = QAT_LR / 10
     out = []
-    for hp, loss_rtol, max_lr, share in QAT_CUTS:
+    for hp, loss_rtol, max_lr, share in cuts:
         runs = {}
-        for dev, p in (('cpu', to_device(params, 'cpu')), ('cuda', params)):
+        for dev, p in (('cpu', to_device(params, 'cpu')),
+                       ('cuda', params)):
             losses = []
             st = ChainState(family=recording_family(losses, cfg, dev),
                             cfg=cfg, params=p, key=SEED)
@@ -1765,13 +1845,13 @@ def check_qat_against_cpu(torch, tag):
             runs[dev] = (float(losses[0]),
                          _leaves(to_device(new.params, 'cpu')), counts(),
                          time.perf_counter() - t0)
-        want = {k: n * cfg.num_layers for k, n in QAT_PER_LAYER.items()}
+        want = {k: n * cfg.num_layers for k, n in per_layer.items()}
         got = {k: runs['cuda'][2][k]['launches'] for k in want}
         plain = sum(c['plain_calls'] for r in runs.values()
                     for c in r[2].values())
-        if got != want or plain or any(c['launches']
-                                       for c in runs['cpu'][2].values()):
-            fail(f'{QAT_KEY}: the 2-layer cut launched {got} on the card '
+        if got != want or plain or any(c['launches'] for c in
+                                       runs['cpu'][2].values()):
+            fail(f'{key}: the 2-layer cut launched {got} on the card '
                  f'(want {want}), the plain versions ran {plain} times')
         l_cpu, l_gpu = runs['cpu'][0], runs['cuda'][0]
         worst, near, n = 0.0, 0, 0
@@ -1782,18 +1862,19 @@ def check_qat_against_cpu(torch, tag):
             n += d.numel()
         rel = abs(l_gpu - l_cpu) / abs(l_cpu)
         print(f'{tag} 2-layer fp32 cut, one Q-pass step at {hp} (batch '
-              f'{QAT_CUT_BATCH} x {QAT_SEQ}), card vs CPU: loss {l_gpu:.7f} '
-              f'vs {l_cpu:.7f} (|diff| {rel:.3e} x |loss|, limit '
-              f'{loss_rtol:g}); new params max |diff| {worst / lr:.3e} x lr '
-              f'(limit {max_lr:g}), {near} of {n} elements ({near / n:.3e}) '
-              f'more than {QAT_NEAR_LR:g} x lr apart (limit {share:g}); the '
-              f'step took {runs["cuda"][3]:.3f} s on the card, '
+              f'{QAT_CUT_BATCH} x {QAT_SEQ}), card vs CPU: loss '
+              f'{l_gpu:.7f} vs {l_cpu:.7f} (|diff| {rel:.3e} x |loss|, '
+              f'limit {loss_rtol:g}); new params max |diff| '
+              f'{worst / lr:.3e} x lr (limit {max_lr:g}), {near} of {n} '
+              f'elements ({near / n:.3e}) more than {QAT_NEAR_LR:g} x lr '
+              f'apart (limit {share:g}); the step took '
+              f'{runs["cuda"][3]:.3f} s on the card, '
               f'{runs["cpu"][3]:.3f} s on the CPU')
         if not rel <= loss_rtol:
-            fail(f"{QAT_KEY}: at {hp} the card's loss disagrees with the "
+            fail(f"{key}: at {hp} the card's loss disagrees with the "
                  f"CPU's")
         if not (worst <= max_lr * lr and near <= share * n):
-            fail(f"{QAT_KEY}: at {hp} the card's updated params disagree "
+            fail(f"{key}: at {hp} the card's updated params disagree "
                  f"with the CPU's")
         out.append({'hp': hp, 'loss_rel': rel, 'max_lr': worst / lr,
                     'near_share': near / n})
@@ -1809,7 +1890,7 @@ def train_lm_path(torch):
     from repro_torch.configs import get_config
     from repro_torch.core import registry
     from repro_torch.core.passes import Trainer, init_chain_state
-    from repro_torch.kernels import counts, ops, reset_counts
+    from repro_torch.kernels import counts, reset_counts
     from repro_torch.models.model import param_count
 
     tag = f'[train:{QAT_KEY}]'
@@ -1894,20 +1975,7 @@ def train_lm_path(torch):
             print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
 
     # every fake-quant call of one more step, for phase 4
-    calls = []
-    saved = ops.fake_quant_fused, ops.fake_quant_two_pass
-
-    def capture(name, fn):
-        def call(w, bits=8):
-            calls.append((name, w.detach(), bits))
-            return fn(w, bits=bits)
-        return call
-    ops.fake_quant_fused = capture('fake_quant_fused', saved[0])
-    ops.fake_quant_two_pass = capture('fake_quant', saved[1])
-    try:
-        one_step()
-    finally:
-        ops.fake_quant_fused, ops.fake_quant_two_pass = saved
+    calls = capture_fake_quants(torch, one_step)
     del opt_state
     cut = check_qat_against_cpu(torch, tag)
     return {k: v['launches'] for k, v in after.items()}, calls, {
@@ -2061,42 +2129,24 @@ def check_chain_step_against_cpu(torch, tag, ckpt, data, tr, problems):
     return out
 
 
-def chain_path(torch, launch_us):
-    """Path (g): the paper's compression chain on resnet34-cifar through
-    ``Pipeline.from_sequence(CHAIN_SEQUENCE).run`` with checkpoints,
-    counted from zero; the gates on what the card computed; the finished
-    chain exported with ``export_chain(calibrate=...)`` and served through
-    ``serve_path``.  Returns (the exported model, the chain's params, the
-    launches of every kernel in the counted runs, every fake-quant call of
-    one Q step as (wrapper, weight, bits), readings)."""
-    import dataclasses
-    import tempfile
-    from repro_torch.checkpoint import load_chain_state
-    from repro_torch.configs.cnn import CNN_REGISTRY
-    from repro_torch.core.chain import Pipeline
-    from repro_torch.core.export import export_chain
-    from repro_torch.core.family import CNNFamily
+def recording_trainer(fits):
+    """A ``Trainer`` class whose ``fit`` appends each fit's (last loss, wall
+    seconds) to ``fits``."""
     from repro_torch.core.passes import Trainer
-    from repro_torch.data import SyntheticImages
-    from repro_torch.kernels import counts, ops, reset_counts
-
-    tag = f'[chain:{CHAIN_KEY}]'
-    data = SyntheticImages(difficulty=CHAIN_DIFFICULTY)
-    fam = CNNFamily(data, device='cuda')
-    cfg = CNN_REGISTRY[CHAIN_CONFIG]
-    fits = []
 
     class Recording(Trainer):
-        """Records each fit's last loss and wall time."""
-
         def fit(self, *args, **kw):
             t0 = time.perf_counter()
             params, last = super().fit(*args, **kw)
             fits.append((last, time.perf_counter() - t0))
             return params, last
+    return Recording
 
-    tr = Recording(**CHAIN_TRAINER, seed=SEED)
-    walls = []
+
+def timed_pass(torch, walls):
+    """``timed(p)``: the registered pass ``p`` whose transform appends
+    (key, start, wall seconds after a synchronize) to ``walls``."""
+    import dataclasses
 
     def timed(p):
         def fn(state, hp, trainer):
@@ -2106,7 +2156,33 @@ def chain_path(torch, launch_us):
             walls.append((p.key, t0, time.perf_counter() - t0))
             return new
         return dataclasses.replace(p, fn=fn)
+    return timed
 
+
+def chain_path(torch, launch_us):
+    """Path (g): the paper's compression chain on resnet34-cifar through
+    ``Pipeline.from_sequence(CHAIN_SEQUENCE).run`` with checkpoints,
+    counted from zero; the gates on what the card computed; the finished
+    chain exported with ``export_chain(calibrate=...)`` and served through
+    ``serve_path``.  Returns (the exported model, the chain's params, the
+    launches of every kernel in the counted runs, every fake-quant call of
+    one Q step as (wrapper, weight, bits), readings)."""
+    import tempfile
+    from repro_torch.checkpoint import load_chain_state
+    from repro_torch.configs.cnn import CNN_REGISTRY
+    from repro_torch.core.chain import Pipeline
+    from repro_torch.core.export import export_chain
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import counts, reset_counts
+
+    tag = f'[chain:{CHAIN_KEY}]'
+    data = SyntheticImages(difficulty=CHAIN_DIFFICULTY)
+    fam = CNNFamily(data, device='cuda')
+    cfg = CNN_REGISTRY[CHAIN_CONFIG]
+    fits, walls = [], []
+    tr = recording_trainer(fits)(**CHAIN_TRAINER, seed=SEED)
+    timed = timed_pass(torch, walls)
     pipe = Pipeline.from_sequence(CHAIN_SEQUENCE, CHAIN_HPS)
     problems = []
     with tempfile.TemporaryDirectory(prefix='chain_smoke_') as ckpt:
@@ -2197,23 +2273,13 @@ def chain_path(torch, launch_us):
         q_in, _ = load_chain_state(ckpt, CNNFamily(data, device='cuda'), 3)
         qcfg = q_in.cfg.replace(**CHAIN_HPS['Q'])
         opt = tr.optimizer(tr.lr / 10)
-        calls = []
-        saved = ops.fake_quant_fused
-
-        def capture(w, bits=8):
-            calls.append(('fake_quant_fused', w.detach(), bits))
-            return saved(w, bits=bits)
         opt_state = opt.init(q_in.params)
         batch = fam.train_batch(torch.Generator().manual_seed(SEED + 5),
                                 tr.batch)
 
         def q_step():
             tr.train_step(opt, fam.loss, qcfg, q_in.params, opt_state, batch)
-        ops.fake_quant_fused = capture
-        try:
-            q_step()
-        finally:
-            ops.fake_quant_fused = saved
+        calls = capture_fake_quants(torch, q_step)
         # where a training step's time goes: one more Q step, profiled
         wall, busy, top = profile_device(torch, q_step)
         if busy is None:
@@ -2266,7 +2332,698 @@ def chain_path(torch, launch_us):
     return model, params, launches, calls, {
         'history': st.history, 'chain_s': t_chain, 'pass_s': pass_wall,
         'peak_mib': peak / 2 ** 20, 'ranks': ranks, 'prune_gap': gap,
-        'cut': cut, 'calibration': calib_cmp}
+        'cut': cut, 'calibration': calib_cmp, 'state': st}
+
+
+def factored_lm_ranks(params):
+    """``{'wi' | 'wg' | 'wo': rank}`` of the stacked MLP weights of an LM
+    tree (None where a weight is not factored)."""
+    mlp = params['blocks'][0]['mlp']
+    return {k: (int(mlp[k]['u']['w'].shape[-1]) if 'u' in mlp[k] else None)
+            for k in ('wi', 'wg', 'wo')}
+
+
+def capture_fake_quants(torch, fn):
+    """Run ``fn()`` with a spy on ``ops.fake_quant_fused`` and
+    ``ops.fake_quant_two_pass``: every call as (wrapper, weight, bits)."""
+    from repro_torch.kernels import ops
+    calls = []
+    saved = ops.fake_quant_fused, ops.fake_quant_two_pass
+
+    def capture(name, real):
+        def call(w, bits=8):
+            calls.append((name, w.detach(), bits))
+            return real(w, bits=bits)
+        return call
+    ops.fake_quant_fused = capture('fake_quant_fused', saved[0])
+    ops.fake_quant_two_pass = capture('fake_quant', saved[1])
+    try:
+        fn()
+    finally:
+        ops.fake_quant_fused, ops.fake_quant_two_pass = saved
+    return calls
+
+
+def exit_confidences(torch, fam, params, cfg, batch):
+    """Each exit head's per-token fp32 softmax maximum, on the CPU: what
+    ``LMFamily.exit_stats`` holds against its threshold."""
+    from repro_torch.core.quantization import full_fp32, jitted_scales
+    with torch.no_grad(), jitted_scales(), full_fp32():
+        _, exits = fam.exit_logits(params, cfg, batch)
+    return {g: torch.softmax(exits[g].float(), -1).amax(-1).reshape(-1)
+            .cpu() for g in sorted(exits)}
+
+
+def first_exit(torch, conf, threshold):
+    """Per token, the first head whose confidence exceeds ``threshold``,
+    else -1."""
+    stage = torch.full_like(conf[min(conf)], -1, dtype=torch.int64)
+    for g in sorted(conf):
+        stage = torch.where((stage < 0) & (conf[g] > threshold),
+                            torch.full_like(stage, g), stage)
+    return stage
+
+
+def check_lm_hooks_against_cpu(torch, tag, problems):
+    """The LM chain hooks on the card against the CPU, on a 2-layer fp32
+    cut of tinyllama-1.1b at full width (weights from a CUDA generator
+    seeded SEED), TF32 off: P keeps the same channels in the same order
+    (bit for bit, float64 importance); L gives the same ranks and ``u @ v``
+    within H_UV_RTOL (an fp64 Gram eigendecomposition on the card, numpy's
+    SVD on the CPU); the exit heads' per-token decisions are equal but for tokens
+    within H_NEAR x the threshold of it (counted); one W8A8 Q step of the
+    pruned, factored cut within path (f)'s bands."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.export import to_device
+    from repro_torch.core.family import LMFamily
+    from repro_torch.data import SyntheticTokens
+    cfg = get_config(LM_ARCH).replace(num_layers=2, dtype='float32')
+    fams = {dev: LMFamily(SyntheticTokens(cfg.vocab_size), seq=QAT_SEQ,
+                          device=dev) for dev in ('cpu', 'cuda')}
+    params = fams['cuda'].init(fams['cuda'].generator(SEED), cfg)
+    out = {}
+    for dev, fam in fams.items():
+        p = to_device(params, dev)
+        t0 = time.perf_counter()
+        pp, pc = fam.prune(p, cfg, H_HPS['P']['ratio'])
+        t1 = time.perf_counter()
+        fp, fc, scale = fam.factorize(pp, pc, **H_HPS['L'])
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        out[dev] = (pp, pc, fp, scale, t1 - t0, time.perf_counter() - t1)
+    same_p = out['cuda'][1] == out['cpu'][1] and \
+        tree_bits_equal(torch, out['cuda'][0], out['cpu'][0])
+    ranks = {dev: factored_lm_ranks(o[2]) for dev, o in out.items()}
+    worst = 0.0
+    for lg, lc in zip(out['cuda'][2]['blocks'], out['cpu'][2]['blocks']):
+        for k in ('wi', 'wg', 'wo'):
+            g, c = lg['mlp'][k], lc['mlp'][k]
+            if 'u' not in g or 'u' not in c:
+                continue
+            want = c['u']['w'] @ c['v']['w']
+            got = (g['u']['w'] @ g['v']['w']).cpu()
+            worst = max(worst, float((got - want).abs().max()
+                                     / want.abs().max()))
+    same_l = ranks['cuda'] == ranks['cpu'] and \
+        out['cuda'][3] == out['cpu'][3] and worst <= H_UV_RTOL
+    print(f"{tag} 2-layer fp32 cut: P on the card vs the CPU bit for bit "
+          f"{same_p} (d_ff {out['cuda'][1].d_ff}; {out['cuda'][4]:.2f} s vs "
+          f"{out['cpu'][4]:.2f} s); L ranks {ranks['cuda']} vs "
+          f"{ranks['cpu']}, mac_scale {out['cuda'][3]:.6f} vs "
+          f"{out['cpu'][3]:.6f}, max |u@v diff| / max|u@v| {worst:.3e} "
+          f"(limit {H_UV_RTOL:g}); SVDs {out['cuda'][5]:.2f} s on the card "
+          f"(fp64 Gram eigendecomposition), {out['cpu'][5]:.2f} s on the CPU "
+          f"(numpy)")
+    if not same_p:
+        problems.append('P on the card differs from the CPU')
+    if not same_l or None in ranks['cuda'].values():
+        problems.append('L on the card differs from the CPU or factored '
+                        'nothing')
+    fp, fc = fams['cuda'].add_exits(fams['cuda'].generator(SEED + 1),
+                                    out['cuda'][2], out['cuda'][1], (0, 1))
+    batch = fams['cuda'].train_batch(torch.Generator().manual_seed(SEED + 2),
+                                     QAT_CUT_BATCH)
+    conf = {dev: exit_confidences(torch, fam, to_device(fp, dev), fc,
+                                  to_device(batch, dev))
+            for dev, fam in fams.items()}
+    thr = float(conf['cpu'][0].median())
+    near = torch.zeros_like(conf['cpu'][0], dtype=torch.bool)
+    for g in conf['cpu']:
+        near |= (conf['cpu'][g] - thr).abs() <= H_NEAR * thr
+    stage = {dev: first_exit(torch, c, thr) for dev, c in conf.items()}
+    differ = stage['cuda'] != stage['cpu']
+    off = int((differ & ~near).sum())
+    print(f"{tag} exit decisions at threshold {thr:.6f} (head 0's median "
+          f"confidence), card vs CPU: {int(differ.sum())} of "
+          f"{differ.numel()} tokens differ, {int(near.sum())} tokens within "
+          f"{H_NEAR:g} x the threshold of it, {off} differing tokens outside "
+          f"that; tokens leaving at head 0 / 1 on the card: "
+          f"{int((stage['cuda'] == 0).sum())} / "
+          f"{int((stage['cuda'] == 1).sum())}")
+    if off:
+        problems.append('exit decisions on the card differ from the CPU')
+    cut = qat_step_against_cpu(
+        torch, tag, H_KEY, out['cuda'][1], out['cuda'][2], H_PER_LAYER,
+        (QAT_CUTS[1],))
+    return {'prune_same': same_p, 'ranks': ranks['cuda'], 'uv_err': worst,
+            'exit_differ': int(differ.sum()), 'exit_near': int(near.sum()),
+            'cut': cut}
+
+
+def lm_chain_path(torch):
+    """Path (h): the paper's chain on tinyllama-1.1b at full width through
+    ``Pipeline.from_sequence(H_SEQUENCE).run`` with checkpoints, counted
+    from zero; the gates on what the card computed; the chain exported with
+    ``Pipeline.export`` and decoded through ``launch/serve.py``'s functions
+    at batch 8, prompt 512, 64 tokens.  Returns (the launches of every
+    kernel in the counted runs, the fake-quant calls of one Q step, the
+    decode-attention calls of one decode step, readings)."""
+    import tempfile
+    from repro_torch.checkpoint import load_chain_state
+    from repro_torch.configs import get_config
+    from repro_torch.core.chain import Pipeline, sweep_exit_thresholds
+    from repro_torch.core.family import LMFamily
+    from repro_torch.core.passes import mask_like
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model, param_count
+
+    tag = f'[chain:{H_KEY}]'
+    cfg = get_config(LM_ARCH)
+    data = SyntheticTokens(vocab=cfg.vocab_size)
+    fam = LMFamily(data, seq=QAT_SEQ, device='cuda')
+    fits, walls = [], []
+    tr = recording_trainer(fits)(**H_TRAINER, seed=SEED)
+    timed = timed_pass(torch, walls)
+    pipe = Pipeline.from_sequence(H_SEQUENCE, H_HPS)
+    problems = []
+    with tempfile.TemporaryDirectory(prefix='lm_chain_smoke_') as ckpt:
+        # ---- the chain, counted from zero
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = Pipeline(tuple((timed(p), hp) for p, hp in pipe.steps)).run(
+            fam, cfg, tr, key=SEED, pretrain_steps=H_PRETRAIN,
+            checkpoint_dir=ckpt)
+        torch.cuda.synchronize()
+        t_chain = time.perf_counter() - t0
+        trained = counts()
+        peak = torch.cuda.max_memory_allocated()
+        labels = [h['pass'] for h in st.history]
+        pass_wall = {'baseline': walls[0][1] - t0 if walls else t_chain}
+        pass_wall.update({k: w for k, _, w in walls})
+        print(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.dtype}) -> "
+              f"{H_SEQUENCE} {H_HPS} in {t_chain:.2f} s ({tr.batch} x "
+              f"{fam.seq} tokens a step, baseline {H_PRETRAIN} steps, "
+              f"{tr.steps} a pass, D's student {3 * tr.steps}); peak memory "
+              f"{peak / 2 ** 20:.1f} MiB")
+        for h, (loss, fit_s) in zip(st.history, fits):
+            print(f"{tag}   {h['pass']:8s} acc {h['acc']:.4f} BitOpsCR "
+                  f"{h['BitOpsCR']:.4f} CR {h['CR']:.4f} | last loss "
+                  f"{loss:.5f}, training {fit_s:.2f} s, pass "
+                  f"{pass_wall.get(h['pass'], 0.0):.2f} s")
+        losses = [loss for loss, _ in fits]
+        if labels != ['baseline'] + list(H_SEQUENCE) or \
+                len(losses) != len(labels) or \
+                not all(v is not None and math.isfinite(v) for v in losses):
+            fail(f'{H_KEY}: history {labels}, last losses {losses}: want '
+                 f'baseline + {H_SEQUENCE}, each loss finite')
+        for name in trained:
+            print(f"{tag} {name}: {trained[name]['launches']} launches, "
+                  f"{trained[name]['plain_calls']} plain calls in the chain")
+        if trained['fake_quant_fused']['launches'] == 0 or any(
+                c['plain_calls'] for c in trained.values()):
+            fail(f'{H_KEY}: the chain did not fake-quantize on the card or '
+                 f'ran a plain version: {trained}')
+        ranks = factored_lm_ranks(st.params)
+        limit = cfg.d_model * st.cfg.d_ff // (cfg.d_model + st.cfg.d_ff)
+        print(f'{tag} student: {st.cfg.num_layers} layers, d_ff '
+              f'{st.cfg.d_ff}, {param_count(st.params) / 1e9:.3f} G '
+              f'parameters; L ranks of the stacked MLP weights {ranks} (a '
+              f'rank saves MACs below {limit + 1}); exit heads after groups '
+              f'{st.cfg.exit_layers}, exit fractions {st.exit_probs} at '
+              f'threshold {st.exit_threshold}')
+        shape = (round(cfg.num_layers * H_HPS['D']['factor']),
+                 int(cfg.d_ff * (1 - H_HPS['P']['ratio'])))
+        if (st.cfg.num_layers, st.cfg.d_ff) != shape or \
+                None in ranks.values() or max(ranks.values()) > limit:
+            fail(f'{H_KEY}: want a student of {shape} (layers, d_ff), every '
+                 f'stacked MLP weight factored: {st.cfg}, {ranks}')
+
+        # (2) every record's BitOpsCR and CR recomputed on the CPU from the
+        # card's checkpointed cfg, params and exit_probs
+        cpu_fam = LMFamily(data, seq=QAT_SEQ, device='cpu')
+        for k, h in enumerate(st.history):
+            c, _ = load_chain_state(ckpt, cpu_fam, k)
+            bops = c.family.bitops(c.cfg, c.exit_probs, c.mac_scale)
+            bits = c.family.storage_bits(c.params, c.cfg)
+            want = (c.base_bitops / max(bops, 1), c.base_bits / max(bits, 1))
+            if (h['BitOpsCR'], h['CR']) != want:
+                fail(f"{H_KEY}: record {h['pass']} {h} differs from the CPU "
+                     f'recomputation {want}')
+        print(f"{tag} every record's BitOpsCR and CR equal the CPU's "
+              f'recomputation from the checkpoints')
+
+        # (3) the fake_quant_fused calls of one Q step (from checkpoint 3,
+        # the params Q starts from) and of one E step (the final tree), bit
+        # for bit against the plain version
+        q_in, _ = load_chain_state(ckpt, fam, 3)
+        qcfg = q_in.cfg.replace(**H_HPS['Q'])
+        batch = fam.train_batch(torch.Generator().manual_seed(SEED + 5),
+                                tr.batch)
+        opt = tr.optimizer(tr.lr / 10)
+        q_state = opt.init(q_in.params)
+
+        def q_step():
+            tr.train_step(opt, fam.loss, qcfg, q_in.params, q_state, batch)
+        q_calls = capture_fake_quants(torch, q_step)
+        wall, busy, top = profile_device(torch, q_step)
+        if busy is None:
+            print(f'{tag} profile: one Q step in {wall:.3f} ms wall; device '
+                  f'time not measured (the profiler recorded no device '
+                  f'activity)')
+        else:
+            print(f'{tag} profile: one Q step in {wall:.3f} ms wall, device '
+                  f'kernels {busy:.3f} ms: device busy {busy / wall:.1%}')
+            for ms, n, name in top[:10]:
+                print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+        del q_state
+        e_opt = tr.optimizer()
+        e_state = e_opt.init(st.params)
+        e_calls = capture_fake_quants(torch, lambda: tr.train_step(
+            e_opt, fam.exit_loss, st.cfg, st.params, e_state, batch,
+            mask_like(st.params, lambda k: k == 'exit_heads')))
+        del e_state
+        from repro_torch.kernels.fake_quant import (fake_quant_fused,
+                                                    fake_quant_plain)
+        e_exact = all(
+            same_bits(torch, fake_quant_fused(w, bits=b),
+                      fake_quant_plain(w, bits=b)) for _, w, b in e_calls)
+        q_shapes = sorted({tuple(w.shape) for _, w, _ in q_calls})
+        n_layers = st.cfg.num_layers
+        want_q = H_PER_LAYER['fake_quant_fused'] * n_layers
+        print(f'{tag} one Q step: {len(q_calls)} fake-quant calls (want '
+              f'{want_q}), shapes {q_shapes}; one E step: {len(e_calls)} '
+              f'(want {want_q + len(st.cfg.exit_layers)}), every one '
+              f'bit-exact against fake_quant_plain {e_exact}')
+        if [n for n, _, _ in q_calls] != ['fake_quant_fused'] * want_q or \
+                len(e_calls) != want_q + len(st.cfg.exit_layers) or \
+                not e_exact:
+            problems.append('the fake-quant calls of a Q or E step are not '
+                            'those of the pruned, factored student, or '
+                            'disagree with the plain version')
+
+        # (4) the checkpoints: a second run applies nothing and returns the
+        # final params bit for bit
+        n_fits, n_walls = len(fits), len(walls)
+        again = Pipeline(tuple((timed(p), hp) for p, hp in pipe.steps)).run(
+            fam, cfg, tr, checkpoint_dir=ckpt)
+        resumed = (len(fits) == n_fits and len(walls) == n_walls
+                   and tree_bits_equal(torch, again.params, st.params)
+                   and again.history == st.history)
+        del again
+        print(f'{tag} a second run on the checkpoints applied '
+              f'{len(walls) - n_walls} passes and returned the final params '
+              f'bit for bit: {resumed}')
+        if not resumed:
+            problems.append('the resumed run is not the finished chain')
+
+    # (5) the hooks on the card against the CPU, on a 2-layer cut
+    hooks = check_lm_hooks_against_cpu(torch, tag, problems)
+
+    # (6) the exit frontier: E's threshold and two taken from the final
+    # model's confidences, where some tokens leave
+    eval_b = fam.eval_batches(tr.eval_n, tr.eval_batch)
+    conf = exit_confidences(torch, fam, st.params, st.cfg, eval_b[0])
+    g0 = conf[min(conf)]
+    thresholds = [H_HPS['E']['threshold'], float(g0.quantile(0.9)),
+                  float(g0.quantile(0.5))]
+    frontier = sweep_exit_thresholds(st, tr, thresholds)
+    _, probs = fam.exit_stats(st.params, st.cfg, eval_b, thresholds[-1])
+    print(f'{tag} exit frontier: ' + '; '.join(
+        f"threshold {r['threshold']:.6f} acc {r['acc']:.4f} BitOpsCR "
+        f"{r['BitOpsCR']:.4f}" for r in frontier)
+        + f'; exit fractions at {thresholds[-1]:.6f}: {probs}')
+    if not any(v > 0 for v in probs.values()):
+        problems.append('no token leaves at an exit head on the frontier')
+    if problems:
+        fail(f'{H_KEY}: ' + '; '.join(problems))
+
+    # (7) Pipeline.export, then decode at batch 8 x (512 + 64) on the bf16
+    # cache, counted from zero
+    t0 = time.perf_counter()
+    exported = pipe.export(st, device='cuda')
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    p = exported.params
+    mlp = p['blocks'][0]['mlp']
+    if not all(mlp[k][h]['w_q'].dtype == torch.int8
+               for k in ('wi', 'wg', 'wo') for h in ('u', 'v')):
+        fail(f'{H_KEY}: the export left a factored MLP weight unquantized')
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(p))
+    model = build_model(exported.cfg)
+    prompt = data.batch(torch.Generator().manual_seed(SEED + 1), LM_BATCH,
+                        LM_PROMPT, 'cuda')['tokens']
+    max_len = LM_PROMPT + LM_TOKENS + 8
+    zeros = torch.zeros((LM_BATCH,), dtype=torch.int64, device='cuda')
+    _, warm = serve.prefill_step(model, p, prompt, max_len=max_len)
+    serve.decode(model, p, warm, zeros, pos0=LM_PROMPT, tokens=2)
+    del warm
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, cache = serve.prefill_step(model, p, prompt, max_len=max_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = serve.decode(model, p, cache, zeros, pos0=LM_PROMPT,
+                        tokens=LM_TOKENS)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    decoded = counts()
+    dpeak = torch.cuda.max_memory_allocated()
+    print(f'{tag} Pipeline.export in {t_export:.3f} s: '
+          f'{weight_bytes / 1e9:.3f} GB of int8 weights and their scales; '
+          f'prefill of {LM_BATCH} x {LM_PROMPT} tokens {t_prefill * 1e3:.3f} '
+          f'ms; {LM_TOKENS} greedy decode steps {t_decode * 1e3:.3f} ms: '
+          f'{t_decode / LM_TOKENS * 1e3:.3f} ms/token, '
+          f'{LM_BATCH * LM_TOKENS / t_decode:.1f} tokens/s; peak memory '
+          f'{dpeak / 2 ** 20:.1f} MiB')
+    want = exported.cfg.num_layers * LM_TOKENS
+    if tuple(toks.shape) != (LM_TOKENS, LM_BATCH) or \
+            decoded['decode_attention'] != {'launches': want,
+                                            'plain_calls': 0} or \
+            decoded['decode_attention_int8']['launches'] or \
+            any(c['plain_calls'] for c in decoded.values()):
+        fail(f'{H_KEY}: the decode ran {decoded}, want {want} '
+             f'decode_attention launches and no plain version')
+    _, fresh = serve.prefill_step(model, p, prompt, max_len=max_len)
+    twin = clone_tree(fresh)
+    with torch.inference_mode():
+        lg_k, _ = model.decode_step(p, zeros, LM_PROMPT, fresh)
+        reset_counts()
+        with plain_decode_attention():
+            lg_p, _ = model.decode_step(p, zeros, LM_PROMPT, twin)
+        plain = counts()['decode_attention']
+    del twin
+    scale = float(lg_p.float().abs().max())
+    diff = max_err(torch, lg_k, lg_p)
+    print(f'{tag} first-step logits of the exported model, decode kernel '
+          f'vs the plain decode attention ({plain}): max |diff| {diff:.3e} '
+          f'(max |logit| {scale:.3e}, limit {LM_PLAIN_TOL:g} x that)')
+    if tuple(lg_k.shape) != (LM_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(lg_k).all()) or \
+            diff > LM_PLAIN_TOL * scale or plain != {
+                'launches': 0, 'plain_calls': exported.cfg.num_layers}:
+        fail(f'{H_KEY}: the exported model\'s decode logits are malformed '
+             f'or disagree with the plain decode attention')
+    da_calls = []
+
+    def capture(q, nk, nv, c, cur, **kw):
+        out, c = attn.decode_attn_kernel(q, nk, nv, c, cur, **kw)
+        da_calls.append((q, c, attn._valid(c['meta']['pos'], int(cur), 0)))
+        return out, c
+    with torch.inference_mode():
+        model.decode_step(p, zeros, LM_PROMPT + 1, fresh,
+                          ctx={'decode_attn': capture})
+    launches = {k: trained[k]['launches'] + decoded[k]['launches']
+                for k in trained}
+    return launches, q_calls, da_calls, {
+        'history': st.history, 'chain_s': t_chain, 'pass_s': pass_wall,
+        'peak_mib': peak / 2 ** 20, 'ranks': ranks, 'hooks': hooks,
+        'frontier': frontier, 'prefill_ms': t_prefill * 1e3,
+        'ms_per_token': t_decode / LM_TOKENS * 1e3}
+
+
+@contextlib.contextmanager
+def plain_int8_kernels():
+    """The int8 kernels' plain versions in their wrappers' places, in every
+    module that calls them; for a comparison only, never on a counted
+    path."""
+    from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_conv as qc
+    from repro_torch.kernels import quant_matmul as qmm
+    saved = ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv
+    ops.quant_matmul = qc.quant_matmul = qmm.quant_matmul_plain
+    ops.depthwise_conv = dw.depthwise_conv_plain
+    try:
+        yield
+    finally:
+        ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv = saved
+
+
+def capture_int8_calls(torch, fn):
+    """Run ``fn()`` with spies on the int8 wrappers the dynamic path calls:
+    ``[(kernel, args as the wrapper binds them)]`` in call order."""
+    import inspect
+    from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_conv as qc
+    from repro_torch.kernels import quant_matmul as qmm
+    calls = []
+
+    def spy(name, real):
+        sig = inspect.signature(real)
+
+        def call(*a, **kw):
+            b = sig.bind(*a, **kw)
+            b.apply_defaults()
+            calls.append((name, dict(b.arguments)))
+            return real(*a, **kw)
+        return call
+    saved = ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv
+    ops.quant_matmul = qc.quant_matmul = spy('quant_matmul',
+                                             qmm.quant_matmul)
+    ops.depthwise_conv = spy('depthwise_conv', dw.depthwise_conv)
+    try:
+        out = fn()
+    finally:
+        ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv = saved
+    return out, calls
+
+
+def dyn_cases(torch, calls):
+    """Phase 4's cases from captured calls: each kernel call against its
+    plain version at its own inputs, timed."""
+    out = {'quant_matmul': [], 'depthwise_conv': []}
+    for name, a in calls:
+        if name == 'quant_matmul':
+            out[name].append(qmm_case(
+                torch, a['x_q'], a['w_q'], a['sx'], a['sw'], a['bias'],
+                a['relu'], a['out_scale'], a['out_qmax'], iters=10))
+        else:
+            out[name].append(dw_case(
+                torch, a['x_q'], a['w_q'], a['sx'], a['sw'], a['bias'],
+                stride=a['stride'], relu=a['relu'], out_scale=a['out_scale'],
+                out_qmax=a['out_qmax'], iters=10, route='tile'))
+    return {k: v for k, v in out.items() if v}
+
+
+def call_routes(calls):
+    """``{'kernel/route': n}`` of captured calls by the operand rule:
+    ``quant_matmul`` on ``wgmma`` where K % 16 == 0 (the operands are
+    16-byte aligned), ``depthwise_conv`` on its tile route."""
+    from repro_torch.kernels.depthwise_conv import dw_route
+    out = {}
+    for name, a in calls:
+        if name == 'quant_matmul':
+            r = 'wgmma' if a['x_q'].shape[1] % 16 == 0 else 'mma_sync'
+        else:
+            r = dw_route(a['x_q'], a['w_q'], a['stride'], a['out_scale'],
+                         a['out_qmax'])
+        out[f'{name}/{r}'] = out.get(f'{name}/{r}', 0) + 1
+    return out
+
+
+def launched_routes(before):
+    """``{'kernel/route': n}`` launched since the snapshot ``before``."""
+    from repro_torch.kernels.depthwise_conv import depthwise_conv
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    now = {f'quant_matmul/{r}': n
+           for r, n in quant_matmul.launches_by_route.items()}
+    now.update({f'depthwise_conv/{r}': n
+                for r, n in depthwise_conv.launches_by_route.items()})
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n - before.get(k, 0)}
+
+
+def act_sites(torch, fn, forced=None):
+    """Run ``fn()`` recording every dynamic activation quantization
+    (``ops.quantize_act``) in call order: ``(out, [(x, a_bits, scale)] on
+    the CPU, comparisons)``.  With ``forced`` (another run's sites, in
+    order) each site compares its own codes and scale with that run's,
+    then goes on with that run's, so every layer reads the other run's
+    int8 input: a comparison per site, the scales' relative difference,
+    the codes that differ, the largest change and the largest distance
+    of a differing code's x/scale from a rounding tie (k + 0.5), on the
+    nearer side."""
+    from repro_torch.kernels import ops
+    real = ops.quantize_act
+    sites, cmp = [], []
+
+    def spy(x, *, a_bits=8, per_row=False):
+        xq, sc = real(x, a_bits=a_bits, per_row=per_row)
+        if forced is not None:
+            fx, _, fs = forced[len(sites)]
+            qmax = 2.0 ** (a_bits - 1) - 1.0
+            t_own = (x / (sc[:, None] if per_row else sc)).cpu()
+            t_in = fx / (fs[:, None] if per_row else fs)
+            codes = torch.clamp(torch.round(t_in), -qmax - 1.0, qmax)
+            step = (xq.cpu().to(torch.float32) - codes).abs()
+            differ = step > 0
+            tie = torch.minimum((t_own - torch.floor(t_own) - 0.5).abs(),
+                                (t_in - torch.floor(t_in) - 0.5).abs())
+            cmp.append({'rel': float((sc.cpu() - fs).abs().max()
+                                     / fs.abs().max()),
+                        'codes': int(differ.sum()), 'of': differ.numel(),
+                        'step': float(step.max()),
+                        'tie': float(tie[differ].max())
+                        if bool(differ.any()) else 0.0})
+            xq, sc = codes.to(torch.int8).to(x.device), fs.to(x.device)
+        sites.append((x.detach().cpu(), a_bits, sc.detach().cpu()))
+        return xq, sc
+    ops.quantize_act = spy
+    try:
+        out = fn()
+    finally:
+        ops.quantize_act = real
+    return out, sites, cmp
+
+
+def dynamic_path(torch, key, export, params, cfg, fam, kernels,
+                 serve=False):
+    """A dynamic-scale export (``export()``: ``export_cnn(calibrate=None)``
+    or ``Pipeline.export``), counted from zero: ``fn_exits`` on a fixed
+    batch of SLOTS images on the kernels, every ``quant_matmul`` call with K
+    % 16 == 0 on ``wgmma`` and every depthwise call on the tile route, no
+    weight relaid, bit for bit against the same model with every kernel
+    call swapped for its plain version (``fn`` too); the stage segments
+    chained bit for bit against ``fn_exits``; against the CPU export layer
+    by layer, each CPU layer fed the card's int8 input (``act_sites``):
+    every scale within SCALE_RTOL_EXACT of the card's, every code that
+    differs one step apart and within TIE_TOL of a rounding tie, the
+    logits within DYN_TOL x max|logit| (the two run end to end on their
+    own scales: the difference printed, as the resident paths'
+    calibration prints its own).  With ``serve``, the Poisson trace served through the
+    scheduler at the exit threshold calibrated on the batch (a dynamic
+    scale depends on a request's batch mates, so the served requests are
+    checked for completion and launches only; the bit-exact gates hold at
+    fixed batches).  Returns (the launches of every kernel in the counted
+    run, phase 4's cases, readings)."""
+    import numpy as np
+    from repro_torch.core.export import (calibrate_exit_threshold,
+                                         export_cnn, to_device)
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.serving import ContinuousBatchScheduler, Request
+
+    tag = f'[dynamic:{key}]'
+    stream = fam.eval_batches(N_REQUESTS // 64 + 1, 64)
+    xs = torch.cat([x for x, _ in stream])
+    x, xs = xs[:SLOTS], xs[SLOTS:SLOTS + N_REQUESTS]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    model = export()
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    if model.plan is not None or model.backend != 'cuda':
+        fail(f'{key}: not a dynamic-scale export on the card')
+    routes0 = launched_routes({})
+    ((lg, exits), sites, _), calls = capture_int8_calls(
+        torch, lambda: act_sites(torch,
+                                 lambda: model.fn_exits(model.params, x)))
+    got_routes = launched_routes(routes0)
+    want_routes = call_routes(calls)
+    c = counts()
+    relaid = quant_matmul.weight_relayouts
+    n_calls = {k: sum(n == k for n, _ in calls) for k in kernels}
+    print(f'{tag} {cfg.name} exported in {t_export:.3f} s (dynamic scales, '
+          f'no plan); fn_exits on {SLOTS} images: launches {n_calls}, by '
+          f'route {got_routes} (the operand rule: {want_routes}), weight '
+          f'relayouts {relaid}, plain-version calls '
+          f'{sum(v["plain_calls"] for v in c.values())}')
+    if got_routes != want_routes or relaid or any(
+            v['plain_calls'] for v in c.values()) or not all(
+            c[k]['launches'] == n_calls[k] > 0 for k in kernels):
+        fail(f'{key}: the dynamic export did not run on the kernels by the '
+             f'operand rule without relayout')
+    lg_fn = model.fn(model.params, x)
+    with plain_int8_kernels():
+        lg_p, exits_p = model.fn_exits(model.params, x)
+        lg_fn_p = model.fn(model.params, x)
+    twin = same_bits(torch, lg, lg_p) and all(
+        same_bits(torch, exits[s], exits_p[s]) for s in exits) and \
+        same_bits(torch, lg_fn, lg_fn_p) and same_bits(torch, lg_fn, lg)
+    lg_s, exits_s = model.serve_stages(x)
+    staged = same_bits(torch, lg, lg_s) and all(
+        same_bits(torch, exits[s], exits_s[s]) for s in exits)
+    cpu = export_cnn(to_device(params, 'cpu'), cfg, device='cpu')
+
+    def diff(a, b):
+        (la, ea), (lb, eb) = a, b
+        return max([float((la.cpu() - lb).abs().max()
+                          / max(float(lb.abs().max()), 1.0))]
+                   + [float((ea[s].cpu() - eb[s]).abs().max()
+                            / max(float(eb[s].abs().max()), 1.0))
+                      for s in ea])
+    own, _, _ = act_sites(torch, lambda: cpu.fn_exits(cpu.params, x.cpu()))
+    fed, _, cmp = act_sites(torch, lambda: cpu.fn_exits(cpu.params, x.cpu()),
+                            forced=sites)
+    d_own, d_fed = diff((lg, exits), own), diff((lg, exits), fed)
+    rel = max(c['rel'] for c in cmp)
+    flips = sum(c['codes'] for c in cmp)
+    tie = max(c['tie'] for c in cmp)
+    step = max(c['step'] for c in cmp)
+    if tuple(lg.shape) != (SLOTS, cfg.num_classes) or \
+            not bool(torch.isfinite(lg).all()):
+        fail(f'{key}: the logits are malformed')
+    ms = time_ms(torch, lambda: model.fn(model.params, x), iters=10)
+    print(f'{tag} fn and fn_exits bit for bit against their plain-version '
+          f'twins (and fn against fn_exits) {twin}; the '
+          f'{model.n_stages} stage segments chained == fn_exits {staged}; '
+          f'fn {ms:.3f} ms a batch of {SLOTS} ({SLOTS / ms * 1e3:.1f} '
+          f'images/s)')
+    print(f'{tag} card vs CPU export, each CPU layer fed the card\'s int8 '
+          f'input, over {len(cmp)} dynamic scales: scales within {rel:.3e} '
+          f'(limit {SCALE_RTOL_EXACT:g}); {flips} of '
+          f'{sum(c["of"] for c in cmp)} codes differ, by at most {step:g} '
+          f'step, the farthest {tie:.3e} from a rounding tie (limit '
+          f'{TIE_TOL:g}); logits max |diff| / max|logit| {d_fed:.3e} (limit '
+          f'{DYN_TOL:g}); end to end, each on its own scales, {d_own:.3e}')
+    if not (twin and staged and rel <= SCALE_RTOL_EXACT and step <= 1
+            and tie <= TIE_TOL and d_fed <= DYN_TOL):
+        fail(f'{key}: the dynamic export disagrees with its plain twin, its '
+             f'stage chain or the CPU')
+    launches = {k: v['launches'] for k, v in c.items()}
+    readings = {'fn_ms': ms, 'cpu_diff': d_fed, 'cpu_own_diff': d_own,
+                'code_flips': flips}
+    if serve:
+        threshold = calibrate_exit_threshold(model, x)
+        rng = np.random.default_rng(SEED)
+        t_arr = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS))
+        before = counts()
+        ContinuousBatchScheduler(model, slots=SLOTS, threshold=2.0).run_trace(
+            [Request(-1 - i, xs[i], 0.0) for i in range(4)])     # warm-up
+        sched = ContinuousBatchScheduler(model, slots=SLOTS,
+                                         threshold=threshold, max_wait=0.05)
+        t0 = time.perf_counter()
+        done, metrics = sched.run_trace(
+            [Request(i, xs[i], float(t_arr[i])) for i in range(N_REQUESTS)])
+        t_serve = time.perf_counter() - t0
+        after = counts()
+        m = metrics.summary()
+        served = {k: after[k]['launches'] - before[k]['launches']
+                  for k in after}
+        early = sum(r.exit_stage != -1 for r in done.values())
+        print(f"{tag} served {m['n_requests']} of {N_REQUESTS} requests "
+              f"(Poisson {RATE:.0f}/s, {SLOTS} slots, threshold "
+              f"{threshold:.6f}) in {t_serve:.3f} s: throughput "
+              f"{m['throughput_rps']} req/s, p50 "
+              f"{m['p50_latency_s'] * 1e3:.3f} ms, p99 "
+              f"{m['p99_latency_s'] * 1e3:.3f} ms, exit mix {m['exit_mix']}, "
+              f"{early} left at an exit head, batches {m['n_batches']}; "
+              f"launches with the warm-up "
+              f"{dict((k, n) for k, n in served.items() if n)}; checked "
+              f"at fixed batches only (a dynamic "
+              f"scale depends on a request's batch mates)")
+        if len(done) != N_REQUESTS or any(
+                after[k]['plain_calls'] != before[k]['plain_calls']
+                for k in after) or quant_matmul.weight_relayouts:
+            fail(f'{key}: serving left requests, ran a plain version or '
+                 f'relaid a weight')
+        for k in served:
+            launches[k] += served[k]
+        readings.update(rps=m['throughput_rps'],
+                        p50_ms=m['p50_latency_s'] * 1e3,
+                        p99_ms=m['p99_latency_s'] * 1e3)
+    return launches, dyn_cases(torch, calls), readings
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2395,13 +3152,15 @@ ROUTES = {'quant_matmul': ('wgmma', 'mma_sync'),
 ALSO_REPLACES = {'fake_quant': 'src/repro/kernels/fake_quant.py:78'}
 
 
-def phase_report(torch, served, launches, qat_calls):
+def phase_report(torch, served, launches, qat_calls, dyn_cases):
     """Hold every kernel call one full-depth pass of each served path makes,
-    and every fake-quant call of one training step of paths (f) and (g)
-    (``qat_calls``: path key -> [(wrapper, weight, bits)]), against its
+    and every fake-quant call of one training step of paths (f), (g) and
+    (h) (``qat_calls``: path key -> [(wrapper, weight, bits)]), against its
     plain version, and time them; ``served`` maps a path key to (model,
-    params).  A kernel's line reports the path that calls it most, with
-    every path's pass under ``by_path``."""
+    params), ``dyn_cases`` a dynamic-scale path's key to its cases, made
+    from the calls of one pass at their own inputs.  A kernel's line
+    reports the path that calls it most, with every path's pass under
+    ``by_path``."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 7)
     per_path = {}
     for key, (model, params) in served.items():
@@ -2412,6 +3171,7 @@ def phase_report(torch, served, launches, qat_calls):
                                  for w in fc_weights(params)],
             'depthwise_conv': dw_pass_cases(torch, model, g),
             'lowrank_conv': lr_pass_cases(torch, model, g)}
+    per_path.update((k, dict(v)) for k, v in dyn_cases.items())
     for key, calls in qat_calls.items():
         per_path.setdefault(key, {})
         for name, w, bits in calls:
@@ -2554,6 +3314,7 @@ def lm_report(torch, lm_calls, lm_launches):
 
 def main():
     sys.stdout.reconfigure(line_buffering=True)
+    import functools
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this smoke test needs a '
@@ -2562,6 +3323,10 @@ def main():
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f'the port (src/repro_torch) is not beside this script: {e}')
+    from repro_torch.core.chain import Pipeline
+    from repro_torch.core.export import export_cnn
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.data import SyntheticImages
     t_start = time.perf_counter()
     print(f'[card] {smi_line()}')
     print(f'[card] torch {torch.__version__} cuda {torch.version.cuda} '
@@ -2590,13 +3355,40 @@ def main():
     launches[QAT_KEY], qat_calls, _ = train_lm_path(torch)
     print(f"[time] path {QAT_KEY} done at "
           f"{time.perf_counter() - t_start:.1f} s")
-    model, params, launches[CHAIN_KEY], chain_calls, _ = chain_path(
+    model, params, launches[CHAIN_KEY], chain_calls, chain = chain_path(
         torch, launch_us)
     served[CHAIN_KEY] = (model, params)
     print(f"[time] path {CHAIN_KEY} done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    dyn = {}
+    for spec in PATHS + (None,):
+        if spec is None:                 # (g'): the chain, Pipeline.export
+            st = chain['state']
+            key, fam, p, cfg = CHAIN_KEY, st.family, st.params, st.cfg
+            kern = ('quant_matmul',)
+            export = functools.partial(
+                Pipeline.from_sequence(CHAIN_SEQUENCE, CHAIN_HPS).export, st,
+                device='cuda')
+        else:
+            key, (model, p) = spec['key'], served[spec['key']]
+            fam, cfg = CNNFamily(SyntheticImages(), device='cuda'), model.cfg
+            kern = tuple(k for k in ('quant_matmul', 'depthwise_conv')
+                         if k in spec['kernels'])
+            export = functools.partial(export_cnn, p, cfg, device='cuda')
+        key += '-dynamic'
+        launches[key], dyn[key], _ = dynamic_path(
+            torch, key, export, p, cfg, fam, kern, serve=spec is PATHS[0])
+        print(f"[time] path {key} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+    del chain
+    launches[H_KEY], h_calls, h_decode, _ = lm_chain_path(torch)
+    lm_calls[H_KEY] = ('decode_attention', h_decode)
+    lm_launches[H_KEY] = launches[H_KEY]
+    print(f"[time] path {H_KEY} done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     kernels = phase_report(torch, served, launches,
-                           {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls}) + \
+                           {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,
+                            H_KEY: h_calls}, dyn) + \
         lm_report(torch, lm_calls, lm_launches)
     # the time each kernel loses to its bound over all its launches in the
     # counted runs (its device time where the profiler measured one): the

@@ -14,6 +14,10 @@ a misspelled hyperparameter name, raises instead of being ignored.
 pass with fine-tuning, and records (accuracy, BitOpsCR, CR) after every
 stage: the data behind the paper's Fig. 15 and Tables 1-4.
 
+The chain runs for both families: a CNN (``CNNFamily``) and the dense LM
+decoder (``LMFamily``), and ``Pipeline.export`` compiles either for
+serving.
+
 Where the port departs from the reference: ``verify_order`` (and
 ``from_sequence(verify_order=True)``) needs the analyzer's order-dag rule,
 which is not ported, and raises NotImplementedError; ``Pipeline.export``
@@ -151,11 +155,11 @@ class Pipeline:
             save_chain_state(checkpoint_dir, state, step=step)
 
     def export(self, state: ChainState, *, device='cuda') -> Any:
-        """Compile the finished chain for serving through the family's
-        registered backend (``export.export_chain``), with dynamic scales:
-        that export is not ported yet, so this raises; call
-        ``export_chain(state, calibrate=...)`` for the int8-resident
-        plan."""
+        """Compile the finished chain for serving on ``device`` through
+        the family's registered backend (``export.export_chain``): a CNN
+        with dynamic activation scales (``export_cnn(calibrate=None)``;
+        ``export_chain(state, calibrate=...)`` gives the int8-resident
+        plan), an LM as int8 weights (``export_lm``)."""
         from repro_torch.core.export import export_chain
         return export_chain(state, device=device)
 

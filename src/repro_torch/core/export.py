@@ -1,34 +1,42 @@
-"""Export a CNN to the int8-resident serving path on the port's kernels.
+"""Export a CNN to int8 serving on the port's kernels, in the reference's
+two tiers (``core/export.py``):
 
-The CNN resident half of the reference's ``core/export.py``:
-
-1. A *layer-plan compiler* runs one calibration forward (the QAT
-   fake-quant math) over a sample batch and records a static activation
-   scale at every layer boundary (:class:`LayerPlan`).
-2. The plan's layers serve on the int8 kernels, each with the requantize
-   epilogue, so activations travel between layers as int8 :class:`QAct`
-   on static scales: a plain conv through ``quant_conv`` (im2col + the
-   CUDA ``quant_matmul`` kernel); a depthwise conv (MobileNet's ``dw``)
-   on the CUDA ``depthwise_conv`` kernel; a low-rank-factored conv pair
-   either in one launch of the CUDA ``lowrank_conv`` kernel (``fused``,
-   when its rank fits the kernel's envelope and kernel selection picks
-   it) or as two ``quant_conv`` launches (``chained``); the exit and
-   final heads through ``quant_matmul`` with fp32 output (a factored
-   head chains two).  Every weight a layer sends to ``quant_matmul`` or
-   ``lowrank_conv`` is stored K-major (:func:`k_major`), the layout their
-   TMA + ``wgmma`` routes read.  The glue (GroupNorm + skip + act) runs on
+1. **Dynamic scales** (``calibrate=None``): the weights become int8 once
+   (static per-out-channel scales) and every layer quantizes its fp32
+   input with one per-tensor abs-max (``ops.quant_conv_nhwc`` /
+   ``ops.quant_dense``): a conv through im2col on the CUDA
+   ``quant_matmul`` kernel, a depthwise conv on ``depthwise_conv``, a
+   low-rank-factored pair as two such calls, the heads on
+   ``quant_matmul``; fp32 activations travel between layers.
+2. **Int8-resident** (``calibrate=<sample batch>``): a *layer-plan
+   compiler* runs one calibration forward (the QAT fake-quant math) over
+   the batch and records a static activation scale at every layer
+   boundary (:class:`LayerPlan`).  The plan's layers serve on the int8
+   kernels, each with the requantize epilogue, so activations travel
+   between layers as int8 :class:`QAct` on static scales: a plain conv
+   through ``quant_conv`` (im2col + ``quant_matmul``); a depthwise conv
+   (MobileNet's ``dw``) on ``depthwise_conv``; a low-rank-factored conv
+   pair either in one launch of the CUDA ``lowrank_conv`` kernel
+   (``fused``, when its rank fits the kernel's envelope and kernel
+   selection picks it) or as two ``quant_conv`` launches (``chained``);
+   the exit and final heads through ``quant_matmul`` with fp32 output (a
+   factored head chains two).  The glue (GroupNorm + skip + act) runs on
    the raw int8 codes in fp32 and requantizes to the consumer's scale.
-3. The plan is split at the exit heads into stage segments that the
-   serving scheduler resumes on, and served with batched early exit.
+
+Both tiers store every weight they send to ``quant_matmul`` or
+``lowrank_conv`` K-major (:func:`k_major`), the layout their TMA +
+``wgmma`` routes read, and split at the exit heads into stage segments
+that the serving scheduler resumes on (the dynamic tier's carry is fp32),
+served with batched early exit.
 
 One lowering serves both devices: the kernel wrappers launch the CUDA
 kernels for tensors on the card and run their plain versions for CPU
 tensors (the reference's separate jnp lowering with folded scales is
-not needed for that).  Not ported yet, each raising NotImplementedError
-that names its ROADMAP item: the dynamic-scale path (``calibrate=None``),
-measure-mode kernel selection (``select_kernels='measure'``), grouped
-convs with per-group depth > 1 (the reference's declared fp32 fallback,
-which no configuration has) and the static analyzer.
+not needed for that; ``ServingModel.backend`` names which ran).  Not
+ported yet, each raising NotImplementedError that names its ROADMAP
+item: measure-mode kernel selection (``select_kernels='measure'``),
+grouped convs with per-group depth > 1 (the reference's declared fp32
+fallback, which no configuration has) and the static analyzer.
 
 :func:`export_lm` is the LM family's int8 weight export.
 :func:`export_chain` exports a finished compression chain through a
@@ -80,6 +88,36 @@ def to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
     return tree
+
+
+# --------------------------------------------------------- dynamic scales
+
+
+def _serving_layers(a_bits: int):
+    """Dynamic-scale int8 layer implementations injected into cnn_forward.
+
+    Weight scales live in the params tree (static); ``quant`` is the QAT
+    hook tuple, ignored here.  Low-rank factored params (``{'u','v'}``,
+    each half int8 after ``quantize_params_for_serving``) chain two
+    kernel calls, as the QAT forward chains two convs."""
+    def conv_fn(p, x, *, stride=1, quant=(0, 0), groups=1, name=None):
+        del quant, name
+        if 'u' in p:
+            h = conv_fn(p['u'], x, stride=stride, groups=groups)
+            return conv_fn(p['v'], h)
+        return ops.quant_conv_nhwc(x, p['w_q'], p['scale'], p.get('b'),
+                                   stride=stride, groups=groups,
+                                   a_bits=a_bits)
+
+    def fc_fn(p, x, *, quant=(0, 0), name=None):
+        del quant, name
+        if 'u' in p:
+            return fc_fn(p['v'], fc_fn(p['u'], x))
+        y = ops.quant_dense(x, p['w_q'], p['scale'], a_bits=a_bits,
+                            per_row=False)
+        return y + p['b'] if 'b' in p else y
+
+    return conv_fn, fc_fn
 
 
 # ------------------------------------------------ int8-resident layer plan
@@ -510,6 +548,7 @@ class ServingModel:
     stage_exits: tuple = ()            # exit stage each segment ends at
     segment_launches: tuple = ()       # {kernel: launches} per segment
     device: torch.device = torch.device('cpu')
+    backend: str = 'plain'             # 'cuda' kernels | 'plain' versions
 
     def serve(self, x):
         return self.fn(self.params, x)
@@ -578,35 +617,42 @@ def k_major(w):
     return w.t().contiguous().t()
 
 
-def _k_major_matmul_weights(qparams, plan: LayerPlan) -> None:
-    """Lay every weight the plan routes to ``quant_matmul`` (plain convs,
-    heads, both halves of a chained factored pair) or to ``lowrank_conv``
-    (both halves of a fused pair) out K-major, in place: the s8
-    tensor-core operands of both kernels are K-major.  The depthwise leaves
-    keep their layout: that kernel reads w row-major."""
-    for name, e in plan.layers.items():
-        if e.get('depthwise'):
-            continue
-        p = _resolve_layer_params(qparams, name)
-        for leaf in ((p['u'], p['v']) if e['factored'] else (p,)):
-            leaf['w_q'] = k_major(leaf['w_q'])
+def _k_major_weights(qparams) -> None:
+    """Lay every weight either tier sends to ``quant_matmul`` or
+    ``lowrank_conv`` out K-major, in place: the convs and dense heads,
+    both halves of a factored pair; the s8 tensor-core operands of both
+    kernels are K-major.  The depthwise leaves (``dw``) keep their
+    layout: that kernel reads w row-major."""
+    def walk(node, key=''):
+        if isinstance(node, dict):
+            if 'w_q' in node and key != 'dw':
+                node['w_q'] = k_major(node['w_q'])
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, key)
+    walk(qparams)
 
 
 def export_cnn(params, cfg, *, device='cuda', calibrate=None,
                fuse_lowrank=True, select_kernels='model',
                tracer=None) -> ServingModel:
-    """Compile a (possibly low-rank-factored) CNN to the int8-resident
-    serving path on ``device``.
+    """Compile a (possibly low-rank-factored) CNN to int8 serving on
+    ``device``.
 
-    ``calibrate`` (a sample input batch) sets the static activation scales.
-    Parameters and the batch are moved to ``device``; on CUDA every layer
-    runs a kernel (``quant_matmul``, ``depthwise_conv``, ``lowrank_conv``)
-    and the calibration forward runs ``fake_quant_fused`` on the 2-D head
-    weights.  A factored conv inside the fused envelope is priced fused
-    against chained: ``select_kernels='model'`` (the H100 cost model
-    ``lowering_costs``) or ``'fused'`` (forced); ``fuse_lowrank=False``
-    forces the chained pair.  ``tracer`` (an ``obs.trace.Tracer``) records
-    an ``export.calibrate`` span."""
+    ``calibrate`` (a sample input batch) selects the int8-resident plan:
+    static activation scales, requantize epilogues, and cost-selected
+    low-rank lowerings (the calibration forward runs ``fake_quant_fused``
+    on the 2-D head weights on the card).  A factored conv inside the
+    fused envelope is priced fused against chained:
+    ``select_kernels='model'`` (the H100 cost model ``lowering_costs``) or
+    ``'fused'`` (forced); ``fuse_lowrank=False`` forces the chained pair.
+    ``calibrate=None`` keeps the dynamic-scale path (one abs-max per layer
+    per call, fp32 activations between layers; no plan).  Parameters and
+    the batch are moved to ``device``; on CUDA every layer runs a kernel
+    (``quant_matmul``, ``depthwise_conv``, ``lowrank_conv``).  ``tracer``
+    (an ``obs.trace.Tracer``) records an ``export.calibrate`` span."""
     from repro_torch.obs.trace import as_tracer
     tracer = as_tracer(tracer)
     if select_kernels not in SELECT_KERNELS:
@@ -617,27 +663,29 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
             "select_kernels='measure' times both lowerings through the "
             "tracer's kernel.launch spans, not ported yet (ROADMAP, queue "
             "A: measure-mode kernel selection)")
-    if calibrate is None:
-        raise NotImplementedError(
-            'the dynamic-scale export (calibrate=None) is not ported yet '
-            '(ROADMAP, queue A: dynamic-scale export); pass a calibration '
-            'batch')
     device = resolve_device(device)
     params = to_device(params, device)
-    calibrate = calibrate.to(device)
     w_bits, a_bits = _serving_bits(cfg)
-    a_qmax = 2.0 ** (a_bits - 1) - 1.0
+    plan = None
     with full_fp32(), torch.no_grad():
         qparams = quantize_params_for_serving(params, bits=w_bits)
-        with tracer.span('export.calibrate', track='export',
-                         config=cfg.name, select_kernels=select_kernels,
-                         batch=int(calibrate.shape[0])):
-            plan = _compile_layer_plan(params, cfg, calibrate, a_qmax,
-                                       fuse_lowrank=fuse_lowrank,
-                                       select_kernels=select_kernels)
-    _k_major_matmul_weights(qparams, plan)
-    conv_fn, fc_fn, glue_fn, pool_fn = _resident_layers(plan)
-    kw = dict(conv_fn=conv_fn, fc_fn=fc_fn, glue_fn=glue_fn, pool_fn=pool_fn)
+        if calibrate is not None:
+            calibrate = calibrate.to(device)
+            with tracer.span('export.calibrate', track='export',
+                             config=cfg.name, select_kernels=select_kernels,
+                             batch=int(calibrate.shape[0])):
+                plan = _compile_layer_plan(params, cfg, calibrate,
+                                           2.0 ** (a_bits - 1) - 1.0,
+                                           fuse_lowrank=fuse_lowrank,
+                                           select_kernels=select_kernels)
+    _k_major_weights(qparams)
+    if plan is not None:
+        conv_fn, fc_fn, glue_fn, pool_fn = _resident_layers(plan)
+        kw = dict(conv_fn=conv_fn, fc_fn=fc_fn, glue_fn=glue_fn,
+                  pool_fn=pool_fn)
+    else:
+        conv_fn, fc_fn = _serving_layers(a_bits)
+        kw = dict(conv_fn=conv_fn, fc_fn=fc_fn)
 
     @torch.inference_mode()
     def fn(p, x):
@@ -650,12 +698,14 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
     stage_fns, stage_exits, seg_launches = None, (), ()
     if cfg.exit_stages:
         stage_fns, stage_exits = _make_stage_fns(cfg, kw)
-        seg_launches = _segment_launches(plan, cfg, stage_exits)
+        if plan is not None:
+            seg_launches = _segment_launches(plan, cfg, stage_exits)
     return ServingModel(cfg=cfg, params=qparams, fn=fn,
                         fn_exits=fn_exits if cfg.exit_stages else None,
                         plan=plan, stage_fns=stage_fns,
                         stage_exits=stage_exits,
-                        segment_launches=seg_launches, device=device)
+                        segment_launches=seg_launches, device=device,
+                        backend='cuda' if device.type == 'cuda' else 'plain')
 
 
 # ------------------------------------------------------------------ LM export
@@ -663,12 +713,14 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
 
 def export_lm(params, cfg) -> ServingModel:
     """Int8 export for the LM family, on the device the params are on:
-    every matmul weight (2-D, and the scan-stacked ``(G, d, f)`` ones)
-    becomes ``{'w_q', 'scale'}`` through ``quantize_params_for_serving``,
-    which ``layers.dense`` consumes (dequantized before its product, as in
-    the reference).  Embedding tables and norms stay as they are.
-    ``fn(params, tokens)`` is the full-sequence forward; serving decodes
-    with ``launch/serve.py``."""
+    every matmul weight (2-D, and the scan-stacked ``(G, d, f)`` ones,
+    both halves of a factored ``{'u', 'v'}`` pair and the exit heads'
+    adapters) becomes ``{'w_q', 'scale'}`` through
+    ``quantize_params_for_serving``, which ``layers.dense`` consumes
+    (dequantized before its product, as in the reference).  Embedding
+    tables and norms stay as they are.  ``fn(params, tokens)`` is the
+    full-sequence forward; serving decodes with ``launch/serve.py``; the
+    exit heads serve through ``family.exit_logits``."""
     from repro_torch.models import transformer as tfm
     w_bits, _ = _serving_bits(cfg)
     with torch.no_grad():
@@ -678,8 +730,9 @@ def export_lm(params, cfg) -> ServingModel:
     def fn(p, tokens):
         return tfm.forward(p, cfg, tokens)
 
-    return ServingModel(cfg=cfg, params=qparams, fn=fn,
-                        device=params['embed']['table'].device)
+    device = params['embed']['table'].device
+    return ServingModel(cfg=cfg, params=qparams, fn=fn, device=device,
+                        backend='cuda' if device.type == 'cuda' else 'plain')
 
 
 # ----------------------------------------------------- serving backends
@@ -743,7 +796,8 @@ def _register_builtin_backends():
     # form so export_chain's calibrate guard raises instead of silently
     # ignoring a calibration batch
     register_serving_backend(
-        LMFamily, lambda state, device: export_lm(state.params, state.cfg))
+        LMFamily, lambda state, device: export_lm(
+            to_device(state.params, resolve_device(device)), state.cfg))
 
 
 _register_builtin_backends()

@@ -5,10 +5,10 @@ The passes are family-agnostic; everything model-specific lives here.
 ``CNNFamily`` is whole: the forward and the losses, distillation's student
 (``shrink``), physical channel pruning (``prune``), the low-rank
 factorization the L pass applies, exit heads and their dynamic statistics
-(``exit_stats``), and the BitOps/storage costs.  ``LMFamily`` is the subset
-the Q pass needs; its other chain hooks (``shrink``, ``prune``,
-``factorize``, the exit heads and ``exit_stats``) raise until they are
-ported (ROADMAP, queue A 1).
+(``exit_stats``), and the BitOps/storage costs.  ``LMFamily`` has the same
+hooks over the dense decoder: a shallower student, d_ff channel pruning,
+the stacked ``(G, d, f)`` SVD with one shared rank, exit heads after scan
+groups and their per-token statistics.
 
 Where the port departs from the reference:
 
@@ -23,10 +23,19 @@ Where the port departs from the reference:
   port computes their QAT scales with the jitted arithmetic
   (``quantization.jitted_scales``) and, on the card, without TF32
   (``quantization.full_fp32``).
-* ``prune``'s L2 channel importance is summed in float64 (the reference's
-  in float32), so the card and the CPU keep the same channels; numpy's
-  argsort picks them, as in the reference, which keeps the same channels
-  except at a tie within fp32 rounding.
+* ``prune``'s channel importance is summed in float64 (the reference's
+  in the weights' dtype), so the card and the CPU keep the same channels;
+  numpy's argsort picks them, as in the reference, which keeps the same
+  channels except at a tie within fp32 rounding.
+* ``LMFamily.factorize`` takes the stacked weights' SVDs from an fp64
+  Gram eigendecomposition on the card (``_gram_svd``) and numpy's SVD on
+  the CPU (the reference's); the rank rule reads the singular values in
+  numpy on the host either way.  The sign of a singular pair is free, so
+  the card's factors equal the CPU's up to sign per pair and fp32
+  rounding; their product ``u @ v`` is what the two share.
+* ``LMFamily.exit_stats`` applies the reference's per-token exit rule on
+  the device (the reference's runs in numpy on the host) under
+  ``jitted_scales`` and ``full_fp32``, as ``CNNFamily.exit_stats``.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ from repro_torch.core import bitops as bo
 from repro_torch.core.quantization import full_fp32, jitted_scales
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (dense, init_dense, init_norm,
+                                       rms_norm, softcap, unembed)
 from repro_torch.tree import tree_map
 
 
@@ -375,21 +386,59 @@ class CNNFamily:
 # =============================================================== LM family
 
 
-_LM_UNPORTED = ('default_exit_points', 'add_exits', 'exit_logits',
-                'exit_loss', 'exit_stats', 'shrink', 'prune', 'factorize')
+def _lm_svd(w):
+    """(U, S, Vt) of a stacked (G, d, f) weight, S as a float32 numpy array
+    for the rank rule: numpy's LAPACK SVD in fp32 on the CPU (the
+    reference's, so ranks and factors match it exactly, U and Vt numpy
+    too), :func:`_gram_svd` on the card."""
+    if w.is_cuda:
+        return _gram_svd(w)
+    return np.linalg.svd(w.detach().to(torch.float32).numpy(),
+                         full_matrices=False)
 
 
-def _unported(what):
-    raise NotImplementedError(f'LMFamily.{what} is not ported yet (ROADMAP, '
-                              f'queue A 1: the LM chain hooks)')
+def _gram_svd(w):
+    """The SVD of a stacked (G, d, f) weight from the fp64 eigendecomposition
+    of its smaller Gram matrix (``torch.linalg.eigh``), singular values in
+    descending order: exact to fp64 for the singular pairs a rank keeps,
+    so the card's factors are the CPU's up to the sign of each pair and
+    the CPU's own fp32 rounding.  cuSOLVER's fp32 ``torch.linalg.svd``
+    (Jacobi) moved ``u @ v`` by 5.8e-3 x max at tinyllama's (2048, 3942)
+    on an H100, and a host SVD of that shape takes seconds."""
+    a = w.detach().to(torch.float64)
+    transpose = a.shape[-2] > a.shape[-1]
+    if transpose:
+        a = a.transpose(-1, -2)
+    lam, U = torch.linalg.eigh(a @ a.transpose(-1, -2))
+    lam, U = lam.flip(-1), U.flip(-1)
+    S = torch.sqrt(torch.clamp_min(lam, 0.0))
+    Vt = (U.transpose(-1, -2) @ a) / torch.clamp_min(S, 1e-300)[..., None]
+    if transpose:
+        U, Vt = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    return U, S.to(torch.float32).cpu().numpy(), Vt
+
+
+def _balanced(U, S, Vt, r, like):
+    """The rank-r balanced split ``(U_r sqrt(S_r), sqrt(S_r) Vt_r)`` of a
+    stacked SVD, as fp32 tensors on ``like``'s device (the reference's
+    factors are float32 whatever the weight's dtype)."""
+    if isinstance(U, np.ndarray):
+        s = np.sqrt(S[..., :r])
+        u, v = U[..., :r] * s[..., None, :], s[..., :, None] * Vt[..., :r, :]
+        return (torch.from_numpy(np.ascontiguousarray(u)).to(like.device),
+                torch.from_numpy(np.ascontiguousarray(v)).to(like.device))
+    s = torch.from_numpy(np.sqrt(S[..., :r].astype(np.float64))).to(U)
+    return ((U[..., :r] * s[..., None, :]).to(torch.float32).contiguous(),
+            (s[..., :, None] * Vt[..., :r, :]).to(torch.float32).contiguous())
 
 
 @dataclass
 class LMFamily:
-    """The reference's ``LMFamily`` for the Q pass.  Batches come from
-    ``torch.Generator``s on the CPU (the reference's come from keys) and
-    are placed on ``device``, where :meth:`init` also draws the
-    weights."""
+    """The reference's ``LMFamily`` over the port's dense decoder.
+    Batches come from ``torch.Generator``s on the CPU (the reference's
+    come from keys) and are placed on ``device``, where :meth:`init`,
+    :meth:`add_exits` and the L pass's SVDs also run.  MoE expert pruning
+    raises: the port has no MoE block (ROADMAP, queue A 9)."""
     data: Any                           # SyntheticTokens
     seq: int = 128
     device: str = 'cuda'
@@ -398,12 +447,12 @@ class LMFamily:
         _check_device(self.device)
 
     def _fwd(self, params, cfg, batch, collect=False):
-        if collect:
-            _unported('_fwd(collect=True)')
-        return tfm.forward(params, cfg, batch['tokens'])
+        return tfm.forward(params, cfg, batch['tokens'],
+                           collect_hiddens=collect)
 
     def generator(self, seed: int) -> torch.Generator:
-        """The generator :meth:`init` draws from, on ``device``."""
+        """The generator :meth:`init` and :meth:`add_exits` draw from, on
+        ``device``."""
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def init(self, gen: torch.Generator, cfg):
@@ -415,13 +464,23 @@ class LMFamily:
     def logits_of(self, params, cfg, batch):
         return self._fwd(params, cfg, batch)
 
+    def default_exit_points(self, cfg):
+        _, G, _, _ = tfm.layer_groups(cfg)
+        return tuple(sorted({G // 3, 2 * G // 3}))
+
+    def exit_loss(self, params, cfg, batch):
+        """(mean over the exit heads of their next-token cross entropy in
+        fp32, exit logits)."""
+        _, exits = self.exit_logits(params, cfg, batch)
+        ce = 0.0
+        for lg in exits.values():
+            ce = ce + _token_ce(lg, batch['labels'])
+        return ce / max(len(exits), 1), exits
+
     def loss(self, params, cfg, batch):
         """(mean next-token cross entropy in fp32, logits)."""
         lg = self._fwd(params, cfg, batch)
-        ce = -torch.mean(torch.gather(
-            torch.log_softmax(lg.to(torch.float32), dim=-1), -1,
-            batch['labels'][..., None]))
-        return ce, lg
+        return _token_ce(lg, batch['labels']), lg
 
     def eval_batches(self, n, batch, seed=10_000):
         """``n`` held-out batches, batch ``i`` drawn from generator seed
@@ -441,6 +500,185 @@ class LMFamily:
             tot += b['labels'].numel()
         return hit / tot
 
+    # ----- distillation: a shallower student, rounded to the block pattern
+    def shrink(self, cfg, factor):
+        pat = len(cfg.block_pattern)
+        n = max(pat, int(round(cfg.num_layers * factor / pat)) * pat)
+        return cfg.replace(name=cfg.name + '-student', num_layers=n)
+
+    # ----- pruning: d_ff channels, uniform across layers
+    def prune(self, params, cfg, ratio):
+        """Keep ``max(8, int(d_ff * (1 - ratio)))`` MLP channels by the
+        importance ``sqrt(|wi|^2 + |wg|^2) * |wo|`` of each (summed in
+        float64, so the card and the CPU keep the same channels): the
+        sorted top channels of an unstacked layer; of a stacked ``(G, d,
+        f)`` layer each group's own, in the reference's importance order
+        (a stable argsort, as ``jnp.argsort``)."""
+        if cfg.is_moe and cfg.n_experts > 2:
+            return self._prune_experts(params, cfg, ratio)
+        if not cfg.d_ff:
+            return params, cfg
+        if _any_factored(params):
+            raise ValueError('cannot channel-prune low-rank-factored MLPs: '
+                             'apply P before L')
+        keep = max(8, int(cfg.d_ff * (1 - ratio)))
+
+        def sq(w, dim):
+            return torch.sum(torch.square(w.to(torch.float64)), dim=dim)
+
+        def prune_mlp(mp, stacked):
+            wi, wo = mp['wi']['w'], mp['wo']['w']
+            col = sq(wi, -2) + (sq(mp['wg']['w'], -2) if 'wg' in mp else 0.0)
+            imp = (torch.sqrt(col) * torch.sqrt(sq(wo, -1))).cpu().numpy()
+            order = np.argsort(-imp, axis=-1, kind='stable')
+            if stacked:
+                idx = torch.from_numpy(order[..., :keep]).to(wi.device)
+
+                def take_col(w):
+                    return torch.take_along_dim(w, idx[:, None, :], dim=-1)
+
+                def take_row(w):
+                    return torch.take_along_dim(w, idx[..., None], dim=-2)
+            else:
+                idx = torch.from_numpy(np.sort(order[:keep])).to(wi.device)
+
+                def take_col(w):
+                    return w[..., idx]
+
+                def take_row(w):
+                    return w[..., idx, :]
+            out = {'wi': {'w': take_col(wi)}, 'wo': {'w': take_row(wo)}}
+            if 'wg' in mp:
+                out['wg'] = {'w': take_col(mp['wg']['w'])}
+            return out
+
+        new = dict(params)
+        for grp in ('prefix', 'blocks', 'tail'):
+            new[grp] = [dict(lp, mlp=prune_mlp(lp['mlp'], grp == 'blocks'))
+                        if 'mlp' in lp else lp for lp in params[grp]]
+        return new, cfg.replace(d_ff=keep)
+
+    def _prune_experts(self, params, cfg, ratio):
+        raise NotImplementedError(
+            'pruning MoE experts needs the MoE block (models/moe.py), not '
+            'ported yet (ROADMAP, queue A 9: the other LM blocks)')
+
+    # ----- low-rank factorization (the L pass's family hook)
+    def factorize(self, params, cfg, *, energy=0.95, min_rank=8):
+        """SVD-split the dense MLP weights (wi, wg, wo); returns (params,
+        cfg, mac_scale).  An unstacked layer factors per weight
+        (:func:`_svd_split`, numpy on the host; no ported config has one);
+        a stacked ``(G, d, f)`` weight with one
+        shared rank, the largest of the groups' ranks (floored at
+        ``min_rank``), so the stack stays rectangular, and only where that
+        rank saves MACs.  Each factored weight becomes ``{'u': {'w'},
+        'v': {'w'}}`` in fp32, as the reference's.  ``mac_scale`` is the
+        whole tree's weight-volume ratio."""
+        old_cost = _linear_cost(params)
+
+        def tensor(a, like):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+
+        def factor_w(wp):
+            w = wp['w']
+            uv = _svd_split(w.detach().cpu().to(torch.float32).numpy(),
+                            energy, min_rank)
+            if uv is None:
+                return wp
+            return {'u': {'w': tensor(uv[0], w)}, 'v': {'w': tensor(uv[1], w)}}
+
+        def factor_stacked(wp):
+            w = wp['w']
+            _, d, f = w.shape
+            U, S, Vt = _lm_svd(w)
+            tot = np.sum(S ** 2, axis=-1, keepdims=True)
+            if not np.all(tot > 0):
+                return wp
+            ranks = (np.cumsum(S ** 2, axis=-1) < energy * tot).sum(-1) + 1
+            r = int(min(max(int(ranks.max()), min_rank), S.shape[-1]))
+            if r * (d + f) >= d * f:
+                return wp
+            u, v = _balanced(U, S, Vt, r, w)
+            return {'u': {'w': u}, 'v': {'w': v}}
+
+        def factor_mlp(mp, stacked):
+            fn = factor_stacked if stacked else factor_w
+            return {k: fn(wp) if k in ('wi', 'wg', 'wo') else wp
+                    for k, wp in mp.items()}
+
+        new = dict(params)
+        for grp in ('prefix', 'blocks', 'tail'):
+            new[grp] = [dict(lp, mlp=factor_mlp(lp['mlp'], grp == 'blocks'))
+                        if 'mlp' in lp else lp for lp in params[grp]]
+        return new, cfg, _linear_cost(new) / max(old_cost, 1.0)
+
+    # ----- early exit: heads after scan groups
+    def add_exits(self, gen: torch.Generator, params, cfg, groups):
+        """A fresh head after each scan group in ``groups``: an RMS norm
+        and a ``d x d`` adapter in the model's dtype, drawn from ``gen``
+        in order; the unembedding is shared with the final head."""
+        dtype = tfm.torch_dtype(cfg.dtype)
+        kw = dict(dtype=dtype, device=self.device)
+        params = dict(params)
+        params['exit_heads'] = {
+            str(g): {'norm': init_norm(cfg.d_model, **kw),
+                     'adapter': init_dense(gen, cfg.d_model, cfg.d_model,
+                                           **kw)}
+            for g in groups}
+        return params, cfg.replace(exit_layers=tuple(groups))
+
+    def exit_logits(self, params, cfg, batch):
+        """(final logits, ``{group: exit logits}``): each head reads the
+        residual stream after its group, ``rms_norm(h + adapter(h))``, and
+        the shared unembedding (softcapped as the final head)."""
+        lg, hiddens = self._fwd(params, cfg, batch, collect=True)
+        quant = (cfg.w_bits, cfg.a_bits)
+        out = {}
+        for g_str, hp in params.get('exit_heads', {}).items():
+            g = int(g_str)
+            h = hiddens[g]
+            h = rms_norm(hp['norm'], h + dense(hp['adapter'], h, quant=quant),
+                         cfg.norm_eps)
+            elg = unembed(params.get('unembed', params['embed']), h,
+                          quant=quant)
+            out[g] = softcap(elg, cfg.logit_softcap)
+        return lg, out
+
+    @torch.no_grad()
+    def exit_stats(self, params, cfg, batches, threshold):
+        """(accuracy, exit_probs) of the dynamic early-exit model: a token
+        leaves at the first head whose fp32 softmax maximum exceeds
+        ``threshold``; ``exit_probs[g]`` is the share of the tokens that
+        reach head ``g`` and leave there.  The rule runs on the device,
+        the counts are read once a batch."""
+        probs = {g: [0, 0] for g in cfg.exit_layers}
+        hit = tot = 0
+        with jitted_scales(), full_fp32():
+            for b in batches:
+                final, exits = self.exit_logits(params, cfg, b)
+                y = b['labels'].reshape(-1)
+                alive = torch.ones(y.shape, dtype=torch.bool,
+                                   device=y.device)
+                pred = torch.argmax(final, -1).reshape(-1)
+                counts = []
+                for g in sorted(cfg.exit_layers):
+                    p = torch.softmax(exits[g].to(torch.float32), dim=-1
+                                      ).reshape(-1, cfg.vocab_size)
+                    conf = p.amax(-1) > threshold
+                    take = alive & conf
+                    counts += [take.sum(), alive.sum()]
+                    pred = torch.where(take, p.argmax(-1), pred)
+                    alive &= ~conf
+                counts.append(torch.sum(pred == y))
+                counts = torch.stack(counts).tolist()
+                for i, g in enumerate(sorted(cfg.exit_layers)):
+                    probs[g][0] += counts[2 * i]
+                    probs[g][1] += counts[2 * i + 1]
+                hit += counts[-1]
+                tot += y.numel()
+        return hit / tot, {g: c / max(n, 1) for g, (c, n) in probs.items()}
+
+    # ----- costs
     def bitops(self, cfg, exit_probs=None, mac_scale=1.0):
         # exit indices are scan-group indices -> convert to layer indices
         ep = None
@@ -453,8 +691,9 @@ class LMFamily:
     def storage_bits(self, params, cfg):
         return bo.param_storage_bits(params, cfg.w_bits)
 
-    def __getattr__(self, name):
-        """The reference's other methods raise until they are ported."""
-        if name in _LM_UNPORTED:
-            _unported(name)
-        raise AttributeError(name)
+
+def _token_ce(logits, labels):
+    """Mean next-token cross entropy of ``logits`` (B, S, vocab) in fp32."""
+    return -torch.mean(torch.gather(
+        torch.log_softmax(logits.to(torch.float32), dim=-1), -1,
+        labels[..., None]))

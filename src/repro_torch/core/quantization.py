@@ -24,6 +24,7 @@ import contextlib
 import torch
 
 from repro_torch.kernels.ref import recip32, true_div
+from repro_torch.tree import tree_leaves
 
 
 def _ste(x_q, x):
@@ -199,3 +200,8 @@ def quantize_params_for_serving(params, bits: int = 8):
         return node
 
     return convert(params)
+
+
+def quantized_params_bits(params, bits: int) -> int:
+    """Total storage bits of a params tree at ``bits`` per element."""
+    return sum(t.numel() for t in tree_leaves(params)) * bits

@@ -1,5 +1,4 @@
-"""Public entry points over the kernels (the subset the int8-resident CNN
-path, the LM decode step and LM QAT use).
+"""Public entry points over the kernels (the reference's ``kernels/ops.py``).
 
 The device of the tensor decides: a CUDA tensor goes to the hand-written
 kernel (or raises), a CPU tensor to the kernel's plain version.  The
@@ -7,6 +6,15 @@ reference's ``use_pallas`` switch is gone for that reason.
 
 * :func:`prequantize_weight` — per-out-channel weight quantization, run
   once at export; (w_q, sw) are static at serve time.
+* :func:`quantize_act`, :func:`quant_dense`, :func:`quantize_dense_int8`,
+  :func:`quant_conv_nhwc` — the dynamic-scale serving path
+  (``export_cnn(calibrate=None)``): one per-tensor (or per-row) abs-max
+  of the activation per layer, fp32 between layers.  The reference jits
+  them, and XLA folds the scale's ``/ qmax`` into ``* fp32(1/qmax)`` while
+  it keeps ``x / s`` a true division by the traced scale (its compiled
+  HLO); the port computes both so, bit for bit.  A depthwise conv reads
+  its scale on the host (the kernel takes it by value): one device read
+  per depthwise layer.
 * :func:`quant_conv_static` / :func:`quant_dense_static` — int8 conv/dense
   on an activation already quantized on a static scale; with
   ``out_scale`` the output stays int8 on that static grid.
@@ -18,7 +26,9 @@ reference's ``use_pallas`` switch is gone for that reason.
   attention over a bf16/fp32 or an int8 KV cache (the LM decode step).
 * :func:`fake_quant` — per-channel weight fake quant (QAT), on the fused
   or the two-pass kernel as the reference routes it.
-* :func:`quant_matmul` — the kernel itself.
+* :func:`quant_matmul` — the kernel itself (the reference's thin
+  wrappers over ``quant_matmul`` and ``decode_attention`` are these
+  names: no ``use_pallas`` to pass on).
 """
 from __future__ import annotations
 
@@ -26,12 +36,13 @@ import torch
 
 from repro_torch.kernels.decode_attention import (  # noqa: F401
     decode_attention, decode_attention_int8)
-from repro_torch.kernels.depthwise_conv import depthwise_conv
+from repro_torch.kernels.depthwise_conv import depthwise_conv, fits_depthwise
 from repro_torch.kernels.fake_quant import fake_quant as fake_quant_two_pass
 from repro_torch.kernels.fake_quant import fake_quant_fused
 from repro_torch.kernels.lowrank_conv import lowrank_conv
 from repro_torch.kernels.quant_conv import im2col_nhwc, quant_conv
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: F401
+from repro_torch.kernels.ref import recip32
 from repro_torch.kernels.tiling import VMEM_BUDGET
 
 
@@ -55,6 +66,65 @@ def prequantize_weight(w, *, bits: int = 8):
     from repro_torch.core.quantization import quantize_weight
     w_q, scale = quantize_weight(w.to(torch.float32), bits, axis=-1)
     return w_q.to(torch.int8), scale.reshape(-1).to(torch.float32)
+
+
+def _act_qmax(a_bits: int) -> float:
+    return 2.0 ** (a_bits - 1) - 1.0
+
+
+def quantize_act(x, *, a_bits: int = 8, per_row: bool = False):
+    """Dynamic activation quantization, the only per-call scale compute:
+    one per-tensor scale, or with ``per_row`` one per row of a 2-D x.
+    The scale is ``max(amax, 1e-8) * recip32(qmax)`` and the codes
+    ``round(x / s)``, a true division, as ``jax.jit`` of the reference
+    computes them.  Returns (x_q int8, s fp32: 0-dim or (M,))."""
+    qmax = _act_qmax(a_bits)
+    if per_row:
+        s = torch.clamp_min(torch.abs(x).amax(dim=1), 1e-8) * recip32(qmax)
+        xq = torch.round(x / s[:, None])
+    else:
+        s = torch.clamp_min(torch.abs(x).amax(), 1e-8) * recip32(qmax)
+        xq = torch.round(x / s)
+    xq = torch.clamp(xq, -qmax - 1.0, qmax)
+    return xq.to(torch.int8), s.to(torch.float32)
+
+
+def quant_dense(x, w_q, sw, *, a_bits=8, per_row=True, **kw):
+    """Int8 dense with prequantized weights: x fp32 (M,K) @ w_q int8 (K,N)
+    on ``quant_matmul``, x quantized per row or per tensor, sw (N,) or
+    (1, N) static.  Returns fp32 (M, N)."""
+    xq, sx = quantize_act(x, a_bits=a_bits, per_row=per_row)
+    if not per_row:
+        sx = sx.expand(x.shape[0]).contiguous()
+    return quant_matmul(xq, w_q, sx, sw.reshape(-1), **kw)
+
+
+def quantize_dense_int8(x, w, **kw):
+    """Quantize x and an fp32 w to int8 and run the quantized matmul
+    (:func:`prequantize_weight` then :func:`quant_dense`)."""
+    w_q, sw = prequantize_weight(w)
+    return quant_dense(x, w_q, sw, **kw)
+
+
+def quant_conv_nhwc(x, w_q, sw, bias=None, *, stride=1, groups=1,
+                    relu=False, a_bits=8):
+    """Int8 NHWC conv with prequantized weights: x fp32 (B,H,W,CIN) on one
+    dynamic per-tensor scale (the QAT grid); w_q int8 (KH,KW,CIN,COUT);
+    sw (COUT,) static.  A grouped conv with per-group depth 1 runs on
+    ``depthwise_conv``; the rest through im2col on ``quant_matmul``.  A
+    grouped conv with per-group depth > 1, the reference's declared fp32
+    fallback (no configuration has one), raises.  Returns fp32."""
+    xq, sx = quantize_act(x, a_bits=a_bits)
+    if groups > 1:
+        if not fits_depthwise(w_q.shape):
+            raise NotImplementedError(
+                "a grouped conv with per-group depth > 1 is the reference's "
+                'declared fp32 fallback, not ported (ROADMAP, queue A: '
+                'grouped-conv fallback)')
+        return depthwise_conv(xq, w_q, float(sx), sw.reshape(-1), bias,
+                              stride=stride, relu=relu)
+    return quant_conv(xq, w_q, sx, sw.reshape(-1), bias, stride=stride,
+                      relu=relu)
 
 
 def quant_conv_static(x_q, w_q, sw, bias=None, *, sx, stride=1, relu=False,

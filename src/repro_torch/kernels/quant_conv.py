@@ -63,18 +63,21 @@ def quant_conv(x_q, w_q, sx, sw, bias=None, *, stride=1, relu=False,
     """Int8 NHWC conv with the fused epilogue.
 
     x_q int8 (B,H,W,CIN); w_q int8 (KH,KW,CIN,COUT); sx the per-tensor
-    activation scale (Python float); sw (COUT,) fp32; bias (COUT,) fp32 or
-    None.  Returns (B,OH,OW,COUT) fp32, or int8 when ``out_scale`` is
-    set."""
+    activation scale (a Python float, or a 0-dim fp32 tensor on x's
+    device, read there); sw (COUT,) fp32; bias (COUT,) fp32 or None.
+    Returns (B,OH,OW,COUT) fp32, or int8 when ``out_scale`` is set."""
     B, H, W, C = x_q.shape
     kh, kw, c2, n = w_q.shape
     if C != c2:
         raise ValueError(f'quant_conv: input has {C} channels, weight {c2}')
     patches, (oh, ow) = im2col_nhwc(x_q, kh, kw, stride)
     m = B * oh * ow
-    out = quant_matmul(patches, w_q.reshape(kh * kw * C, n),
-                       torch.full((m,), float(sx), dtype=torch.float32,
-                                  device=x_q.device),
+    if isinstance(sx, torch.Tensor):
+        sxv = sx.to(torch.float32).reshape(1).expand(m).contiguous()
+    else:
+        sxv = torch.full((m,), float(sx), dtype=torch.float32,
+                         device=x_q.device)
+    out = quant_matmul(patches, w_q.reshape(kh * kw * C, n), sxv,
                        sw, bias, relu=relu, out_scale=out_scale,
                        out_qmax=out_qmax)
     return out.reshape(B, oh, ow, n)

@@ -5,7 +5,9 @@ blocks it has ported: decoder-only stacks of GQA attention ('global' and
 'local') and dense MLPs.  :func:`build_model` raises NotImplementedError
 for a config that needs anything else (MoE, MLA, recurrent or SSM blocks,
 an encoder or a frontend, softcap).  ``init`` takes a ``torch.Generator``
-and a device where the reference takes a key.
+and a device where the reference takes a key.  ``init`` and ``init_cache``
+run on the card unless the caller asks for ``device='cpu'``: without a card
+they raise (``export.resolve_device``) instead of falling back to the CPU.
 """
 from __future__ import annotations
 
@@ -46,14 +48,15 @@ def unported_blocks(cfg: ModelConfig) -> list[str]:
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    from repro_torch.core.export import resolve_device
     why = unported_blocks(cfg)
     if why:
         raise NotImplementedError(
             f'{cfg.name} needs {", ".join(why)}, not ported yet (ROADMAP, '
             f'queue A: the other LM blocks)')
 
-    def init(gen, device='cpu'):
-        return tfm.init_lm(gen, cfg, device)
+    def init(gen, device='cuda'):
+        return tfm.init_lm(gen, cfg, resolve_device(device))
 
     def forward(params, batch):
         return tfm.forward(params, cfg, batch['tokens'])
@@ -64,8 +67,8 @@ def build_model(cfg: ModelConfig) -> Model:
     def decode_step(params, token, cur, cache, *, ctx=None):
         return tfm.decode_step(params, cfg, token, cur, cache, ctx=ctx)
 
-    def init_cache(batch, max_len, device='cpu'):
-        return tfm.init_cache(cfg, batch, max_len, device)
+    def init_cache(batch, max_len, device='cuda'):
+        return tfm.init_cache(cfg, batch, max_len, resolve_device(device))
 
     return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
                  decode_step=decode_step, init_cache=init_cache)

@@ -15,7 +15,7 @@ injected functions (``'decode_attn'``) as in the reference.  The cache is
 written in place (see ``models/attention.py``).
 
 Dropped, each not needed on one card or by a ported config:
-``shard_act`` (identity on one device), ``remat``, ``collect_hiddens``,
+``shard_act`` (identity on one device), ``remat``,
 frontend ``embeds``, the encoder and cross-attention, and the MoE, MLA,
 recurrent and SSM blocks (``models.model.build_model`` refuses configs
 that need them).
@@ -167,15 +167,26 @@ def _head(params, cfg, x, quant):
     return softcap(logits, cfg.logit_softcap)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Logits (B, S, vocab) of a token batch (B, S)."""
+def forward(params, cfg: ModelConfig, tokens, *, collect_hiddens=False):
+    """Logits (B, S, vocab) of a token batch (B, S).
+
+    ``collect_hiddens``: also return the residual stream after each scan
+    group (``hiddens[g]``, (B, S, d), before the tail and the final norm),
+    the early-exit heads' inputs: ``(logits, hiddens)``.  The reference
+    stacks them into (G, B, S, d); the list indexes the same way."""
     quant = (cfg.w_bits, cfg.a_bits)
     x = embed(params['embed'], tokens, torch_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for kind, lp in _layers(params, cfg):
+    n_prefix, G, P, _ = layer_groups(cfg)
+    group_ends = {n_prefix + (g + 1) * P - 1 for g in range(G)}
+    hiddens = []
+    for i, (kind, lp) in enumerate(_layers(params, cfg)):
         x, _ = layer_forward(lp, x, kind, cfg, positions=positions,
                              quant=quant)
-    return _head(params, cfg, x, quant)
+        if collect_hiddens and i in group_ends:
+            hiddens.append(x)
+    logits = _head(params, cfg, x, quant)
+    return (logits, hiddens) if collect_hiddens else logits
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, max_len=None):

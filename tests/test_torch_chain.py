@@ -647,9 +647,24 @@ def test_lm_backend_refuses_a_calibration_batch():
 
 
 def test_pipeline_export_needs_the_dynamic_scale_export(chains):
-    t, _ = chains
-    with pytest.raises(NotImplementedError, match='dynamic-scale'):
-        tchain.Pipeline.from_sequence('E').export(t, device='cpu')
+    """``Pipeline.export`` compiles the finished chain with dynamic scales
+    (``export_cnn(calibrate=None)``, no plan), the chain's operating point
+    threaded in, as the reference's does; the logits within 4e-2 x
+    max|logit| of the reference's Pallas-path export (the factored model,
+    ROADMAP C), the early-exit decisions equal."""
+    t, j = chains
+    x = _batch(4, 4)[0]
+    model = tchain.Pipeline.from_sequence('E').export(t, device='cpu')
+    ref = jchain.Pipeline.from_sequence('E').export(j, use_pallas=True)
+    assert model.plan is None and ref.plan is None
+    assert model.exit_threshold == ref.exit_threshold == 0.15
+    want = np.asarray(ref.serve(x))
+    np.testing.assert_allclose(
+        model.serve(torch.from_numpy(x)).numpy(), want, rtol=0,
+        atol=4e-2 * max(float(np.abs(want).max()), 1.0))
+    _, stage = model.serve_early_exit(torch.from_numpy(x))
+    _, jstage = ref.serve_early_exit(x)
+    np.testing.assert_array_equal(stage.numpy(), np.asarray(jstage))
 
 
 def test_exported_chain_matches_reference(chains):

@@ -6,9 +6,12 @@ launch plan), the decode-attention kernels within their stated tolerance
 (the int8 one with whole blocks of its split masked and with no valid
 slot), the scheduler on the card launching the kernels exactly as the
 plan counts them, one LM decode step and one Q-pass (QAT) step on the
-card against the CPU, and the CNN compression chain on the card (its
+card against the CPU, the CNN compression chain on the card (its
 initial weights, P and L on the card's checkpoints against the CPU, a
-checkpoint saved on the card and read on the CPU, ``serve_cnn --steps``).
+checkpoint saved on the card and read on the CPU, ``serve_cnn --steps``),
+the LM chain hooks on a full-width cut against the CPU, the fake quant at
+the factored LM shapes and the dynamic-scale CNN export against its
+plain-version twin.
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -18,6 +21,7 @@ without JAX:
 Every test is marked ``gpu`` and skips through the ``cuda_device`` fixture
 when there is no card (decided when the test runs, never at import).
 """
+import contextlib
 import math
 
 import pytest
@@ -267,6 +271,26 @@ def test_fake_quant_fused_kernel_bf16_bit_exact(cuda_device, kn):
         got = fake_quant_fused(w, bits=bits)
         assert got.dtype == torch.bfloat16
         assert torch.equal(_bits(got), _bits(fake_quant_plain(w, bits=bits)))
+
+
+@pytest.mark.parametrize('kn', [(643, 3942), (2048, 643), (3942, 643),
+                                (643, 2048), (1347, 3941)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fake_quant_fused_kernel_at_factored_shapes(cuda_device, kn, dtype):
+    """The shapes L leaves in tinyllama's MLPs after P (d 2048, d_ff 3942,
+    an odd rank): rows that are not 16-byte aligned take the element-load
+    instantiations."""
+    from repro_torch.kernels.fake_quant import fused_plan
+    w = torch.randn(kn, device=cuda_device).to(dtype)
+    for bits in (8, 2):
+        reset_counts()
+        got = fake_quant_fused(w, bits=bits)
+        assert counts()['fake_quant_fused'] == \
+            {'launches': 1, 'plain_calls': 0}
+        assert got.dtype == dtype
+        assert torch.equal(_bits(got),
+                           _bits(fake_quant_plain(w, bits=bits))), \
+            fused_plan(*kn, w.element_size())
 
 
 def test_fake_quant_rejects_bad_operands(cuda_device):
@@ -634,3 +658,151 @@ def test_serve_cnn_fine_tunes_and_serves_on_card(cuda_device):
     assert 'QAT: 2 steps of 64 images' in r.stdout
     assert 'served 16 requests' in r.stdout
     assert '(plain 0)' in r.stdout and 'quant_matmul=0 ' not in r.stdout
+
+
+@contextlib.contextmanager
+def _plain_int8_kernels():
+    """The int8 kernels' plain versions in their wrappers' places, in every
+    module that calls them (for a comparison on the card only)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_conv as qc
+    saved = (ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv)
+    ops.quant_matmul = qc.quant_matmul = quant_matmul_plain
+    ops.depthwise_conv = depthwise_conv_plain
+    try:
+        yield
+    finally:
+        ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv = saved
+
+
+@pytest.mark.parametrize('kind', ['resnet8', 'mobilenet-small',
+                                  'resnet8-factored'])
+def test_dynamic_export_on_card_matches_its_plain_twin(cuda_device, kind):
+    """``export_cnn(calibrate=None)`` on the card: ``fn_exits`` on the
+    kernels bit for bit against the same export with the plain versions
+    in the kernels' places; every ``quant_matmul`` weight K-major (no
+    relayout), every call with K % 16 == 0 on ``wgmma``; the stage
+    segments chained equal ``fn_exits``."""
+    from repro_torch.kernels.quant_matmul import qmm_route
+    base = MOBILENET_SMALL_CIFAR if kind == 'mobilenet-small' \
+        else RESNET8_CIFAR
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    params = fam.init(torch.Generator().manual_seed(0), base)
+    cfg = base
+    if kind == 'resnet8-factored':
+        params, cfg, _ = fam.factorize(params, cfg, energy=0.6, min_rank=2)
+    params, cfg = fam.add_exits(torch.Generator().manual_seed(1), params,
+                                cfg, fam.default_exit_points(cfg))
+    cfg = cfg.replace(w_bits=8, a_bits=8)
+    model = export_cnn(params, cfg, device='cuda')
+    assert model.plan is None and model.backend == 'cuda'
+    x = fam.eval_batches(1, 32)[0][0]
+    ks = []
+    real = quant_matmul
+
+    def spy(x_q, w_q, *a, **kw):
+        ks.append((x_q.shape[1], qmm_route(x_q, w_q)))
+        return real(x_q, w_q, *a, **kw)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_conv as qc
+    reset_counts()
+    ops.quant_matmul = qc.quant_matmul = spy
+    try:
+        lg, exits = model.fn_exits(model.params, x)
+    finally:
+        ops.quant_matmul = qc.quant_matmul = real
+    c = counts()
+    assert quant_matmul.weight_relayouts == 0
+    assert all(v['plain_calls'] == 0 for v in c.values())
+    assert c['quant_matmul']['launches'] == len(ks) > 0
+    assert (c['depthwise_conv']['launches'] > 0) == \
+        (kind == 'mobilenet-small')
+    assert all((k % 16 == 0) == (r == 'wgmma') for k, r in ks)
+    with _plain_int8_kernels():
+        reset_counts()
+        pl, pexits = model.fn_exits(model.params, x)
+        assert all(v['launches'] == 0 for v in counts().values())
+    assert torch.equal(_bits(lg), _bits(pl))
+    assert all(torch.equal(_bits(exits[s]), _bits(pexits[s]))
+               for s in exits)
+    sl, sexits = model.serve_stages(x)
+    assert torch.equal(_bits(sl), _bits(lg))
+    assert all(torch.equal(_bits(sexits[s]), _bits(exits[s]))
+               for s in exits)
+
+
+def _exit_confidences(fam, params, cfg, batch):
+    """Each exit head's per-token fp32 softmax maximum, on the CPU: what
+    ``LMFamily.exit_stats`` compares with its threshold."""
+    from repro_torch.core.quantization import full_fp32, jitted_scales
+    with torch.no_grad(), jitted_scales(), full_fp32():
+        _, exits = fam.exit_logits(params, cfg, batch)
+    return {g: torch.softmax(exits[g].float(), -1).amax(-1).reshape(-1)
+            .cpu() for g in sorted(exits)}
+
+
+def _first_exit(conf, threshold):
+    """Per token, the first head whose confidence exceeds ``threshold``,
+    or -1."""
+    stage = torch.full_like(conf[min(conf)], -1, dtype=torch.int64)
+    for g in sorted(conf):
+        stage = torch.where((stage < 0) & (conf[g] > threshold),
+                            torch.full_like(stage, g), stage)
+    return stage
+
+
+def test_lm_hooks_on_card_match_cpu(cuda_device):
+    """tinyllama-1.1b at full width, a 2-layer fp32 cut (weights from a
+    CUDA generator), TF32 off: P keeps the same channels in the same order
+    on the card and on the CPU; L gives the same ranks and ``u @ v``
+    within 1e-4 x max (an fp64 Gram eigendecomposition on the card,
+    numpy's SVD on the CPU); the exit heads' per-token decisions are equal but for tokens
+    whose confidence lies within 1e-4 x the threshold of it (random heads
+    over 32000 tokens are about 1e-3 confident)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.export import to_device
+    from repro_torch.core.family import LMFamily
+    from repro_torch.data import SyntheticTokens
+    cfg = get_config('tinyllama-1.1b').replace(num_layers=2,
+                                               dtype='float32')
+    fams = {dev: LMFamily(SyntheticTokens(cfg.vocab_size), seq=64,
+                          device=dev) for dev in ('cpu', 'cuda')}
+    params = fams['cuda'].init(fams['cuda'].generator(0), cfg)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, fam in fams.items():
+            p = to_device(params, dev)
+            pp, pc = fam.prune(p, cfg, 0.3)
+            fp, fc, scale = fam.factorize(pp, pc, energy=0.6)
+            out[dev] = (pp, pc, fp, scale)
+        assert out['cuda'][1] == out['cpu'][1] and \
+            out['cuda'][1].d_ff == 3942
+        assert _same_tree_bits(out['cuda'][0], out['cpu'][0])
+        assert out['cuda'][3] == out['cpu'][3] < 1.0
+        for lg, lc in zip(out['cuda'][2]['blocks'], out['cpu'][2]['blocks']):
+            for k in ('wi', 'wg', 'wo'):
+                g, c = lg['mlp'][k], lc['mlp'][k]
+                assert g['u']['w'].shape == c['u']['w'].shape
+                assert g['u']['w'].shape[-1] < 1348
+                want = c['u']['w'] @ c['v']['w']
+                got = (g['u']['w'] @ g['v']['w']).cpu()
+                assert float((got - want).abs().max()) <= \
+                    1e-4 * float(want.abs().max())
+        fp, fc = out['cuda'][2], out['cuda'][1]
+        fp, fc = fams['cuda'].add_exits(fams['cuda'].generator(1), fp, fc,
+                                        (0, 1))
+        batch = fams['cuda'].train_batch(torch.Generator().manual_seed(2), 2)
+        conf = {dev: _exit_confidences(fam, to_device(fp, dev), fc,
+                                       to_device(batch, dev))
+                for dev, fam in fams.items()}
+        thr = float(conf['cpu'][0].median())
+        near = torch.zeros_like(conf['cpu'][0], dtype=torch.bool)
+        for g in conf['cpu']:
+            near |= (conf['cpu'][g] - thr).abs() <= 1e-4 * thr
+        stage = {dev: _first_exit(c, thr) for dev, c in conf.items()}
+        assert not bool(((stage['cuda'] != stage['cpu']) & ~near).any())
+        assert 0 < int((stage['cpu'] == 0).sum()) < stage['cpu'].numel()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -99,7 +99,7 @@ def test_param_tree_matches_reference():
             j_get_config(ARCH).replace(**{
                 f.name: getattr(cfg, f.name)
                 for f in dataclasses.fields(cfg)})).init, jax.random.key(0))
-        tp = build_model(cfg).init(torch.Generator().manual_seed(0))
+        tp = build_model(cfg).init(torch.Generator().manual_seed(0), 'cpu')
         jl = jax.tree_util.tree_flatten_with_path(jp)[0]
         tl = jax.tree_util.tree_flatten_with_path(to_numpy(tp))[0]
         assert [p for p, _ in jl] == [p for p, _ in tl]

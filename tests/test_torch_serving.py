@@ -248,13 +248,12 @@ def test_scheduler_empty_trace_and_no_exit_heads(setup):
 
 
 def test_export_refuses_unported_paths(setup):
-    """What is still to be ported raises and names its ROADMAP item: the
-    dynamic-scale export, measure-mode kernel selection and grouped convs
-    with per-group depth > 1; an unknown selection mode is an error."""
+    """What is still to be ported raises and names its ROADMAP item:
+    measure-mode kernel selection and grouped convs with per-group depth
+    > 1, on the resident and the dynamic-scale path; an unknown selection
+    mode is an error."""
     p, cfg, x, _ = setup
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=None)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=xt,
                    select_kernels='measure')
@@ -271,6 +270,9 @@ def test_export_refuses_unported_paths(setup):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         export_cnn(mp, MOBILENET_SMALL_CIFAR, device='cpu',
                    calibrate=xt[:2])
+    dyn = export_cnn(mp, MOBILENET_SMALL_CIFAR, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        dyn.serve(xt[:2])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             export_cnn(from_jax_params(p), cfg,

@@ -279,8 +279,7 @@ def test_lm_family_matches_reference(lm):
     assert [tuple(b['tokens'].shape) for b in batches] == [(3, S)] * 2
     assert torch.equal(batches[0]['tokens'][:, 1:],
                        batches[0]['labels'][:, :-1])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tf.prune(tp, cfg, 0.3)
+    assert tf.prune(tp, cfg, 0.3)[1].d_ff == jf.prune(jp, jcfg, 0.3)[1].d_ff
 
 
 def test_q_pass_step_matches_reference(lm):
@@ -345,6 +344,11 @@ def test_chain_state_metrics_and_train_keys(lm):
     torch.testing.assert_close(new['final_norm']['scale'], wd_only,
                                rtol=1e-6, atol=0)
     assert not torch.equal(new['embed']['table'], st.params['embed']['table'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tregistry.get_pass('Q').apply(
-            dataclasses.replace(st, exit_probs={0: 0.5}), None, tr)
+    # Q after E re-measures the exit statistics at E's threshold
+    p, c = fam.add_exits(fam.generator(1), st.params, st.cfg, (0,))
+    after = tregistry.get_pass('Q').apply(dataclasses.replace(
+        st, params=p, cfg=c, exit_probs={0: 0.5}, exit_threshold=0.01),
+        None, tr)
+    assert after.exit_threshold == 0.01 and set(after.exit_probs) == {0}
+    assert (after.dyn_accuracy, after.exit_probs) == fam.exit_stats(
+        after.params, after.cfg, fam.eval_batches(1, B), 0.01)
