@@ -166,6 +166,36 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``decode_attention`` launches a token), its first-step logits within
    ``LM_PLAIN_TOL`` of the plain decode attention; prefill ms and
    ms/token printed.
+   Then (i) the serving runtime's other half on ``resnet34-cifar`` at its
+   published widths, (a)'s weights and requests, counted from zero (the
+   request-alone oracle and the plain-version twin not counted): (a)'s
+   state saved as a chain checkpoint and loaded through
+   ``ModelRegistry.load`` (``export_cnn(calibrate=32 images)`` on the
+   card), the stage costs from CUDA events (the median of 5 after a
+   warm-up, ``serve_cnn._measure_stage_costs``), printed.  (i-slo):
+   ``ContinuousBatchScheduler`` with an ``SLOPolicy`` on the simulated
+   clock at a loose deadline (4 x the sum of the costs; every request
+   served) and a tight one (between costs[0] + costs[1] and the sum;
+   some request must degrade to an exit head or be rejected); at both no
+   request late and every completion bit-exact against ``fn_exits`` on
+   the request alone at 32 slots (a degraded one against its exit head's
+   row); attainment, rejections, degradations and their exit mix
+   printed.  (i-pool): ``ReplicaPoolScheduler`` with 2 replicas (up to 4)
+   under ``ChaosPlan.seeded(0, 2, horizon)`` as ``serve_cnn --chaos``
+   builds it, failing over through ``ModelRegistry.restore`` (a re-export
+   from the checkpoint on the card): at least one kill and one failover,
+   every request completed bit-exact against ``fn_exits``, and the
+   restored model's ``fn_exits`` equal to the original's; availability,
+   kills, failovers, straggler flags, evictions and peak replicas
+   printed.  (i-trace): that run traced, a strict ``check_trace`` green
+   before and after a Chrome round trip through a file with the same
+   span count, the kill and the failover in it.  (i-measure):
+   ``export_cnn(select_kernels='measure')`` on (c)'s factored model:
+   every factored conv inside the fused envelope gets a measured choice
+   (its measured and modeled fused/chained microseconds printed, and how
+   many the cost model got wrong), ``lowrank_conv`` and ``quant_matmul``
+   both launch, and ``fn_exits`` bit for bit against its plain-version
+   twin.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), and every fake-quant call of one step of (f), captured at its
@@ -177,13 +207,15 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``depthwise_conv`` call the tile route; the fake-quant calls of path
    (g)'s Q step and its export, the calls of one pass of each dynamic
    export at their own inputs and the fake-quant calls of one Q step of
-   (h) are held too.  The ``{"kernels": [...]}``
+   (h) are held too, and every call of one pass of (i)'s measure-mode
+   export.  The ``{"kernels": [...]}``
    line: every ported kernel, summed over the pass or step of the path
    that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
    ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
    fake-quant wrappers: (f)), every path's pass under ``by_path``, its
    launches over all the paths' counted runs (path (g): its chain and
-   its serving; (h): its chain and its decode), and ``excess_ms``: those
+   its serving; (h): its chain and its decode; (i): its export, stage
+   costs, SLO, pool and measure-mode runs), and ``excess_ms``: those
    launches times (its time a call less its bound a call).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -348,6 +380,9 @@ H_UV_RTOL = 1e-4               # u @ v, card vs CPU, over max|u @ v|
 # paths (a)-(c) and the chain of (g) again, on fixed batches of SLOTS
 # images; (a') is also served through the scheduler
 DYN_TOL = 4e-2                 # card vs CPU export, over max|logit|
+RT_KEY = 'resnet34-runtime'    # path (i): SLO, replica pool, trace, measure
+RT_COST_ITERS = 5              # stage costs: median of 5 after a warm-up
+RT_POOL = dict(replicas=2, max_replicas=4)
 PATHS = (
     dict(key='resnet34', config='resnet34-cifar', factorize=False,
          kernels=('quant_matmul', 'fake_quant_fused')),
@@ -2484,6 +2519,7 @@ def lm_chain_path(torch):
     from repro_torch.core.chain import Pipeline, sweep_exit_thresholds
     from repro_torch.core.family import LMFamily
     from repro_torch.core.passes import mask_like
+    from repro_torch.core.quantization import jitted_scales
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch import serve
@@ -2704,7 +2740,8 @@ def lm_chain_path(torch):
              f'decode_attention launches and no plain version')
     _, fresh = serve.prefill_step(model, p, prompt, max_len=max_len)
     twin = clone_tree(fresh)
-    with torch.inference_mode():
+    # the reference jits the step: activation scales by the jitted rule
+    with torch.inference_mode(), jitted_scales():
         lg_k, _ = model.decode_step(p, zeros, LM_PROMPT, fresh)
         reset_counts()
         with plain_decode_attention():
@@ -2728,7 +2765,7 @@ def lm_chain_path(torch):
         out, c = attn.decode_attn_kernel(q, nk, nv, c, cur, **kw)
         da_calls.append((q, c, attn._valid(c['meta']['pos'], int(cur), 0)))
         return out, c
-    with torch.inference_mode():
+    with torch.inference_mode(), jitted_scales():
         model.decode_step(p, zeros, LM_PROMPT + 1, fresh,
                           ctx={'decode_attn': capture})
     launches = {k: trained[k]['launches'] + decoded[k]['launches']
@@ -2746,16 +2783,20 @@ def plain_int8_kernels():
     module that calls them; for a comparison only, never on a counted
     path."""
     from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.kernels import lowrank_conv as lr
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_conv as qc
     from repro_torch.kernels import quant_matmul as qmm
-    saved = ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv
+    saved = (ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv,
+             ops.lowrank_conv)
     ops.quant_matmul = qc.quant_matmul = qmm.quant_matmul_plain
     ops.depthwise_conv = dw.depthwise_conv_plain
+    ops.lowrank_conv = lr.lowrank_conv_plain
     try:
         yield
     finally:
-        ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv = saved
+        (ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv,
+         ops.lowrank_conv) = saved
 
 
 def capture_int8_calls(torch, fn):
@@ -3027,6 +3068,322 @@ def dynamic_path(torch, key, export, params, cfg, fam, kernels,
 
 
 # ------------------------------------------------------------------ phase 4
+
+
+def count_delta(before):
+    """Each kernel's launches and plain calls since ``before`` (a
+    ``counts()`` reading)."""
+    from repro_torch.kernels import counts
+    return {k: {f: v[f] - before[k][f] for f in v}
+            for k, v in counts().items()}
+
+
+def add_launches(acc, delta):
+    for k, v in delta.items():
+        acc[k] = acc.get(k, 0) + v['launches']
+
+
+def runtime_oracle(torch, model, xs, threshold):
+    """Each request alone through the monolithic ``fn_exits`` at SLOTS
+    slots: ``[(exit stage, answering logits, {head: row})]`` (numpy)."""
+    from repro_torch.serving import exit_decisions
+    out = []
+    for i in range(xs.shape[0]):
+        xb = torch.cat([xs[i][None], torch.zeros(
+            (SLOTS - 1,) + tuple(xs.shape[1:]), device=xs.device)])
+        logits, exits = model.fn_exits(model.params, xb)
+        stage, ans = exit_decisions(logits, exits, threshold)
+        out.append((int(stage[0]), ans[0],
+                    {s: v[0].float().cpu().numpy() for s, v in
+                     exits.items()}))
+    return out
+
+
+def check_against_oracle(tag, key, completions, oracle):
+    """Every completion bit-exact against the request-alone oracle: a
+    served one its exit stage and logits, a degraded one the row of the
+    exit head it was forced to.  Returns (served, degraded) counts."""
+    import numpy as np
+    degraded = 0
+    for rid, c in completions.items():
+        stage, ans, heads = oracle[rid]
+        if c.degraded:
+            degraded += 1
+            want = heads.get(c.exit_stage)
+            ok = want is not None and np.array_equal(
+                want.view(np.int32), c.logits.view(np.int32))
+        else:
+            ok = c.exit_stage == stage and np.array_equal(
+                ans.view(np.int32), c.logits.view(np.int32))
+        if not ok:
+            fail(f'{key}: request {rid} (degraded={c.degraded}, exit '
+                 f'{c.exit_stage}) differs from the fn_exits oracle')
+    print(f'{tag} all {len(completions)} completions bit-exact against '
+          f'fn_exits on the request alone at {SLOTS} slots '
+          f'({len(completions) - degraded} served, {degraded} degraded to '
+          f'their head row)')
+    return len(completions) - degraded, degraded
+
+
+def runtime_path(torch):
+    """Path (i): the serving runtime's other half on resnet34-cifar at its
+    published widths, counted from zero (the oracle and twin comparisons
+    excluded).  (a)'s model is persisted as a chain checkpoint and loaded
+    through ``ModelRegistry.load`` (``export_cnn(calibrate=32 images)`` on
+    the card); stage costs from CUDA events (median of 5 after a warm-up);
+    256 Poisson requests at 2000/s on 32 slots.  (i-slo): the SLO
+    scheduler on the simulated clock at a loose and a tight deadline;
+    (i-pool): the replica pool under ``ChaosPlan.seeded`` with
+    ``ModelRegistry.restore`` as failover, traced (i-trace) and checked
+    before and after a Chrome round trip; (i-measure): measure-mode
+    selection on (c)'s factored model.  Returns (launches, the measure
+    export and its params for phase 4, readings)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import save_chain_state
+    from repro_torch.core.export import (calibrate_exit_threshold,
+                                         export_cnn)
+    from repro_torch.core.passes import ChainState
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.lowrank_conv import fits_fused
+    from repro_torch.launch.serve_cnn import _measure_stage_costs
+    from repro_torch.obs import (TraceInvariantError, Tracer, check_trace,
+                                 load_chrome_trace)
+    from repro_torch.serving import (ChaosPlan, ContinuousBatchScheduler,
+                                     ModelRegistry, ReplicaPoolScheduler,
+                                     Request, SLOPolicy)
+
+    tag = f'[runtime:{RT_KEY}]'
+    fam, params, cfg = path_model(torch, PATHS[0])
+    stream = fam.eval_batches(N_REQUESTS // 64 + 1, 64)
+    xs = torch.cat([x for x, _ in stream])
+    calib, xs = xs[:SLOTS], xs[SLOTS:SLOTS + N_REQUESTS]
+    t_arr = np.cumsum(np.random.default_rng(SEED).exponential(
+        1.0 / RATE, size=N_REQUESTS))
+    launches, out = {}, {}
+    restores = []
+    with tempfile.TemporaryDirectory(prefix='runtime_smoke_') as ckpt:
+        save_chain_state(ckpt, ChainState(family=fam, cfg=cfg,
+                                          params=params, key=SEED), step=0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        registry = ModelRegistry()
+        model = registry.load(RT_KEY, ckpt, fam, device='cuda',
+                              calibrate=calib)
+        threshold = calibrate_exit_threshold(model, calib)
+        costs = _measure_stage_costs(model, calib, iters=RT_COST_ITERS)
+        torch.cuda.synchronize()
+        add_launches(launches, counts())
+        print(f'{tag} {cfg.name} loaded through ModelRegistry.load and '
+              f'exported on the card in {time.perf_counter() - t0:.2f} s; '
+              f'exit threshold {threshold:.6f}; stage costs at {SLOTS} '
+              f'slots (CUDA events, median of {RT_COST_ITERS}): '
+              + ', '.join(f'seg{k} {c * 1e3:.4f} ms'
+                          for k, c in enumerate(costs))
+              + f', sum {sum(costs) * 1e3:.4f} ms')
+        out['stage_costs_ms'] = [c * 1e3 for c in costs]
+        oracle = runtime_oracle(torch, model, xs, threshold)
+
+        # ---- (i-slo): two deadlines on the simulated clock.  The tight one
+        # lies between costs[0] + costs[1] and the sum of the costs, above
+        # what admission asks of a request that finds the queue empty
+        # (costs[0] + the largest cost) where the costs leave room for it
+        floor = max(costs[0] + costs[1], costs[0] + max(costs))
+        if floor >= sum(costs):
+            floor = costs[0] + costs[1]
+        deadlines = {'loose': 4.0 * sum(costs),
+                     'tight': (floor + sum(costs)) / 2}
+        for label, budget in deadlines.items():
+            reqs = [Request(i, xs[i], float(t_arr[i]),
+                            deadline=float(t_arr[i]) + budget)
+                    for i in range(N_REQUESTS)]
+            before = counts()
+            comp, metrics = ContinuousBatchScheduler(
+                model, slots=SLOTS, threshold=threshold, stage_costs=costs,
+                slo=SLOPolicy()).run_trace(reqs)
+            torch.cuda.synchronize()
+            add_launches(launches, count_delta(before))
+            m = metrics.summary()
+            slo = m['slo']
+            print(f"{tag}[slo {label} {budget * 1e3:.4f} ms] served "
+                  f"{m['n_requests']} of {N_REQUESTS}: attainment "
+                  f"{slo['attainment']}, on time {slo['n_on_time']}, late "
+                  f"{slo['n_late']}, rejected {m['n_rejected']}, degraded "
+                  f"{m['n_degraded']} (exit mix {m['degraded_exit_mix']}), "
+                  f"exit mix {m['exit_mix']}, batches {m['n_batches']}, "
+                  f"simulated p50 {m['p50_latency_s'] * 1e3:.4f} ms, p99 "
+                  f"{m['p99_latency_s'] * 1e3:.4f} ms")
+            if slo['n_late']:
+                fail(f"{RT_KEY}: {slo['n_late']} requests completed late "
+                     f'at the {label} deadline')
+            if len(comp) + m['n_rejected'] != N_REQUESTS:
+                fail(f'{RT_KEY}: requests lost at the {label} deadline')
+            if label == 'loose' and len(comp) != N_REQUESTS:
+                fail(f"{RT_KEY}: the loose deadline served {len(comp)} of "
+                     f'{N_REQUESTS} requests')
+            if label == 'tight' and not (m['n_degraded'] + m['n_rejected']):
+                fail(f'{RT_KEY}: the tight deadline degraded and rejected '
+                     f'nothing')
+            check_against_oracle(f'{tag}[slo {label}]', RT_KEY, comp,
+                                 oracle)
+            out[f'slo_{label}'] = dict(
+                deadline_ms=budget * 1e3, attainment=slo['attainment'],
+                n_late=slo['n_late'], rejected=m['n_rejected'],
+                degraded=m['n_degraded'],
+                degraded_exit_mix=m['degraded_exit_mix'])
+
+        # ---- (i-pool) and (i-trace): the replica pool under chaos
+        horizon = max(float(t_arr[-1]), N_REQUESTS / SLOTS * sum(costs)
+                      / RT_POOL['replicas'])
+        plan = ChaosPlan.seeded(SEED, RT_POOL['replicas'], horizon)
+
+        def restore():
+            t = time.perf_counter()
+            fresh = registry.restore(RT_KEY)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t)
+            return fresh
+        tracer = Tracer()
+        reqs = [Request(i, xs[i], float(t_arr[i]))
+                for i in range(N_REQUESTS)]
+        before = counts()
+        t0 = time.perf_counter()
+        comp, metrics = ReplicaPoolScheduler(
+            model, slots=SLOTS, threshold=threshold, stage_costs=costs,
+            replicas=RT_POOL['replicas'], min_replicas=RT_POOL['replicas'],
+            max_replicas=RT_POOL['max_replicas'], restore=restore,
+            restore_delay=costs[0], chaos=plan, tracer=tracer).run_trace(
+                reqs)
+        torch.cuda.synchronize()
+        t_pool = time.perf_counter() - t0
+        add_launches(launches, count_delta(before))
+        m = metrics.summary()
+        r = m['resilience']
+        print(f"{tag}[pool] ChaosPlan.seeded({SEED}, "
+              f"{RT_POOL['replicas']}, {horizon:.6f}): kills {plan.kills}, "
+              f"slowdowns {plan.slowdowns}; served {m['n_requests']} of "
+              f"{N_REQUESTS} in {t_pool:.3f} s wall: availability "
+              f"{m['availability']}, kills {r['kills']}, failovers "
+              f"{r['failovers']}, straggler flags {r['straggler_flags']}, "
+              f"evictions {r['evictions']}, scale-ups {r['scale_ups']}, "
+              f"peak replicas {r['peak_replicas']}, {len(restores)} "
+              f"restores through ModelRegistry.restore in "
+              f"{sum(restores):.3f} s wall; simulated p50 "
+              f"{m['p50_latency_s'] * 1e3:.4f} ms, p99 "
+              f"{m['p99_latency_s'] * 1e3:.4f} ms")
+        if r['kills'] < 1 or r['failovers'] < 1 or not restores:
+            fail(f'{RT_KEY}: the pool saw no kill and failover')
+        if len(comp) != N_REQUESTS or m['availability'] != 1.0:
+            fail(f'{RT_KEY}: the pool completed {len(comp)} of '
+                 f'{N_REQUESTS} requests')
+        check_against_oracle(f'{tag}[pool]', RT_KEY, comp, oracle)
+        restored = registry.get(RT_KEY)
+        if restored is model or restored.backend != 'cuda':
+            fail(f'{RT_KEY}: the registry holds no restored model on the '
+                 f'card')
+        a = model.fn_exits(model.params, calib)
+        b = restored.fn_exits(restored.params, calib)
+        if not (same_bits(torch, a[0], b[0]) and all(
+                same_bits(torch, a[1][s], b[1][s]) for s in a[1])):
+            fail(f'{RT_KEY}: the restored replica\'s fn_exits differ from '
+                 f'the original\'s')
+        print(f'{tag}[pool] the restored model, re-exported on the card '
+              f'from the checkpoint, gives fn_exits equal bit for bit to '
+              f'the original\'s on {SLOTS} images')
+        out['pool'] = dict(availability=m['availability'],
+                           restore_s=sum(restores), **{
+            k: r[k] for k in ('kills', 'failovers', 'straggler_flags',
+                              'evictions', 'peak_replicas')})
+
+        # (i-trace): the pool's trace, checked, written and read back
+        try:
+            check_trace(tracer, comp, strict=True)
+            path = os.path.join(ckpt, 'pool_trace.json')
+            tracer.write(path)
+            loaded = load_chrome_trace(path)
+            check_trace(loaded, comp, strict=True)
+        except TraceInvariantError as e:
+            fail(f'{RT_KEY}: the pool trace breaks its invariants: {e}')
+        names = [s.name for s in tracer.spans]
+        killed = sum(1 for s in tracer.spans if s.name == 'stage.exec'
+                     and s.args.get('killed'))
+        print(f'{tag}[trace] {len(tracer.spans)} spans, strict check_trace '
+              f'green before and after the Chrome round trip '
+              f'({len(loaded)} spans read back from '
+              f'{os.path.getsize(path)} bytes); kill {names.count("kill")}, '
+              f'failover.restore {names.count("failover.restore")}, killed '
+              f'stage.exec {killed}, request.queue '
+              f'{names.count("request.queue")}, stage.exec '
+              f'{names.count("stage.exec")}')
+        if len(loaded) != len(tracer.spans) or 'kill' not in names or \
+                'failover.restore' not in names:
+            fail(f'{RT_KEY}: the trace lost spans or shows no kill and '
+                 f'failover')
+        out['trace_spans'] = len(tracer.spans)
+
+    # ---- (i-measure): measure-mode selection on (c)'s factored model
+    _, fparams, fcfg = path_model(torch, PATHS[2])
+    tracer = Tracer()
+    before = counts()
+    t0 = time.perf_counter()
+    measured = export_cnn(fparams, fcfg, device='cuda', calibrate=calib,
+                          select_kernels='measure', tracer=tracer)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    delta = count_delta(before)
+    add_launches(launches, delta)
+    eligible = [n for n, e in measured.plan.layers.items()
+                if e['kind'] == 'conv' and e['factored']
+                and fits_fused(e['rank'], e['out_shape'][-1])]
+    cost_delta = measured.plan.summary()['lowering_cost_delta']
+    spans = [s for s in tracer.spans if s.name == 'kernel.launch']
+    for n in eligible:
+        d, sel = cost_delta.get(n), measured.plan.layers[n]['selection']
+        if d is None or not sel['why'].startswith('measured'):
+            fail(f'{RT_KEY}: factored layer {n} got no measured choice')
+        print(f"[plan]   {n}: measured fused {d['measured_fused_us']} us, "
+              f"chained {d['measured_chained_us']} us -> {sel['choice']}; "
+              f"modeled fused {d['modeled_fused_us']} us, chained "
+              f"{d['modeled_chained_us']} us; the model "
+              f"{'agrees' if d['model_agrees'] else 'DISAGREES'}")
+    wrong = sum(1 for d in cost_delta.values() if not d['model_agrees'])
+    picks = {c: sum(1 for n in eligible
+                    if measured.plan.layers[n]['selection']['choice'] == c)
+             for c in ('fused', 'chained')}
+    print(f"{tag}[measure] {fcfg.name} factored, export_cnn("
+          f"select_kernels='measure') in {t_export:.2f} s: {len(eligible)} "
+          f'eligible factored convs, every one measured ({picks}), the cost '
+          f'model wrong on {wrong}; {len(spans)} kernel.launch spans; '
+          f"launches while exporting: lowrank_conv "
+          f"{delta['lowrank_conv']['launches']}, quant_matmul "
+          f"{delta['quant_matmul']['launches']}, plain calls "
+          f"{sum(v['plain_calls'] for v in delta.values())}")
+    if not eligible or {s.args['variant'] for s in spans} != {
+            'fused', 'chained'} or not delta['lowrank_conv']['launches'] \
+            or not delta['quant_matmul']['launches'] or any(
+                v['plain_calls'] for v in delta.values()):
+        fail(f'{RT_KEY}: measure mode did not race both lowerings on the '
+             f'card')
+    x = xs[:SLOTS]
+    before = counts()
+    lg, exits = measured.fn_exits(measured.params, x)
+    torch.cuda.synchronize()
+    add_launches(launches, count_delta(before))
+    with plain_int8_kernels():
+        lg_p, exits_p = measured.fn_exits(measured.params, x)
+    if not (same_bits(torch, lg, lg_p) and all(
+            same_bits(torch, exits[s], exits_p[s]) for s in exits)):
+        fail(f'{RT_KEY}: the measure-mode export differs from its '
+             f'plain-version twin')
+    print(f'{tag}[measure] fn_exits on {SLOTS} images bit for bit against '
+          f'its plain-version twin')
+    out['measure'] = dict(eligible=len(eligible), picks=picks,
+                          model_wrong=wrong, spans=len(spans))
+    for name in ('quant_matmul', 'lowrank_conv'):
+        if not launches.get(name):
+            fail(f'{RT_KEY}: {name} was never launched on this path')
+    return launches, (measured, fparams), out
 
 
 def pass_calls(torch, model, g):
@@ -3385,6 +3742,9 @@ def main():
     lm_calls[H_KEY] = ('decode_attention', h_decode)
     lm_launches[H_KEY] = launches[H_KEY]
     print(f"[time] path {H_KEY} done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    launches[RT_KEY], served[RT_KEY + '-measure'], _ = runtime_path(torch)
+    print(f"[time] path {RT_KEY} done at "
           f"{time.perf_counter() - t_start:.1f} s")
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,

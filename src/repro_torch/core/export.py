@@ -32,11 +32,13 @@ served with batched early exit.
 One lowering serves both devices: the kernel wrappers launch the CUDA
 kernels for tensors on the card and run their plain versions for CPU
 tensors (the reference's separate jnp lowering with folded scales is
-not needed for that; ``ServingModel.backend`` names which ran).  Not
-ported yet, each raising NotImplementedError that names its ROADMAP
-item: measure-mode kernel selection (``select_kernels='measure'``),
-grouped convs with per-group depth > 1 (the reference's declared fp32
-fallback, which no configuration has) and the static analyzer.
+not needed for that; ``ServingModel.backend`` names which ran).  Measure
+mode (``select_kernels='measure'``) races the two low-rank lowerings on
+the export's device: CUDA events on the card, ``perf_counter`` on the
+CPU (where it times the plain versions).  Not ported yet, each raising
+NotImplementedError that names its ROADMAP item: grouped convs with
+per-group depth > 1 (the reference's declared fp32 fallback, which no
+configuration has) and the static analyzer.
 
 :func:`export_lm` is the LM family's int8 weight export.
 :func:`export_chain` exports a finished compression chain through a
@@ -45,12 +47,13 @@ as the reference does.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.quantization import (full_fp32,
+from repro_torch.core.quantization import (full_fp32, jitted_scales,
                                           quantize_params_for_serving)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.depthwise_conv import fits_depthwise
@@ -184,7 +187,35 @@ class LayerPlan:
             'fallback_mac_fraction': fallback / max(total, 1),
             'lowrank_selection': {n: e['selection'] for n, e in main.items()
                                   if e.get('selection')},
+            'lowering_cost_delta': self._lowering_cost_delta(main),
         }
+
+    @staticmethod
+    def _lowering_cost_delta(main) -> dict:
+        """Measured-vs-modeled lowering costs for every layer that a
+        measure-mode export timed (empty otherwise): how far off the cost
+        model ``lowering_costs`` was from the measurement, and whether both
+        agree on the fused/chained winner."""
+        out = {}
+        for n, e in main.items():
+            sel = e.get('selection') or {}
+            if 'modeled_fused_us' not in sel or 'fused_us' not in sel:
+                continue
+            model_choice = ('fused' if sel['modeled_fused_us']
+                            <= sel['modeled_chained_us'] else 'chained')
+            out[n] = {
+                'measured_fused_us': round(sel['fused_us'], 1),
+                'measured_chained_us': round(sel['chained_us'], 1),
+                'modeled_fused_us': round(sel['modeled_fused_us'], 1),
+                'modeled_chained_us': round(sel['modeled_chained_us'], 1),
+                'fused_measured_over_modeled': round(
+                    sel['fused_us'] / max(sel['modeled_fused_us'], 1e-9), 3),
+                'chained_measured_over_modeled': round(
+                    sel['chained_us'] / max(sel['modeled_chained_us'],
+                                            1e-9), 3),
+                'model_agrees': model_choice == sel['choice'],
+            }
+        return out
 
 
 def _select_lowering(m, k1, r, cout, *, fuse_lowrank, select_kernels,
@@ -214,7 +245,9 @@ def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
     kernel per layer: plain, depthwise, or a factored pair fused or
     chained (:func:`_select_lowering`; ``'model'`` prices both with the
     H100 cost model ``lowering_costs`` at the calibration geometry,
-    ``'fused'`` forces one launch, ``fuse_lowrank=False`` forces two).
+    ``'fused'`` forces one launch, ``fuse_lowrank=False`` forces two;
+    ``'measure'`` is priced as ``'model'`` here and re-decided by
+    :func:`_measure_lowrank_selection`).
     ``record`` (a list) receives ``(name, key, tensor)`` for every scale in
     forward order (:func:`calibration_tensors`)."""
     layers, glues = {}, {}
@@ -372,6 +405,101 @@ def _resolve_layer_params(params, name: str):
     return params['stages'][int(s)][int(b)][name.split('.')[1]]
 
 
+def _bias_or_zeros(p):
+    b = p.get('b')
+    if b is None:
+        b = torch.zeros(p['w_q'].shape[-1], dtype=torch.float32,
+                        device=p['w_q'].device)
+    return b
+
+
+def time_us(fn, device) -> float:
+    """Microseconds of one call of ``fn``: CUDA events around it on the
+    card, ``perf_counter`` on the CPU."""
+    if device.type == 'cuda':
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e6
+
+
+def _measure_lowrank_selection(plan: LayerPlan, qparams, device, *,
+                               reps: int = 3, tracer=None) -> None:
+    """Resolve ``select_kernels='measure'``: time fused against chained.
+
+    For every factored conv inside the fused envelope, times both lowerings
+    on ``device`` (a zero int8 input at the calibration geometry — the
+    kernels' time does not depend on the data — best of ``reps`` after a
+    warm-up call): fused is one ``lowrank_conv`` launch, chained two
+    ``quant_matmul`` launches.  Rewrites ``e['selection']`` /
+    ``e['fused']`` with the measured winner, in place.  The cost model's
+    prices stay beside the measurement as ``modeled_fused_us`` /
+    ``modeled_chained_us`` (the summary's ``lowering_cost_delta``), and
+    each timed launch lands on ``tracer`` as a ``kernel.launch`` span on
+    track ``export`` with its ``variant``: the spans ARE the measurement
+    the decision is made from.  ``qparams`` must already be K-major."""
+    from repro_torch.obs.trace import as_tracer
+    tracer = as_tracer(tracer)
+    qmax = plan.a_qmax
+    for name, e in plan.layers.items():
+        if e['kind'] != 'conv' or not e['factored']:
+            continue
+        if e['selection']['choice'] == 'chained' and 'envelope' in \
+                e['selection']['why']:
+            continue                     # rank-ineligible: nothing to race
+        p = _resolve_layer_params(qparams, name)
+        u, v = p['u'], p['v']
+        bu, bv = _bias_or_zeros(u), _bias_or_zeros(v)
+        xq = torch.zeros(e['in_shape'], dtype=torch.int8, device=device)
+
+        def fused():
+            return ops.lowrank_conv_nhwc(
+                xq, u['w_q'], v['w_q'], u['scale'], v['scale'], bu, bv,
+                sx=e['sx'], h_scale=e['h_scale'], stride=e['stride'],
+                out_scale=e['out_scale'], h_qmax=qmax, out_qmax=qmax)
+
+        def chained():
+            h = ops.quant_conv_static(
+                xq, u['w_q'], u['scale'], bu, sx=e['sx'], stride=e['stride'],
+                out_scale=e['h_scale'], out_qmax=qmax)
+            return ops.quant_conv_static(
+                h, v['w_q'], v['scale'], bv, sx=e['h_scale'],
+                out_scale=e['out_scale'], out_qmax=qmax)
+
+        def best_us(f, variant):
+            f()                          # warm-up: build and load first
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
+            ts = []
+            for rep in range(reps):
+                w0 = tracer.now()
+                us = time_us(f, device)
+                tracer.add('kernel.launch', w0, w0 + us * 1e-6,
+                           track='export', layer=name, variant=variant,
+                           rep=rep, us=round(us, 1))
+                ts.append(us)
+            return min(ts)
+
+        modeled = e['selection']          # the cost model's, before the race
+        tf = best_us(fused, 'fused')
+        tc = best_us(chained, 'chained')
+        e['selection'] = {'choice': 'fused' if tf <= tc else 'chained',
+                          'why': (f'measured fused {tf:.0f}us vs chained '
+                                  f'{tc:.0f}us'),
+                          'fused_us': tf, 'chained_us': tc}
+        if 'fused_us' in modeled:         # keep the model's claim on record
+            e['selection']['modeled_fused_us'] = modeled['fused_us']
+            e['selection']['modeled_chained_us'] = modeled['chained_us']
+        e['fused'] = tf <= tc
+        e['launches'] = 1 if e['fused'] else 2
+
+
 def _resident_layers(plan: LayerPlan):
     """Int8-resident layer implementations compiled from a LayerPlan.
 
@@ -387,13 +515,6 @@ def _resident_layers(plan: LayerPlan):
             return x
         return QAct(ref.requantize(x, sx, qmax), sx)
 
-    def bias_or_zeros(p):
-        b = p.get('b')
-        if b is None:
-            b = torch.zeros(p['w_q'].shape[-1], dtype=torch.float32,
-                            device=p['w_q'].device)
-        return b
-
     def conv_fn(p, x, *, stride=1, quant=(0, 0), groups=1, name=None):
         del quant, groups
         e = plan.layers[name]
@@ -407,15 +528,15 @@ def _resident_layers(plan: LayerPlan):
             u, v = p['u'], p['v']
             y = ops.lowrank_conv_nhwc(
                 xq.q, u['w_q'], v['w_q'], u['scale'], v['scale'],
-                bias_or_zeros(u), bias_or_zeros(v), sx=xq.scale,
+                _bias_or_zeros(u), _bias_or_zeros(v), sx=xq.scale,
                 h_scale=e['h_scale'], stride=stride, h_qmax=qmax, **kw)
         elif e['factored']:
             u, v = p['u'], p['v']
             h = ops.quant_conv_static(
-                xq.q, u['w_q'], u['scale'], bias_or_zeros(u), sx=xq.scale,
+                xq.q, u['w_q'], u['scale'], _bias_or_zeros(u), sx=xq.scale,
                 stride=stride, out_scale=e['h_scale'], out_qmax=qmax)
             y = ops.quant_conv_static(h, v['w_q'], v['scale'],
-                                      bias_or_zeros(v), sx=e['h_scale'],
+                                      _bias_or_zeros(v), sx=e['h_scale'],
                                       **kw)
         else:
             y = ops.quant_conv_static(
@@ -646,23 +767,21 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
     low-rank lowerings (the calibration forward runs ``fake_quant_fused``
     on the 2-D head weights on the card).  A factored conv inside the
     fused envelope is priced fused against chained:
-    ``select_kernels='model'`` (the H100 cost model ``lowering_costs``) or
-    ``'fused'`` (forced); ``fuse_lowrank=False`` forces the chained pair.
+    ``select_kernels='model'`` (the H100 cost model ``lowering_costs``),
+    ``'measure'`` (both lowerings raced on ``device``,
+    :func:`_measure_lowrank_selection`) or ``'fused'`` (forced);
+    ``fuse_lowrank=False`` forces the chained pair.
     ``calibrate=None`` keeps the dynamic-scale path (one abs-max per layer
     per call, fp32 activations between layers; no plan).  Parameters and
     the batch are moved to ``device``; on CUDA every layer runs a kernel
     (``quant_matmul``, ``depthwise_conv``, ``lowrank_conv``).  ``tracer``
-    (an ``obs.trace.Tracer``) records an ``export.calibrate`` span."""
+    (an ``obs.trace.Tracer``) records an ``export.calibrate`` span and, in
+    measure mode, one ``kernel.launch`` span per timed lowering rep."""
     from repro_torch.obs.trace import as_tracer
     tracer = as_tracer(tracer)
     if select_kernels not in SELECT_KERNELS:
         raise ValueError(f'select_kernels must be one of {SELECT_KERNELS}, '
                          f'got {select_kernels!r}')
-    if select_kernels == 'measure':
-        raise NotImplementedError(
-            "select_kernels='measure' times both lowerings through the "
-            "tracer's kernel.launch spans, not ported yet (ROADMAP, queue "
-            "A: measure-mode kernel selection)")
     device = resolve_device(device)
     params = to_device(params, device)
     w_bits, a_bits = _serving_bits(cfg)
@@ -679,6 +798,9 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
                                            fuse_lowrank=fuse_lowrank,
                                            select_kernels=select_kernels)
     _k_major_weights(qparams)
+    if plan is not None and select_kernels == 'measure' and fuse_lowrank:
+        with torch.inference_mode():
+            _measure_lowrank_selection(plan, qparams, device, tracer=tracer)
     if plan is not None:
         conv_fn, fc_fn, glue_fn, pool_fn = _resident_layers(plan)
         kw = dict(conv_fn=conv_fn, fc_fn=fc_fn, glue_fn=glue_fn,
@@ -720,7 +842,10 @@ def export_lm(params, cfg) -> ServingModel:
     (dequantized before its product, as in the reference).  Embedding
     tables and norms stay as they are.  ``fn(params, tokens)`` is the
     full-sequence forward; serving decodes with ``launch/serve.py``; the
-    exit heads serve through ``family.exit_logits``."""
+    exit heads serve through ``family.exit_logits``.  The reference jits
+    ``fn``, so its activation fake quants take the jitted scale
+    (``quantization.jitted_scales``); the weight export above divides, as
+    the reference's eager export does."""
     from repro_torch.models import transformer as tfm
     w_bits, _ = _serving_bits(cfg)
     with torch.no_grad():
@@ -728,7 +853,8 @@ def export_lm(params, cfg) -> ServingModel:
 
     @torch.inference_mode()
     def fn(p, tokens):
-        return tfm.forward(p, cfg, tokens)
+        with jitted_scales():
+            return tfm.forward(p, cfg, tokens)
 
     device = params['embed']['table'].device
     return ServingModel(cfg=cfg, params=qparams, fn=fn, device=device,

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core.export import export_lm, resolve_device
+from repro_torch.core.quantization import jitted_scales
 from repro_torch.data import SyntheticTokens
 from repro_torch.models.model import build_model
 
@@ -49,16 +50,22 @@ def build(cfg, device, *, seed=0, int8_weights=False):
 
 @torch.inference_mode()
 def prefill_step(model, params, tokens, *, max_len):
-    """Prefill a (B, S) prompt batch: (greedy next token (B,), cache)."""
-    logits, cache = model.prefill(params, {'tokens': tokens}, max_len=max_len)
+    """Prefill a (B, S) prompt batch: (greedy next token (B,), cache).
+    The reference jits the prefill, so the activation fake quants take the
+    jitted scale (``quantization.jitted_scales``)."""
+    with jitted_scales():
+        logits, cache = model.prefill(params, {'tokens': tokens},
+                                      max_len=max_len)
     return torch.argmax(logits, -1), cache
 
 
 @torch.inference_mode()
 def serve_step(model, params, token, cur, cache, *, ctx=None):
     """One decode step at position ``cur`` (a Python int): greedy next
-    token (B,), the cache updated in place."""
-    logits, cache = model.decode_step(params, token, cur, cache, ctx=ctx)
+    token (B,), the cache updated in place; under the jitted scale, as
+    the reference's jitted step."""
+    with jitted_scales():
+        logits, cache = model.decode_step(params, token, cur, cache, ctx=ctx)
     return torch.argmax(logits, -1), cache
 
 

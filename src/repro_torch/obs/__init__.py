@@ -1,3 +1,10 @@
-"""Runtime observability: span tracing with a Chrome-trace exporter."""
-from repro_torch.obs.trace import (NULL_TRACER, NullTracer, Span,  # noqa: F401
-                                   Tracer, as_tracer, spans_to_chrome)
+"""Runtime observability: span tracing (Chrome-trace export and load) and
+trace validation for the serving stack."""
+from repro_torch.obs.trace import (NULL_TRACER, NullTracer, Span, Tracer,
+                                   as_tracer, load_chrome_trace,
+                                   spans_to_chrome)
+from repro_torch.obs.validate import TraceInvariantError, check_trace
+
+__all__ = ['NULL_TRACER', 'NullTracer', 'Span', 'Tracer', 'as_tracer',
+           'load_chrome_trace', 'spans_to_chrome', 'TraceInvariantError',
+           'check_trace']

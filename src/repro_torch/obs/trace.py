@@ -3,20 +3,26 @@ of the reference's jax-free ``obs/trace.py``; the port imports nothing
 from the JAX package).
 
 A :class:`Tracer` collects :class:`Span` records from a scheduler run
-or an export (wall clock).  The spans the port records so far:
+(simulated clock) or an export (wall clock) — the span taxonomy is fixed
+(see the reference's ``serving/README.md``):
 
 =====================  ========================================================
-``request.queue``      async span per request: arrival -> service start; lives
-                       on the request's cohort track, correlated by rid.
-``stage.exec``         one executed segment batch on the executor track, with
-                       ``stage``/``live``/``slots``/``rids`` attributes.
+``request.queue``      async span per request: arrival (or requeue after a
+                       kill) -> service start; lives on the request's cohort
+                       track, correlated by rid.
+``request.admit``      instant at an SLO admission decision (rejections).
+``stage.exec``         one executed segment batch on a replica/executor
+                       track, with ``stage``/``live``/``slots``/``rids``
+                       attributes (``killed=True`` when a chaos kill
+                       truncated it).
 ``compaction``         instant after a non-final segment lands: how many
                        slots exited vs survived.
+``failover.restore``   checkpoint restore of a replacement replica, on the
+                       NEW replica's track.
 ``export.calibrate``   wall-clock span around the layer-plan compile.
+``kernel.launch``      one timed kernel execution during measure-mode
+                       selection (these spans ARE the measurement).
 =====================  ========================================================
-
-The reference's SLO, failover and kernel-selection spans come with the
-slices that port those layers.
 
 Timestamps are float seconds on whichever clock produced them; serving
 spans (simulated clock) and export spans (wall clock) land in different
@@ -30,7 +36,9 @@ pays one attribute check (``tracer.enabled``) and no span bookkeeping.
 ``'b'``/``'e'`` / ``'i'`` / ``'C'`` phases) that https://ui.perfetto.dev
 and chrome://tracing load directly: one thread per replica, one per
 request cohort, grouped into ``serving`` / ``requests`` / ``export``
-processes.
+processes.  :func:`load_chrome_trace` parses that JSON back into spans so
+a written trace file is a checkable artifact
+(:func:`repro_torch.obs.validate.check_trace`), not just a picture.
 """
 from __future__ import annotations
 
@@ -211,3 +219,60 @@ def spans_to_chrome(spans) -> dict:
                            'ts': s.t0 * 1e6, 'ph': 'C',
                            'args': {s.name: s.args.get('value', 0.0)}})
     return {'traceEvents': events, 'displayTimeUnit': 'ms'}
+
+
+def load_chrome_trace(path_or_dict) -> list[Span]:
+    """Parse a Chrome trace (path or already-loaded dict) back into
+    :class:`Span` records.  Raises ``ValueError`` on a torn async pair
+    (a ``'b'`` with no matching ``'e'`` or vice versa) — a trace that
+    cannot round-trip is itself a bug."""
+    if isinstance(path_or_dict, dict):
+        doc = path_or_dict
+    else:
+        with open(path_or_dict) as f:
+            doc = json.load(f)
+    events = doc.get('traceEvents', doc if isinstance(doc, list) else [])
+    names = {}                             # (pid, tid) -> track name
+    for e in events:
+        if e.get('ph') == 'M' and e.get('name') == 'thread_name':
+            names[(e['pid'], e['tid'])] = e['args']['name']
+    def track(e):
+        return names.get((e.get('pid', 0), e.get('tid', 0)),
+                         f"pid{e.get('pid', 0)}.tid{e.get('tid', 0)}")
+    spans, open_async = [], {}
+    for e in events:
+        ph = e.get('ph')
+        t = e.get('ts', 0.0) / 1e6
+        if ph == 'X':
+            spans.append(Span(e['name'], t, t + e.get('dur', 0.0) / 1e6,
+                              track(e), kind=SPAN,
+                              args=dict(e.get('args', {}))))
+        elif ph == 'b':
+            key = (e.get('cat'), e.get('id'), e['name'])
+            open_async.setdefault(key, []).append((t, track(e),
+                                                   dict(e.get('args', {}))))
+        elif ph == 'e':
+            key = (e.get('cat'), e.get('id'), e['name'])
+            pend = open_async.get(key)
+            if not pend:
+                raise ValueError(f'torn async span: end with no begin '
+                                 f'for {key}')
+            t0, trk, args = pend.pop(0)
+            if not pend:
+                del open_async[key]
+            cid = e.get('id')
+            cid = int(cid, 16) if isinstance(cid, str) else int(cid)
+            spans.append(Span(e['name'], t0, t, trk, kind=ASYNC,
+                              cid=cid, args=args))
+        elif ph == 'i':
+            spans.append(Span(e['name'], t, t, track(e), kind=INSTANT,
+                              args=dict(e.get('args', {}))))
+        elif ph == 'C':
+            args = dict(e.get('args', {}))
+            v = args.get(e['name'], next(iter(args.values()), 0.0))
+            spans.append(Span(e['name'], t, t, track(e), kind=COUNTER,
+                              args={'value': float(v)}))
+    if open_async:
+        raise ValueError(f'torn async span(s): begin with no end for '
+                         f'{sorted(open_async)}')
+    return spans

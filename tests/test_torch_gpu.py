@@ -10,8 +10,10 @@ card against the CPU, the CNN compression chain on the card (its
 initial weights, P and L on the card's checkpoints against the CPU, a
 checkpoint saved on the card and read on the CPU, ``serve_cnn --steps``),
 the LM chain hooks on a full-width cut against the CPU, the fake quant at
-the factored LM shapes and the dynamic-scale CNN export against its
-plain-version twin.
+the factored LM shapes, the dynamic-scale CNN export against its
+plain-version twin, the replica pool under a seeded kill on the card
+bit-exact against ``fn_exits``, ``ModelRegistry.restore`` on the card and
+a measure-mode export timed by CUDA events.
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -806,3 +808,106 @@ def test_lm_hooks_on_card_match_cpu(cuda_device):
         assert 0 < int((stage['cpu'] == 0).sum()) < stage['cpu'].numel()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _resnet8_on_card(tmp_path):
+    """resnet8 with exit heads persisted as a chain checkpoint, and its
+    registry-loaded int8-resident export on the card: (registry, model,
+    calibration batch)."""
+    from repro_torch.checkpoint import save_chain_state
+    from repro_torch.core.passes import ChainState
+    from repro_torch.serving import ModelRegistry
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    params = fam.init(torch.Generator().manual_seed(0), RESNET8_CIFAR)
+    params, cfg = fam.add_exits(torch.Generator().manual_seed(1), params,
+                                RESNET8_CIFAR,
+                                fam.default_exit_points(RESNET8_CIFAR))
+    save_chain_state(str(tmp_path), ChainState(
+        family=fam, cfg=cfg.replace(w_bits=8, a_bits=8), params=params,
+        key=7, exit_threshold=0.5), step=0)
+    xs = fam.eval_batches(1, 8)[0][0]
+    reg = ModelRegistry()
+    model = reg.load('resnet8', str(tmp_path), fam, device='cuda',
+                     calibrate=xs)
+    return reg, model, xs
+
+
+def test_registry_restore_on_card_reexports_the_same_model(cuda_device,
+                                                           tmp_path):
+    reg, model, xs = _resnet8_on_card(tmp_path)
+    assert model.backend == 'cuda' and model.exit_threshold == 0.5
+    fresh = reg.restore('resnet8')
+    assert fresh is not model and reg.get('resnet8') is fresh
+    assert fresh.device.type == 'cuda'
+    a, b = model.fn_exits(model.params, xs), fresh.fn_exits(fresh.params, xs)
+    assert torch.equal(_bits(a[0]), _bits(b[0]))
+    for s in a[1]:
+        assert torch.equal(_bits(a[1][s]), _bits(b[1][s]))
+
+
+def test_replica_pool_on_card_survives_a_kill_bit_exact(cuda_device,
+                                                        tmp_path):
+    """Two replicas on the card, one killed mid-batch and restored through
+    the registry: every request completes, bit for bit against the
+    monolithic ``fn_exits`` on the request alone at the slot geometry, and
+    every segment batch ran on the kernels."""
+    import numpy as np
+    from repro_torch.core.export import calibrate_exit_threshold
+    from repro_torch.serving import (ChaosPlan, ReplicaPoolScheduler,
+                                     exit_decisions)
+    reg, model, xs = _resnet8_on_card(tmp_path)
+    threshold = calibrate_exit_threshold(model, xs)
+    costs = [4e-3, 2e-3, 1e-3]
+    t = np.cumsum(np.random.default_rng(0).exponential(1 / 4000.0, 24))
+    reqs = [Request(i, xs[i % 8], float(t[i])) for i in range(24)]
+    reset_counts()
+    comp, metrics = ReplicaPoolScheduler(
+        model, slots=8, threshold=threshold, stage_costs=costs, replicas=2,
+        min_replicas=2, chaos=ChaosPlan(kills=((4e-3, 0),)),
+        restore=lambda: reg.restore('resnet8'),
+        restore_delay=costs[0]).run_trace(reqs)
+    c = counts()['quant_matmul']
+    assert c['plain_calls'] == 0 and c['launches'] > 0
+    s = metrics.summary()
+    assert len(comp) == 24 and s['availability'] == 1.0
+    assert s['resilience']['kills'] == 1 and \
+        s['resilience']['failovers'] == 1
+    for r in reqs:
+        xb = torch.cat([r.x[None], torch.zeros((7,) + tuple(r.x.shape),
+                                               device=cuda_device)])
+        stage, ans = exit_decisions(*model.fn_exits(model.params, xb),
+                                    threshold)
+        assert comp[r.rid].exit_stage == int(stage[0])
+        assert np.array_equal(comp[r.rid].logits.view(np.int32),
+                              ans[0].view(np.int32))
+
+
+def test_measure_mode_on_card_times_both_lowerings(cuda_device):
+    """Measure mode on the card: both lowerings launch their kernels and
+    each timed launch is a ``kernel.launch`` span whose length is the
+    CUDA-event time it records."""
+    from repro_torch.obs import Tracer, check_trace
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    params = fam.init(torch.Generator().manual_seed(0), RESNET8_CIFAR)
+    params, cfg, _ = fam.factorize(params, RESNET8_CIFAR, energy=0.6,
+                                   min_rank=2)
+    cfg = cfg.replace(w_bits=8, a_bits=8)
+    xs = fam.eval_batches(1, 8)[0][0]
+    tracer = Tracer()
+    reset_counts()
+    model = export_cnn(params, cfg, device=cuda_device, calibrate=xs,
+                       select_kernels='measure', tracer=tracer)
+    c = counts()
+    assert c['lowrank_conv']['launches'] > 0 and \
+        c['quant_matmul']['launches'] > 0
+    assert c['lowrank_conv']['plain_calls'] == 0 and \
+        c['quant_matmul']['plain_calls'] == 0
+    spans = [s for s in tracer.spans if s.name == 'kernel.launch']
+    assert {s.args['variant'] for s in spans} == {'fused', 'chained'}
+    assert all(s.args['us'] > 0 and
+               s.dur == pytest.approx(s.args['us'] * 1e-6, abs=1e-7)
+               for s in spans)
+    assert check_trace(tracer) == []
+    delta = model.plan.summary()['lowering_cost_delta']
+    assert delta and {s.args['layer'] for s in spans} == set(delta)
+    assert bool(torch.isfinite(model.serve(xs)).all())

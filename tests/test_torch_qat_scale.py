@@ -184,3 +184,80 @@ def test_export_calibration_divides(monkeypatch):
         want = max(float(torch.abs(v).amax()), 1e-8) / 7.0
         got = plan.glues[name] if key == 'glue' else plan.layers[name][key]
         assert got == want
+
+
+# ----------------------------------------------- the LM serving forward
+
+LM_CASES = [(8, 'float32'), (4, 'float32'), (8, 'bfloat16'),
+            (4, 'bfloat16')]
+
+
+def _lm_serving_scales(monkeypatch, a_bits, dtype):
+    """The scales ``quantization._scale`` computes in three LM serving
+    forwards of a 4-layer tinyllama smoke model at W8A``a_bits``:
+    ``export_lm``'s ``fn``, ``prefill_step`` and one ``serve_step``.
+    Returns ``{call: [(amax, qmax, scale)]}``; the weight export itself
+    runs outside the capture."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.export import export_lm
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config('tinyllama-1.1b', layers=4).replace(
+        w_bits=8, a_bits=a_bits, dtype=dtype)
+    model = build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator().manual_seed(a_bits), 'cpu')
+    exported = export_lm(params, cfg)
+    rng = np.random.default_rng(300 + a_bits)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    seen, real = {}, tq._scale
+
+    def run(call, fn):
+        out = seen.setdefault(call, [])
+
+        def spy(amax, qmax):
+            s = real(amax, qmax)
+            out.append((amax.detach().clone(), qmax, s.detach().clone()))
+            return s
+        monkeypatch.setattr(tq, '_scale', spy)
+        try:
+            return fn()
+        finally:
+            monkeypatch.setattr(tq, '_scale', real)
+
+    run('export_lm.fn', lambda: exported.fn(exported.params, tokens))
+    tok, cache = run('prefill_step', lambda: serve.prefill_step(
+        model, exported.params, tokens, max_len=20))
+    run('serve_step', lambda: serve.serve_step(
+        model, exported.params, tok, 12, cache))
+    return seen
+
+
+@pytest.mark.parametrize('a_bits,dtype', LM_CASES)
+def test_lm_serving_scales_match_the_jitted_reference(monkeypatch, a_bits,
+                                                      dtype):
+    """The reference jits ``export_lm``'s ``fn``, its prefill and its serve
+    step, so every scale those forwards compute (the activation fake
+    quants, and the tied unembedding's weight fake quant) is XLA's folded
+    ``max(amax, 1e-8) * fp32(1/qmax)``: the port's equal ``jax.jit`` of the
+    reference's expression on the same abs-max bit for bit.  In fp32 the
+    token batches are chosen so that in each forward some eager (dividing)
+    scale differs from them, so the test tells the two rules apart; in
+    bf16 the folded and the divided scale round to the same value."""
+    seen = _lm_serving_scales(monkeypatch, a_bits, dtype)
+    jdt = jnp.bfloat16 if dtype == 'bfloat16' else jnp.float32
+    for call, recs in seen.items():
+        assert recs, f'{call}: no scale computed'
+        differ = 0
+        for amax, qmax, got in recs:
+            a = jnp.asarray(amax.to(torch.float32).numpy()).astype(jdt)
+            want = jax.jit(lambda v, q=qmax: jnp.maximum(v, 1e-8) / q)(a)
+            assert got.dtype == amax.dtype
+            _same(got.to(torch.float32).numpy(),
+                  np.asarray(want.astype(jnp.float32)))
+            eager = tq.true_div(torch.clamp_min(amax, 1e-8), qmax)
+            differ += int((_bits(eager.to(torch.float32).numpy())
+                           != _bits(got.to(torch.float32).numpy())).any())
+        if dtype == 'float32':
+            assert differ, f'{call}: no eager scale differs; pick a batch ' \
+                'where the two rules part'

@@ -249,14 +249,11 @@ def test_scheduler_empty_trace_and_no_exit_heads(setup):
 
 def test_export_refuses_unported_paths(setup):
     """What is still to be ported raises and names its ROADMAP item:
-    measure-mode kernel selection and grouped convs with per-group depth
-    > 1, on the resident and the dynamic-scale path; an unknown selection
-    mode is an error."""
+    grouped convs with per-group depth > 1, on the resident and the
+    dynamic-scale path; an unknown selection mode is an error.  (Measure
+    mode is ported: ``tests/test_torch_obs.py``.)"""
     p, cfg, x, _ = setup
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=xt,
-                   select_kernels='measure')
     with pytest.raises(ValueError, match='select_kernels'):
         export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=xt,
                    select_kernels='fastest')
