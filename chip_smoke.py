@@ -82,7 +82,14 @@ Phases, in order; any failure exits non-zero and no result is printed:
    scale by scale (to float noise up to the first fake-quant code that
    differs, which must lie at a rounding tie, and within ``SCALE_RTOL``
    after it); and the served logits agree with the port's plain CPU path
-   on a small batch, on the same static scales, within 4e-2 x max|logit|.
+   on a small batch, on the same static scales, layer by layer: the CPU
+   export runs with every static requantize outside the kernels (the
+   input's, each glue's, each head's pooled feature) fed the card's int8
+   codes (``static_sites``, ``fed_check``), every code that differs there
+   must be one step from the card's and within ``TIE_TOL`` of a rounding
+   tie, and the fed logits must agree within 4e-2 x max|logit| (the unfed
+   difference and the first code that flips, with its x/s on each side,
+   printed).
    Then two LM decode paths through the functions ``launch/serve.py``
    uses, ``tinyllama-1.1b`` at full width and depth, random weights from a
    CUDA generator seeded 0, batch 8, prompt 512, 64 greedy decode tokens,
@@ -196,6 +203,19 @@ Phases, in order; any failure exits non-zero and no result is printed:
    many the cost model got wrong), ``lowrank_conv`` and ``quant_matmul``
    both launch, and ``fn_exits`` bit for bit against its plain-version
    twin.
+   Then (j) the analyzer (``repro_torch.analysis``) on the card, counted
+   from zero: (g)'s pipeline was built with
+   ``Pipeline.from_sequence(..., verify_order=True)``; all 120 orders of
+   DPLQE linted by ``Pipeline.verify_order`` (the green ones must be the
+   orders ``planner.theoretical_dag`` allows); (a)-(c) exported again at
+   full width with ``export_cnn(verify='strict')`` on 32 images and (g)'s
+   served chain export checked with ``analysis.check(strict=True)``, each
+   report printed (the rules run and skipped with their reasons, the
+   kernel calls recorded against the wrappers' counters with no plain
+   call, op-traffic's measured over predicted bytes); each export's
+   recorded writes on the card and on the CPU for one ``fn`` call on 2
+   images (the first op that differs named); and the CI gate
+   ``analysis.gate.main(['--device', 'cuda'])``, which must return 0.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), and every fake-quant call of one step of (f), captured at its
@@ -215,7 +235,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    fake-quant wrappers: (f)), every path's pass under ``by_path``, its
    launches over all the paths' counted runs (path (g): its chain and
    its serving; (h): its chain and its decode; (i): its export, stage
-   costs, SLO, pool and measure-mode runs), and ``excess_ms``: those
+   costs, SLO, pool and measure-mode runs; (j): its exports and the
+   analyzer's runs), and ``excess_ms``: those
    launches times (its time a call less its bound a call).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -381,6 +402,7 @@ H_UV_RTOL = 1e-4               # u @ v, card vs CPU, over max|u @ v|
 # images; (a') is also served through the scheduler
 DYN_TOL = 4e-2                 # card vs CPU export, over max|logit|
 RT_KEY = 'resnet34-runtime'    # path (i): SLO, replica pool, trace, measure
+VERIFY_KEY = 'verify'          # path (j): the analyzer on the card
 RT_COST_ITERS = 5              # stage costs: median of 5 after a warm-up
 RT_POOL = dict(replicas=2, max_replicas=4)
 PATHS = (
@@ -1271,6 +1293,59 @@ def share_scales(src, dst):
     dst.glues.update(src.glues)
 
 
+def static_sites(torch, fn, forced=None):
+    """Run ``fn()`` recording every static requantize outside the kernel
+    wrappers (``ref.requantize`` in the resident export's ``as_qact``,
+    ``fc_fn`` and ``glue_fn``) in call order: ``(out, [(layer, codes, x/s)]
+    on the CPU, comparisons)``.  The kernels' fused epilogues are left out:
+    given the same int8 inputs they are bit-exact against their plain
+    versions (phases 2 and 4).  With ``forced`` (another run's sites, in
+    order; sites past its end run on their own codes) each site compares
+    its codes with that run's and goes on with that run's, so every layer
+    reads the other run's int8 input: per site
+    the codes that differ, the largest change, the largest distance of a
+    differing code's x/s from a rounding tie (k + 0.5) on the nearer side,
+    and the first differing code: its flat index and x/s on each side."""
+    from repro_torch.kernels import inside_wrapper, recording, ref
+    real = ref.requantize
+    sites, cmp = [], []
+
+    def spy(y, out_scale, qmax=127.0):
+        q = real(y, out_scale, qmax)
+        if inside_wrapper():             # a plain version's epilogue
+            return q
+        f, name = sys._getframe(1), None
+        while f is not None and name is None:
+            name, f = f.f_locals.get('name'), f.f_back
+        t = (y * ref.recip32(out_scale)).cpu()
+        if forced is not None and len(sites) < len(forced):
+            _, fq, ft = forced[len(sites)]
+            step = (q.cpu().to(torch.float32) - fq.to(torch.float32)).abs()
+            differ = (step > 0).reshape(-1)
+            tie = torch.minimum((t - torch.floor(t) - 0.5).abs(),
+                                (ft - torch.floor(ft) - 0.5).abs()).reshape(-1)
+            c = {'site': len(sites), 'at': name, 'codes': int(differ.sum()),
+                 'of': differ.numel(), 'step': float(step.max()),
+                 'tie': float(tie[differ].max()) if bool(differ.any())
+                 else 0.0}
+            if bool(differ.any()):
+                i = int(torch.nonzero(differ)[0])
+                c.update(first=i, own=float(t.reshape(-1)[i]),
+                         card=float(ft.reshape(-1)[i]),
+                         first_tie=float(tie[i]))
+            cmp.append(c)
+            q = fq.to(y.device)
+        sites.append((name, q.cpu(), t))
+        return q
+    ref.requantize = spy
+    try:
+        with recording():
+            out = fn()
+    finally:
+        ref.requantize = real
+    return out, sites, cmp
+
+
 def print_model_selection(model, launch_us):
     """What ``select_kernels='model'`` would pick for each factored conv:
     the export's own selection, priced with the launch term measured in
@@ -1561,31 +1636,72 @@ def serve_path(torch, spec, launch_us, built=None):
     # against the port's plain CPU path on a small batch.  A fake-quant
     # code that flips at a rounding tie in calibration moves every later
     # abs-max scale (check_calibrations shows where), so the CPU model
-    # serves on the card's scales and the two then run the same int8 math
-    # (the own-scale difference is printed beside it).
+    # serves on the card's scales.  Its fp32 glue (GroupNorm, the pool)
+    # still sums in another order than the card's, so a requantized code
+    # at a tie can flip, and at W2 one flipped code moves a logit by about
+    # sx x amax(w): the CPU model runs layer by layer on the card's int8
+    # codes at every static requantize (static_sites), each code that
+    # differs there must be one step at a rounding tie, and the logits so
+    # fed must agree (the unfed difference is printed beside them).
     calib_cmp = check_calibrations(torch, tag, params, cfg, calib)
     small = calib[:4]
     gpu = export_cnn(params, cfg, device='cuda', calibrate=small,
                      select_kernels=select)
     cpu = export_cnn(params, cfg, device='cpu', calibrate=small.cpu(),
                      select_kernels=select)
-    lg_gpu = gpu.serve(small).cpu()
+    lg_gpu, sites, _ = static_sites(torch, lambda: gpu.serve(small))
+    lg_gpu = lg_gpu.cpu()
     own = float((lg_gpu - cpu.serve(small.cpu())).abs().max())
     share_scales(gpu.plan, cpu.plan)
-    lg_cpu = cpu.serve(small.cpu())
+    unfed = float((lg_gpu - cpu.serve(small.cpu())).abs().max())
     if tuple(lg_gpu.shape) != (4, cfg.num_classes) or \
             not bool(torch.isfinite(lg_gpu).all()):
         fail(f'{spec["key"]}: served logits malformed: shape '
              f'{tuple(lg_gpu.shape)}')
-    scale = max(float(lg_cpu.abs().max()), 1.0)
-    diff = float((lg_gpu - lg_cpu).abs().max())
-    print(f'{tag} card vs CPU plain path on 4 images, same static scales: '
-          f'max |diff| {diff:.3e} (max |logit| {scale:.3e}, tolerance 4e-2 '
-          f'x that); each calibrated on its own device: {own:.3e}')
-    if diff > 4e-2 * scale:
+    fed = fed_check(torch, lg_gpu, sites, lambda: cpu.serve(small.cpu()))
+    print(f"{tag} card vs CPU plain path on 4 images, same static scales, "
+          f"the CPU fed the card's int8 codes at each of {fed['sites']} "
+          f"static requantizes: {fed['flips']} of {fed['codes']} codes "
+          f"differ, by at most {fed['step']:g} step, the farthest "
+          f"{fed['tie']:.3e} from a rounding tie (limit {TIE_TOL:g}); "
+          f"logits max |diff| {fed['diff']:.3e} (max |logit| "
+          f"{fed['scale']:.3e}, tolerance 4e-2 x that); unfed "
+          f"{unfed:.3e}; each calibrated on its own device: {own:.3e}")
+    first = fed['first']
+    if first is None:
+        print(f'{tag}   no requantized code differs')
+    else:
+        print(f"{tag}   first code flip at site {first['site']} "
+              f"({first['at']}), element {first['first']}: x/s "
+              f"{first['own']:.6f} on the CPU, {first['card']:.6f} on the "
+              f"card, {first['first_tie']:.3e} from the tie; "
+              f"{first['codes']} of {first['of']} codes there")
+    if not fed['ok']:
         fail(f'{spec["key"]}: served logits disagree with the CPU plain '
-             f'path')
-    return model, params, launches, calib_cmp
+             f'path fed the card\'s codes, or a code differs off a '
+             f'rounding tie')
+    return model, params, launches, dict(calib_cmp, served_flips=fed['flips'],
+                                         served_diff=fed['diff'], unfed=unfed)
+
+
+def fed_check(torch, lg_card, sites, cpu_fn):
+    """The served logits ``lg_card`` of the card against ``cpu_fn()`` (the
+    same export on the CPU, on the card's static scales) run with every
+    static requantize fed the card's codes (``sites``, from
+    ``static_sites``).  ``ok`` when every code that differs is one step
+    from the card's and within TIE_TOL of a rounding tie, and the fed
+    logits agree within 4e-2 x max|logit|; the readings beside it, with
+    the first site whose codes differ (None when none does)."""
+    lg_cpu, _, cmp = static_sites(torch, cpu_fn, forced=sites)
+    scale = max(float(lg_cpu.abs().max()), 1.0)
+    diff = float((lg_card.cpu() - lg_cpu).abs().max())
+    step = max(c['step'] for c in cmp)
+    tie = max(c['tie'] for c in cmp)
+    return {'ok': diff <= 4e-2 * scale and step <= 1 and tie <= TIE_TOL,
+            'diff': diff, 'scale': scale, 'sites': len(cmp),
+            'codes': sum(c['of'] for c in cmp),
+            'flips': sum(c['codes'] for c in cmp), 'step': step, 'tie': tie,
+            'first': next((c for c in cmp if c['codes']), None)}
 
 
 def clone_tree(tree):
@@ -2218,7 +2334,10 @@ def chain_path(torch, launch_us):
     fits, walls = [], []
     tr = recording_trainer(fits)(**CHAIN_TRAINER, seed=SEED)
     timed = timed_pass(torch, walls)
-    pipe = Pipeline.from_sequence(CHAIN_SEQUENCE, CHAIN_HPS)
+    pipe = Pipeline.from_sequence(CHAIN_SEQUENCE, CHAIN_HPS,
+                                  verify_order=True)
+    print(f'{tag} {CHAIN_SEQUENCE} built with verify_order=True: '
+          f'{pipe.verify_order()}')
     problems = []
     with tempfile.TemporaryDirectory(prefix='chain_smoke_') as ckpt:
         # ---- the chain, counted from zero
@@ -2800,33 +2919,12 @@ def plain_int8_kernels():
 
 
 def capture_int8_calls(torch, fn):
-    """Run ``fn()`` with spies on the int8 wrappers the dynamic path calls:
+    """Run ``fn()`` under the kernel-call recorder (``kernels.recording``):
     ``[(kernel, args as the wrapper binds them)]`` in call order."""
-    import inspect
-    from repro_torch.kernels import depthwise_conv as dw
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import quant_conv as qc
-    from repro_torch.kernels import quant_matmul as qmm
-    calls = []
-
-    def spy(name, real):
-        sig = inspect.signature(real)
-
-        def call(*a, **kw):
-            b = sig.bind(*a, **kw)
-            b.apply_defaults()
-            calls.append((name, dict(b.arguments)))
-            return real(*a, **kw)
-        return call
-    saved = ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv
-    ops.quant_matmul = qc.quant_matmul = spy('quant_matmul',
-                                             qmm.quant_matmul)
-    ops.depthwise_conv = spy('depthwise_conv', dw.depthwise_conv)
-    try:
+    from repro_torch.kernels import recording
+    with recording(keep_args=True) as calls:
         out = fn()
-    finally:
-        ops.quant_matmul, qc.quant_matmul, ops.depthwise_conv = saved
-    return out, calls
+    return out, [(c.kernel, c.args) for c in calls]
 
 
 def dyn_cases(torch, calls):
@@ -3386,6 +3484,116 @@ def runtime_path(torch):
     return launches, (measured, fparams), out
 
 
+def op_diff(a, b):
+    """The first difference between two recorded runs' writes (ops outside
+    the kernel wrappers, then kernel calls), as text, or None."""
+    ka = [(o.name, o.nbytes) for o in a.ops if o.transfer != 'h2d']
+    kb = [(o.name, o.nbytes) for o in b.ops if o.transfer != 'h2d']
+    ca = [(c.kernel, c.out_bytes) for c in a.calls]
+    cb = [(c.kernel, c.out_bytes) for c in b.calls]
+    for what, x, y in (('op', ka, kb), ('kernel call', ca, cb)):
+        for i, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return f'{what} {i}: card {u}, CPU {v}'
+        if len(x) != len(y):
+            return f'{len(x)} {what}s on the card, {len(y)} on the CPU'
+    return None
+
+
+def verify_path(torch, served):
+    """Path (j): the analyzer (``repro_torch.analysis``) on the card,
+    counted from zero.  Every order of CHAIN_SEQUENCE linted by
+    ``Pipeline.verify_order`` (the green ones must be those
+    ``planner.theoretical_dag`` allows); (a)-(c) re-exported at full width
+    with ``export_cnn(verify='strict')`` on 32 images and (g)'s served
+    chain export checked with ``analysis.check(strict=True)``, each
+    report printed (rules run and skipped, the recorded kernel calls
+    against the wrappers' counters, op-traffic's measured over predicted
+    bytes); each export's recorded writes on the card against the CPU's
+    on 2 images (printed, the first op that differs named); then the
+    gate, ``analysis.gate.main(['--device', 'cuda'])``, which must return
+    0.  Returns (the launches of every kernel, readings)."""
+    import itertools
+    from repro_torch import analysis
+    from repro_torch.analysis import gate
+    from repro_torch.analysis.walker import record_run
+    from repro_torch.core import planner
+    from repro_torch.core.chain import Pipeline
+    from repro_torch.core.export import export_cnn, to_device
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import counts, reset_counts
+
+    tag = '[verify]'
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    calib = fam.eval_batches(1, SLOTS)[0][0]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    perms = [''.join(p) for p in itertools.permutations(CHAIN_SEQUENCE)]
+    edges = planner.theoretical_dag(CHAIN_SEQUENCE)
+    green = [q for q in perms if Pipeline.from_sequence(q).verify_order().ok]
+    allowed = [q for q in perms
+               if all(q.index(a) < q.index(b) for a, b in edges)]
+    print(f'{tag} order-dag over all {len(perms)} orders of '
+          f'{CHAIN_SEQUENCE}: {len(green)} green {green}; the theoretical '
+          f'DAG {edges} allows {len(allowed)}')
+    if green != allowed:
+        fail('order-dag: the green orders are not those the DAG allows')
+    readings = {'orders_green': len(green)}
+    targets = [(spec['key'], spec, *served[spec['key']]) for spec in PATHS]
+    targets.append((CHAIN_KEY, None, *served[CHAIN_KEY]))
+    for key, spec, model, params in targets:
+        select = 'fused' if spec and spec['factorize'] else 'model'
+        t1 = time.perf_counter()
+        try:
+            if spec is None:
+                rep = analysis.check(model, strict=True,
+                                     target=f'{model.cfg.name} chain')
+            else:
+                rep = export_cnn(params, model.cfg, device='cuda',
+                                 calibrate=calib, select_kernels=select,
+                                 verify='strict').analysis
+        except analysis.AnalysisError as e:
+            print(e.report)
+            fail(f'{key}: the export is not strict-green on the card')
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        print(f'{tag} {key}: ' + str(rep).replace('\n', f'\n{tag}   '))
+        traffic = next(f.message for f in rep.by_rule('op-traffic'))
+        ratio = float(re.search(r'\(([0-9.]+)x', traffic).group(1))
+        small = calib[:2]
+        card = export_cnn(params, model.cfg, device='cuda', calibrate=small,
+                          select_kernels=select)
+        cpu = export_cnn(to_device(params, 'cpu'), model.cfg, device='cpu',
+                         calibrate=small.cpu(), select_kernels=select)
+        rc = record_run(card.fn, card.params, small)
+        rp = record_run(cpu.fn, cpu.params, small.cpu())
+        print(f'{tag} {key}: {secs:.2f} s (export and analysis, '
+              f'{calib.shape[0]} images); one fn call on 2 images writes '
+              f'{rc.written_bytes()} bytes on the card, '
+              f'{rp.written_bytes()} on the CPU ({len(rc.ops)} and '
+              f'{len(rp.ops)} ops, {len(rc.calls)} and {len(rp.calls)} '
+              f'kernel calls): '
+              + (op_diff(rc, rp) or 'equal, op by op'))
+        readings[key] = {'checked': rep.checked, 'skipped': rep.skipped,
+                         'traffic_ratio': ratio, 'secs': secs,
+                         'card_bytes': rc.written_bytes(),
+                         'cpu_bytes': rp.written_bytes()}
+    t1 = time.perf_counter()
+    rc = gate.main(['--device', 'cuda'])
+    print(f'{tag} analysis.gate --device cuda returned {rc} in '
+          f'{time.perf_counter() - t1:.2f} s')
+    if rc:
+        fail('the analysis gate failed on the card')
+    launches = {k: v['launches'] for k, v in counts().items()}
+    for name in ('quant_matmul', 'depthwise_conv', 'lowrank_conv'):
+        if not launches[name]:
+            fail(f'verify: {name} was never launched on this path')
+    readings['secs'] = time.perf_counter() - t0
+    return launches, readings
+
+
 def pass_calls(torch, model, g):
     """Inputs for every kernel call one full-depth pass of ``model`` makes:
     ``{kernel: [(plan entry, params), ...]}``."""
@@ -3745,6 +3953,9 @@ def main():
           f"{time.perf_counter() - t_start:.1f} s")
     launches[RT_KEY], served[RT_KEY + '-measure'], _ = runtime_path(torch)
     print(f"[time] path {RT_KEY} done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    launches[VERIFY_KEY], verified = verify_path(torch, served)
+    print(f"[time] path {VERIFY_KEY} took {verified['secs']:.1f} s, done at "
           f"{time.perf_counter() - t_start:.1f} s")
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,

@@ -18,11 +18,8 @@ The chain runs for both families: a CNN (``CNNFamily``) and the dense LM
 decoder (``LMFamily``), and ``Pipeline.export`` compiles either for
 serving.
 
-Where the port departs from the reference: ``verify_order`` (and
-``from_sequence(verify_order=True)``) needs the analyzer's order-dag rule,
-which is not ported, and raises NotImplementedError; ``Pipeline.export``
-takes the port's ``device`` in place of ``use_pallas``, as ``export_cnn``
-does.
+Where the port departs from the reference: ``Pipeline.export`` takes the
+port's ``device`` in place of ``use_pallas``, as ``export_cnn`` does.
 """
 from __future__ import annotations
 
@@ -50,8 +47,11 @@ class Pipeline:
         unknown pass keys, on hps entries for keys not in the sequence
         (typo guard), and on duplicate keys unless ``allow_repeats=True``
         (the repeat-compression experiments opt in deliberately).
-        ``verify_order=True`` raises NotImplementedError (see
-        :meth:`verify_order`).
+        ``verify_order=True`` additionally lints the sequence against the
+        theoretical order DAG (the analyzer's order-dag rule) and raises
+        :class:`~repro_torch.analysis.AnalysisError` naming the violated
+        edge; it is opt-in because the pairwise experiments run wrong
+        orders on purpose.
         """
         hps = dict(hps or {})
         seq = list(sequence)
@@ -75,12 +75,12 @@ class Pipeline:
         return pipe
 
     def verify_order(self, *, strict: bool = False):
-        """Lint this sequence against the theoretical order DAG: the
-        reference runs its analyzer's order-dag rule here, which the port
-        does not have yet."""
-        raise NotImplementedError(
-            'Pipeline.verify_order needs the analyzer\'s order-dag rule, '
-            'not ported yet (ROADMAP, queue A 7: analysis)')
+        """Lint this pipeline's sequence against the theoretical order DAG
+        (the analyzer's order-dag rule) and return the AnalysisReport;
+        ``strict=True`` raises AnalysisError on a violated edge."""
+        from repro_torch.analysis import check
+        return check(sequence=self, rules=('order-dag',), strict=strict,
+                     target=f'Pipeline {self.sequence!r}')
 
     @classmethod
     def auto(cls, planner, hps: dict | None = None) -> 'Pipeline':

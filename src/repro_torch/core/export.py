@@ -35,10 +35,11 @@ tensors (the reference's separate jnp lowering with folded scales is
 not needed for that; ``ServingModel.backend`` names which ran).  Measure
 mode (``select_kernels='measure'``) races the two low-rank lowerings on
 the export's device: CUDA events on the card, ``perf_counter`` on the
-CPU (where it times the plain versions).  Not ported yet, each raising
+CPU (where it times the plain versions).  ``verify=`` runs the analyzer
+(``repro_torch.analysis``) over the fresh export.  Not ported yet, raising
 NotImplementedError that names its ROADMAP item: grouped convs with
 per-group depth > 1 (the reference's declared fp32 fallback, which no
-configuration has) and the static analyzer.
+configuration has).
 
 :func:`export_lm` is the LM family's int8 weight export.
 :func:`export_chain` exports a finished compression chain through a
@@ -670,6 +671,7 @@ class ServingModel:
     segment_launches: tuple = ()       # {kernel: launches} per segment
     device: torch.device = torch.device('cpu')
     backend: str = 'plain'             # 'cuda' kernels | 'plain' versions
+    analysis: Any = None               # AnalysisReport from export verify=
 
     def serve(self, x):
         return self.fn(self.params, x)
@@ -712,8 +714,15 @@ class ServingModel:
         return self.run_stage(self.n_stages - 1, h), exits
 
     def summary(self) -> dict | None:
-        """The layer plan's deployed-cost summary."""
-        return None if self.plan is None else self.plan.summary()
+        """The layer plan's deployed-cost summary.  Exports built with
+        ``verify=`` carry their structured ``AnalysisReport`` under the
+        ``analysis`` key."""
+        if self.plan is None:
+            return None
+        s = self.plan.summary()
+        if self.analysis is not None:
+            s['analysis'] = self.analysis.to_dict()
+        return s
 
 
 def calibrate_exit_threshold(model: ServingModel, x, quantile=0.5):
@@ -757,7 +766,7 @@ def _k_major_weights(qparams) -> None:
 
 
 def export_cnn(params, cfg, *, device='cuda', calibrate=None,
-               fuse_lowrank=True, select_kernels='model',
+               fuse_lowrank=True, select_kernels='model', verify=None,
                tracer=None) -> ServingModel:
     """Compile a (possibly low-rank-factored) CNN to int8 serving on
     ``device``.
@@ -776,12 +785,25 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
     the batch are moved to ``device``; on CUDA every layer runs a kernel
     (``quant_matmul``, ``depthwise_conv``, ``lowrank_conv``).  ``tracer``
     (an ``obs.trace.Tracer``) records an ``export.calibrate`` span and, in
-    measure mode, one ``kernel.launch`` span per timed lowering rep."""
+    measure mode, one ``kernel.launch`` span per timed lowering rep.
+
+    ``verify`` runs the analyzer (``repro_torch.analysis``) over the
+    export, which runs ``fn``, ``fn_exits`` and the stage segments once on
+    the calibration batch on ``device`` (a dynamic-scale export has no
+    plan, and the rules that read one are skipped):
+    ``'strict'`` raises :class:`~repro_torch.analysis.AnalysisError` on
+    any error-severity finding, ``'warn'`` only records them.  Either way
+    the structured ``AnalysisReport`` lands on ``model.analysis`` and in
+    ``model.summary()['analysis']``.  ``None`` (default) skips analysis —
+    exports on hot paths stay cheap."""
     from repro_torch.obs.trace import as_tracer
     tracer = as_tracer(tracer)
     if select_kernels not in SELECT_KERNELS:
         raise ValueError(f'select_kernels must be one of {SELECT_KERNELS}, '
                          f'got {select_kernels!r}')
+    if verify not in (None, 'strict', 'warn'):
+        raise ValueError(f"verify must be None, 'strict' or 'warn', "
+                         f'got {verify!r}')
     device = resolve_device(device)
     params = to_device(params, device)
     w_bits, a_bits = _serving_bits(cfg)
@@ -822,12 +844,17 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
         stage_fns, stage_exits = _make_stage_fns(cfg, kw)
         if plan is not None:
             seg_launches = _segment_launches(plan, cfg, stage_exits)
-    return ServingModel(cfg=cfg, params=qparams, fn=fn,
-                        fn_exits=fn_exits if cfg.exit_stages else None,
-                        plan=plan, stage_fns=stage_fns,
-                        stage_exits=stage_exits,
-                        segment_launches=seg_launches, device=device,
-                        backend='cuda' if device.type == 'cuda' else 'plain')
+    model = ServingModel(cfg=cfg, params=qparams, fn=fn,
+                         fn_exits=fn_exits if cfg.exit_stages else None,
+                         plan=plan, stage_fns=stage_fns,
+                         stage_exits=stage_exits,
+                         segment_launches=seg_launches, device=device,
+                         backend='cuda' if device.type == 'cuda' else 'plain')
+    if verify is not None:
+        from repro_torch.analysis import check   # lazy: analysis reads core
+        model.analysis = check(model, x=calibrate,
+                               strict=(verify == 'strict'))
+    return model
 
 
 # ------------------------------------------------------------------ LM export

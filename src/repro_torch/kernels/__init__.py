@@ -50,8 +50,116 @@ counters and :func:`reset_counts` zeroes them (and the launches by route
 of ``quant_matmul``, ``lowrank_conv`` and ``depthwise_conv``, and the
 weight relayouts of the first two), so a run can show which path served
 it.
+
+Inside a :func:`recording` block every wrapper call, on either branch,
+appends a :class:`KernelCall`: the kernel, the route its operands select,
+whether the plain version ran, the operands' and outputs' shapes and
+dtypes, and the launch plan the wrapper computes with its shared memory.
+The plans are plain Python, so a CPU run records the calls and plans the
+card runs.  Outside such a block a wrapper pays one list test.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
+import inspect
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+class KernelCall(NamedTuple):
+    """One wrapper call, as :func:`recording` keeps it."""
+    kernel: str
+    route: str              # the route the operands select on the card
+    plain: bool             # the plain version ran (a CPU tensor)
+    operands: tuple         # ((argument, shape, dtype), ...) of the tensors
+    outputs: tuple          # ((shape, dtype), ...)
+    plan: Any               # the launch plan, None where the kernel has none
+    smem_bytes: int | None  # the plan's shared memory; None: static only
+    args: dict | None       # the arguments as bound (``keep_args``)
+
+    @property
+    def out_bytes(self) -> int:
+        """Bytes the call writes: each output once."""
+        return sum(_numel(s) * d.itemsize for s, d in self.outputs)
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+_OPEN: list = []        # (calls, keep_args) of each open recording() block
+_DEPTH = [0]            # wrapper calls in progress while one is open
+
+
+@contextlib.contextmanager
+def recording(*, keep_args: bool = False):
+    """Record every kernel wrapper call made inside the block into the
+    list it yields (:class:`KernelCall`, in call order).  ``keep_args``
+    keeps each call's bound arguments (the tensors too) in ``args``."""
+    entry = ([], keep_args)
+    _OPEN.append(entry)
+    try:
+        yield entry[0]
+    finally:
+        _OPEN.remove(entry)
+
+
+def inside_wrapper() -> bool:
+    """True while a recorded wrapper call runs (its plain version's torch
+    ops or its launch), so an op recorder can leave them out."""
+    return _DEPTH[0] > 0
+
+
+def tensors_in(value) -> list:
+    """Every tensor in a value: a tensor, or tensors nested in tuples,
+    lists and dicts."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in tensors_in(v)]
+    if isinstance(value, dict):
+        return [t for v in value.values() for t in tensors_in(v)]
+    return []
+
+
+def recorded(kernel: str, plan: Callable):
+    """Decorate a kernel wrapper so that calls inside :func:`recording`
+    are recorded.  ``plan(**bound arguments)`` returns ``(route, launch
+    plan or None, shared-memory bytes or None)`` as the wrapper computes
+    them."""
+    def deco(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if not _OPEN:
+                return fn(*a, **kw)
+            b = sig.bind(*a, **kw)
+            b.apply_defaults()
+            args = dict(b.arguments)
+            _DEPTH[0] += 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                _DEPTH[0] -= 1
+            route, p, smem = plan(**args)
+            first = next(t for v in args.values() for t in tensors_in(v))
+            call = KernelCall(
+                kernel, route, not first.is_cuda,
+                tuple((k, tuple(t.shape), t.dtype) for k, v in args.items()
+                      for t in tensors_in(v)),
+                tuple((tuple(t.shape), t.dtype) for t in tensors_in(out)),
+                p, smem, None)
+            for calls, keep in _OPEN:
+                calls.append(call._replace(args=args) if keep else call)
+            return out
+        return wrapper
+    return deco
 
 
 def _wrappers() -> dict:

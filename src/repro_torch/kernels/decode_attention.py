@@ -33,7 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, recorded
 from repro_torch.kernels.tiling import SMEM_BUDGET
 
 NEG_INF = -1e30
@@ -168,6 +168,19 @@ def _check(kernel, q, kv_dtype, caches, scales, valid):
     return B, S, H, K, D
 
 
+def da_call_plan(q, **kw):
+    """``(route, plan, shared-memory bytes)`` of a call of either wrapper:
+    the split kernel on :func:`split_plan` ``(C, slots_per_block,
+    warps)``."""
+    k = kw['k'] if 'k' in kw else kw['k_q']
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    elem, G = k.element_size(), group_pad(H // K)
+    plan = split_plan(B, K, S, elem=elem, D=D, G=G)
+    return 'split', plan, split_smem_bytes(plan[2], G, D, elem)
+
+
+@recorded('decode_attention', da_call_plan)
 def decode_attention(q, k, v, valid):
     """q (B,H,D); k, v (B,S,K,D) in q's dtype (fp32 or bf16); valid (S,)
     bool.  Returns (B,H,D) in q's dtype."""
@@ -194,6 +207,7 @@ def decode_attention(q, k, v, valid):
 decode_attention.launches = 0
 
 
+@recorded('decode_attention_int8', da_call_plan)
 def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid):
     """q (B,H,D) fp32 or bf16; k_q, v_q int8 (B,S,K,D); k_s, v_s fp32
     (B,S,K); valid (S,) bool.  Returns (B,H,D) in q's dtype."""

@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, recorded
 from repro_torch.kernels.ref import depthwise_conv_ref, recip32, same_pads
 from repro_torch.kernels.tiling import SMEM_BUDGET
 
@@ -194,6 +194,21 @@ def dw_route(x_q, w_q, stride, out_scale=None, out_qmax=127.0) -> str:
     return 'general'
 
 
+def dw_call_plan(x_q, w_q, stride, out_scale, out_qmax, **_):
+    """``(route, plan, shared-memory bytes)`` of a call: :func:`dw_plan`
+    on the tile route, the general kernel's plan (no shared memory)
+    else."""
+    B, H, W, C = x_q.shape
+    kh, kw, _, n = w_q.shape
+    route = dw_route(x_q, w_q, stride, out_scale, out_qmax)
+    if route == 'tile':
+        plan = dw_plan(B, H, W, C, n, kh, kw, stride)
+    else:
+        (_, _), (oh, ow) = same_pads(H, W, kh, kw, stride)
+        plan = _general_plan(B, oh, ow, n)
+    return route, plan, plan.smem_bytes
+
+
 def depthwise_conv_plain(x_q, w_q, sx, sw, bias=None, *, stride=1,
                          relu=False, out_scale=None, out_qmax=127.0):
     """The kernel's function in plain PyTorch, in the kernel's op order."""
@@ -220,6 +235,7 @@ def _check_operands(x_q, w_q, sw, bias):
     _build.check_operands('depthwise_conv', x_q.device, want)
 
 
+@recorded('depthwise_conv', dw_call_plan)
 def depthwise_conv(x_q, w_q, sx, sw, bias=None, *, stride=1, relu=False,
                    out_scale=None, out_qmax=127.0):
     """x_q int8 (B,H,W,CIN); w_q int8 (KH,KW,1,COUT), COUT a multiple of

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, recorded
 from repro_torch.kernels.ref import fake_quant_ref, recip32
 from repro_torch.kernels.tiling import SMEM_BUDGET
 
@@ -160,6 +160,16 @@ def _launch(w, bits):
     return out
 
 
+def fq_call_plan(w, **_):
+    """``(route, plan, shared-memory bytes)`` of a call: the cluster
+    kernel on :func:`fused_plan` (a 2-D w; the card takes no other)."""
+    if w.dim() != 2:
+        return 'cluster', None, None
+    plan = fused_plan(*w.shape, w.element_size())
+    return 'cluster', plan, plan[3]
+
+
+@recorded('fake_quant_fused', fq_call_plan)
 def fake_quant_fused(w, *, bits=8):
     """Per-output-channel (last dim) symmetric fake quant of an fp32 or bf16
     w (K, N) in one launch: the CUDA cluster kernel for a CUDA tensor, the
@@ -175,6 +185,7 @@ def fake_quant_fused(w, *, bits=8):
 fake_quant_fused.launches = 0
 
 
+@recorded('fake_quant', fq_call_plan)
 def fake_quant(w, *, bits=8):
     """The same fake quant as :func:`fake_quant_fused`, for the weights the
     reference sends to its two passes: the CUDA cluster kernel in one read

@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, recorded
 from repro_torch.kernels.quant_matmul import k_major, qmm_plan
 from repro_torch.kernels.ref import lowrank_conv_ref, recip32
 from repro_torch.kernels.tiling import SMEM_BUDGET, pad_to
@@ -241,13 +241,27 @@ def _check_operands(patches, u_q, v_q, su, sv, bu, bv):
 def lr_route(patches, u_q, v_q) -> str:
     """``'wgmma'`` when K1 % 16 == 0 and patches, u and v start on 16
     bytes (TMA's rules for the patches and u, 16-byte copies for v), else
-    ``'mma_sync'``."""
-    if patches.shape[1] % 16 == 0 and all(
-            t.data_ptr() % 16 == 0 for t in (patches, u_q, v_q)):
+    ``'mma_sync'``.  A factor that is not K-major counts as aligned: the
+    wrapper launches on a fresh K-major copy of it."""
+    if patches.shape[1] % 16 == 0 and patches.data_ptr() % 16 == 0 and \
+            all(w.data_ptr() % 16 == 0 or not k_major(w) for w in (u_q, v_q)):
         return 'wgmma'
     return 'mma_sync'
 
 
+def lr_call_plan(patches, u_q, v_q, **_):
+    """``(route, plan, shared-memory bytes)`` of a call: :func:`lr_plan`
+    on the ``wgmma`` route (inside the fused envelope); the ``mma.sync``
+    kernel's shared memory is static, sized by its compiler."""
+    route = lr_route(patches, u_q, v_q)
+    (M, K1), (R, N) = patches.shape, v_q.shape
+    if route != 'wgmma' or not fits_fused(R, N):
+        return route, None, None
+    plan = lr_plan(M, K1, R, N)
+    return route, plan, plan[-1]
+
+
+@recorded('lowrank_conv', lr_call_plan)
 def lowrank_conv(patches, u_q, v_q, su, sv, bu, bv, *, sx, h_scale,
                  relu=False, out_scale=None, h_qmax=127.0, out_qmax=127.0):
     """patches int8 (M,K1) contiguous; u_q int8 (K1,R) and v_q int8 (R,N),

@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, recorded
 from repro_torch.kernels.ref import epilogue, int_matmul, recip32
 from repro_torch.kernels.tiling import SMEM_BUDGET
 
@@ -153,13 +153,26 @@ def _check_operands(x_q, w_q, sx, sw, bias):
 def qmm_route(x_q, w_q) -> str:
     """``'wgmma'`` when K % 16 == 0 and x and w start on 16 bytes (TMA's
     rules: every global stride a multiple of 16 bytes), else
-    ``'mma_sync'``."""
-    if x_q.shape[1] % 16 == 0 and x_q.data_ptr() % 16 == 0 and \
-            w_q.data_ptr() % 16 == 0:
+    ``'mma_sync'``.  A w that is not K-major counts as aligned: the
+    wrapper launches on a fresh K-major copy of it."""
+    if x_q.shape[1] % 16 == 0 and x_q.data_ptr() % 16 == 0 and (
+            w_q.data_ptr() % 16 == 0 or not k_major(w_q)):
         return 'wgmma'
     return 'mma_sync'
 
 
+def qmm_call_plan(x_q, w_q, **_):
+    """``(route, plan, shared-memory bytes)`` of a call: :func:`qmm_plan`
+    on the ``wgmma`` route; the ``mma.sync`` kernel's shared memory is
+    static, sized by its compiler."""
+    route = qmm_route(x_q, w_q)
+    if route != 'wgmma':
+        return route, None, None
+    plan = qmm_plan(x_q.shape[0], w_q.shape[1], x_q.shape[1])
+    return route, plan, plan[-1]
+
+
+@recorded('quant_matmul', qmm_call_plan)
 def quant_matmul(x_q, w_q, sx, sw, bias=None, *, relu=False, out_scale=None,
                  out_qmax=127.0):
     """x_q int8 (M,K) contiguous; w_q int8 (K,N), row-major or K-major; sx

@@ -27,8 +27,10 @@ records the export's and the scheduler's spans, checks their invariants
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --server \\
         --requests 128 --deadline-ms 40 --chaos --replicas 2 --trace t.json
 
-The reference's ``--pipeline`` (ROADMAP queue A item 10) and ``--verify``
-(item 7) raise until their slices land.
+``--verify [strict|warn]`` runs the analyzer over the export before
+serving and prints its report (``strict``, the default, stops on an error
+finding).  The reference's ``--pipeline`` (ROADMAP queue A item 10) raises
+until its slice lands.
 """
 from __future__ import annotations
 
@@ -167,6 +169,7 @@ def _serve_trace(model, fam, cfg, args, tracer=None):
 
 
 def main(argv=None):
+    from repro_torch.analysis import AnalysisError
     from repro_torch.configs.cnn import CNN_REGISTRY
     from repro_torch.core.export import export_cnn, resolve_device
     from repro_torch.core.family import CNNFamily
@@ -216,14 +219,13 @@ def main(argv=None):
                     help='pipeline-parallel serving (not ported yet)')
     ap.add_argument('--verify', nargs='?', const='strict', default=None,
                     choices=('strict', 'warn'),
-                    help='static analysis of the export (not ported yet)')
+                    help='run the analyzer (repro_torch/analysis) over the '
+                         'export before serving and print the report; '
+                         'strict (default) aborts on any error finding')
     args = ap.parse_args(argv)
     if args.pipeline:
         ap.error('--pipeline is not ported yet (ROADMAP, queue A item 10: '
                  'distributed and launch code)')
-    if args.verify:
-        ap.error('--verify is not ported yet (ROADMAP, queue A item 7: '
-                 'analysis)')
     if args.chaos:
         args.server = True
     if not args.server:
@@ -249,8 +251,14 @@ def main(argv=None):
         from repro_torch.obs import Tracer
         tracer = Tracer()
     calib = fam.eval_batches(1, args.batch)[0][0]
-    model = export_cnn(params, cfg, device=device, calibrate=calib,
-                       tracer=tracer)
+    try:
+        model = export_cnn(params, cfg, device=device, calibrate=calib,
+                           verify=args.verify, tracer=tracer)
+    except AnalysisError as e:
+        print(e.report)
+        sys.exit('serve_cnn: the export failed --verify strict')
+    if args.verify:
+        print(model.analysis)
     s = model.summary()
     print(f"layer plan: {s['n_layers']} layers, {s['kernel_launches']} "
           f"kernel launches (+{s['exit_head_launches']} exit heads), "

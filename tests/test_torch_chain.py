@@ -533,10 +533,15 @@ def test_pipeline_validates_as_the_reference():
         [dataclasses.asdict(h) for _, h in j.steps]
     assert tchain.Pipeline.auto(tplanner.OrderPlanner('PQ')).sequence == 'PQ'
     assert tchain.OPTIMAL_SEQUENCE == jchain.OPTIMAL_SEQUENCE
-    with pytest.raises(NotImplementedError, match='queue A 7'):
-        tchain.Pipeline.from_sequence('DP', verify_order=True)
-    with pytest.raises(NotImplementedError, match='queue A 7'):
-        t.verify_order()
+    from repro.analysis import AnalysisError as JAnalysisError
+    from repro_torch.analysis import AnalysisError
+    assert tchain.Pipeline.from_sequence(
+        'DP', verify_order=True).sequence == 'DP'
+    assert t.verify_order().ok and j.verify_order().ok
+    for P, err in ((tchain.Pipeline, AnalysisError),
+                   (jchain.Pipeline, JAnalysisError)):
+        with pytest.raises(err, match='P→Q'):
+            P.from_sequence('QP', verify_order=True)
 
 
 def test_pipeline_resumes_from_its_checkpoints(tmp_path):

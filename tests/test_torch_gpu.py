@@ -911,3 +911,37 @@ def test_measure_mode_on_card_times_both_lowerings(cuda_device):
     delta = model.plan.summary()['lowering_cost_delta']
     assert delta and {s.args['layer'] for s in spans} == set(delta)
     assert bool(torch.isfinite(model.serve(xs)).all())
+
+
+@pytest.mark.parametrize('base', [RESNET8_CIFAR, MOBILENET_SMALL_CIFAR],
+                         ids=lambda c: c.name)
+def test_verify_strict_on_card_is_green_with_calls_equal_to_counters(
+        cuda_device, base):
+    """``export_cnn(device='cuda', verify='strict')`` on resnet8 and
+    mobilenet-small with exit heads: every rule that runs is green, and in
+    each analyzed run the recorded kernel calls equal the wrappers'
+    launches, with no plain-version call."""
+    from repro_torch.analysis import record_run
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    params = fam.init(torch.Generator().manual_seed(0), base)
+    params, cfg = fam.add_exits(torch.Generator().manual_seed(1), params,
+                                base, fam.default_exit_points(base))
+    cfg = cfg.replace(w_bits=8, a_bits=8)
+    xs = fam.eval_batches(1, 8)[0][0]
+    model = export_cnn(params, cfg, device=cuda_device, calibrate=xs,
+                       verify='strict')
+    rep = model.analysis
+    assert rep.ok and {'int8-residency', 'smem-fit', 'launch-budget',
+                       'stage-carry', 'op-traffic'} <= set(rep.checked)
+    infos = [f.message for f in rep.by_rule('launch-budget')
+             if f.severity == 'info']
+    assert infos and all('plain-version calls 0' in m for m in infos)
+    reset_counts()
+    run = record_run(model.fn_exits, model.params, xs)
+    c = counts()
+    want = {}
+    for call in run.calls:
+        assert not call.plain
+        want[call.kernel] = want.get(call.kernel, 0) + 1
+    assert want == {k: v['launches'] for k, v in c.items() if v['launches']}
+    assert all(v['plain_calls'] == 0 for v in c.values())
