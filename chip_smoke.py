@@ -57,8 +57,13 @@ Phases, in order; any failure exits non-zero and no result is printed:
    same masked cache (dequantized first for int8), the bound the valid
    slots' k/v (and scale) bytes plus q and the output once at 3.35 TB/s;
    and an fp32 cache at head_dim 128 (6 warps a block, the most its shared
-   memory allows); each line ends with the split kernel's plan (S split
-   over a cluster, the same kernel for the three caches).
+   memory allows); then gemma2-9b's decode call (B, H, K, D, S) = (8, 16,
+   8, 256, 584), bf16 and int8-KV, with its attention softcap 50 and
+   without (the yardstick then computes the function without the cap), a
+   row with every slot masked under the softcap, and the fp32 cache at
+   head_dim 256 (3 warps, the fewest of any plan); each line ends with the
+   split kernel's plan (S split over a cluster, the same kernel for the
+   three caches) and the instantiation's registers and spills.
 3. End to end, three CNN paths, each at full width and depth with random
    weights from seed 0, exit heads at the default stages, W8A8,
    ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
@@ -216,9 +221,28 @@ Phases, in order; any failure exits non-zero and no result is printed:
    recorded writes on the card and on the CPU for one ``fn`` call on 2
    images (the first op that differs named); and the CI gate
    ``analysis.gate.main(['--device', 'cuda'])``, which must return 0.
+   After (j), (k) ``gemma2-9b`` at its published width and depth (42 layers,
+   local/global, window 4096, d_model 3584, 16/8 heads of 256, softcaps
+   50/30, a tied 256000-row embedding: 9.24 G parameters) served as (d)
+   and (e), bf16 weights and cache on ``decode_attention`` with the
+   softcap, then ``export_lm`` int8 weights and ``kv_cache_bits=8`` on
+   ``decode_attention_int8``: 42 launches a token, the other decode kernel
+   and the plain versions never; printed as (d), with the computed
+   weight-streaming bound; gated as (d) on the first-step logits against
+   the plain decode and a 2-layer fp32 cut (one local, one global layer)
+   against the CPU.  Then (l) the other dense-attention archs at their
+   published widths, bf16, unprofiled, each gated the same way:
+   ``gemma3-12b`` at prompt 1536, its 40 local layers' 1024-slot rings
+   wrapped (checked slot by slot); ``qwen2-72b`` cut to 16 of its 80
+   layers (QKV bias); ``internvl2-2b`` whole, 256 zero patch rows before a
+   512-token prompt, decoding from position 768; ``whisper-small`` whole,
+   its 12-layer encoder over 1500 frames, a 64-token prompt and 64 steps
+   with cross-attention.  Each model is freed before the next is built;
+   each path's seconds are printed.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
-   each), and every fake-quant call of one step of (f), captured at its
+   each), (k) (42 each, with the softcap) and (l), and every fake-quant
+   call of one step of (f), captured at its
    inputs (132 fused, 22 two-pass), held against its plain version on the
    card at its own shapes (bit for bit; the decode kernels within
    ``DECODE_TOL``) and timed, each line ending with its plan; every
@@ -231,7 +255,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    export.  The ``{"kernels": [...]}``
    line: every ported kernel, summed over the pass or step of the path
    that calls it most (``quant_matmul``: path (a); ``depthwise_conv``: (b);
-   ``lowrank_conv``: (c); the decode kernels: (d) and (e); both
+   ``lowrank_conv``: (c); the decode kernels: the LM path with the most
+   calls a step; both
    fake-quant wrappers: (f)), every path's pass under ``by_path``, its
    launches over all the paths' counted runs (path (g): its chain and
    its serving; (h): its chain and its decode; (i): its export, stage
@@ -289,6 +314,33 @@ LM_PATHS = (
     dict(key='tinyllama-int8', int8_weights=True, kv_cache_bits=8,
          kernel='decode_attention_int8', other='decode_attention'),
 )
+# Path (k): gemma2-9b (arXiv:2408.00118) at its published width and depth
+# (42 layers alternating local (window 4096) and global, d_model 3584, 16
+# heads over 8 kv heads of 256, attention softcap 50, logit softcap 30, a
+# tied 256000-row embedding), served as (d) and (e): bf16 weights and
+# cache, then export_lm int8 weights with an int8 cache
+K_PATHS = (
+    dict(key='gemma2-bf16', arch='gemma2-9b', int8_weights=False,
+         kv_cache_bits=0, kernel='decode_attention',
+         other='decode_attention_int8'),
+    dict(key='gemma2-int8', arch='gemma2-9b', int8_weights=True,
+         kv_cache_bits=8, kernel='decode_attention_int8',
+         other='decode_attention'),
+)
+# Path (l): the other dense-attention archs at their published widths,
+# bf16, batch 8, 64 greedy tokens, unprofiled: gemma3-12b at prompt 1536,
+# so that its 40 local layers' 1024-slot rings wrap; qwen2-72b cut to 16 of
+# its 80 layers (145 GB of bf16 weights whole; 33 GB cut); internvl2-2b
+# whole, 256 zero patch rows before a 512-token prompt; whisper-small
+# whole, its 12-layer encoder over 1500 frames and a 64-token prompt (its
+# decoder holds at most 448 tokens)
+L_PATHS = tuple(
+    dict(kv_cache_bits=0, int8_weights=False, kernel='decode_attention',
+         other='decode_attention_int8', profile=False, **kw)
+    for kw in (dict(key='gemma3-bf16', arch='gemma3-12b', prompt=1536),
+               dict(key='qwen2-bf16', arch='qwen2-72b', layers=16),
+               dict(key='internvl2-bf16', arch='internvl2-2b'),
+               dict(key='whisper-bf16', arch='whisper-small', prompt=64)))
 # Decode attention against its plain version, max|kernel - plain| over
 # max|plain|: fp32 sums in another order; a bf16 output within about one
 # bf16 ulp (the int8-KV path serves bf16 q and output)
@@ -415,6 +467,11 @@ PATHS = (
 )
 
 
+# ptxas's registers and spill line of every compiled kernel, by its
+# mangled name (filled by phase_build)
+BUILD_REGS = {}
+
+
 def fail(msg):
     print(f'chip_smoke: FAIL: {msg}', file=sys.stderr)
     sys.exit(1)
@@ -532,6 +589,7 @@ def phase_build():
             elif re.search(r'Used \d+ registers', line):
                 regs = re.sub(r'.*Used (\d+) registers.*', r'\1', line)
                 print(f'[build]   {fn}: {regs} registers; {spill}')
+                BUILD_REGS[fn] = (int(regs), spill)
         if re.search(r'[1-9]\d* bytes spill stores', i['log']):
             print(f'[build] WARNING: {name} spills registers')
     print(f'[build] {len(info)} CUDA source(s) in {secs:.2f} s')
@@ -1092,9 +1150,9 @@ def phase_fake_quant_kernels(torch, g):
 
 
 def da_inputs(torch, g, B, S, kind, valid_len, hole=False, H=32, K=4, D=64):
-    """Decode-attention operands at tinyllama's head shapes: ``kind`` fp32,
-    bf16 (q, k, v in that type) or int8 (bf16 q, an int8 cache with fp32
-    scales from ``kv_quantize``).  Returns (args, valid)."""
+    """Decode-attention operands (tinyllama's head shapes by default):
+    ``kind`` fp32, bf16 (q, k, v in that type) or int8 (bf16 q, an int8
+    cache with fp32 scales from ``kv_quantize``).  Returns (args, valid)."""
     from repro_torch.models.attention import kv_quantize
     q = torch.randn((B, H, D), generator=g, device='cuda')
     k = torch.randn((B, S, K, D), generator=g, device='cuda')
@@ -1113,7 +1171,8 @@ def da_inputs(torch, g, B, S, kind, valid_len, hole=False, H=32, K=4, D=64):
 def da_library(torch, args, valid):
     """The yardstick the port never calls: ``F.scaled_dot_product_attention
     (enable_gqa=True)`` on the same masked cache (the int8 cache
-    dequantized first, inside the call)."""
+    dequantized first, inside the call).  It takes no softcap: beside a
+    softcapped call it computes the function without the cap."""
     import torch.nn.functional as F
     from repro_torch.models.attention import kv_dequantize
     q = args[0]
@@ -1132,17 +1191,21 @@ def da_library(torch, args, valid):
     return call
 
 
-def da_case(torch, args, valid, kind, iters=20):
-    """Decode-attention kernel vs its plain version on one call: the error
-    relative to max|plain| against DECODE_TOL, and times.  Bound: the k/v
-    rows of the valid slots (and their scales), q, the mask and the output
-    once at 3.35 TB/s, against 4*B*H*D flops a valid slot at the card's
-    fp32 rate."""
+def da_case(torch, args, valid, kind, iters=20, cap=0.0):
+    """Decode-attention kernel vs its plain version on one call (with the
+    attention softcap ``cap``, 0 = off): the error relative to max|plain|
+    against DECODE_TOL, and times.  Bound: the k/v rows of the valid
+    slots (and their scales), q, the mask and the output once at 3.35
+    TB/s, against 4*B*H*D flops a valid slot at the card's fp32 rate."""
+    import functools
     from repro_torch.kernels import decode_attention as da
     int8 = len(args) == 5
-    fn = da.decode_attention_int8 if int8 else da.decode_attention
-    plain = da.decode_attention_int8_plain if int8 else \
-        da.decode_attention_plain
+    fn = functools.partial(
+        da.decode_attention_int8 if int8 else da.decode_attention,
+        attn_softcap=cap)
+    plain = functools.partial(
+        da.decode_attention_int8_plain if int8 else
+        da.decode_attention_plain, attn_softcap=cap)
     got = fn(*args, valid)
     want = plain(*args, valid)
     lib = da_library(torch, args, valid)
@@ -1160,7 +1223,8 @@ def da_case(torch, args, valid, kind, iters=20):
     err = max_err(torch, got, want)
     call = lambda: fn(*args, valid)  # noqa: E731
     return {'shape': (B, H, K, D, S), 'kind': kind, 'n_valid': n_valid,
-            'max_abs_err': err, 'rel_err': err / scale,
+            'cap': cap, 'max_abs_err': err, 'rel_err': err / max(scale,
+                                                                  1e-30),
             'within': err <= DECODE_TOL[kind] * scale,
             'library_rel_err': max_err(torch, lib_out, want) / scale,
             'call': call, 'ms': time_ms(torch, call, iters),
@@ -1172,13 +1236,17 @@ def da_case(torch, args, valid, kind, iters=20):
 def fmt_da_case(name, c):
     dev = c.get('device_ms')
     return (f"[kernel] {name} {c['kind']} (B,H,K,D,S)={c['shape']} "
-            f"valid={c['n_valid']}: rel_err={c['rel_err']:.3e} (limit "
+            f"valid={c['n_valid']}"
+            + (f" softcap={c['cap']:g}" if c['cap'] else '')
+            + f": rel_err={c['rel_err']:.3e} (limit "
             f"{DECODE_TOL[c['kind']]:g}) ms={c['ms']:.4f}"
             + ('' if 'device_ms' not in c else ' device_ms=' + (
                 'not measured' if dev is None else f'{dev:.4f}'))
             + f" plain_ms={c['plain_ms']:.4f} library_ms="
-              f"{c['library_ms']:.4f} (library rel_err "
-              f"{c['library_rel_err']:.2e}) bound_ms={c['bound_ms']:.5f} "
+              f"{c['library_ms']:.4f} ("
+            + ('library without the softcap' if c['cap'] else
+               f"library rel_err {c['library_rel_err']:.2e}")
+            + f") bound_ms={c['bound_ms']:.5f} "
               f"({c['bound_by']})")
 
 
@@ -1197,9 +1265,15 @@ def da_plan(args):
     S, K = k.shape[1], k.shape[2]
     elem, G = k.element_size(), group_pad(H // K)
     c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
+    tq = 'f' if q.element_size() == 4 else '13__nv_bfloat16'
+    tkv = {1: 'a', 2: 'S1_', 4: 'f'}[elem]
+    inst = f'decode_split_kernelI{tq}{tkv}Li{D}ELi{G}E'
+    regs = [f'{r} registers; {sp}' for fn, (r, sp) in BUILD_REGS.items()
+            if inst in fn]
     return (f'split C={c} slots/block={spb} warps={warps} '
             f'{K * B * c} blocks, {split_smem_bytes(warps, G, D, elem)} B '
-            f'shared')
+            f'shared; <{D}, {G}> '
+            + (regs[0] if regs else 'registers not read (library cached)'))
 
 
 def phase_decode_kernels(torch):
@@ -1216,15 +1290,27 @@ def phase_decode_kernels(torch):
              for hole in ((False, True) if (B, S) == (8, 584) else (False,))]
     cases += [('int8', 8, 584, 40, False, 64),
               ('fp32', 1, 2048, 2048 * 7 // 8, False, 128)]
-    for kind, B, S, valid_len, hole, D in cases:
+    cases = [c + ((32, 4, 0.0),) if c[-1] == 64 else c + ((16, 4, 0.0),)
+             for c in cases]
+    # gemma2-9b's decode call (B, H, K, D, S) = (8, 16, 8, 256, 584), bf16
+    # and int8-KV, with its attention softcap 50 and without; a row whose
+    # slots are all masked under the softcap; the fp32 cache at head_dim
+    # 256, where the plan has the fewest warps (3)
+    cases += [(kind, 8, 584, 584 - 8, False, 256, (16, 8, cap))
+              for kind in ('bf16', 'int8') for cap in (50.0, 0.0)]
+    cases += [('bf16', 8, 584, 0, False, 256, (16, 8, 50.0)),
+              ('int8', 8, 584, 0, False, 256, (16, 8, 50.0)),
+              ('fp32', 8, 584, 584 - 8, False, 256, (16, 8, 50.0))]
+    for kind, B, S, valid_len, hole, D, (H, K, cap) in cases:
         args, valid = da_inputs(torch, g, B, S, kind, valid_len=valid_len,
-                                hole=hole, H=32 if D == 64 else 16, D=D)
+                                hole=hole, H=H, K=K, D=D)
         name = 'decode_attention_int8' if kind == 'int8' else \
             'decode_attention'
-        c = da_case(torch, args, valid, kind)
+        c = da_case(torch, args, valid, kind, cap=cap)
         c['device_ms'] = device_ms(torch, [c['call']], DA_DEVICE_NAME[name])
-        print(fmt_da_case(name + ('[hole]' if hole else ''), c) + '; '
-              + da_plan(args))
+        print(fmt_da_case(name + ('[hole]' if hole else '')
+                          + ('[all masked]' if not valid_len else ''), c)
+              + '; ' + da_plan(args))
         need_within(c, name)
 
 
@@ -1730,26 +1816,55 @@ def plain_decode_attention():
         ops.decode_attention, ops.decode_attention_int8 = saved
 
 
+def lm_config(spec, **kw):
+    """A path's full-width config: the arch at its published width and
+    depth (``spec['layers']`` cuts the depth), the path's cache bits."""
+    from repro_torch.configs import get_config
+    cfg = get_config(spec.get('arch', LM_ARCH))
+    if spec.get('layers'):
+        cfg = cfg.replace(num_layers=spec['layers'])
+    return cfg.replace(kv_cache_bits=spec['kv_cache_bits'], **kw)
+
+
+def lm_frontend(torch, model, params, cfg, batch, device, seed):
+    """(prefill inputs, encoder output) of a prompt batch: a VLM's zero
+    patches as launch/serve.py gives them; an encoder-decoder's frames
+    (normal, from a generator seeded ``seed``) and their encoding."""
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import torch_dtype
+    extra = serve.frontend_inputs(cfg, batch, device)
+    enc = None
+    if cfg.arch_kind == 'encdec':
+        frames = torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                             generator=torch.Generator().manual_seed(seed))
+        extra['frames'] = frames.to(device, torch_dtype(cfg.dtype))
+        with torch.inference_mode():
+            enc = model.encode(params, extra['frames'])
+    return extra, enc
+
+
 def check_lm_against_cpu(torch, tag, spec):
     """A 2-layer cut of the full-width config in fp32 (weights from the same
-    CUDA generator, int8-exported on the card for path e) against the port's
-    CPU path on the same weights: prefill and LM_CUT['tokens'] decode steps,
-    both fed the CPU's greedy tokens, every step's logits within LM_CPU_TOL
-    x max|logit|, TF32 off."""
-    from repro_torch.configs import get_config
+    CUDA generator, int8-exported on the card for an int8 path; an
+    encoder-decoder's encoder cut to 2 layers too) against the port's CPU
+    path on the same weights and inputs: prefill and LM_CUT['tokens']
+    decode steps, both fed the CPU's greedy tokens, every step's logits
+    within LM_CPU_TOL x max|logit|, TF32 off."""
     from repro_torch.core.export import to_device
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch import serve
-    cfg = get_config(LM_ARCH).replace(num_layers=LM_CUT['layers'],
-                                      dtype='float32',
-                                      kv_cache_bits=spec['kv_cache_bits'])
+    cut = dict(num_layers=LM_CUT['layers'], dtype='float32')
+    if lm_config(spec).arch_kind == 'encdec':
+        cut['num_encoder_layers'] = LM_CUT['layers']
+    cfg = lm_config(spec, **cut)
     model, params = serve.build(cfg, 'cuda', seed=SEED,
                                 int8_weights=spec['int8_weights'])
     prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
         torch.Generator().manual_seed(SEED + 2), LM_CUT['batch'],
         LM_CUT['prompt'])['tokens']
-    max_len = LM_CUT['prompt'] + LM_CUT['tokens'] + 8
+    pos0 = serve.decode_start(cfg, LM_CUT['prompt'])
+    max_len = pos0 + LM_CUT['tokens'] + 8
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     runs = {}
@@ -1758,16 +1873,18 @@ def check_lm_against_cpu(torch, tag, spec):
         for dev, p in (('cpu', to_device(params, 'cpu')), ('cuda', params)):
             reset_counts()
             with torch.inference_mode():
-                logits, cache = model.prefill(p, {'tokens': prompt.to(dev)},
-                                              max_len=max_len)
+                extra, enc = lm_frontend(torch, model, p, cfg,
+                                         LM_CUT['batch'], dev, SEED + 3)
+                logits, cache = model.prefill(
+                    p, {'tokens': prompt.to(dev), **extra}, max_len=max_len)
                 out = [logits.cpu()]
                 tok = torch.zeros((LM_CUT['batch'],), dtype=torch.int64,
                                   device=dev)
                 for t in range(LM_CUT['tokens']):
                     if feed is not None:
                         tok = feed[t].to(dev)
-                    logits, cache = model.decode_step(
-                        p, tok, LM_CUT['prompt'] + t, cache)
+                    logits, cache = model.decode_step(p, tok, pos0 + t,
+                                                      cache, enc=enc)
                     out.append(logits.cpu())
                     tok = torch.argmax(logits, -1)
             runs[dev] = (out, counts()[spec['kernel']])
@@ -1786,9 +1903,10 @@ def check_lm_against_cpu(torch, tag, spec):
     worst = 0.0
     for a, b in zip(runs['cuda'][0], runs['cpu'][0]):
         worst = max(worst, float((a - b).abs().max() / b.abs().max()))
-    print(f"{tag} 2-layer fp32 cut (batch {LM_CUT['batch']}, prompt "
-          f"{LM_CUT['prompt']}, {n_steps} decode steps), card vs CPU plain "
-          f"path: max |diff| / max |logit| over prefill and every step "
+    kinds = '/'.join(cfg.layer_kinds())
+    print(f"{tag} 2-layer fp32 cut ({kinds}; batch {LM_CUT['batch']}, "
+          f"prompt {LM_CUT['prompt']}, {n_steps} decode steps), card vs CPU "
+          f"plain path: max |diff| / max |logit| over prefill and every step "
           f"{worst:.3e} (limit {LM_CPU_TOL:g})")
     if worst > LM_CPU_TOL:
         fail(f"{spec['key']}: the card disagrees with the CPU on the 2-layer "
@@ -1796,12 +1914,36 @@ def check_lm_against_cpu(torch, tag, spec):
     return worst
 
 
+def ring_check(torch, tag, spec, cfg, cache, cur):
+    """A local layer's cache, after the step at position ``cur``: a ring of
+    min(window, slots) slots holding the last positions up to ``cur``,
+    wrapped (a slot holding another position than its index) once ``cur``
+    passed the ring."""
+    from repro_torch.models.transformer import _layers
+    for kind, c in _layers(cache, cfg):
+        if kind != 'local':
+            continue
+        pos = c['meta']['pos'].cpu()
+        n = pos.numel()
+        held = sorted(p for p in pos.tolist() if p >= 0)
+        if held != list(range(max(0, cur - n + 1), cur + 1)):
+            fail(f"{spec['key']}: a local ring of {n} slots holds "
+                 f"{held[:4]}..., not the last positions up to {cur}")
+        slot = torch.arange(n, dtype=pos.dtype)
+        wrapped = bool(((pos >= 0) & (pos != slot)).any())
+        print(f'{tag} local rings: {n} slots (window {cfg.window}), holding '
+              f'positions {held[0]}..{held[-1]}, wrapped: {wrapped}')
+        if cur >= n and not wrapped:
+            fail(f"{spec['key']}: the local ring did not wrap")
+        return
+
+
 def serve_lm_path(torch, spec):
-    """Path (d) or (e): tinyllama-1.1b at full width and depth through the
-    functions launch/serve.py uses, counted from zero.  Returns (the
-    launches of every kernel in the counted run, the 22 decode-attention
-    calls of one more step for phase 4, readings)."""
-    from repro_torch.configs import get_config
+    """An LM decode path: the arch at full width (depth cut where
+    ``spec['layers']`` says) through the functions launch/serve.py uses,
+    counted from zero.  Returns (the launches of every kernel in the
+    counted run, the decode-attention calls of one more step for phase 4,
+    readings)."""
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch import serve
@@ -1809,28 +1951,37 @@ def serve_lm_path(torch, spec):
     from repro_torch.models.model import param_count
 
     tag = f"[serve:{spec['key']}]"
-    cfg = get_config(LM_ARCH).replace(kv_cache_bits=spec['kv_cache_bits'])
+    t_path = time.perf_counter()
+    prompt_len = spec.get('prompt', LM_PROMPT)
+    cfg = lm_config(spec)
     t0 = time.perf_counter()
     model, params = serve.build(cfg, 'cuda', seed=SEED,
                                 int8_weights=spec['int8_weights'])
     torch.cuda.synchronize()
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in _leaves(params))
-    print(f"{tag} {cfg.name}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {param_count(params) / 1e9:.3f} G parameters, "
-          f"{weight_bytes / 1e9:.3f} GB of weights "
+    print(f"{tag} {cfg.name}: {cfg.num_layers} layers"
+          + (f" (cut from {lm_config(dict(spec, layers=None)).num_layers})"
+             if spec.get('layers') else '')
+          + f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads of {cfg.head_dim}, {param_count(params) / 1e9:.3f} G "
+          f"parameters, {weight_bytes / 1e9:.3f} GB of weights "
           f"({'int8 export_lm' if spec['int8_weights'] else 'bf16'}), "
-          f"kv_cache_bits {cfg.kv_cache_bits}; built in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"kv_cache_bits {cfg.kv_cache_bits}, attn_softcap "
+          f"{cfg.attn_softcap:g}; built in {time.perf_counter() - t0:.2f} s")
     prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
-        torch.Generator().manual_seed(SEED + 1), LM_BATCH, LM_PROMPT,
+        torch.Generator().manual_seed(SEED + 1), LM_BATCH, prompt_len,
         'cuda')['tokens']
-    max_len = LM_PROMPT + LM_TOKENS + 8
+    extra, enc = lm_frontend(torch, model, params, cfg, LM_BATCH, 'cuda',
+                             SEED + 3)
+    pos0 = serve.decode_start(cfg, prompt_len)
+    max_len = pos0 + LM_TOKENS + 8
     zeros = torch.zeros((LM_BATCH,), dtype=torch.int64, device='cuda')
     # warm-up (cuBLAS handles and plans, the allocator): a prefill and two
     # steps on a cache of their own, before the count starts
-    _, warm = serve.prefill_step(model, params, prompt, max_len=max_len)
-    serve.decode(model, params, warm, zeros, pos0=LM_PROMPT, tokens=2)
+    _, warm = serve.prefill_step(model, params, prompt, max_len=max_len,
+                                 **extra)
+    serve.decode(model, params, warm, zeros, pos0=pos0, tokens=2, enc=enc)
     del warm
     torch.cuda.synchronize()
 
@@ -1839,27 +1990,36 @@ def serve_lm_path(torch, spec):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    _, cache = serve.prefill_step(model, params, prompt, max_len=max_len)
+    _, cache = serve.prefill_step(model, params, prompt, max_len=max_len,
+                                  **extra)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
-    toks = serve.decode(model, params, cache, zeros, pos0=LM_PROMPT,
-                        tokens=LM_TOKENS)
+    toks = serve.decode(model, params, cache, zeros, pos0=pos0,
+                        tokens=LM_TOKENS, enc=enc)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     after = counts()
     peak = torch.cuda.max_memory_allocated()
     cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
-    print(f"{tag} prefill of {LM_BATCH} x {LM_PROMPT} tokens "
+    front = (f' after {cfg.frontend_tokens} zero patch rows'
+             if cfg.arch_kind == 'vlm' else
+             f' (encoder over {cfg.frontend_tokens} frames)'
+             if cfg.arch_kind == 'encdec' else '')
+    print(f"{tag} prefill of {LM_BATCH} x {prompt_len} tokens{front} "
           f"{t_prefill * 1e3:.3f} ms; {LM_TOKENS} greedy decode steps "
           f"{t_decode * 1e3:.3f} ms: {t_decode / LM_TOKENS * 1e3:.3f} "
           f"ms/token, {LM_BATCH * LM_TOKENS / t_decode:.1f} tokens/s at "
           f"batch {LM_BATCH}; cache {cache_bytes / 2 ** 20:.1f} MiB "
           f"({max_len} slots); peak memory {peak / 2 ** 20:.1f} MiB, "
-          f"{(peak - base) / 2 ** 20:.1f} MiB above the weights")
+          f"{(peak - base) / 2 ** 20:.1f} MiB above the weights; "
+          f"weight-streaming bound (computed: {weight_bytes / 1e9:.3f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s) "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
     if tuple(toks.shape) != (LM_TOKENS, LM_BATCH) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"{spec['key']}: the decoded tokens are malformed")
+    ring_check(torch, tag, spec, cfg, cache, pos0 + LM_TOKENS - 1)
     want = cfg.num_layers * LM_TOKENS
     for name in (spec['kernel'], spec['other']):
         print(f"{tag} {name}: {after[name]['launches']} launches, "
@@ -1876,35 +2036,39 @@ def serve_lm_path(torch, spec):
 
     # where the time goes: the cache's spare slots, under the profiler
     def more_steps():
-        serve.decode(model, params, cache, zeros,
-                     pos0=LM_PROMPT + LM_TOKENS, tokens=LM_PROFILE_STEPS)
-    wall, busy, top = profile_device(torch, more_steps)
-    if busy is None:
-        print(f'{tag} profile: {LM_PROFILE_STEPS} steps in {wall:.3f} ms '
-              f'wall; device time not measured (the profiler recorded no '
-              f'device activity)')
-    else:
-        kern = sum(ms for ms, _, name in top
-                   if DA_DEVICE_NAME[spec['kernel']] in name)
-        print(f'{tag} profile: {LM_PROFILE_STEPS} decode steps in '
-              f'{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} ms/token '
-              f'profiled), device kernels {busy:.3f} ms: device busy '
-              f'{busy / wall:.1%}; the decode-attention kernel {kern:.3f} '
-              f'ms, {kern / busy:.1%} of device time')
-        for ms, n, name in top[:8]:
-            print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+        serve.decode(model, params, cache, zeros, pos0=pos0 + LM_TOKENS,
+                     tokens=LM_PROFILE_STEPS, enc=enc)
+    if spec.get('profile', True):
+        wall, busy, top = profile_device(torch, more_steps)
+        if busy is None:
+            print(f'{tag} profile: {LM_PROFILE_STEPS} steps in {wall:.3f} '
+                  f'ms wall; device time not measured (the profiler '
+                  f'recorded no device activity)')
+        else:
+            kern = sum(ms for ms, _, name in top
+                       if DA_DEVICE_NAME[spec['kernel']] in name)
+            print(f'{tag} profile: {LM_PROFILE_STEPS} decode steps in '
+                  f'{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} '
+                  f'ms/token profiled), device kernels {busy:.3f} ms: '
+                  f'device busy {busy / wall:.1%}; the decode-attention '
+                  f'kernel {kern:.3f} ms, {kern / busy:.1%} of device time')
+            for ms, n, name in top[:8]:
+                print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
+    del cache
 
     # the first step's logits against the same model served with the
     # plain decode attention on the card (the kernels' plain versions in
     # their place), and beside it the reference's decode math
-    _, fresh = serve.prefill_step(model, params, prompt, max_len=max_len)
+    _, fresh = serve.prefill_step(model, params, prompt, max_len=max_len,
+                                  **extra)
     twins = [clone_tree(fresh), clone_tree(fresh)]
     with torch.inference_mode():
-        lg_k, _ = model.decode_step(params, zeros, LM_PROMPT, fresh)
+        lg_k, _ = model.decode_step(params, zeros, pos0, fresh, enc=enc)
         with plain_decode_attention():
-            lg_p, _ = model.decode_step(params, zeros, LM_PROMPT, twins[0])
+            lg_p, _ = model.decode_step(params, zeros, pos0, twins[0],
+                                        enc=enc)
         lg_r, _ = model.decode_step(
-            params, zeros, LM_PROMPT, twins[1],
+            params, zeros, pos0, twins[1], enc=enc,
             ctx={'decode_attn': attn.decode_attn_reference})
     del twins
     if tuple(lg_k.shape) != (LM_BATCH, cfg.vocab_size) or \
@@ -1928,18 +2092,24 @@ def serve_lm_path(torch, spec):
 
     def capture(q, nk, nv, c, cur, **kw):
         out, c = attn.decode_attn_kernel(q, nk, nv, c, cur, **kw)
-        calls.append((q, c, attn._valid(c['meta']['pos'], int(cur), 0)))
+        calls.append((q, c, attn._valid(c['meta']['pos'], int(cur),
+                                        kw['window']), kw['attn_softcap']))
         return out, c
     with torch.inference_mode():
-        model.decode_step(params, zeros, LM_PROMPT + 1, fresh,
+        model.decode_step(params, zeros, pos0 + 1, fresh, enc=enc,
                           ctx={'decode_attn': capture})
+    del params, fresh, enc, extra, model
+    torch.cuda.empty_cache()
     cpu_err = check_lm_against_cpu(torch, tag, spec)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_path
+    print(f'{tag} path took {secs:.1f} s')
     return {k: v['launches'] for k, v in after.items()}, calls, {
         'prefill_ms': t_prefill * 1e3,
         'ms_per_token': t_decode / LM_TOKENS * 1e3,
         'tokens_per_s': LM_BATCH * LM_TOKENS / t_decode,
-        'peak_mib': peak / 2 ** 20, 'plain_diff': diff, 'cpu_err': cpu_err}
-
+        'peak_mib': peak / 2 ** 20, 'plain_diff': diff, 'cpu_err': cpu_err,
+        'secs': secs}
 
 
 def recording_family(losses, cfg, device):
@@ -3831,12 +4001,13 @@ def lm_report(torch, lm_calls, lm_launches):
     per_path = {}
     for key, (name, calls) in lm_calls.items():
         cs = []
-        for q, c, valid in calls:
+        for q, c, valid, *cap in calls:
             args = (q, c['k'], c['v'], c['k_s'], c['v_s']) if 'k_s' in c \
                 else (q, c['k'], c['v'])
             kind = 'int8' if 'k_s' in c else (
                 'bf16' if q.dtype == torch.bfloat16 else 'fp32')
-            cs.append(da_case(torch, args, valid, kind, iters=10))
+            cs.append(da_case(torch, args, valid, kind, iters=10,
+                              cap=cap[0] if cap else 0.0))
         for i, c in enumerate(cs):
             print(fmt_da_case(f'{name}[{key}, layer {i}]', c))
             need_within(c, name)
@@ -3957,6 +4128,15 @@ def main():
     launches[VERIFY_KEY], verified = verify_path(torch, served)
     print(f"[time] path {VERIFY_KEY} took {verified['secs']:.1f} s, done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    for label, specs in (('k', K_PATHS), ('l', L_PATHS)):
+        t0 = time.perf_counter()
+        for spec in specs:
+            counted, calls, _ = serve_lm_path(torch, spec)
+            lm_calls[spec['key']] = (spec['kernel'], calls)
+            lm_launches[spec['key']] = counted
+            print(f"[time] path {spec['key']} done at "
+                  f"{time.perf_counter() - t_start:.1f} s")
+        print(f'[time] path ({label}) took {time.perf_counter() - t0:.1f} s')
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,
                             H_KEY: h_calls}, dyn) + \

@@ -55,7 +55,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 # (text in the kernel, the stamp that goes after it), applied in order
 MARKS = (
     ('decode_split_kernel(const SplitArgs a) {\n', 0),
-    ('  __syncthreads();\n\n  float m[G], l[G], acc[G][4];\n', 1),
+    ('  __syncthreads();\n\n  float m[G], l[G], acc[G][CPL];\n', 1),
     ('  __syncthreads();            // the warps\' partials overlay every '
      'buffer\n', 2),
     ('    ba[i] = A;\n  }\n', 3),
@@ -118,7 +118,7 @@ def main():
         def call():
             rc = fn(q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
                     vs.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H,
-                    K, D, da._scale(D), 1, c, spb, warps, smem,
+                    K, D, da._scale(D), 0.0, 0.0, 1, c, spb, warps, smem,
                     torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f'launch failed: {rc}')

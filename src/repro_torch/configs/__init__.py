@@ -3,15 +3,25 @@
 ``get_config(name)`` returns the full published config;
 ``get_smoke_config(name)`` the reduced CPU-testable variant (the
 reference's ``reduced``).  Only the architectures whose blocks are ported
-are registered: ``tinyllama-1.1b`` (GQA attention and SwiGLU).  The CNN
-configs live in ``configs/cnn.py``.
+are registered, in the reference's registry order: the dense-attention
+members (GQA attention, global and sliding-window, softcap, QKV bias, a
+frontend prefix and an encoder with cross-attention).  The MoE, MLA,
+RG-LRU and SSM archs come with their blocks.  The CNN configs live in
+``configs/cnn.py``.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.gemma2_9b import CONFIG as _gemma2_9b
+from repro_torch.configs.gemma3_12b import CONFIG as _gemma3_12b
+from repro_torch.configs.internvl2_2b import CONFIG as _internvl
+from repro_torch.configs.qwen2_72b import CONFIG as _qwen2
 from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
+from repro_torch.configs.whisper_small import CONFIG as _whisper
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [_tinyllama]}
+REGISTRY: dict[str, ModelConfig] = {
+    c.name: c for c in [_gemma2_9b, _gemma3_12b, _tinyllama, _qwen2,
+                        _whisper, _internvl]}
 
 ARCH_NAMES = tuple(REGISTRY)
 

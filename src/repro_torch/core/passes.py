@@ -38,19 +38,13 @@ from collections.abc import Mapping
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from repro_torch.core import registry
 from repro_torch.core.quantization import full_fp32, jitted_scales
+from repro_torch.data.synthetic import fold_in
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
 from repro_torch.tree import tree_map
-
-
-def fold_in(seed: int, data: int) -> int:
-    """A new 32-bit seed from ``seed`` and ``data`` (the port's
-    ``jax.random.fold_in``)."""
-    return int(np.random.SeedSequence([seed, data]).generate_state(1)[0])
 
 
 # ------------------------------------------------------------------ trainer

@@ -1,2 +1,3 @@
 from repro_torch.data.synthetic import (SyntheticImages,  # noqa: F401
-                                       SyntheticTokens)
+                                       SyntheticTokens, image_batches,
+                                       lm_batches)

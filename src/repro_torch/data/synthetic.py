@@ -78,3 +78,28 @@ class SyntheticTokens:
         toks[:, 1:] = torch.where(match.any(-1), dst, toks[:, 1:])
         return {'tokens': toks[:, :-1].to(device),
                 'labels': toks[:, 1:].to(device)}
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 32-bit seed from ``seed`` and ``data`` (the port's
+    ``jax.random.fold_in``)."""
+    return int(np.random.SeedSequence([seed, data]).generate_state(1)[0])
+
+
+def image_batches(ds: SyntheticImages, batch, steps, seed=0, device='cpu'):
+    """``steps`` batches of ``batch`` images; batch i from a CPU generator
+    seeded ``fold_in(seed, i)`` (the reference folds ``i`` into a key)."""
+    for i in range(steps):
+        yield ds.batch(torch.Generator().manual_seed(fold_in(seed, i)),
+                       batch, device)
+
+
+def lm_batches(ds: SyntheticTokens, batch, seq, steps, seed=0, host_id=0,
+               num_hosts=1, device='cpu'):
+    """Host-sharded deterministic stream: host h's step i draws
+    ``batch // num_hosts`` sequences from a CPU generator seeded
+    ``fold_in(fold_in(seed, i), h)``."""
+    for i in range(steps):
+        gen = torch.Generator().manual_seed(
+            fold_in(fold_in(seed, i), host_id))
+        yield ds.batch(gen, batch // num_hosts, seq, device)

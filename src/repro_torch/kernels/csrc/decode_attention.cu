@@ -7,9 +7,14 @@
 // scales per (token, kv-head)).  The g = H / K query heads of kv-head kh of
 // batch row b attend to the S slots of the cache k, v (B, S, K, D):
 //     logit[h, s] = (fp32(q[b, kh*g + h]) * D**-0.5) . fp32(k[b, s, kh])
+//     with an attention softcap c (gemma2): cap * tanh(logit * fp32(1/c))
 //     a masked slot (valid[s] false) gets -1e30
 //     online softmax in fp32 over s, out = acc / max(l, 1e-30) in q's type
-// and in the int8 variant k (v) is code * k_s[b, s, kh] in fp32.  -1e30,
+// and in the int8 variant k (v) is code * k_s[b, s, kh] in fp32 (the cap
+// applies to ks[s] * (q . code)).  The softcap is the reference's
+// decode_attn_reference (src/repro/models/attention.py), which its TPU
+// kernel lacks; it is a runtime float (0 = off, a uniform branch), applied
+// before the mask, so a masked slot still gets -1e30 and not -cap.  -1e30,
 // not -inf, as on the TPU: masked terms are corrected away by
 // corr = exp(m_old - m_new) once a valid slot is seen, and a row whose
 // slots are all masked comes out as the mean of v over the S slots.
@@ -36,7 +41,8 @@
 // (prmt); for a bf16 or fp32 cache that multiply is compiled out.  A k or
 // v row of a 2- or 4-byte cache is 2 or 4 times as long, and so are the
 // buffers: the plan caps the warps so that a block fits (an fp32 cache at
-// head_dim 128 takes at most 6).  The warps' (m, l, acc) merge in shared
+// head_dim 128 takes at most 6, at head_dim 256 3, a bf16 cache at head_dim
+// 256 6).  The warps' (m, l, acc) merge in shared
 // memory, then the C blocks' over distributed shared memory, each rank
 // merging and writing 1/C of the outputs; a final cluster.sync() keeps
 // every block's shared memory alive until its peers have read it.  Every
@@ -84,6 +90,7 @@ struct SplitArgs {
   int B, S, H, K, g;
   int spb;                // slots a block of the cluster owns
   float scale;            // fp32(D**-0.5)
+  float cap, inv_cap;     // attention softcap and fp32(1/cap); cap 0 = off
 };
 
 // Shared memory of the split kernel for W warps (a tile of 16 * W slots),
@@ -148,12 +155,15 @@ __device__ __forceinline__ void chunk4_f32(const uint32_t (&w)[4], int j,
   }
 }
 
-// Four consecutive cache elements at p (aligned to 4 elements) to fp32.
+// Four consecutive cache elements at p (aligned to 4 elements) to fp32,
+// into f[0..3].
 template <typename TKV>
-__device__ __forceinline__ void load4_f32(const unsigned char* p,
-                                          float (&f)[4]) {
+__device__ __forceinline__ void load4_f32(const unsigned char* p, float* f) {
   if constexpr (std::is_same_v<TKV, int8_t>) {
-    i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), f);
+    float t[4];
+    i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = t[i];
   } else if constexpr (std::is_same_v<TKV, float>) {
     const float4 u = *reinterpret_cast<const float4*>(p);
     f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
@@ -191,11 +201,12 @@ __device__ __forceinline__ int swizzle(int t, int c) {
 // (double-buffered cp.async; a warp copies only its own sub-tile, so warp
 // barriers order the copies) and sums half of the g dot products
 // (ks[s] *) (q . k), one shuffle joining the halves.
-// Then each lane owns 4 channels of D for p @ v, with 128 / D slot groups
-// in a warp.
-// Up to a group of 8, the register budget keeps two 8-warp blocks on an SM.
+// Then each lane owns CPL = max(4, D / 32) channels of D for p @ v, with
+// 32 * CPL / D slot groups in a warp (one at head_dim 128 and 256).
+// Up to a group of 8 and G * D = 1024, the register budget keeps two
+// 8-warp blocks on an SM.
 template <typename TQ, typename TKV, int D, int G>
-__global__ void __launch_bounds__(THREADS, G <= 8 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, G <= 8 && G * D <= 1024 ? 2 : 1)
 decode_split_kernel(const SplitArgs a) {
   constexpr bool QUANT = std::is_same_v<TKV, int8_t>;
   constexpr int ES = static_cast<int>(sizeof(TKV));
@@ -204,7 +215,8 @@ decode_split_kernel(const SplitArgs a) {
   constexpr int HALF = CPR / 2;     // chunks of a half row (RB >= 32)
   constexpr int EPC = 16 / ES;      // elements a chunk
   static_assert(RB >= 32 && RB % 32 == 0, "a row is whole half rows");
-  constexpr int LPS = D / 4;        // lanes over one v row, 4 channels each
+  constexpr int CPL = D > 128 ? D / 32 : 4;   // channels a lane in p @ v
+  constexpr int LPS = D / CPL;      // lanes over one v row
   constexpr int NSG = 32 / LPS;     // slot groups of a warp in p @ v
   extern __shared__ __align__(16) unsigned char split_buf[];
   const int W = blockDim.x / 32, TS = 16 * W;
@@ -274,16 +286,16 @@ decode_split_kernel(const SplitArgs a) {
     qs[i] = i / D < g ? to_f32(q[i]) * a.scale : 0.0f;
   __syncthreads();
 
-  float m[G], l[G], acc[G][4];
+  float m[G], l[G], acc[G][CPL];
 #pragma unroll
   for (int h = 0; h < G; ++h) {
     m[h] = NEG_INF;
     l[h] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[h][j] = 0.0f;
+    for (int j = 0; j < CPL; ++j) acc[h][j] = 0.0f;
   }
   float* pwarp = pw + warp * G * 16;
-  const int sg = lane / LPS, ch = (lane % LPS) * 4;
+  const int sg = lane / LPS, ch = (lane % LPS) * CPL;
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int buf = tile & 1;
@@ -334,7 +346,10 @@ decode_split_kernel(const SplitArgs a) {
     for (int h = 0; h < G; ++h) {
       logit[h] += __shfl_xor_sync(FULL, logit[h], 1);
       float lg = NEG_INF;
-      if (vld) lg = QUANT ? ksc * logit[h] : logit[h];
+      if (vld) {
+        lg = QUANT ? ksc * logit[h] : logit[h];
+        if (a.cap != 0.0f) lg = a.cap * tanhf(lg * a.inv_cap);
+      }
       float mx = in ? lg : NEG_INF;
 #pragma unroll
       for (int o = 16; o > 1; o >>= 1)
@@ -355,20 +370,23 @@ decode_split_kernel(const SplitArgs a) {
 #pragma unroll
     for (int h = 0; h < G; ++h) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[h][j] *= corr[h];
+      for (int j = 0; j < CPL; ++j) acc[h][j] *= corr[h];
     }
     const int n = min(16, hi - (lo + tile * TS + warp * 16));
 #pragma unroll
     for (int k = 0; k < 16 / NSG; ++k) {
       const int tt = sg + k * NSG;
       if (tt >= n) break;
-      float f[4];
-      load4_f32<TKV>(vt + (buf * TS + warp * 16 + tt) * RB + ch * ES, f);
+      float f[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; j += 4)
+        load4_f32<TKV>(vt + (buf * TS + warp * 16 + tt) * RB + (ch + j) * ES,
+                       f + j);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float p = pwarp[h * 16 + tt];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[h][j] = fmaf(p, f[j], acc[h][j]);
+        for (int j = 0; j < CPL; ++j) acc[h][j] = fmaf(p, f[j], acc[h][j]);
       }
     }
     __syncwarp();             // before the next copy into this buffer
@@ -379,7 +397,7 @@ decode_split_kernel(const SplitArgs a) {
 #pragma unroll
   for (int h = 0; h < G; ++h) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < CPL; ++j) {
 #pragma unroll
       for (int o = LPS; o < 32; o <<= 1)
         acc[h][j] += __shfl_xor_sync(FULL, acc[h][j], o);
@@ -396,7 +414,7 @@ decode_split_kernel(const SplitArgs a) {
 #pragma unroll
     for (int h = 0; h < G; ++h) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < CPL; ++j)
         wa[(warp * G + h) * D + ch + j] = acc[h][j];
     }
   }
@@ -499,6 +517,8 @@ int launch_split_g(const SplitArgs& a, int C, int W, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Groups up to 16, and up to 8 at head_dim 256 (G * D <= 2048: the
+// archs with head_dim 256, gemma2 and gemma3, have groups of 2).
 template <typename TQ, typename TKV, int D>
 int launch_split_d(const SplitArgs& a, int C, int W, size_t smem,
                    cudaStream_t st) {
@@ -506,7 +526,9 @@ int launch_split_d(const SplitArgs& a, int C, int W, size_t smem,
   if (a.g <= 2) return launch_split_g<TQ, TKV, D, 2>(a, C, W, smem, st);
   if (a.g <= 4) return launch_split_g<TQ, TKV, D, 4>(a, C, W, smem, st);
   if (a.g <= 8) return launch_split_g<TQ, TKV, D, 8>(a, C, W, smem, st);
-  if (a.g <= 16) return launch_split_g<TQ, TKV, D, 16>(a, C, W, smem, st);
+  if constexpr (D <= 128) {
+    if (a.g <= 16) return launch_split_g<TQ, TKV, D, 16>(a, C, W, smem, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -517,6 +539,7 @@ int launch_split_t(const SplitArgs& a, int D, int C, int W, size_t smem,
     case 32: return launch_split_d<TQ, TKV, 32>(a, C, W, smem, st);
     case 64: return launch_split_d<TQ, TKV, 64>(a, C, W, smem, st);
     case 128: return launch_split_d<TQ, TKV, 128>(a, C, W, smem, st);
+    case 256: return launch_split_d<TQ, TKV, 256>(a, C, W, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -531,18 +554,19 @@ bool plan_ok(int S, int C, int spb, int W, int smem_bytes) {
 
 // q, k, v, out all fp32 (bf16 == 0) or all bf16 (bf16 == 1).  The split (C
 // blocks of spb slots, W warps a block, smem bytes) comes from
-// kernels/decode_attention.split_plan.
+// kernels/decode_attention.split_plan; cap 0 means no softcap.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid,
                                        void* out, int B, int S, int H, int K,
-                                       int D, float scale, int bf16, int C,
+                                       int D, float scale, float cap,
+                                       float inv_cap, int bf16, int C,
                                        int spb, int W, int smem_bytes,
                                        void* stream) {
   if (!plan_ok(S, C, spb, W, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitArgs a{q, k, v, nullptr, nullptr,
                     static_cast<const uint8_t*>(valid), out, B, S, H, K,
-                    H / K, spb, scale};
+                    H / K, spb, scale, cap, inv_cap};
   auto st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   return bf16 ? launch_split_t<__nv_bfloat16, __nv_bfloat16>(a, D, C, W,
@@ -554,14 +578,14 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
 extern "C" int decode_attention_int8_launch(
     const void* q, const void* k_q, const void* v_q, const void* k_s,
     const void* v_s, const void* valid, void* out, int B, int S, int H,
-    int K, int D, float scale, int q_bf16, int C, int spb, int W,
-    int smem_bytes, void* stream) {
+    int K, int D, float scale, float cap, float inv_cap, int q_bf16, int C,
+    int spb, int W, int smem_bytes, void* stream) {
   if (!plan_ok(S, C, spb, W, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitArgs a{q, k_q, v_q, static_cast<const float*>(k_s),
                     static_cast<const float*>(v_s),
                     static_cast<const uint8_t*>(valid), out, B, S, H, K,
-                    H / K, spb, scale};
+                    H / K, spb, scale, cap, inv_cap};
   auto st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   return q_bf16 ? launch_split_t<__nv_bfloat16, int8_t>(a, D, C, W, smem, st)

@@ -8,6 +8,11 @@ kv head attend to a (B, S, K, D) cache under a ``valid`` (S,) mask, with
 q cast to fp32 and scaled by ``D**-0.5``, fp32 logits, -1e30 for a masked
 slot, an fp32 softmax and ``acc / max(l, 1e-30)`` cast to q's dtype.  The
 int8 variant reads int8 k/v with an fp32 scale per (token, kv head).
+Both take an attention softcap (gemma2), the reference model's
+``decode_attn_reference`` (src/repro/models/attention.py), which its TPU
+kernels lack: each logit (after ``ks[s] *`` for int8) becomes
+``cap * tanh(logit * fp32(1/cap))``, as ``jax.jit`` computes it, before
+the mask, so a masked slot keeps -1e30.  ``attn_softcap=0`` is off.
 The reference transposes the cache to (B, K, S, D) and fits its S tile to
 a divisor of S; the CUDA kernel reads the (B, S, K, D) layout in place and
 masks a ragged last tile.  One template serves the three caches: S is
@@ -37,8 +42,9 @@ from repro_torch.kernels import _build, recorded
 from repro_torch.kernels.tiling import SMEM_BUDGET
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)     # head_dim the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128, 256)   # head_dim the kernel is instantiated for
 MAX_GROUP = 16                # largest query group H / K it takes
+MAX_GROUP_X_D = 2048          # ... and the padded group times head_dim
 # The kernel's split of S over a cluster (csrc/decode_attention.cu): C
 # blocks a (kv head, batch row), doubled while the grid has fewer than
 # SPLIT_MIN_BLOCKS blocks and each block keeps SPLIT_MIN_SLOTS slots, up
@@ -51,9 +57,9 @@ SPLIT_MIN_SLOTS = 32
 SPLIT_MAX_WARPS = 8
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_INT8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _LAUNCH = {}         # the bound C entry points, set up on first launch
 
 
@@ -103,13 +109,24 @@ def _scale(D: int) -> float:
     return float(np.float32(D ** -0.5))
 
 
-def _attend_plain(q, kf, vf, valid):
+def _caps(attn_softcap: float):
+    """``(cap, fp32(1/cap))`` as the kernels take them; (0, 0) is off."""
+    if not attn_softcap:
+        return 0.0, 0.0
+    return float(attn_softcap), float(np.float32(1.0) /
+                                      np.float32(attn_softcap))
+
+
+def _attend_plain(q, kf, vf, valid, attn_softcap=0.0):
     """The kernels' function on fp32 k/v already dequantized: q (B,H,D),
     kf/vf (B,S,K,D) fp32, valid (S,) bool; returns (B,H,D) in q's dtype."""
     B, H, D = q.shape
     K = kf.shape[2]
     qg = q.to(torch.float32).reshape(B, K, H // K, D) * _scale(D)
     logits = torch.einsum('bkgd,bskd->bkgs', qg, kf)
+    if attn_softcap:
+        cap, inv = _caps(attn_softcap)
+        logits = cap * torch.tanh(logits * inv)
     logits = torch.where(valid[None, None, None, :], logits,
                          torch.full((), NEG_INF, device=logits.device))
     m = torch.amax(logits, dim=-1, keepdim=True)
@@ -120,20 +137,23 @@ def _attend_plain(q, kf, vf, valid):
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def decode_attention_plain(q, k, v, valid):
+def decode_attention_plain(q, k, v, valid, attn_softcap=0.0):
     """The bf16/fp32-cache kernel's function in plain PyTorch."""
     decode_attention_plain.calls += 1
-    return _attend_plain(q, k.to(torch.float32), v.to(torch.float32), valid)
+    return _attend_plain(q, k.to(torch.float32), v.to(torch.float32), valid,
+                         attn_softcap)
 
 
 decode_attention_plain.calls = 0
 
 
-def decode_attention_int8_plain(q, k_q, v_q, k_s, v_s, valid):
+def decode_attention_int8_plain(q, k_q, v_q, k_s, v_s, valid,
+                                attn_softcap=0.0):
     """The int8-cache kernel's function in plain PyTorch."""
     decode_attention_int8_plain.calls += 1
     return _attend_plain(q, k_q.to(torch.float32) * k_s[..., None],
-                         v_q.to(torch.float32) * v_s[..., None], valid)
+                         v_q.to(torch.float32) * v_s[..., None], valid,
+                         attn_softcap)
 
 
 decode_attention_int8_plain.calls = 0
@@ -151,10 +171,12 @@ def _check(kernel, q, kv_dtype, caches, scales, valid):
     if caches[0].shape[0] != B or caches[0].shape[3] != D or H % K:
         raise ValueError(f'{kernel}: q {tuple(q.shape)} does not fit the '
                          f'cache {tuple(caches[0].shape)}')
-    if D not in HEAD_DIMS or H // K > MAX_GROUP:
+    if D not in HEAD_DIMS or H // K > MAX_GROUP or \
+            group_pad(H // K) * D > MAX_GROUP_X_D:
         raise ValueError(f'{kernel}: head_dim {D} and group {H // K} are '
                          f'outside the kernel (head_dim in {HEAD_DIMS}, '
-                         f'group <= {MAX_GROUP})')
+                         f'group <= {MAX_GROUP}, padded group x head_dim '
+                         f'<= {MAX_GROUP_X_D})')
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'{kernel}: q must be fp32 or bf16, got {q.dtype}')
     want = [(q, q.dtype, None), (valid, torch.bool, (S,))]
@@ -181,11 +203,12 @@ def da_call_plan(q, **kw):
 
 
 @recorded('decode_attention', da_call_plan)
-def decode_attention(q, k, v, valid):
+def decode_attention(q, k, v, valid, attn_softcap=0.0):
     """q (B,H,D); k, v (B,S,K,D) in q's dtype (fp32 or bf16); valid (S,)
-    bool.  Returns (B,H,D) in q's dtype."""
+    bool; ``attn_softcap`` 0 (off) or the cap.  Returns (B,H,D) in q's
+    dtype."""
     if not q.is_cuda:
-        return decode_attention_plain(q, k, v, valid)
+        return decode_attention_plain(q, k, v, valid, attn_softcap)
     B, S, H, K, D = _check('decode_attention', q, q.dtype, (k, v), (),
                            valid)
     out = torch.empty_like(q)
@@ -193,7 +216,7 @@ def decode_attention(q, k, v, valid):
     c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
     rc = _launcher('decode_attention_launch', _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), B, S, H, K, D, _scale(D),
+        out.data_ptr(), B, S, H, K, D, _scale(D), *_caps(attn_softcap),
         int(q.dtype == torch.bfloat16), c, spb, warps,
         split_smem_bytes(warps, G, D, elem),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -208,11 +231,13 @@ decode_attention.launches = 0
 
 
 @recorded('decode_attention_int8', da_call_plan)
-def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid):
+def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid, attn_softcap=0.0):
     """q (B,H,D) fp32 or bf16; k_q, v_q int8 (B,S,K,D); k_s, v_s fp32
-    (B,S,K); valid (S,) bool.  Returns (B,H,D) in q's dtype."""
+    (B,S,K); valid (S,) bool; ``attn_softcap`` 0 (off) or the cap.
+    Returns (B,H,D) in q's dtype."""
     if not q.is_cuda:
-        return decode_attention_int8_plain(q, k_q, v_q, k_s, v_s, valid)
+        return decode_attention_int8_plain(q, k_q, v_q, k_s, v_s, valid,
+                                           attn_softcap)
     B, S, H, K, D = _check('decode_attention_int8', q, torch.int8,
                            (k_q, v_q), (k_s, v_s), valid)
     out = torch.empty_like(q)
@@ -221,7 +246,8 @@ def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid):
     rc = _launcher('decode_attention_int8_launch', _ARGTYPES_INT8)(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_s.data_ptr(),
         v_s.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, K, D,
-        _scale(D), int(q.dtype == torch.bfloat16), c, spb, warps,
+        _scale(D), *_caps(attn_softcap), int(q.dtype == torch.bfloat16), c,
+        spb, warps,
         split_smem_bytes(warps, G, D, 1),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:

@@ -1,9 +1,10 @@
 """LM decode serving launcher: prefill a batch of prompts, then greedy-decode
 with the KV cache updated in place.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --batch 8 --prompt-len 512 --tokens 64
-    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --smoke --device cpu
 
 The single-device form of the reference's ``launch/serve.py``: random
 weights from seed 0, prompts from ``SyntheticTokens`` (seed 1), a prefill
@@ -14,7 +15,11 @@ place).  As in the reference (``serve.py:55``), decoding starts from token
 0 after the prefill: the prefill's own greedy token is not fed back.
 Every layer of every step runs the decode-attention kernel
 (``decode_attention``, or ``decode_attention_int8`` with
-``--kv-cache-bits 8``).  Prints the ms/token.
+``--kv-cache-bits 8``).  Prints the ms/token.  ``--arch`` takes every
+ported arch; the default is the reference's, ``gemma2-9b``.  A VLM's
+prompt gets ``frontend_tokens`` zero patch embeddings before its tokens,
+and decoding starts at ``prompt_len + frontend_tokens``; an
+encoder-decoder exits, as the reference's launcher does.
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; without a card it exits with an error instead of falling back.
@@ -34,6 +39,7 @@ from repro_torch.core.export import export_lm, resolve_device
 from repro_torch.core.quantization import jitted_scales
 from repro_torch.data import SyntheticTokens
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import torch_dtype
 
 
 def build(cfg, device, *, seed=0, int8_weights=False):
@@ -48,40 +54,60 @@ def build(cfg, device, *, seed=0, int8_weights=False):
     return model, params
 
 
+def frontend_inputs(cfg, batch, device):
+    """A prompt's frontend inputs as the reference's launchers give them:
+    a VLM's ``frontend_tokens`` zero patch embeddings; none otherwise."""
+    if cfg.arch_kind != 'vlm':
+        return {}
+    return {'patches': torch.zeros(
+        (batch, cfg.frontend_tokens, cfg.d_model),
+        dtype=torch_dtype(cfg.dtype), device=device)}
+
+
+def decode_start(cfg, prompt_len):
+    """The first decode position: after the prompt and a VLM's patches."""
+    return prompt_len + (cfg.frontend_tokens if cfg.arch_kind == 'vlm'
+                         else 0)
+
+
 @torch.inference_mode()
-def prefill_step(model, params, tokens, *, max_len):
-    """Prefill a (B, S) prompt batch: (greedy next token (B,), cache).
+def prefill_step(model, params, tokens, *, max_len, **inputs):
+    """Prefill a (B, S) prompt batch, with the frontend ``inputs`` of the
+    batch dict (``patches``, ``frames``): (greedy next token (B,), cache).
     The reference jits the prefill, so the activation fake quants take the
     jitted scale (``quantization.jitted_scales``)."""
     with jitted_scales():
-        logits, cache = model.prefill(params, {'tokens': tokens},
+        logits, cache = model.prefill(params, {'tokens': tokens, **inputs},
                                       max_len=max_len)
     return torch.argmax(logits, -1), cache
 
 
 @torch.inference_mode()
-def serve_step(model, params, token, cur, cache, *, ctx=None):
+def serve_step(model, params, token, cur, cache, *, ctx=None, enc=None):
     """One decode step at position ``cur`` (a Python int): greedy next
     token (B,), the cache updated in place; under the jitted scale, as
-    the reference's jitted step."""
+    the reference's jitted step.  ``enc``: an encoder-decoder's encoder
+    output."""
     with jitted_scales():
-        logits, cache = model.decode_step(params, token, cur, cache, ctx=ctx)
+        logits, cache = model.decode_step(params, token, cur, cache,
+                                          ctx=ctx, enc=enc)
     return torch.argmax(logits, -1), cache
 
 
-def decode(model, params, cache, tok, *, pos0, tokens, ctx=None):
+def decode(model, params, cache, tok, *, pos0, tokens, ctx=None, enc=None):
     """``tokens`` greedy steps from the (B,) token ``tok`` at position
     ``pos0`` (the reference feeds zeros): the (tokens, B) generated ids."""
     out = []
     for t in range(tokens):
-        tok, cache = serve_step(model, params, tok, pos0 + t, cache, ctx=ctx)
+        tok, cache = serve_step(model, params, tok, pos0 + t, cache, ctx=ctx,
+                                enc=enc)
         out.append(tok)
     return torch.stack(out) if out else tok.new_zeros((0,) + tok.shape)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--arch', default='tinyllama-1.1b', choices=ARCH_NAMES)
+    ap.add_argument('--arch', default='gemma2-9b', choices=ARCH_NAMES)
     ap.add_argument('--smoke', action='store_true')
     ap.add_argument('--batch', type=int, default=4)
     ap.add_argument('--prompt-len', type=int, default=32)
@@ -98,8 +124,12 @@ def main(argv=None):
         print(f'serve: {e}', file=sys.stderr)
         return 2
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.arch_kind == 'encdec':
+        print('serve: decoder-only serving example', file=sys.stderr)
+        return 2
     cfg = cfg.replace(kv_cache_bits=args.kv_cache_bits)
-    max_len = args.prompt_len + args.tokens + 8
+    pos0 = decode_start(cfg, args.prompt_len)
+    max_len = pos0 + args.tokens + 8
     data = SyntheticTokens(vocab=cfg.vocab_size)
     model, params = build(cfg, device, int8_weights=args.int8_weights)
     prompt = data.batch(torch.Generator().manual_seed(1), args.batch,
@@ -107,13 +137,14 @@ def main(argv=None):
     if device.type == 'cuda':
         from repro_torch.kernels import _build
         _build.load('decode_attention')     # build before timing
-    _, cache = prefill_step(model, params, prompt, max_len=max_len)
+    _, cache = prefill_step(model, params, prompt, max_len=max_len,
+                            **frontend_inputs(cfg, args.batch, device))
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     decode(model, params, cache,
            torch.zeros((args.batch,), dtype=torch.int64, device=device),
-           pos0=args.prompt_len, tokens=args.tokens)
+           pos0=pos0, tokens=args.tokens)
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
     dt = (time.perf_counter() - t0) / max(args.tokens, 1)

@@ -1,6 +1,9 @@
-"""CNN serving launcher: export a CNN to the int8-resident plan and serve a
-Poisson trace of requests through the continuous-batching scheduler.
+"""CNN serving launcher: export a CNN to the int8 serving path and serve
+batched traffic with early exit, or (``--server``) a Poisson trace of
+requests through the continuous-batching scheduler.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn \\
+        --config resnet8-cifar --batches 8 --batch 64 --threshold 0.85
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --server \\
         --config resnet34-cifar --requests 256 --rate 2000 --slots 32
 
@@ -10,9 +13,18 @@ Every registered config serves: ``mobilenetv2-cifar`` puts its depthwise
 layers on the ``depthwise_conv`` kernel.
 The model is a random init with exit heads at the default points,
 fine-tuned for ``--steps`` W8A8 QAT steps (default 60, as the reference;
-0 serves the raw init).  Prints the layer plan, the throughput, p50/p99
-latency, the exit mix and the kernel launch counts.  Only ``--server``
-mode is ported.
+0 serves the raw init).
+
+The default (batch) mode exports with dynamic scales
+(``export_cnn(calibrate=None)``), or with ``--resident`` the
+int8-resident plan calibrated on the first batch, and serves
+``--batches`` caller-assembled batches of the eval stream through
+``serve_early_exit`` at ``--threshold`` (default 0.85) (:func:`serve_batches`);
+it prints img/s, the accuracy and the exit mix.  The reference's
+``--pallas`` has no counterpart: the port runs its kernels whenever the
+model is on the card.  ``--server`` (which implies ``--resident``)
+prints the layer plan, the throughput, p50/p99 latency, the exit mix and
+the kernel launch counts.
 
 ``--deadline-ms`` attaches per-request deadlines and turns on the SLO
 layer (deadline admission and graceful degradation through the exit
@@ -29,16 +41,39 @@ records the export's and the scheduler's spans, checks their invariants
 
 ``--verify [strict|warn]`` runs the analyzer over the export before
 serving and prints its report (``strict``, the default, stops on an error
-finding).  The reference's ``--pipeline`` (ROADMAP queue A item 10) raises
-until its slice lands.
+finding); it implies ``--resident``.  The reference's ``--pipeline``
+(ROADMAP queue A item 10) raises until its slice lands.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
+
+
+def serve_batches(model, stream, threshold, exit_stages):
+    """The batch mode's loop: ``serve_early_exit`` over each (x, y) of
+    ``stream``, after one warm-up call off the clock.  Returns (images,
+    wall seconds, correct predictions, {exit stage: images that left
+    there}); images not counted under a stage left at the final head."""
+    model.serve_early_exit(stream[0][0], threshold=threshold)
+    stages = {s: 0 for s in exit_stages}
+    hit = tot = 0
+    sync = torch.cuda.synchronize if model.device.type == 'cuda' else None
+    t0 = time.perf_counter()
+    for x, y in stream:
+        pred, stage = model.serve_early_exit(x, threshold=threshold)
+        if sync:
+            sync(model.device)
+        hit += int((pred.to(y.device) == y).sum())
+        tot += int(y.numel())
+        stage = np.asarray(stage.cpu() if torch.is_tensor(stage) else stage)
+        for s in stages:
+            stages[s] += int(np.sum(stage == s))
+    return tot, time.perf_counter() - t0, hit, stages
 
 
 def _measure_stage_costs(model, x, iters=5):
@@ -179,17 +214,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--server', action='store_true',
                     help='request-level serving through the continuous-'
-                         'batching scheduler (the only ported mode)')
+                         'batching scheduler; implies --resident')
     ap.add_argument('--config', default='resnet34-cifar',
                     choices=sorted(CNN_REGISTRY))
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument('--batch', type=int, default=64,
                     help='calibration and stream batch size')
+    ap.add_argument('--batches', type=int, default=8,
+                    help='batch mode: batches of the eval stream served')
+    ap.add_argument('--resident', action='store_true',
+                    help='int8-resident plan: calibrate static activation '
+                         'scales on the first eval batch (batch mode; '
+                         'without it the export takes dynamic scales)')
     ap.add_argument('--steps', type=int, default=60,
                     help='QAT fine-tune steps before export (0 = raw init)')
     ap.add_argument('--threshold', type=float, default=None,
-                    help='exit threshold (default: calibrated on the stream)')
+                    help='exit threshold (default 0.85; --server default '
+                         'calibrates on the stream)')
     ap.add_argument('--requests', type=int, default=256)
     ap.add_argument('--rate', type=float, default=2000.0,
                     help='Poisson arrival rate (req/s)')
@@ -221,15 +263,16 @@ def main(argv=None):
                     choices=('strict', 'warn'),
                     help='run the analyzer (repro_torch/analysis) over the '
                          'export before serving and print the report; '
-                         'strict (default) aborts on any error finding')
+                         'strict (default) aborts on any error finding. '
+                         'Implies --resident')
     args = ap.parse_args(argv)
     if args.pipeline:
         ap.error('--pipeline is not ported yet (ROADMAP, queue A item 10: '
                  'distributed and launch code)')
     if args.chaos:
         args.server = True
-    if not args.server:
-        ap.error('only --server mode is ported (ROADMAP, queue A)')
+    if args.server or args.verify:
+        args.resident = True
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -250,7 +293,9 @@ def main(argv=None):
     if args.trace:
         from repro_torch.obs import Tracer
         tracer = Tracer()
-    calib = fam.eval_batches(1, args.batch)[0][0]
+    stream = fam.eval_batches(1 if args.server else args.batches,
+                              args.batch)
+    calib = stream[0][0] if args.resident else None
     try:
         model = export_cnn(params, cfg, device=device, calibrate=calib,
                            verify=args.verify, tracer=tracer)
@@ -259,14 +304,31 @@ def main(argv=None):
         sys.exit('serve_cnn: the export failed --verify strict')
     if args.verify:
         print(model.analysis)
-    s = model.summary()
-    print(f"layer plan: {s['n_layers']} layers, {s['kernel_launches']} "
-          f"kernel launches (+{s['exit_head_launches']} exit heads), "
-          f"{s['n_fused_lowrank']} fused low-rank, {s['n_depthwise']} "
-          f"depthwise, {s['total_macs'] / 1e6:.1f} MMACs/image, fallback "
-          f"MACs {s['fallback_mac_fraction']:.1%}; segment launches "
-          f"{list(model.segment_launches)}")
-    _serve_trace(model, fam, cfg, args, tracer=tracer)
+    if args.resident:
+        s = model.summary()
+        print(f"layer plan: {s['n_layers']} layers, {s['kernel_launches']} "
+              f"kernel launches (+{s['exit_head_launches']} exit heads), "
+              f"{s['n_fused_lowrank']} fused low-rank, {s['n_depthwise']} "
+              f"depthwise, {s['total_macs'] / 1e6:.1f} MMACs/image, "
+              f"fallback MACs {s['fallback_mac_fraction']:.1%}; segment "
+              f"launches {list(model.segment_launches)}")
+    if args.server:
+        return _serve_trace(model, fam, cfg, args, tracer=tracer)
+    if tracer is not None:       # batch mode: the export's spans only
+        tracer.write(args.trace)
+        print(f'trace: {len(tracer.spans)} spans -> {args.trace}')
+    threshold = 0.85 if args.threshold is None else args.threshold
+    tot, dt, hit, stages = serve_batches(model, stream, threshold,
+                                         cfg.exit_stages)
+    name = (torch.cuda.get_device_name(model.device)
+            if model.device.type == 'cuda' else 'cpu')
+    print(f"config={cfg.name} device={name} "
+          f"plan={'resident' if args.resident else 'dynamic'}")
+    print(f'served {tot} images in {dt:.3f}s ({tot / dt:.0f} img/s), '
+          f'acc={hit / max(tot, 1):.3f}')
+    for st in sorted(stages):
+        print(f'  exit@stage{st}: {stages[st] / max(tot, 1):.1%}')
+    print(f'  final head:   {1 - sum(stages.values()) / max(tot, 1):.1%}')
 
 
 if __name__ == '__main__':

@@ -1,4 +1,5 @@
-"""Attention of the LM side: GQA (global and sliding-window), in PyTorch.
+"""Attention of the LM side: GQA (global, sliding-window, encoder and
+cross-attention), in PyTorch.
 
 The reference's ``models/attention.py`` for its GQA blocks:
 
@@ -9,8 +10,9 @@ The reference's ``models/attention.py`` for its GQA blocks:
   ``ctx.get('decode_attn', ...)`` as the reference does.  The port's
   default, :func:`decode_attn_kernel`, writes the new k/v into the ring
   slot and runs ``ops.decode_attention`` (``ops.decode_attention_int8``
-  for an int8 cache) over the whole cache: the hand-written kernel on a
-  CUDA tensor, its plain version on a CPU tensor.
+  for an int8 cache) over the whole cache, the attention softcap
+  (gemma2) inside the kernel: the hand-written kernel on a CUDA tensor,
+  its plain version on a CPU tensor.
   :func:`decode_attn_reference` is the reference's single-device math in
   plain torch, kept for comparison.
 
@@ -25,8 +27,14 @@ cache's tensors in place and returns the same dict (the single-device form
 of the reference's donated cache buffer).  A caller that needs the cache
 before a step clones it.
 
-Not ported: MLA (deepseek-v3), cross-attention (whisper) and attention
-softcap in the kernel path (the TPU kernel has none either).
+Cross-attention (whisper's decoder) attends to the encoder output with
+:func:`chunked_attention` in prefill and in :func:`gqa_cross_decode`, as
+the reference does: its k/v are projected from the encoder output on
+every call and never cached.  A local layer's cache holds
+``min(window, max_len)`` slots, written as a ring: a prefill longer than
+the window keeps its last ``window`` positions (:func:`prefill_cache_write`).
+
+Not ported: MLA (deepseek-v3).
 """
 from __future__ import annotations
 
@@ -132,20 +140,20 @@ def _valid(positions, cur: int, window: int):
 def decode_attn_kernel(q, new_k, new_v, cache, cur, *, window=0,
                        attn_softcap=0.0):
     """The port's decode attention: ring write, then the decode kernel over
-    the whole cache.  q: (B,H,D); new_k/new_v: (B,K,D); cache: {'k','v',
-    'meta'[, 'k_s','v_s']} with k (B,Sc,K,D).  Returns (out (B,H,D),
-    cache), the cache written in place."""
-    if attn_softcap:
-        raise NotImplementedError('attention softcap: the decode kernel has '
-                                  'none (neither has the TPU kernel)')
+    the whole cache, with the attention softcap when ``attn_softcap`` is
+    set.  q: (B,H,D); new_k/new_v: (B,K,D); cache: {'k','v', 'meta'[,
+    'k_s','v_s']} with k (B,Sc,K,D).  Returns (out (B,H,D), cache), the
+    cache written in place."""
     cur = int(cur)
     _ring_write(cache, new_k, new_v, cur)
     valid = _valid(cache['meta']['pos'], cur, window)
     if 'k_s' in cache:
         out = ops.decode_attention_int8(q, cache['k'], cache['v'],
-                                        cache['k_s'], cache['v_s'], valid)
+                                        cache['k_s'], cache['v_s'], valid,
+                                        attn_softcap=attn_softcap)
     else:
-        out = ops.decode_attention(q, cache['k'], cache['v'], valid)
+        out = ops.decode_attention(q, cache['k'], cache['v'], valid,
+                                   attn_softcap=attn_softcap)
     return out, cache
 
 
@@ -186,17 +194,28 @@ def decode_attn_reference(q, new_k, new_v, cache, cur, *, window=0,
 # ---------------------------------------------------------- GQA block apply
 
 
-def gqa_forward(p, x, positions, cfg, *, kind, quant=(0, 0)):
-    """Train/prefill attention.  Returns (out, (k, v)) for the cache fill."""
+def gqa_forward(p, x, positions, cfg, *, kind, quant=(0, 0), kv=None):
+    """Train/prefill attention.  Returns (out, (k, v)) for the cache fill.
+    ``kind`` 'encoder' attends without the causal mask; ``kv`` = (enc,
+    enc_pos) makes it cross-attention over the encoder output (no rope on
+    q or k, no causal mask)."""
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(p['wq'], x, quant=quant).reshape(B, S, H, hd)
-    k = dense(p['wk'], x, quant=quant).reshape(B, S, K, hd)
-    v = dense(p['wv'], x, quant=quant).reshape(B, S, K, hd)
-    q = rope(q, positions, theta=cfg.rope_theta)
-    k = rope(k, positions, theta=cfg.rope_theta)
+    if kv is None:
+        k = dense(p['wk'], x, quant=quant).reshape(B, S, K, hd)
+        v = dense(p['wv'], x, quant=quant).reshape(B, S, K, hd)
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+        k_pos, causal = positions, kind != 'encoder'
+    else:
+        enc, enc_pos = kv
+        T = enc.shape[1]
+        k = dense(p['wk'], enc, quant=quant).reshape(B, T, K, hd)
+        v = dense(p['wv'], enc, quant=quant).reshape(B, T, K, hd)
+        k_pos, causal = enc_pos, False
     window = cfg.window if kind == 'local' else 0
-    out = chunked_attention(q, k, v, positions, positions, causal=True,
+    out = chunked_attention(q, k, v, positions, k_pos, causal=causal,
                             window=window, attn_softcap=cfg.attn_softcap)
     out = dense(p['wo'], out.reshape(B, S, H * hd), quant=quant)
     return out, (k, v)
@@ -219,6 +238,21 @@ def gqa_decode(p, x, cur, cfg, *, kind, cache, ctx, quant=(0, 0)):
                     attn_softcap=cfg.attn_softcap)
     out = dense(p['wo'], out.reshape(B, H * hd), quant=quant)
     return out, cache
+
+
+def gqa_cross_decode(p, x, enc, enc_pos, cfg, *, quant=(0, 0)):
+    """Cross-attention of one decoder token against the whole encoder
+    output: x (B, d), enc (B, T, d), enc_pos (T,).  Returns (B, d)."""
+    B, d = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T = enc.shape[1]
+    q = dense(p['wq'], x, quant=quant).reshape(B, 1, H, hd)
+    k = dense(p['wk'], enc, quant=quant).reshape(B, T, K, hd)
+    v = dense(p['wv'], enc, quant=quant).reshape(B, T, K, hd)
+    out = chunked_attention(q, k, v, torch.zeros((1,), dtype=torch.int32,
+                                                 device=x.device),
+                            enc_pos, causal=False)
+    return dense(p['wo'], out.reshape(B, H * hd), quant=quant)
 
 
 # --------------------------------------------------------- cache builders

@@ -1,10 +1,13 @@
 """Unified model API of the LM side: ``build_model(cfg) -> Model``.
 
 The port's counterpart of the reference's ``models/model.py`` for the
-blocks it has ported: decoder-only stacks of GQA attention ('global' and
-'local') and dense MLPs.  :func:`build_model` raises NotImplementedError
-for a config that needs anything else (MoE, MLA, recurrent or SSM blocks,
-an encoder or a frontend, softcap).  ``init`` takes a ``torch.Generator``
+blocks it has ported: stacks of GQA attention ('global' and 'local', with
+softcaps and QKV bias) and dense MLPs, as a decoder, a VLM (a batch's
+``'patches'`` are a frontend prefix) or an encoder-decoder (a batch's
+``'frames'`` go through :attr:`Model.encode`, and ``decode_step`` takes
+the encoder output as ``enc``).  :func:`build_model` raises
+NotImplementedError for a config that needs anything else (MoE, MLA,
+recurrent or SSM blocks).  ``init`` takes a ``torch.Generator``
 and a device where the reference takes a key.  ``init`` and ``init_cache``
 run on the card unless the caller asks for ``device='cpu'``: without a card
 they raise (``export.resolve_device``) instead of falling back to the CPU.
@@ -12,7 +15,7 @@ they raise (``export.resolve_device``) instead of falling back to the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -26,8 +29,9 @@ class Model:
     init: Callable          # (gen, device) -> params
     forward: Callable       # (params, batch) -> logits
     prefill: Callable       # (params, batch, *, max_len) -> (logits, cache)
-    decode_step: Callable   # (params, token, cur, cache, *, ctx) -> ...
+    decode_step: Callable   # (params, token, cur, cache, *, enc, ctx) -> ...
     init_cache: Callable    # (batch, max_len, device) -> cache
+    encode: Any = None      # encdec only: (params, frames) -> enc
 
 
 def unported_blocks(cfg: ModelConfig) -> list[str]:
@@ -40,11 +44,19 @@ def unported_blocks(cfg: ModelConfig) -> list[str]:
     kinds = sorted(set(cfg.layer_kinds()) - {'global', 'local'})
     if kinds:
         why.append(f'{"/".join(kinds)} blocks')
-    if cfg.arch_kind != 'decoder':
-        why.append(f'the {cfg.arch_kind} encoder/frontend')
-    if cfg.attn_softcap or cfg.logit_softcap:
-        why.append('softcap')
     return why
+
+
+def _batch_parts(cfg, batch):
+    """Split a batch dict into (tokens, embeds, frames)."""
+    tokens = batch['tokens']
+    embeds = batch.get('patches') if cfg.arch_kind == 'vlm' else None
+    frames = batch.get('frames') if cfg.arch_kind == 'encdec' else None
+    return tokens, embeds, frames
+
+
+def _positions(x):
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -58,20 +70,37 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(gen, device='cuda'):
         return tfm.init_lm(gen, cfg, resolve_device(device))
 
-    def forward(params, batch):
-        return tfm.forward(params, cfg, batch['tokens'])
+    def encoded(params, frames):
+        if frames is None:
+            return None, None
+        return tfm.encode(params, cfg, frames), _positions(frames)
+
+    def forward(params, batch, *, collect_hiddens=False):
+        tokens, embeds, frames = _batch_parts(cfg, batch)
+        enc, enc_pos = encoded(params, frames)
+        return tfm.forward(params, cfg, tokens, embeds=embeds, enc=enc,
+                           enc_pos=enc_pos, collect_hiddens=collect_hiddens)
 
     def prefill(params, batch, *, max_len):
-        return tfm.prefill(params, cfg, batch['tokens'], max_len=max_len)
+        tokens, embeds, frames = _batch_parts(cfg, batch)
+        enc, enc_pos = encoded(params, frames)
+        return tfm.prefill(params, cfg, tokens, embeds=embeds, enc=enc,
+                           enc_pos=enc_pos, max_len=max_len)
 
-    def decode_step(params, token, cur, cache, *, ctx=None):
-        return tfm.decode_step(params, cfg, token, cur, cache, ctx=ctx)
+    def decode_step(params, token, cur, cache, *, enc=None, ctx=None):
+        enc_pos = None if enc is None else _positions(enc)
+        return tfm.decode_step(params, cfg, token, cur, cache, ctx=ctx,
+                               enc=enc, enc_pos=enc_pos)
 
     def init_cache(batch, max_len, device='cuda'):
         return tfm.init_cache(cfg, batch, max_len, resolve_device(device))
 
+    encode = (lambda params, frames: tfm.encode(params, cfg, frames)) \
+        if cfg.arch_kind == 'encdec' else None
+
     return Model(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                 decode_step=decode_step, init_cache=init_cache)
+                 decode_step=decode_step, init_cache=init_cache,
+                 encode=encode)
 
 
 def param_count(params) -> int:

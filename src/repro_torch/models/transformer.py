@@ -1,5 +1,6 @@
-"""Transformer assembly of the LM side: the dense decoder subset of the
-reference's ``models/transformer.py``, in PyTorch.
+"""Transformer assembly of the LM side: the dense-attention subset of the
+reference's ``models/transformer.py`` (decoder LM, VLM with a frontend
+prefix, encoder-decoder), in PyTorch.
 
 Layers are grouped as in the reference into (prefix, scanned groups,
 tail), and the param and cache trees keep that shape: ``params['blocks']``
@@ -10,13 +11,16 @@ reference's ``jax.lax.scan`` over the groups is a Python loop over the
 stacked leading axis (each step takes views ``leaf[g]``).
 
 Three entry points: :func:`forward` (logits), :func:`prefill` (forward
-and cache build) and :func:`decode_step` (one token).  ``ctx`` carries
-injected functions (``'decode_attn'``) as in the reference.  The cache is
-written in place (see ``models/attention.py``).
+and cache build) and :func:`decode_step` (one token), plus :func:`encode`
+for an encoder-decoder.  ``embeds`` (B, F, d) is a frontend prefix (a
+VLM's patch embeddings) placed before the token embeddings; ``enc`` and
+``enc_pos`` are the encoder output and its positions, which every decoder
+layer of an encoder-decoder cross-attends to (``'norm_x'``/``'xattn'``).
+``ctx`` carries injected functions (``'decode_attn'``) as in the
+reference.  The cache is written in place (see ``models/attention.py``).
 
 Dropped, each not needed on one card or by a ported config:
-``shard_act`` (identity on one device), ``remat``,
-frontend ``embeds``, the encoder and cross-attention, and the MoE, MLA,
+``shard_act`` (identity on one device), ``remat``, and the MoE, MLA,
 recurrent and SSM blocks (``models.model.build_model`` refuses configs
 that need them).
 """
@@ -69,14 +73,18 @@ def _layers(tree, cfg):
 # --------------------------------------------------------------------- init
 
 
-def _init_layer(gen, cfg, kind, *, dtype, device, stack=()):
-    if kind not in ('global', 'local'):
+def _init_layer(gen, cfg, kind, *, dtype, device, stack=(), cross=False):
+    if kind not in ('global', 'local', 'encoder'):
         raise NotImplementedError(f'{kind!r} blocks are not ported')
     kw = dict(dtype=dtype, device=device, stack=stack)
-    return {'norm1': init_norm(cfg.d_model, **kw),
-            'attn': attn.init_attention(gen, cfg, **kw),
-            'norm2': init_norm(cfg.d_model, **kw),
-            'mlp': init_mlp(gen, cfg, gated=cfg.family != 'audio', **kw)}
+    p = {'norm1': init_norm(cfg.d_model, **kw),
+         'attn': attn.init_attention(gen, cfg, **kw)}
+    if cross:
+        p['norm_x'] = init_norm(cfg.d_model, **kw)
+        p['xattn'] = attn.init_attention(gen, cfg, **kw)
+    p['norm2'] = init_norm(cfg.d_model, **kw)
+    p['mlp'] = init_mlp(gen, cfg, gated=cfg.family != 'audio', **kw)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device='cpu'):
@@ -91,36 +99,54 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device='cpu'):
     if not cfg.tie_embeddings:
         params['unembed'] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                            **kw)
-    params['prefix'] = [_init_layer(gen, cfg, kinds[i], **kw)
+    cross = cfg.arch_kind == 'encdec'
+    params['prefix'] = [_init_layer(gen, cfg, kinds[i], cross=cross, **kw)
                         for i in range(n_prefix)]
     params['blocks'] = [_init_layer(gen, cfg, kinds[n_prefix + j], stack=(G,),
-                                    **kw) for j in range(P)] if G else []
+                                    cross=cross, **kw)
+                        for j in range(P)] if G else []
     tail_base = n_prefix + G * P
-    params['tail'] = [_init_layer(gen, cfg, kinds[tail_base + i], **kw)
-                      for i in range(R)]
+    params['tail'] = [_init_layer(gen, cfg, kinds[tail_base + i],
+                                  cross=cross, **kw) for i in range(R)]
+    if cross:
+        params['encoder'] = {
+            'layers': [_init_layer(gen, cfg, 'encoder', **kw)
+                       for _ in range(cfg.num_encoder_layers)],
+            'final_norm': init_norm(cfg.d_model, **kw)}
     return params
 
 
 # ------------------------------------------------------------ layer forward
 
 
-def layer_forward(lp, x, kind, cfg, *, positions, quant, want_cache=False):
+def layer_forward(lp, x, kind, cfg, *, positions, quant, enc=None,
+                  enc_pos=None, want_cache=False):
     """Full-sequence layer.  Returns (x, (k, v) | None)."""
     h = rms_norm(lp['norm1'], x, cfg.norm_eps)
     o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
                               quant=quant)
     x = x + o
+    if 'xattn' in lp:
+        hx = rms_norm(lp['norm_x'], x, cfg.norm_eps)
+        o, _ = attn.gqa_forward(lp['xattn'], hx, positions, cfg, kind='cross',
+                                quant=quant, kv=(enc, enc_pos))
+        x = x + o
     x = x + mlp(lp['mlp'], rms_norm(lp['norm2'], x, cfg.norm_eps),
                 quant=quant)
     return x, (kvs if want_cache else None)
 
 
-def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant):
+def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant, enc=None,
+                 enc_pos=None):
     """One-token layer step.  x: (B, d).  Returns (x, cache)."""
     h = rms_norm(lp['norm1'], x, cfg.norm_eps)
     o, c = attn.gqa_decode(lp['attn'], h, cur, cfg, kind=kind, cache=cache,
                            ctx=ctx, quant=quant)
     x = x + o
+    if 'xattn' in lp:
+        hx = rms_norm(lp['norm_x'], x, cfg.norm_eps)
+        x = x + attn.gqa_cross_decode(lp['xattn'], hx, enc, enc_pos, cfg,
+                                      quant=quant)
     x = x + mlp(lp['mlp'], rms_norm(lp['norm2'], x[:, None], cfg.norm_eps),
                 quant=quant)[:, 0]
     return x, c
@@ -167,47 +193,75 @@ def _head(params, cfg, x, quant):
     return softcap(logits, cfg.logit_softcap)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, collect_hiddens=False):
-    """Logits (B, S, vocab) of a token batch (B, S).
+def _embed(params, cfg, tokens, embeds):
+    """Token embeddings, after the frontend prefix ``embeds`` if given."""
+    dtype = torch_dtype(cfg.dtype)
+    x = embed(params['embed'], tokens, dtype)
+    if embeds is not None:
+        x = torch.cat([embeds.to(dtype), x], dim=1)
+    return x
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """The encoder over (stubbed) frame embeddings (B, F, d): non-causal
+    layers, then its final norm."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device)
+    quant = (cfg.w_bits, cfg.a_bits)
+    for lp in params['encoder']['layers']:
+        x, _ = layer_forward(lp, x, 'encoder', cfg, positions=pos,
+                             quant=quant)
+    return rms_norm(params['encoder']['final_norm'], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
+            enc_pos=None, collect_hiddens=False):
+    """Logits (B, S, vocab) of a token batch (B, S); with a frontend prefix
+    ``embeds`` (B, F, d), logits of the whole (B, F + S) sequence.
 
     ``collect_hiddens``: also return the residual stream after each scan
     group (``hiddens[g]``, (B, S, d), before the tail and the final norm),
     the early-exit heads' inputs: ``(logits, hiddens)``.  The reference
     stacks them into (G, B, S, d); the list indexes the same way."""
     quant = (cfg.w_bits, cfg.a_bits)
-    x = embed(params['embed'], tokens, torch_dtype(cfg.dtype))
+    x = _embed(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     n_prefix, G, P, _ = layer_groups(cfg)
     group_ends = {n_prefix + (g + 1) * P - 1 for g in range(G)}
     hiddens = []
     for i, (kind, lp) in enumerate(_layers(params, cfg)):
         x, _ = layer_forward(lp, x, kind, cfg, positions=positions,
-                             quant=quant)
+                             quant=quant, enc=enc, enc_pos=enc_pos)
         if collect_hiddens and i in group_ends:
             hiddens.append(x)
     logits = _head(params, cfg, x, quant)
     return (logits, hiddens) if collect_hiddens else logits
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_len=None):
+def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
+            enc_pos=None, max_len=None):
     """Forward and cache build.  Returns (last logits (B, vocab), cache)."""
     quant = (cfg.w_bits, cfg.a_bits)
-    x = embed(params['embed'], tokens, torch_dtype(cfg.dtype))
+    x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache = init_cache(cfg, B, max_len or cfg.max_seq_len, x.device)
     for (kind, lp), (_, centry) in zip(_layers(params, cfg),
                                        _layers(cache, cfg)):
         x, kvs = layer_forward(lp, x, kind, cfg, positions=positions,
-                               quant=quant, want_cache=True)
+                               quant=quant, enc=enc, enc_pos=enc_pos,
+                               want_cache=True)
         _fill_cache(cfg, kind, centry, kvs, positions)
     return _head(params, cfg, x[:, -1:], quant)[:, 0], cache
 
 
-def decode_step(params, cfg: ModelConfig, token, cur, cache, *, ctx=None):
+def decode_step(params, cfg: ModelConfig, token, cur, cache, *, ctx=None,
+                enc=None, enc_pos=None):
     """One decode step.  token: (B,) int; cur: the position (a Python int,
-    or a 0-dim tensor read with ``int()``).  Returns (logits (B, vocab),
-    cache), the cache written in place."""
+    or a 0-dim tensor read with ``int()``); ``enc``/``enc_pos`` the encoder
+    output of an encoder-decoder.  Returns (logits (B, vocab), cache), the
+    cache written in place."""
     ctx = ctx or {}
     cur = int(cur)
     quant = (cfg.w_bits, cfg.a_bits)
@@ -215,5 +269,5 @@ def decode_step(params, cfg: ModelConfig, token, cur, cache, *, ctx=None):
     for (kind, lp), (_, centry) in zip(_layers(params, cfg),
                                        _layers(cache, cfg)):
         x, _ = layer_decode(lp, x, kind, cfg, cur=cur, cache=centry, ctx=ctx,
-                            quant=quant)
+                            quant=quant, enc=enc, enc_pos=enc_pos)
     return _head(params, cfg, x, quant), cache

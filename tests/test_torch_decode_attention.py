@@ -23,6 +23,7 @@ a row: the token just written is always valid.
 import importlib.util
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -335,6 +336,113 @@ def test_split_emulation_float_cache_matches_reference(mask):
     _close(got.numpy(), pallas, 1e-5)
     _close(got.numpy(), decode_attention_plain(
         *t, torch.from_numpy(valid)).numpy(), 1e-5)
+
+
+def _reference_decode(q, k, v, valid, cap, kv_bits):
+    """The reference model's ``decode_attn_reference`` under ``jax.jit``
+    over a cache whose slot s holds position s (or -1 where ``valid`` is
+    false), at the last valid position: the written k/v are the slot's
+    own, so the write changes nothing.  Returns (out, the int8 cache's
+    codes and scales or None)."""
+    B, S, K, D = k.shape
+    cur = int(np.nonzero(valid)[0].max())
+    cache = {'meta': {'slots': jnp.arange(S, dtype=jnp.int32),
+                      'pos': jnp.asarray(np.where(valid, np.arange(S), -1),
+                                         jnp.int32),
+                      'total': jnp.asarray(S, jnp.int32)}}
+    if kv_bits:
+        kq, ks = jattn.kv_quantize(jnp.asarray(k))
+        vq, vs = jattn.kv_quantize(jnp.asarray(v))
+        cache.update(k=kq, v=vq, k_s=ks, v_s=vs)
+        nk = jattn.kv_dequantize(kq, ks, jnp.float32)[:, cur]
+        nv = jattn.kv_dequantize(vq, vs, jnp.float32)[:, cur]
+        quant = tuple(np.array(a) for a in (kq, vq, ks, vs))
+    else:
+        cache.update(k=jnp.asarray(k), v=jnp.asarray(v))
+        nk, nv, quant = jnp.asarray(k[:, cur]), jnp.asarray(v[:, cur]), None
+
+    @jax.jit
+    def run(q, nk, nv, cache):
+        return jattn.decode_attn_reference(
+            q, nk, nv, cache, jnp.asarray(cur, jnp.int32),
+            attn_softcap=cap)[0]
+    return np.asarray(run(jnp.asarray(q), nk, nv, cache)), quant
+
+
+@pytest.mark.parametrize('kv_bits', [0, 8])
+@pytest.mark.parametrize('cap', [50.0, 1.0])
+@pytest.mark.parametrize('case', [(2, 4, 2, 256, 37), (1, 8, 4, 256, 100),
+                                  (2, 8, 2, 64, 100)])
+def test_plain_softcap_matches_the_jitted_reference(case, cap, kv_bits):
+    """Both plain versions with the attention softcap, at head_dim 256
+    (gemma2's) and 64, against ``jax.jit`` of the reference model's decode
+    math, with a hole in the mask: the cap applies before the mask, so a
+    masked slot keeps -1e30 (cap 1 would show a masked slot given -cap:
+    its weight exp(-1 - m) is not negligible).  fp32 within 1e-5 x
+    max|reference|.  The int8 cache holds the reference's own codes."""
+    B, H, K, D, S = case
+    q, k, v = _inputs(*case, seed=S + D + int(cap))
+    valid = _mask(S, 'hole')
+    want, quant = _reference_decode(q, k, v, valid, cap, kv_bits)
+    tv = torch.from_numpy(valid)
+    if kv_bits:
+        got = decode_attention_int8_plain(
+            torch.from_numpy(q), *(torch.from_numpy(a) for a in quant), tv,
+            attn_softcap=cap)
+    else:
+        got = decode_attention_plain(*(torch.from_numpy(a) for a in
+                                       (q, k, v)), tv, attn_softcap=cap)
+    _close(got.numpy(), want, 1e-5)
+    if cap == 1.0 and not kv_bits:   # the same over the valid slots alone
+        keep = np.nonzero(valid)[0]
+        sub = decode_attention_plain(
+            torch.from_numpy(q), torch.from_numpy(k[:, keep]),
+            torch.from_numpy(v[:, keep]), torch.ones(len(keep), dtype=bool),
+            attn_softcap=cap)
+        _close(sub.numpy(), want, 1e-5)
+
+
+def test_plain_softcap_with_no_valid_slot_is_the_mean_of_v():
+    """Under the softcap too, a row with no valid slot comes out of the
+    kernels' function as the mean of v (every slot -1e30, as without
+    the cap); the reference's decode math would give zeros, and no decode
+    step makes such a row."""
+    B, H, K, D, S = 1, 4, 2, 256, 40
+    q, k, v = _inputs(B, H, K, D, S, seed=13)
+    none = torch.zeros(S, dtype=torch.bool)
+    got = decode_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 none, attn_softcap=50.0)
+    _close(got.numpy(), v.mean(axis=1).repeat(H // K, axis=1), 1e-5)
+    kq, ks = tattn.kv_quantize(torch.from_numpy(k))
+    vq, vs = tattn.kv_quantize(torch.from_numpy(v))
+    got = decode_attention_int8_plain(torch.from_numpy(q), kq, vq, ks, vs,
+                                      none, attn_softcap=50.0)
+    mean = (vq.float() * vs[..., None]).mean(1).repeat_interleave(H // K, 1)
+    _close(got.numpy(), mean.numpy(), 1e-5)
+
+
+def test_split_plan_at_gemma2_decode_shape():
+    """gemma2-9b's decode call, (B, H, K, D, S) = (8, 16, 8, 256, 584),
+    group 2: 64 (kv head, row) cells, clusters of 4 blocks of 146 slots;
+    the warps the most that fit under SMEM_BUDGET for each cache (a bf16
+    row pair 32 KB a warp: 6; fp32: 3; int8: all 8 the slots ask for is
+    more than 146 / 16 rounds up to, so 8 is not reached: 8)."""
+    plans = {e: split_plan(8, 8, 584, elem=e, D=256, G=2) for e in (1, 2, 4)}
+    assert plans[2] == (4, 146, 6) and plans[4] == (4, 146, 3)
+    assert plans[1] == (4, 146, 8)
+    for e, (c, spb, w) in plans.items():
+        assert split_smem_bytes(w, 2, 256, e) <= SMEM_BUDGET
+        if w < 8:
+            assert split_smem_bytes(w + 1, 2, 256, e) > SMEM_BUDGET
+    # the group and head_dim the kernel is instantiated for
+    from repro_torch.kernels.decode_attention import MAX_GROUP_X_D
+    assert 256 in HEAD_DIMS and group_pad(2) * 256 <= MAX_GROUP_X_D
+    q = torch.zeros((1, 16, 256))
+    kv = torch.zeros((1, 4, 1, 256))
+    with pytest.raises(ValueError, match='head_dim'):
+        from repro_torch.kernels.decode_attention import _check
+        _check('decode_attention', q, torch.float32, (kv, kv), (),
+               torch.ones(4, dtype=torch.bool))
 
 
 def test_phase_script_finds_every_stamp_marker():

@@ -447,6 +447,41 @@ def test_decode_attention_int8_split_matches_plain(cuda_device, shape,
         assert _rel_err(got, mean) <= tol
 
 
+@pytest.mark.parametrize('valid_len', [584 - 5, 300, 0])
+@pytest.mark.parametrize('cap', [0.0, 50.0, 1.0])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_decode_attention_head_dim_256_softcap_matches_plain(
+        cuda_device, dtype, cap, valid_len):
+    """gemma2-9b's decode shape (B 8, H 16, K 8, head_dim 256, 584 slots),
+    with and without the attention softcap (50, gemma2's, and 1, where a
+    masked slot that got -cap instead of -1e30 would carry visible
+    weight), a valid prefix, a prefix ending mid-cache and no valid slot,
+    on both wrappers: fp32 within 1e-5 x max|plain|, bf16 within 8e-3."""
+    from repro_torch.models.attention import kv_quantize
+    q, k, v, _ = _decode_inputs(cuda_device, 8, 16, 8, 256, 584, dtype)
+    valid = torch.arange(584, device=cuda_device) < valid_len
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    reset_counts()
+    got = decode_attention(q, k, v, valid, attn_softcap=cap)
+    want = decode_attention_plain(q, k, v, valid, attn_softcap=cap)
+    assert _rel_err(got, want) <= tol
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    got = decode_attention_int8(q, kq, vq, ks, vs, valid, attn_softcap=cap)
+    want = decode_attention_int8_plain(q, kq, vq, ks, vs, valid,
+                                       attn_softcap=cap)
+    assert _rel_err(got, want) <= tol
+    assert counts()['decode_attention']['launches'] == 1
+    assert counts()['decode_attention_int8']['launches'] == 1
+    if cap and valid_len == 300:     # the mask is not the cap's -cap
+        leak = decode_attention_plain(q, k[:, :300].contiguous(),
+                                      v[:, :300].contiguous(),
+                                      valid[:300].contiguous(),
+                                      attn_softcap=cap)
+        assert _rel_err(decode_attention(q, k, v, valid, attn_softcap=cap),
+                        leak) <= tol
+
+
 def test_decode_attention_rejects_bad_operands(cuda_device):
     """No fallback: a wrong dtype, a non-contiguous cache, a head_dim or a
     mask the kernel does not take raise instead of running anything."""
@@ -502,6 +537,65 @@ def test_lm_decode_step_on_card_matches_cpu(cuda_device, kv_bits):
     assert out['cuda'][1][name] == {'launches': 2, 'plain_calls': 0}
     assert out['cpu'][1][name] == {'launches': 0, 'plain_calls': 2}
     assert _rel_err(out['cuda'][0], out['cpu'][0]) <= 1e-4
+
+
+@pytest.mark.parametrize('arch', ['gemma2-9b', 'gemma2-hd256', 'gemma3-12b',
+                                  'qwen2-72b', 'internvl2-2b',
+                                  'whisper-small'])
+@pytest.mark.parametrize('kv_bits', [0, 8])
+def test_arch_decode_step_on_card_matches_cpu(cuda_device, arch, kv_bits):
+    """Each dense-attention arch's smoke model (fp32; gemma2 also at its
+    published head_dim 256): prefill and two decode steps on the card,
+    through the decode kernel with the softcap, a VLM's zero patches and
+    whisper's encoder output, against the CPU's plain path on the same
+    weights; logits within 1e-4 x max|logit|, TF32 off.  An int8 cache
+    written from k and v that differ by fp32 noise can hold a code one
+    step apart at a rounding tie, which moves a step's logits by about
+    1e-4 x max at head_dim 256 (tests/test_torch_archs.py): 1e-3 there."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.export import to_device
+    from repro_torch.launch import serve
+    name = 'gemma2-9b' if arch == 'gemma2-hd256' else arch
+    cfg = get_smoke_config(name).replace(kv_cache_bits=kv_bits)
+    if arch == 'gemma2-hd256':
+        cfg = cfg.replace(head_dim=256)
+    model, params = serve.build(cfg, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    extra = torch.randn((2, cfg.frontend_tokens, cfg.d_model), generator=gen)
+    pos0 = serve.decode_start(cfg, 16)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, p in ((cuda_device, params),
+                       (torch.device('cpu'), to_device(params, 'cpu'))):
+            batch = {'tokens': tokens.to(dev)}
+            if cfg.arch_kind == 'vlm':
+                batch['patches'] = extra.to(dev)
+            enc = None
+            if cfg.arch_kind == 'encdec':
+                batch['frames'] = extra.to(dev)
+                with torch.inference_mode():
+                    enc = model.encode(p, batch['frames'])
+            reset_counts()
+            with torch.inference_mode():
+                first, cache = model.prefill(p, batch, max_len=pos0 + 8)
+                logits = [first.cpu()]
+                for t in range(2):
+                    lg, cache = model.decode_step(
+                        p, torch.tensor([3, 9], device=dev), pos0 + t,
+                        cache, enc=enc)
+                    logits.append(lg.cpu())
+            out[dev.type] = (logits, counts())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    kern = 'decode_attention_int8' if kv_bits else 'decode_attention'
+    n = 2 * cfg.num_layers
+    assert out['cuda'][1][kern] == {'launches': n, 'plain_calls': 0}
+    assert out['cpu'][1][kern] == {'launches': 0, 'plain_calls': n}
+    for a, b in zip(out['cuda'][0], out['cpu'][0]):
+        assert _rel_err(a, b) <= (1e-3 if kv_bits else 1e-4)
 
 
 def test_q_pass_step_on_card_matches_cpu(cuda_device):
