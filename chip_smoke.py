@@ -63,7 +63,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    row with every slot masked under the softcap, and the fp32 cache at
    head_dim 256 (3 warps, the fewest of any plan); each line ends with the
    split kernel's plan (S split over a cluster, the same kernel for the
-   three caches) and the instantiation's registers and spills.
+   three caches) and the instantiation's registers and spills; last
+   mixtral-8x7b's call (8, 32, 8, 128, 584), a group of 4, bf16 and
+   int8-KV.
 3. End to end, three CNN paths, each at full width and depth with random
    weights from seed 0, exit heads at the default stages, W8A8,
    ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
@@ -238,10 +240,28 @@ Phases, in order; any failure exits non-zero and no result is printed:
    512-token prompt, decoding from position 768; ``whisper-small`` whole,
    its 12-layer encoder over 1500 frames, a 64-token prompt and 64 steps
    with cross-attention.  Each model is freed before the next is built;
-   each path's seconds are printed.
+   each path's seconds are printed.  Then (m) ``mixtral-8x7b`` at its
+   published width cut in depth only to 12 of its 32 layers (8 experts
+   of 14336 top-2 at capacity factor 1.25, every layer local: 17.68 G
+   parameters), served as (k): bf16, then ``export_lm`` int8 weights
+   (experts included, quantized slice by slice) with an int8 cache, 12
+   decode-kernel launches a token; each leg profiled over 8 steps with
+   the device ms inside ``moe_block``, inside the int8 experts'
+   dequantization and of ``aten::bmm``.  Then (n) ``deepseek-v3-671b``
+   at its published width cut to its 3 dense layers and one MoE layer
+   (256 experts of 2048 top-8 and a shared one, MLA: 15.11 G parameters),
+   bf16, MLA decoding in torch ops: no decode kernel may launch.  Each
+   has a 2-layer fp32 cut against the CPU at ``MOE_CPU_TOL``
+   (``MOE_KV8_CPU_TOL`` with the int8 cache; deepseek's keeps one dense
+   and one MoE layer with 32 of the 256 experts), every MoE routing
+   recorded on both devices and a token routed apart only at a near-tie
+   (``MOE_NEAR_TIE``); on the bf16 legs' cuts ``export_lm`` on the card
+   against the CPU's, bit for bit, and on mixtral's ``LMFamily.prune``
+   keeping the same 5 experts on both devices.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
-   each), (k) (42 each, with the softcap) and (l), and every fake-quant
+   each), (k) (42 each, with the softcap), (l) and (m) (12 each), and
+   every fake-quant
    call of one step of (f), captured at its
    inputs (132 fused, 22 two-pass), held against its plain version on the
    card at its own shapes (bit for bit; the decode kernels within
@@ -341,6 +361,44 @@ L_PATHS = tuple(
                dict(key='qwen2-bf16', arch='qwen2-72b', layers=16),
                dict(key='internvl2-bf16', arch='internvl2-2b'),
                dict(key='whisper-bf16', arch='whisper-small', prompt=64)))
+# Path (m): mixtral-8x7b (arXiv:2401.04088) at its published width, cut in
+# depth only to 12 of its 32 layers (46.7 G parameters whole, 93.4 GB of
+# bf16, which the card cannot hold; 12 layers are 17.68 G, 35.4 GB bf16,
+# 17.7 GB int8, both live while the export is made): every layer local
+# (window 4096), 32 heads over 8 kv heads of 128, 8 experts of 14336, top
+# 2; bf16 weights and cache, then export_lm int8 weights with an int8 cache.
+# Its 2-layer fp32 cut (12.7 GB) is held against the CPU at MOE_CPU_TOL
+# (MOE_KV8_CPU_TOL with the int8 cache: codes at rounding ties, ROADMAP C)
+MOE_CPU_TOL = 1e-4
+MOE_KV8_CPU_TOL = 1e-3
+M_PATHS = (
+    dict(key='mixtral-bf16', arch='mixtral-8x7b', layers=12,
+         int8_weights=False, kv_cache_bits=0, kernel='decode_attention',
+         other='decode_attention_int8', cpu_tol=MOE_CPU_TOL, hooks=True,
+         prune=True),
+    dict(key='mixtral-int8', arch='mixtral-8x7b', layers=12,
+         int8_weights=True, kv_cache_bits=8, kernel='decode_attention_int8',
+         other='decode_attention', cpu_tol=MOE_KV8_CPU_TOL),
+)
+# Path (n): deepseek-v3-671b (arXiv:2412.19437) at its published width (MLA
+# with q/kv ranks 1536/512, 128 heads of rope 64 + nope 128, v 128; 256
+# routed experts of 2048 top-8 and a shared one; vocab 129280 untied), cut
+# in depth only to 4 of its 61 layers, its 3 dense layers (d_ff 18432) and
+# one MoE layer: 15.1 G parameters, 30.2 GB bf16.  bf16 only: MLA decodes
+# in its latent space in torch ops (the reference has no kernel for it),
+# so no decode kernel runs.  Its 2-layer fp32 cut keeps one dense and one
+# MoE layer at full width with 32 of the 256 experts (16.3 GB of host
+# memory; 256 would take 56 GB)
+N_PATHS = (
+    dict(key='deepseek-bf16', arch='deepseek-v3-671b', layers=4,
+         int8_weights=False, kv_cache_bits=0, kernel=None, other=None,
+         cpu_tol=MOE_CPU_TOL, hooks=True,
+         cut=dict(first_dense_layers=1, n_experts=32)),
+)
+# a token may route to other experts on the card than on the CPU only where
+# its k-th and (k+1)-th router probabilities lie within MOE_NEAR_TIE
+MOE_NEAR_TIE = 1e-6
+MOE_PRUNE_RATIO = 0.3          # mixtral's cut keeps max(2, int(8 x 0.7)) = 5
 # Decode attention against its plain version, max|kernel - plain| over
 # max|plain|: fp32 sums in another order; a bf16 output within about one
 # bf16 ulp (the int8-KV path serves bf16 q and output)
@@ -531,11 +589,9 @@ def device_ms(torch, fns, match, iters=10):
     return total / 1e3 / iters if total else None
 
 
-def profile_device(torch, fn):
-    """Run ``fn`` under torch.profiler: (wall ms, device kernel ms, top
-    kernels by device time).  Device time is None when the profiler saw no
-    device activity (it is then not measured)."""
-    from torch.autograd import DeviceType
+def _profiled(torch, fn):
+    """Run ``fn`` under torch.profiler (CPU and CUDA): (wall ms, the
+    profiler's averaged events)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -543,11 +599,58 @@ def profile_device(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return wall, prof.key_averages()
+
+
+def _device_kernels(events, skip=()):
+    """(device kernel ms, top kernels by device time) of profiled events,
+    leaving out the keys in ``skip``; the ms is None when the profiler saw
+    no device activity (it is then not measured)."""
+    from torch.autograd import DeviceType
     kernels = [(getattr(e, 'device_time_total', 0.0) / 1e3, e.count, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in skip]
     busy = sum(ms for ms, _, _ in kernels)
-    return wall, (busy if kernels else None), sorted(kernels, reverse=True)
+    return (busy if kernels else None), sorted(kernels, reverse=True)
+
+
+def profile_device(torch, fn):
+    """Run ``fn`` under torch.profiler: (wall ms, device kernel ms, top
+    kernels by device time).  Device time is None when the profiler saw no
+    device activity (it is then not measured)."""
+    wall, events = _profiled(torch, fn)
+    return (wall, *_device_kernels(events))
+
+
+def profile_moe(torch, fn):
+    """:func:`profile_device` with the device ms of the kernels launched
+    inside ``moe.moe_block`` (routing, dispatch, the expert products, the
+    combine, the shared expert), inside ``moe._maybe_quant_w`` (the int8
+    experts' dequantization) and by ``aten::bmm`` (the expert products;
+    MLA's einsums too): (wall ms, device ms, top kernels, {part: device
+    ms}).  The two functions run inside profiler ranges for the call; the
+    ranges' own device-side spans are left out of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    from repro_torch.models import moe
+    ranges = {'moe_block': moe.moe_block, 'moe_dequant': moe._maybe_quant_w}
+
+    def ranged(name, f):
+        def run(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return run
+    for name, f in ranges.items():
+        setattr(moe, f.__name__, ranged(name, f))
+    try:
+        wall, events = _profiled(torch, fn)
+    finally:
+        for f in ranges.values():
+            setattr(moe, f.__name__, f)
+    parts = {k: sum(getattr(e, 'device_time_total', 0.0) for e in events
+                    if e.key == k and e.device_type == DeviceType.CPU) / 1e3
+             for k in (*ranges, 'aten::bmm')}
+    return (wall, *_device_kernels(events, skip=ranges), parts)
 
 
 def same_bits(torch, a, b):
@@ -1281,8 +1384,9 @@ def phase_decode_kernels(torch):
     plain versions at tinyllama's shapes: B 1 and 8, S 584 (the served
     cache) and 2048, a valid prefix, and a case with a hole; fp32, bf16 and
     int8-KV; the int8 cache with a prefix of 40 valid slots (blocks 1-7 of
-    each cluster hold masked slots only); and an fp32 cache at head_dim
-    128 (6 warps, the most its shared memory allows)."""
+    each cluster hold masked slots only); an fp32 cache at head_dim 128 (6
+    warps, the most its shared memory allows); gemma2-9b's calls at head_dim
+    256; and mixtral-8x7b's group of 4 at head_dim 128, bf16 and int8-KV."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 11)
     cases = [(kind, B, S, S * 7 // 8, hole, 64)
              for kind in ('fp32', 'bf16', 'int8')
@@ -1301,6 +1405,10 @@ def phase_decode_kernels(torch):
     cases += [('bf16', 8, 584, 0, False, 256, (16, 8, 50.0)),
               ('int8', 8, 584, 0, False, 256, (16, 8, 50.0)),
               ('fp32', 8, 584, 584 - 8, False, 256, (16, 8, 50.0))]
+    # mixtral-8x7b's decode call (8, 32, 8, 128, 584): group 4 at head_dim
+    # 128, bf16 and int8-KV (path m)
+    cases += [(kind, 8, 584, 584 - 8, False, 128, (32, 8, 0.0))
+              for kind in ('bf16', 'int8')]
     for kind, B, S, valid_len, hole, D, (H, K, cap) in cases:
         args, valid = da_inputs(torch, g, B, S, kind, valid_len=valid_len,
                                 hole=hole, H=H, K=K, D=D)
@@ -1843,21 +1951,66 @@ def lm_frontend(torch, model, params, cfg, batch, device, seed):
     return extra, enc
 
 
+@contextlib.contextmanager
+def recording_routes(torch, log):
+    """Record every MoE routing (models/moe.py calls ``moe.route``): each
+    call appends (top-k experts, router probabilities) on the CPU."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(p, xf, cfg):
+        out = route(p, xf, cfg)
+        log.append((out[2].cpu(), out[0].float().cpu()))
+        return out
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def routing_flips(torch, key, card, cpu, k):
+    """Tokens routed to other experts on the card than on the CPU, over
+    every recorded call: each must lie at a near-tie (its k-th and (k+1)-th
+    CPU probabilities within MOE_NEAR_TIE).  Returns (flips, tokens)."""
+    if len(card) != len(cpu):
+        fail(f'{key}: {len(card)} MoE calls on the card, {len(cpu)} on the '
+             f'CPU')
+    n = tot = 0
+    for (ea, _), (eb, pb) in zip(card, cpu):
+        rows = (ea.sort(-1).values != eb.sort(-1).values).any(-1)
+        tot += ea.shape[0]
+        if bool(rows.any()):
+            top = pb[rows].sort(-1, descending=True).values
+            margin = top[:, k - 1] - top[:, k]
+            print(f'{key}: {int(rows.sum())} tokens route apart, margins '
+                  f'{margin.tolist()}')
+            if bool((margin >= MOE_NEAR_TIE).any()):
+                fail(f'{key}: a token routes apart away from a near-tie')
+            n += int(rows.sum())
+    return n, tot
+
+
 def check_lm_against_cpu(torch, tag, spec):
-    """A 2-layer cut of the full-width config in fp32 (weights from the same
-    CUDA generator, int8-exported on the card for an int8 path; an
-    encoder-decoder's encoder cut to 2 layers too) against the port's CPU
-    path on the same weights and inputs: prefill and LM_CUT['tokens']
-    decode steps, both fed the CPU's greedy tokens, every step's logits
-    within LM_CPU_TOL x max|logit|, TF32 off."""
+    """A 2-layer cut of the full-width config in fp32 (``spec['cut']``
+    changes more: deepseek's keeps one dense and one MoE layer and 32
+    experts; weights from the same CUDA generator, int8-exported on the
+    card for an int8 path; an encoder-decoder's encoder cut to 2 layers
+    too) against the port's CPU path on the same weights and inputs:
+    prefill and LM_CUT['tokens'] decode steps, both fed the CPU's greedy
+    tokens, every step's logits within ``spec['cpu_tol']`` (LM_CPU_TOL)
+    x max|logit|, TF32 off.  An MoE cut records every routing on both
+    devices: a token may route apart only at a near-tie."""
     from repro_torch.core.export import to_device
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch import serve
-    cut = dict(num_layers=LM_CUT['layers'], dtype='float32')
+    cut = dict(num_layers=LM_CUT['layers'], dtype='float32',
+               **spec.get('cut', {}))
     if lm_config(spec).arch_kind == 'encdec':
         cut['num_encoder_layers'] = LM_CUT['layers']
     cfg = lm_config(spec, **cut)
+    tol = spec.get('cpu_tol', LM_CPU_TOL)
     model, params = serve.build(cfg, 'cuda', seed=SEED,
                                 int8_weights=spec['int8_weights'])
     prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
@@ -1872,7 +2025,8 @@ def check_lm_against_cpu(torch, tag, spec):
         feed = None
         for dev, p in (('cpu', to_device(params, 'cpu')), ('cuda', params)):
             reset_counts()
-            with torch.inference_mode():
+            with torch.inference_mode(), \
+                    recording_routes(torch, []) as routes:
                 extra, enc = lm_frontend(torch, model, p, cfg,
                                          LM_CUT['batch'], dev, SEED + 3)
                 logits, cache = model.prefill(
@@ -1887,31 +2041,108 @@ def check_lm_against_cpu(torch, tag, spec):
                                                       cache, enc=enc)
                     out.append(logits.cpu())
                     tok = torch.argmax(logits, -1)
-            runs[dev] = (out, counts()[spec['kernel']])
+            runs[dev] = (out, {k: counts()[k] for k in LM_KERNEL_META},
+                         routes)
             if feed is None:
                 feed = [torch.zeros(LM_CUT['batch'], dtype=torch.int64)] + \
                     [torch.argmax(lg, -1) for lg in out[1:-1]]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     n_steps = LM_CUT['tokens']
-    if runs['cuda'][1] != {'launches': LM_CUT['layers'] * n_steps,
-                           'plain_calls': 0} or \
-            runs['cpu'][1] != {'launches': 0,
-                               'plain_calls': LM_CUT['layers'] * n_steps}:
-        fail(f"{spec['key']}: the 2-layer cut ran {runs['cuda'][1]} on the "
-             f"card and {runs['cpu'][1]} on the CPU")
+    n = 0 if spec['kernel'] is None else LM_CUT['layers'] * n_steps
+    for name, c in runs['cuda'][1].items():
+        on = name == spec['kernel']
+        if c != {'launches': n if on else 0, 'plain_calls': 0} or \
+                runs['cpu'][1][name] != {'launches': 0,
+                                         'plain_calls': n if on else 0}:
+            fail(f"{spec['key']}: the 2-layer cut ran {name} {c} on the "
+                 f"card and {runs['cpu'][1][name]} on the CPU")
     worst = 0.0
     for a, b in zip(runs['cuda'][0], runs['cpu'][0]):
         worst = max(worst, float((a - b).abs().max() / b.abs().max()))
     kinds = '/'.join(cfg.layer_kinds())
-    print(f"{tag} 2-layer fp32 cut ({kinds}; batch {LM_CUT['batch']}, "
-          f"prompt {LM_CUT['prompt']}, {n_steps} decode steps), card vs CPU "
-          f"plain path: max |diff| / max |logit| over prefill and every step "
-          f"{worst:.3e} (limit {LM_CPU_TOL:g})")
-    if worst > LM_CPU_TOL:
+    moe_note = ''
+    if cfg.is_moe:
+        flips, toks = routing_flips(torch, spec['key'], runs['cuda'][2],
+                                    runs['cpu'][2], cfg.top_k)
+        moe_note = (f"; {len(runs['cpu'][2])} MoE calls ({cfg.n_experts} "
+                    f"experts top-{cfg.top_k}), {flips} of {toks} tokens "
+                    f"routed apart")
+    print(f"{tag} 2-layer fp32 cut ({kinds}"
+          + (f", {cfg.first_dense_layers} dense" if cfg.first_dense_layers
+             else '')
+          + f"; batch {LM_CUT['batch']}, prompt {LM_CUT['prompt']}, "
+          f"{n_steps} decode steps), card vs CPU plain path: max |diff| / "
+          f"max |logit| over prefill and every step {worst:.3e} (limit "
+          f"{tol:g}){moe_note}")
+    if worst > tol:
         fail(f"{spec['key']}: the card disagrees with the CPU on the 2-layer "
              f"cut")
     return worst
+
+
+def check_moe_hooks_against_cpu(torch, tag, spec):
+    """On the path's 2-layer fp32 cut (``spec['cut']`` as in
+    :func:`check_lm_against_cpu`): ``export_lm`` on the card against the
+    CPU's on the same weights, every code and scale bit for bit (the
+    experts, quantized slice by slice, the router and the shared expert
+    included), and where ``spec['prune']`` says so
+    ``LMFamily.prune(MOE_PRUNE_RATIO)`` keeping the same 5 experts on both
+    devices."""
+    from repro_torch.core.export import export_lm, to_device
+    from repro_torch.core.family import LMFamily
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve
+    cfg = lm_config(spec, num_layers=LM_CUT['layers'], dtype='float32',
+                    **spec.get('cut', {}))
+    _, params = serve.build(cfg, 'cuda', seed=SEED)
+    cpu = to_device(params, 'cpu')
+    t0 = time.perf_counter()
+    card_q = export_lm(params, cfg).params
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_q = export_lm(cpu, cfg).params
+    t_host = time.perf_counter() - t0
+    leaves = list(zip(_leaves(card_q), _leaves(host_q)))
+    off = sum(not same_bits(torch, a.cpu(), b) if a.is_floating_point()
+              else not bool(torch.equal(a.cpu(), b)) for a, b in leaves)
+    moe_q = [lp['moe'] for lp in host_q['blocks'] + host_q['tail']]
+    n_exp = sum(lp['wi']['w_q'].numel() + lp['wg']['w_q'].numel()
+                + lp['wo']['w_q'].numel() for lp in moe_q)
+    print(f'{tag} export_lm of the 2-layer cut on the card ({t_card:.2f} s) '
+          f'and on the CPU ({t_host:.2f} s): {len(leaves) - off} of '
+          f'{len(leaves)} leaves bit-equal, {n_exp / 1e9:.3f} G expert codes '
+          f'among them; router {tuple(moe_q[0]["router"]["w_q"].shape)} '
+          f'int8, expert scales {tuple(moe_q[0]["wi"]["scale"].shape)}')
+    if off:
+        fail(f"{spec['key']}: the card's int8 export differs from the "
+             f"CPU's in {off} leaves")
+    del card_q, host_q
+    if spec.get('prune'):
+        data = SyntheticTokens(vocab=cfg.vocab_size)
+        on_card, c2 = LMFamily(data, device='cuda').prune(
+            params, cfg, MOE_PRUNE_RATIO)
+        on_card = to_device(on_card, 'cpu')
+        on_host, _ = LMFamily(data, device='cpu').prune(
+            cpu, cfg, MOE_PRUNE_RATIO)
+        full = cpu['blocks'][0]['moe']['router']['w']
+
+        def kept(tree):
+            got = tree['blocks'][0]['moe']['router']['w']
+            return [[int((full[g].T == col).all(1).nonzero()[0])
+                     for col in got[g].T] for g in range(got.shape[0])]
+        same = all(bool(torch.equal(a, b)) for a, b in
+                   zip(_leaves(on_card), _leaves(on_host)))
+        print(f"{tag} LMFamily.prune(ratio {MOE_PRUNE_RATIO}): "
+              f"{c2.n_experts} of {cfg.n_experts} experts kept a layer, "
+              f"card {kept(on_card)}, CPU {kept(on_host)} (importance "
+              f"order); pruned trees bit-equal: {same}")
+        if kept(on_card) != kept(on_host) or not same or c2.n_experts != 5:
+            fail(f"{spec['key']}: the card prunes other experts than the CPU")
+        del on_card, on_host
+    del params, cpu
+    torch.cuda.empty_cache()
 
 
 def ring_check(torch, tag, spec, cfg, cache, cur):
@@ -1968,7 +2199,15 @@ def serve_lm_path(torch, spec):
           f"parameters, {weight_bytes / 1e9:.3f} GB of weights "
           f"({'int8 export_lm' if spec['int8_weights'] else 'bf16'}), "
           f"kv_cache_bits {cfg.kv_cache_bits}, attn_softcap "
-          f"{cfg.attn_softcap:g}; built in {time.perf_counter() - t0:.2f} s")
+          f"{cfg.attn_softcap:g}"
+          + (f", {cfg.n_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k}"
+             f" ({cfg.n_shared_experts} shared, {cfg.first_dense_layers} "
+             f"dense layers first)" if cfg.is_moe else '')
+          + (f", MLA ranks q {cfg.q_lora_rank} kv {cfg.kv_lora_rank}, rope "
+             f"{cfg.rope_head_dim} + nope {cfg.nope_head_dim}, v "
+             f"{cfg.v_head_dim} (its cache ignores kv_cache_bits)"
+             if cfg.use_mla else '')
+          + f"; built in {time.perf_counter() - t0:.2f} s")
     prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
         torch.Generator().manual_seed(SEED + 1), LM_BATCH, prompt_len,
         'cuda')['tokens']
@@ -2021,14 +2260,19 @@ def serve_lm_path(torch, spec):
         fail(f"{spec['key']}: the decoded tokens are malformed")
     ring_check(torch, tag, spec, cfg, cache, pos0 + LM_TOKENS - 1)
     want = cfg.num_layers * LM_TOKENS
-    for name in (spec['kernel'], spec['other']):
+    for name in LM_KERNEL_META:
         print(f"{tag} {name}: {after[name]['launches']} launches, "
               f"{after[name]['plain_calls']} plain calls")
-    if after[spec['kernel']]['launches'] != want:
+    if spec['kernel'] is None:
+        if any(after[name]['launches'] for name in LM_KERNEL_META):
+            fail(f"{spec['key']}: a decode kernel ran on an MLA path")
+        print(f'{tag} MLA decodes in its latent space in torch ops '
+              f'(attention.decode_mla_reference): no decode kernel')
+    elif after[spec['kernel']]['launches'] != want:
         fail(f"{spec['key']}: {spec['kernel']} launched "
              f"{after[spec['kernel']]['launches']} times, want {want} "
              f"({cfg.num_layers} layers x {LM_TOKENS} steps)")
-    if after[spec['other']]['launches']:
+    if spec['other'] and after[spec['other']]['launches']:
         fail(f"{spec['key']}: {spec['other']} ran on this path")
     plain = sum(c['plain_calls'] for c in after.values())
     if plain:
@@ -2038,20 +2282,29 @@ def serve_lm_path(torch, spec):
     def more_steps():
         serve.decode(model, params, cache, zeros, pos0=pos0 + LM_TOKENS,
                      tokens=LM_PROFILE_STEPS, enc=enc)
+    parts = None
     if spec.get('profile', True):
-        wall, busy, top = profile_device(torch, more_steps)
+        if cfg.is_moe:
+            wall, busy, top, parts = profile_moe(torch, more_steps)
+        else:
+            wall, busy, top = profile_device(torch, more_steps)
         if busy is None:
             print(f'{tag} profile: {LM_PROFILE_STEPS} steps in {wall:.3f} '
                   f'ms wall; device time not measured (the profiler '
                   f'recorded no device activity)')
         else:
-            kern = sum(ms for ms, _, name in top
-                       if DA_DEVICE_NAME[spec['kernel']] in name)
+            kern = sum(ms for ms, _, name in top if spec['kernel'] and
+                       DA_DEVICE_NAME[spec['kernel']] in name)
             print(f'{tag} profile: {LM_PROFILE_STEPS} decode steps in '
                   f'{wall:.3f} ms wall ({wall / LM_PROFILE_STEPS:.3f} '
                   f'ms/token profiled), device kernels {busy:.3f} ms: '
                   f'device busy {busy / wall:.1%}; the decode-attention '
                   f'kernel {kern:.3f} ms, {kern / busy:.1%} of device time')
+            if parts is not None:
+                print(f'{tag} profile by part, device ms over '
+                      f'{LM_PROFILE_STEPS} steps: ' + ', '.join(
+                          f'{k} {v:.3f} ({v / busy:.1%})'
+                          for k, v in parts.items()))
             for ms, n, name in top[:8]:
                 print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
     del cache
@@ -2075,14 +2328,22 @@ def serve_lm_path(torch, spec):
             not bool(torch.isfinite(lg_k).all()):
         fail(f"{spec['key']}: first-step logits malformed")
     scale = float(lg_p.float().abs().max())
+    if spec['kernel'] is None and max_err(torch, lg_k, lg_p):
+        fail(f"{spec['key']}: the MLA step changed with no decode kernel in "
+             f"it")
     diff = max_err(torch, lg_k, lg_p)
     agree = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
-    print(f'{tag} first-step logits, decode kernel vs the plain decode '
-          f'attention on the card: max |diff| {diff:.3e} (max |logit| '
-          f'{scale:.3e}, limit {LM_PLAIN_TOL:g} x that); greedy tokens agree '
-          f'on {agree:.0%} of the batch; against decode_attn_reference '
-          f'(q scaled in bf16, bf16 probabilities): max |diff| '
-          f'{max_err(torch, lg_k, lg_r):.3e}')
+    if spec['kernel'] is None:
+        print(f'{tag} first-step logits (max |logit| {scale:.3e}): the same '
+              f'with the plain decode attention swapped in, as no decode '
+              f'kernel runs')
+    else:
+        print(f'{tag} first-step logits, decode kernel vs the plain decode '
+              f'attention on the card: max |diff| {diff:.3e} (max |logit| '
+              f'{scale:.3e}, limit {LM_PLAIN_TOL:g} x that); greedy tokens '
+              f'agree on {agree:.0%} of the batch; against '
+              f'decode_attn_reference (q scaled in bf16, bf16 '
+              f'probabilities): max |diff| {max_err(torch, lg_k, lg_r):.3e}')
     if diff > LM_PLAIN_TOL * scale:
         fail(f"{spec['key']}: the kernel path disagrees with the plain "
              f"decode attention")
@@ -2098,8 +2359,17 @@ def serve_lm_path(torch, spec):
     with torch.inference_mode():
         model.decode_step(params, zeros, pos0 + 1, fresh, enc=enc,
                           ctx={'decode_attn': capture})
+    if cfg.use_mla:
+        experts = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff
+        print(f'{tag} the int8 export is checked on the 2-layer cut: its MoE '
+              f'forward (the reference\'s _maybe_quant_w) would dequantize '
+              f'{experts / 1e9:.3f} G expert elements a layer every step, '
+              f'{experts * 4 / 1e9:.1f} GB in fp32 and '
+              f'{experts * 2 / 1e9:.1f} GB kept as bf16 (computed)')
     del params, fresh, enc, extra, model
     torch.cuda.empty_cache()
+    if spec.get('hooks'):
+        check_moe_hooks_against_cpu(torch, tag, spec)
     cpu_err = check_lm_against_cpu(torch, tag, spec)
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t_path
@@ -2109,7 +2379,7 @@ def serve_lm_path(torch, spec):
         'ms_per_token': t_decode / LM_TOKENS * 1e3,
         'tokens_per_s': LM_BATCH * LM_TOKENS / t_decode,
         'peak_mib': peak / 2 ** 20, 'plain_diff': diff, 'cpu_err': cpu_err,
-        'secs': secs}
+        'secs': secs, 'parts': parts}
 
 
 def recording_family(losses, cfg, device):
@@ -4128,11 +4398,13 @@ def main():
     launches[VERIFY_KEY], verified = verify_path(torch, served)
     print(f"[time] path {VERIFY_KEY} took {verified['secs']:.1f} s, done at "
           f"{time.perf_counter() - t_start:.1f} s")
-    for label, specs in (('k', K_PATHS), ('l', L_PATHS)):
+    for label, specs in (('k', K_PATHS), ('l', L_PATHS), ('m', M_PATHS),
+                         ('n', N_PATHS)):
         t0 = time.perf_counter()
         for spec in specs:
             counted, calls, _ = serve_lm_path(torch, spec)
-            lm_calls[spec['key']] = (spec['kernel'], calls)
+            if spec['kernel']:
+                lm_calls[spec['key']] = (spec['kernel'], calls)
             lm_launches[spec['key']] = counted
             print(f"[time] path {spec['key']} done at "
                   f"{time.perf_counter() - t_start:.1f} s")

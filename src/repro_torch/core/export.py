@@ -863,10 +863,11 @@ def export_cnn(params, cfg, *, device='cuda', calibrate=None,
 def export_lm(params, cfg) -> ServingModel:
     """Int8 export for the LM family, on the device the params are on:
     every matmul weight (2-D, and the scan-stacked ``(G, d, f)`` ones,
-    both halves of a factored ``{'u', 'v'}`` pair and the exit heads'
-    adapters) becomes ``{'w_q', 'scale'}`` through
-    ``quantize_params_for_serving``, which ``layers.dense`` consumes
-    (dequantized before its product, as in the reference).  Embedding
+    both halves of a factored ``{'u', 'v'}`` pair, the exit heads'
+    adapters, MoE routers and expert tensors) becomes ``{'w_q', 'scale'}``
+    through ``quantize_params_for_serving``, which ``layers.dense`` and
+    ``moe.moe_block`` consume (dequantized before their products, as in
+    the reference); MLA's ``wk_b``/``wv_b`` stay float.  Embedding
     tables and norms stay as they are.  ``fn(params, tokens)`` is the
     full-sequence forward; serving decodes with ``launch/serve.py``; the
     exit heads serve through ``family.exit_logits``.  The reference jits

@@ -6,9 +6,10 @@ The passes are family-agnostic; everything model-specific lives here.
 (``shrink``), physical channel pruning (``prune``), the low-rank
 factorization the L pass applies, exit heads and their dynamic statistics
 (``exit_stats``), and the BitOps/storage costs.  ``LMFamily`` has the same
-hooks over the dense decoder: a shallower student, d_ff channel pruning,
-the stacked ``(G, d, f)`` SVD with one shared rank, exit heads after scan
-groups and their per-token statistics.
+hooks over the LM decoder: a shallower student, d_ff channel pruning (of
+an MoE config, expert pruning), the stacked ``(G, d, f)`` SVD with one
+shared rank, exit heads after scan groups and their per-token
+statistics.
 
 Where the port departs from the reference:
 
@@ -23,10 +24,11 @@ Where the port departs from the reference:
   port computes their QAT scales with the jitted arithmetic
   (``quantization.jitted_scales``) and, on the card, without TF32
   (``quantization.full_fp32``).
-* ``prune``'s channel importance is summed in float64 (the reference's
-  in the weights' dtype), so the card and the CPU keep the same channels;
-  numpy's argsort picks them, as in the reference, which keeps the same
-  channels except at a tie within fp32 rounding.
+* ``prune``'s channel importance (and an MoE config's expert importance)
+  is summed in float64 (the reference's in the weights' dtype), so the
+  card and the CPU keep the same channels; numpy's argsort picks them, as
+  in the reference, which keeps the same channels except at a tie within
+  fp32 rounding.
 * ``LMFamily.factorize`` takes the stacked weights' SVDs from an fp64
   Gram eigendecomposition on the card (``_gram_svd``) and numpy's SVD on
   the CPU (the reference's); the rank rule reads the singular values in
@@ -434,11 +436,10 @@ def _balanced(U, S, Vt, r, like):
 
 @dataclass
 class LMFamily:
-    """The reference's ``LMFamily`` over the port's dense decoder.
+    """The reference's ``LMFamily`` over the port's LM decoder.
     Batches come from ``torch.Generator``s on the CPU (the reference's
     come from keys) and are placed on ``device``, where :meth:`init`,
-    :meth:`add_exits` and the L pass's SVDs also run.  MoE expert pruning
-    raises: the port has no MoE block (ROADMAP, queue A 9)."""
+    :meth:`add_exits` and the L pass's SVDs also run."""
     data: Any                           # SyntheticTokens
     seq: int = 128
     device: str = 'cuda'
@@ -559,21 +560,54 @@ class LMFamily:
         return new, cfg.replace(d_ff=keep)
 
     def _prune_experts(self, params, cfg, ratio):
-        raise NotImplementedError(
-            'pruning MoE experts needs the MoE block (models/moe.py), not '
-            'ported yet (ROADMAP, queue A 9: the other LM blocks)')
+        """Keep ``max(top_k, int(E * (1 - ratio)))`` experts of every MoE
+        layer by the importance of each, the norm of its router column
+        (summed in float64): the sorted top experts of an unstacked layer;
+        of a stacked ``(G, E, d, f)`` layer each group's own, in the
+        reference's importance order (a stable argsort).  The router
+        keeps the same columns; the shared expert stays whole."""
+        keep = max(cfg.top_k, int(cfg.n_experts * (1 - ratio)))
+
+        def prune_moe(mp, stacked):
+            rw = mp['router']['w']                    # (..., d, E)
+            imp = torch.sqrt(torch.sum(torch.square(rw.to(torch.float64)),
+                                       dim=-2)).cpu().numpy()
+            order = np.argsort(-imp, axis=-1, kind='stable')
+            if stacked:
+                idx = torch.from_numpy(order[..., :keep]).to(rw.device)
+                r = torch.take_along_dim(rw, idx[:, None, :], dim=-1)
+
+                def take(w):
+                    return torch.take_along_dim(w, idx[:, :, None, None],
+                                                dim=1)
+            else:
+                idx = torch.from_numpy(np.sort(order[:keep])).to(rw.device)
+                r = rw[..., idx]
+
+                def take(w):
+                    return w[idx]
+            return dict(mp, router={'w': r}, wi=take(mp['wi']),
+                        wg=take(mp['wg']), wo=take(mp['wo']))
+
+        new = dict(params)
+        for grp in ('prefix', 'blocks', 'tail'):
+            new[grp] = [dict(lp, moe=prune_moe(lp['moe'], grp == 'blocks'))
+                        if 'moe' in lp else lp for lp in params[grp]]
+        return new, cfg.replace(n_experts=keep)
 
     # ----- low-rank factorization (the L pass's family hook)
     def factorize(self, params, cfg, *, energy=0.95, min_rank=8):
         """SVD-split the dense MLP weights (wi, wg, wo); returns (params,
         cfg, mac_scale).  An unstacked layer factors per weight
-        (:func:`_svd_split`, numpy on the host; no ported config has one);
-        a stacked ``(G, d, f)`` weight with one
+        (:func:`_svd_split`, numpy on the host: deepseek-v3's leading dense
+        layers); a stacked ``(G, d, f)`` weight with one
         shared rank, the largest of the groups' ranks (floored at
         ``min_rank``), so the stack stays rectangular, and only where that
         rank saves MACs.  Each factored weight becomes ``{'u': {'w'},
-        'v': {'w'}}`` in fp32, as the reference's.  ``mac_scale`` is the
-        whole tree's weight-volume ratio."""
+        'v': {'w'}}`` in fp32, as the reference's.  MoE expert tensors,
+        the shared expert and the attention projections stay unfactored
+        (only ``lp['mlp']`` is factored) and count in the cost.
+        ``mac_scale`` is the whole tree's weight-volume ratio."""
         old_cost = _linear_cost(params)
 
         def tensor(a, like):

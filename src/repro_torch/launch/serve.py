@@ -13,9 +13,14 @@ decode steps (:func:`serve_step`, the counterpart of the reference's
 ``build_serve_step``, whose cache buffer is donated: here it is written in
 place).  As in the reference (``serve.py:55``), decoding starts from token
 0 after the prefill: the prefill's own greedy token is not fed back.
-Every layer of every step runs the decode-attention kernel
+Every GQA layer of every step runs the decode-attention kernel
 (``decode_attention``, or ``decode_attention_int8`` with
-``--kv-cache-bits 8``).  Prints the ms/token.  ``--arch`` takes every
+``--kv-cache-bits 8``); an MLA layer (deepseek-v3-671b) attends in its
+latent space in torch ops (``attention.decode_mla_reference``: the
+reference has no kernel for it), and its cache ignores
+``--kv-cache-bits``, as the reference's does (the launcher says so).
+An MoE layer (mixtral-8x7b, deepseek-v3-671b) runs ``models/moe.py``.
+Prints the ms/token.  ``--arch`` takes every
 ported arch; the default is the reference's, ``gemma2-9b``.  A VLM's
 prompt gets ``frontend_tokens`` zero patch embeddings before its tokens,
 and decoding starts at ``prompt_len + frontend_tokens``; an
@@ -24,7 +29,9 @@ encoder-decoder exits, as the reference's launcher does.
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; without a card it exits with an error instead of falling back.
 ``--int8-weights`` serves the ``export_lm`` weights (the reference's
-``build_serve_step(int8_weights=True)``).
+``build_serve_step(int8_weights=True)``).  ``--layers N`` cuts the depth
+to N layers at the published width (mixtral-8x7b's 93 GB of bf16 weights
+do not fit one card; 12 layers do).
 """
 from __future__ import annotations
 
@@ -116,6 +123,9 @@ def main(argv=None):
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument('--int8-weights', action='store_true')
     ap.add_argument('--kv-cache-bits', type=int, default=0, choices=(0, 8))
+    ap.add_argument('--layers', type=int, default=0,
+                    help='cut the depth to this many layers, the width '
+                         'kept (a model one card cannot hold whole)')
     args = ap.parse_args(argv)
 
     try:
@@ -128,6 +138,12 @@ def main(argv=None):
         print('serve: decoder-only serving example', file=sys.stderr)
         return 2
     cfg = cfg.replace(kv_cache_bits=args.kv_cache_bits)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    if cfg.use_mla and args.kv_cache_bits:
+        print(f'serve: {cfg.name} keeps an MLA latent cache, which '
+              f'--kv-cache-bits does not change (as in the reference)',
+              file=sys.stderr)
     pos0 = decode_start(cfg, args.prompt_len)
     max_len = pos0 + args.tokens + 8
     data = SyntheticTokens(vocab=cfg.vocab_size)

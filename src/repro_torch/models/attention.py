@@ -1,7 +1,7 @@
 """Attention of the LM side: GQA (global, sliding-window, encoder and
-cross-attention), in PyTorch.
+cross-attention) and MLA (deepseek-v3), in PyTorch.
 
-The reference's ``models/attention.py`` for its GQA blocks:
+The reference's ``models/attention.py``:
 
 * train/prefill — :func:`chunked_attention`, online-softmax attention over
   KV chunks in plain torch, as the reference writes it in plain JAX (the
@@ -14,12 +14,22 @@ The reference's ``models/attention.py`` for its GQA blocks:
   (gemma2) inside the kernel: the hand-written kernel on a CUDA tensor,
   its plain version on a CPU tensor.
   :func:`decode_attn_reference` is the reference's single-device math in
-  plain torch, kept for comparison.
+  plain torch, kept for comparison;
+* MLA — :func:`mla_forward` attends with :func:`chunked_attention` over
+  k and v up-projected from the compressed latent (q/k head dim
+  rope + nope, v head dim its own); :func:`mla_decode` absorbs the
+  up-projections into q and the output, and attends in the latent space
+  over a cache of the latent ``ckv`` and the shared rope key ``kr``.  It
+  takes ``ctx.get('decode_mla', ...)``; the default,
+  :func:`decode_mla_reference`, is the reference's math in torch ops (the
+  reference has no kernel for it).  The MLA cache ignores
+  ``kv_cache_bits``, as the reference's does.
 
 Single device only.  The reference's sequence-sharded decode
 (``axis_names``, the pmax/psum merge inside shard_map) is dropped:
 ``meta['slots']`` is ``arange(Sc)`` and ``meta['total']`` equals ``Sc``,
-so the ring slot is ``cur % Sc``.  ``cur`` is the position as a Python
+so the ring slot is ``cur % Sc`` (the GQA and the MLA caches
+alike).  ``cur`` is the position as a Python
 int (a 0-dim tensor is read with ``int()``): the host picks the slot.
 
 In place.  JAX returns a new cache from every write; the port writes the
@@ -33,8 +43,6 @@ the reference does: its k/v are projected from the encoder output on
 every call and never cached.  A local layer's cache holds
 ``min(window, max_len)`` slots, written as a ring: a prefill longer than
 the window keeps its last ``window`` positions (:func:`prefill_cache_write`).
-
-Not ported: MLA (deepseek-v3).
 """
 from __future__ import annotations
 
@@ -42,7 +50,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import recip32
-from repro_torch.models.layers import dense, init_dense, rope, softcap
+from repro_torch.models.layers import (dense, he_init, init_dense,
+                                       init_norm, rms_norm, rope, softcap)
 
 NEG_INF = -1e30
 
@@ -58,6 +67,24 @@ def init_attention(gen, cfg, dtype=torch.float32, device='cpu', stack=()):
             'wv': init_dense(gen, d, K * hd, **kw),
             'wo': init_dense(gen, H * hd, d, dtype=dtype, device=device,
                              stack=stack)}
+
+
+def init_mla(gen, cfg, dtype=torch.float32, device='cpu', stack=()):
+    d, H = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dr, dn, dv = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        'wq_a': init_dense(gen, d, r_q, stack=stack, **kw),
+        'q_norm': init_norm(r_q, stack=stack, **kw),
+        'wq_b': init_dense(gen, r_q, H * (dr + dn), stack=stack, **kw),
+        'wkv_a': init_dense(gen, d, r_kv + dr, stack=stack, **kw),
+        'kv_norm': init_norm(r_kv, stack=stack, **kw),
+        # the up-projections from the latent, per head, so that decode can
+        # absorb them into q and the output
+        'wk_b': he_init(gen, (*stack, r_kv, H, dn), r_kv, **kw),
+        'wv_b': he_init(gen, (*stack, r_kv, H, dv), r_kv, **kw),
+        'wo': init_dense(gen, H * dv, d, stack=stack, **kw)}
 
 
 # ------------------------------------------- chunked attention (prefill)
@@ -255,6 +282,87 @@ def gqa_cross_decode(p, x, enc, enc_pos, cfg, *, quant=(0, 0)):
     return dense(p['wo'], out.reshape(B, H * hd), quant=quant)
 
 
+# ---------------------------------------------------------- MLA block apply
+
+
+def mla_forward(p, x, positions, cfg, *, quant=(0, 0)):
+    """Train/prefill MLA.  Returns (out, (ckv, k_rope)) for the cache
+    fill: the latent (B, S, kv_lora_rank) and the shared rope key
+    (B, S, rope_head_dim)."""
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dr, dn, dv = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    cq = rms_norm(p['q_norm'], dense(p['wq_a'], x, quant=quant), cfg.norm_eps)
+    q = dense(p['wq_b'], cq, quant=quant).reshape(B, S, H, dr + dn)
+    q_rope = rope(q[..., :dr], positions, theta=cfg.rope_theta)
+    kv_a = dense(p['wkv_a'], x, quant=quant)
+    ckv = rms_norm(p['kv_norm'], kv_a[..., :r], cfg.norm_eps)
+    k_rope = rope(kv_a[..., None, r:], positions,
+                  theta=cfg.rope_theta)[..., 0, :]                # (B,S,dr)
+    k_nope = torch.einsum('bsr,rhn->bshn', ckv, p['wk_b'].to(ckv.dtype))
+    v = torch.einsum('bsr,rhv->bshv', ckv, p['wv_b'].to(ckv.dtype))
+    k = torch.cat([k_rope[:, :, None].expand(B, S, H, dr), k_nope], dim=-1)
+    q_full = torch.cat([q_rope, q[..., dr:]], dim=-1)
+    out = chunked_attention(q_full, k, v, positions, positions, causal=True)
+    out = dense(p['wo'], out.reshape(B, S, H * dv), quant=quant)
+    return out, (ckv, k_rope)
+
+
+def decode_mla_reference(q_nope_lat, q_rope, new_ckv, new_kr, cache, cur):
+    """Absorbed-MLA decode, the reference's math in torch ops: the latent
+    ``new_ckv`` (B, r) and rope key ``new_kr`` (B, dr) written into slot
+    ``cur % Sc`` in place, then attention in the latent space in fp32 with
+    q_nope already absorbed through wk_b (``q_nope_lat`` (B, H, r)) and
+    both halves of q pre-scaled by the caller; the softmax max is floored
+    at -1e29.  Returns (out_latent (B, H, r) fp32, cache); the caller
+    up-projects through wv_b."""
+    cur = int(cur)
+    slot = cur % cache['ckv'].shape[1]
+    cache['ckv'][:, slot] = new_ckv.to(cache['ckv'].dtype)
+    cache['kr'][:, slot] = new_kr.to(cache['kr'].dtype)
+    cache['meta']['pos'][slot] = cur
+    positions = cache['meta']['pos']
+    ckv = cache['ckv'].to(torch.float32)
+    logits = (torch.einsum('bhr,bsr->bhs', q_nope_lat.to(torch.float32), ckv)
+              + torch.einsum('bhd,bsd->bhs', q_rope.to(torch.float32),
+                             cache['kr'].to(torch.float32)))
+    valid = _valid(positions, cur, 0)
+    logits = torch.where(valid[None, None, :], logits,
+                         torch.full((), NEG_INF, device=logits.device))
+    m = torch.clamp_min(torch.amax(logits, dim=-1), -1e29)
+    pr = torch.exp(logits - m[..., None])
+    l = torch.sum(pr, dim=-1)
+    o = torch.einsum('bhs,bsr->bhr', pr, ckv)
+    return o / torch.clamp_min(l, 1e-30)[..., None], cache
+
+
+def mla_decode(p, x, cur, cfg, *, cache, ctx, quant=(0, 0)):
+    """One-token MLA decode.  x: (B, d).  Returns (out, cache).  q's rope
+    half takes the reference's broadcast: ``rope(q[None, ..., :dr])``
+    puts the batch on the sequence axis at the one position ``cur``."""
+    B, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dr, dn, dv = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+    pos1 = torch.full((1,), int(cur), dtype=torch.int32, device=x.device)
+    cq = rms_norm(p['q_norm'], dense(p['wq_a'], x, quant=quant), cfg.norm_eps)
+    q = dense(p['wq_b'], cq, quant=quant).reshape(B, H, dr + dn)
+    scale = (dr + dn) ** -0.5
+    q_rope = rope(q[None, ..., :dr], pos1, theta=cfg.rope_theta)[0] * scale
+    q_nope = q[..., dr:] * scale
+    # absorb through wk_b: (B,H,dn) x (r,H,dn) -> (B,H,r)
+    q_lat = torch.einsum('bhn,rhn->bhr', q_nope, p['wk_b'].to(q_nope.dtype))
+    kv_a = dense(p['wkv_a'], x, quant=quant)
+    new_ckv = rms_norm(p['kv_norm'], kv_a[..., :r], cfg.norm_eps)
+    new_kr = rope(kv_a[:, None, None, r:], pos1,
+                  theta=cfg.rope_theta)[:, 0, 0]
+    fn = ctx.get('decode_mla', decode_mla_reference)
+    out_lat, cache = fn(q_lat, q_rope, new_ckv, new_kr, cache, cur)
+    out = torch.einsum('bhr,rhv->bhv', out_lat.to(x.dtype),
+                       p['wv_b'].to(x.dtype))
+    out = dense(p['wo'], out.reshape(B, H * dv), quant=quant)
+    return out, cache
+
+
 # --------------------------------------------------------- cache builders
 
 
@@ -321,4 +429,24 @@ def prefill_cache_write(cache, k, v, positions):
         cache['k'].index_copy_(1, slots, kt.to(cache['k'].dtype))
         cache['v'].index_copy_(1, slots, vt.to(cache['v'].dtype))
     cache['meta']['pos'].index_copy_(0, slots, pt.to(torch.int32))
+    return cache
+
+
+def init_mla_cache(cfg, batch, max_len, dtype, device='cpu'):
+    """The MLA cache: the latent and the rope key of every position
+    (``kv_cache_bits`` does not apply, as in the reference)."""
+    return {'ckv': torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            'kr': torch.zeros((batch, max_len, cfg.rope_head_dim),
+                              dtype=dtype, device=device),
+            'meta': make_cache_meta(max_len, device)}
+
+
+def prefill_mla_cache_write(cache, ckv, kr, positions):
+    """Write prefill latents (B,S,r) and rope keys (B,S,dr) into a fresh
+    MLA cache, in place; returns the cache."""
+    slots = torch.remainder(positions, cache['ckv'].shape[1]).to(torch.int64)
+    cache['ckv'].index_copy_(1, slots, ckv.to(cache['ckv'].dtype))
+    cache['kr'].index_copy_(1, slots, kr.to(cache['kr'].dtype))
+    cache['meta']['pos'].index_copy_(0, slots, positions.to(torch.int32))
     return cache

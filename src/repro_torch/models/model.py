@@ -1,16 +1,18 @@
 """Unified model API of the LM side: ``build_model(cfg) -> Model``.
 
 The port's counterpart of the reference's ``models/model.py`` for the
-blocks it has ported: stacks of GQA attention ('global' and 'local', with
-softcaps and QKV bias) and dense MLPs, as a decoder, a VLM (a batch's
-``'patches'`` are a frontend prefix) or an encoder-decoder (a batch's
-``'frames'`` go through :attr:`Model.encode`, and ``decode_step`` takes
-the encoder output as ``enc``).  :func:`build_model` raises
-NotImplementedError for a config that needs anything else (MoE, MLA,
-recurrent or SSM blocks).  ``init`` takes a ``torch.Generator``
-and a device where the reference takes a key.  ``init`` and ``init_cache``
-run on the card unless the caller asks for ``device='cpu'``: without a card
-they raise (``export.resolve_device``) instead of falling back to the CPU.
+blocks it has ported: stacks of attention layers (GQA, 'global' and
+'local', with softcaps and QKV bias; or MLA) with a dense MLP or an MoE
+feed-forward (top-k experts, shared experts, leading dense layers), as a
+decoder, a VLM (a batch's ``'patches'`` are a frontend prefix) or an
+encoder-decoder (a batch's ``'frames'`` go through :attr:`Model.encode`,
+and ``decode_step`` takes the encoder output as ``enc``).
+:func:`build_model` raises NotImplementedError for a config that needs
+anything else (recurrent or SSM blocks). ``init`` takes a
+``torch.Generator`` and a device where the reference takes a key.
+``init`` and ``init_cache`` run on the card unless the caller asks for
+``device='cpu'``: without a card they raise (``export.resolve_device``)
+instead of falling back to the CPU.
 """
 from __future__ import annotations
 
@@ -36,15 +38,8 @@ class Model:
 
 def unported_blocks(cfg: ModelConfig) -> list[str]:
     """What ``cfg`` needs that the port has not ported (empty if none)."""
-    why = []
-    if cfg.is_moe:
-        why.append('MoE experts')
-    if cfg.use_mla:
-        why.append('MLA attention')
     kinds = sorted(set(cfg.layer_kinds()) - {'global', 'local'})
-    if kinds:
-        why.append(f'{"/".join(kinds)} blocks')
-    return why
+    return [f'{"/".join(kinds)} blocks'] if kinds else []
 
 
 def _batch_parts(cfg, batch):

@@ -1,6 +1,7 @@
-"""Transformer assembly of the LM side: the dense-attention subset of the
-reference's ``models/transformer.py`` (decoder LM, VLM with a frontend
-prefix, encoder-decoder), in PyTorch.
+"""Transformer assembly of the LM side: the reference's
+``models/transformer.py`` for attention blocks (decoder LM, VLM with a
+frontend prefix, encoder-decoder; GQA or MLA attention; dense MLP or MoE
+feed-forward), in PyTorch.
 
 Layers are grouped as in the reference into (prefix, scanned groups,
 tail), and the param and cache trees keep that shape: ``params['blocks']``
@@ -16,13 +17,18 @@ for an encoder-decoder.  ``embeds`` (B, F, d) is a frontend prefix (a
 VLM's patch embeddings) placed before the token embeddings; ``enc`` and
 ``enc_pos`` are the encoder output and its positions, which every decoder
 layer of an encoder-decoder cross-attends to (``'norm_x'``/``'xattn'``).
-``ctx`` carries injected functions (``'decode_attn'``) as in the
-reference.  The cache is written in place (see ``models/attention.py``).
+``ctx`` carries injected functions (``'decode_attn'``, ``'decode_mla'``)
+as in the reference.  The cache is written in place (see
+``models/attention.py``).
+
+MoE: the leading ``first_dense_layers`` (the prefix) keep a dense MLP and
+every later layer of an MoE config has ``'moe'`` in its place
+(:func:`_is_moe_layer`); MLA (``cfg.use_mla``) replaces the GQA attention
+of every layer, and its cache holds the latent and the rope key.
 
 Dropped, each not needed on one card or by a ported config:
-``shard_act`` (identity on one device), ``remat``, and the MoE, MLA,
-recurrent and SSM blocks (``models.model.build_model`` refuses configs
-that need them).
+``shard_act`` (identity on one device), ``remat``, and the recurrent and
+SSM blocks (``models.model.build_model`` refuses configs that need them).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embed, init_embedding, init_mlp,
                                        init_norm, mlp, rms_norm, softcap,
                                        unembed)
@@ -44,6 +51,10 @@ def layer_groups(cfg: ModelConfig):
     n_prefix = cfg.first_dense_layers
     rest = cfg.num_layers - n_prefix
     return n_prefix, rest // P, P, rest % P
+
+
+def _is_moe_layer(cfg, abs_idx):
+    return cfg.is_moe and abs_idx >= cfg.first_dense_layers
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -73,17 +84,22 @@ def _layers(tree, cfg):
 # --------------------------------------------------------------------- init
 
 
-def _init_layer(gen, cfg, kind, *, dtype, device, stack=(), cross=False):
+def _init_layer(gen, cfg, kind, *, moe_layer, dtype, device, stack=(),
+                cross=False):
     if kind not in ('global', 'local', 'encoder'):
         raise NotImplementedError(f'{kind!r} blocks are not ported')
     kw = dict(dtype=dtype, device=device, stack=stack)
     p = {'norm1': init_norm(cfg.d_model, **kw),
-         'attn': attn.init_attention(gen, cfg, **kw)}
+         'attn': (attn.init_mla if cfg.use_mla
+                  else attn.init_attention)(gen, cfg, **kw)}
     if cross:
         p['norm_x'] = init_norm(cfg.d_model, **kw)
         p['xattn'] = attn.init_attention(gen, cfg, **kw)
     p['norm2'] = init_norm(cfg.d_model, **kw)
-    p['mlp'] = init_mlp(gen, cfg, gated=cfg.family != 'audio', **kw)
+    if moe_layer:
+        p['moe'] = moe_lib.init_moe(gen, cfg, **kw)
+    else:
+        p['mlp'] = init_mlp(gen, cfg, gated=cfg.family != 'audio', **kw)
     return p
 
 
@@ -100,17 +116,21 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device='cpu'):
         params['unembed'] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                            **kw)
     cross = cfg.arch_kind == 'encdec'
-    params['prefix'] = [_init_layer(gen, cfg, kinds[i], cross=cross, **kw)
-                        for i in range(n_prefix)]
-    params['blocks'] = [_init_layer(gen, cfg, kinds[n_prefix + j], stack=(G,),
+    params['prefix'] = [_init_layer(gen, cfg, kinds[i], moe_layer=False,
                                     cross=cross, **kw)
-                        for j in range(P)] if G else []
+                        for i in range(n_prefix)]
+    params['blocks'] = [
+        _init_layer(gen, cfg, kinds[n_prefix + j],
+                    moe_layer=_is_moe_layer(cfg, n_prefix + j), stack=(G,),
+                    cross=cross, **kw)
+        for j in range(P)] if G else []
     tail_base = n_prefix + G * P
     params['tail'] = [_init_layer(gen, cfg, kinds[tail_base + i],
+                                  moe_layer=_is_moe_layer(cfg, tail_base + i),
                                   cross=cross, **kw) for i in range(R)]
     if cross:
         params['encoder'] = {
-            'layers': [_init_layer(gen, cfg, 'encoder', **kw)
+            'layers': [_init_layer(gen, cfg, 'encoder', moe_layer=False, **kw)
                        for _ in range(cfg.num_encoder_layers)],
             'final_norm': init_norm(cfg.d_model, **kw)}
     return params
@@ -119,20 +139,29 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device='cpu'):
 # ------------------------------------------------------------ layer forward
 
 
+def _ffn(lp, h, cfg, quant):
+    if 'moe' in lp:
+        return moe_lib.moe_block(lp['moe'], h, cfg, quant=quant)
+    return mlp(lp['mlp'], h, quant=quant)
+
+
 def layer_forward(lp, x, kind, cfg, *, positions, quant, enc=None,
                   enc_pos=None, want_cache=False):
-    """Full-sequence layer.  Returns (x, (k, v) | None)."""
+    """Full-sequence layer.  Returns (x, cache entries | None): (k, v), or
+    MLA's (ckv, k_rope)."""
     h = rms_norm(lp['norm1'], x, cfg.norm_eps)
-    o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
-                              quant=quant)
+    if cfg.use_mla:
+        o, kvs = attn.mla_forward(lp['attn'], h, positions, cfg, quant=quant)
+    else:
+        o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
+                                  quant=quant)
     x = x + o
     if 'xattn' in lp:
         hx = rms_norm(lp['norm_x'], x, cfg.norm_eps)
         o, _ = attn.gqa_forward(lp['xattn'], hx, positions, cfg, kind='cross',
                                 quant=quant, kv=(enc, enc_pos))
         x = x + o
-    x = x + mlp(lp['mlp'], rms_norm(lp['norm2'], x, cfg.norm_eps),
-                quant=quant)
+    x = x + _ffn(lp, rms_norm(lp['norm2'], x, cfg.norm_eps), cfg, quant)
     return x, (kvs if want_cache else None)
 
 
@@ -140,15 +169,19 @@ def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant, enc=None,
                  enc_pos=None):
     """One-token layer step.  x: (B, d).  Returns (x, cache)."""
     h = rms_norm(lp['norm1'], x, cfg.norm_eps)
-    o, c = attn.gqa_decode(lp['attn'], h, cur, cfg, kind=kind, cache=cache,
-                           ctx=ctx, quant=quant)
+    if cfg.use_mla:
+        o, c = attn.mla_decode(lp['attn'], h, cur, cfg, cache=cache, ctx=ctx,
+                               quant=quant)
+    else:
+        o, c = attn.gqa_decode(lp['attn'], h, cur, cfg, kind=kind,
+                               cache=cache, ctx=ctx, quant=quant)
     x = x + o
     if 'xattn' in lp:
         hx = rms_norm(lp['norm_x'], x, cfg.norm_eps)
         x = x + attn.gqa_cross_decode(lp['xattn'], hx, enc, enc_pos, cfg,
                                       quant=quant)
-    x = x + mlp(lp['mlp'], rms_norm(lp['norm2'], x[:, None], cfg.norm_eps),
-                quant=quant)[:, 0]
+    x = x + _ffn(lp, rms_norm(lp['norm2'], x[:, None], cfg.norm_eps), cfg,
+                 quant)[:, 0]
     return x, c
 
 
@@ -156,6 +189,8 @@ def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant, enc=None,
 
 
 def init_layer_cache(cfg, kind, batch, max_len, dtype, device='cpu'):
+    if cfg.use_mla:
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
     return attn.init_attn_cache(cfg, batch, kind, max_len, dtype, device)
 
 
@@ -181,6 +216,8 @@ def init_cache(cfg: ModelConfig, batch, max_len, device='cpu'):
 
 def _fill_cache(cfg, kind, cache, kvs, positions):
     """Insert prefill outputs into an empty cache entry (in place)."""
+    if cfg.use_mla:
+        return attn.prefill_mla_cache_write(cache, kvs[0], kvs[1], positions)
     return attn.prefill_cache_write(cache, kvs[0], kvs[1], positions)
 
 

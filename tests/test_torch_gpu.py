@@ -6,7 +6,8 @@ launch plan), the decode-attention kernels within their stated tolerance
 (the int8 one with whole blocks of its split masked and with no valid
 slot), the scheduler on the card launching the kernels exactly as the
 plan counts them, one LM decode step and one Q-pass (QAT) step on the
-card against the CPU, the CNN compression chain on the card (its
+card against the CPU, the MoE and MLA smoke archs' decode, int8 export
+and expert pruning against the CPU, the CNN compression chain on the card (its
 initial weights, P and L on the card's checkpoints against the CPU, a
 checkpoint saved on the card and read on the CPU, ``serve_cnn --steps``),
 the LM chain hooks on a full-width cut against the CPU, the fake quant at
@@ -596,6 +597,87 @@ def test_arch_decode_step_on_card_matches_cpu(cuda_device, arch, kv_bits):
     assert out['cpu'][1][kern] == {'launches': 0, 'plain_calls': n}
     for a, b in zip(out['cuda'][0], out['cpu'][0]):
         assert _rel_err(a, b) <= (1e-3 if kv_bits else 1e-4)
+
+
+@pytest.mark.parametrize('arch,kv_bits', [('mixtral-8x7b', 0),
+                                          ('mixtral-8x7b', 8),
+                                          ('deepseek-v3-671b', 0)])
+def test_moe_mla_decode_on_card_matches_cpu(cuda_device, arch, kv_bits):
+    """The MoE and MLA archs' smoke models (fp32): prefill and two decode
+    steps on the card (mixtral's local layers on the decode kernel,
+    deepseek's MLA in torch ops on no kernel) against the CPU's plain path
+    on the same weights; the routing of every MoE call equal, the logits
+    within 1e-4 x max|logit| (1e-3 with an int8 cache, as above), TF32
+    off."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.export import to_device
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch).replace(kv_cache_bits=kv_bits)
+    model, params = serve.build(cfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    route = moe.route
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, p in ((cuda_device, params),
+                       (torch.device('cpu'), to_device(params, 'cpu'))):
+            routes = []
+
+            def recording(p_, xf, cfg_):
+                r = route(p_, xf, cfg_)
+                routes.append(r[2].cpu())
+                return r
+            moe.route = recording
+            reset_counts()
+            with torch.inference_mode():
+                first, cache = model.prefill(p, {'tokens': tokens.to(dev)},
+                                             max_len=24)
+                logits = [first.cpu()]
+                for t in range(2):
+                    lg, cache = model.decode_step(
+                        p, torch.tensor([3, 9], device=dev), 16 + t, cache)
+                    logits.append(lg.cpu())
+            out[dev.type] = (logits, counts(), routes)
+    finally:
+        moe.route = route
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    kern = 'decode_attention_int8' if kv_bits else 'decode_attention'
+    n = 0 if cfg.use_mla else 2 * cfg.num_layers
+    assert out['cuda'][1][kern] == {'launches': n, 'plain_calls': 0}
+    assert out['cpu'][1][kern] == {'launches': 0, 'plain_calls': n}
+    assert len(out['cuda'][2]) == 3 * (cfg.num_layers -
+                                       cfg.first_dense_layers)
+    for a, b in zip(out['cuda'][2], out['cpu'][2]):
+        assert torch.equal(a, b)
+    for a, b in zip(out['cuda'][0], out['cpu'][0]):
+        assert _rel_err(a, b) <= (1e-3 if kv_bits else 1e-4)
+
+
+@pytest.mark.parametrize('arch', ['mixtral-8x7b', 'deepseek-v3-671b'])
+def test_moe_export_and_expert_prune_on_card_match_cpu(cuda_device, arch):
+    """``export_lm`` of an MoE tree on the card (experts quantized slice by
+    slice) gives the CPU's codes and scales bit for bit, and
+    ``LMFamily.prune`` keeps the same experts on both devices."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.export import export_lm, to_device
+    from repro_torch.core.family import LMFamily
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve
+    cfg = get_smoke_config(arch).replace(n_experts=8)
+    _, params = serve.build(cfg, cuda_device)
+    cpu = to_device(params, 'cpu')
+    for a, b in zip(_leaves_of(export_lm(params, cfg).params),
+                    _leaves_of(export_lm(cpu, cfg).params)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    data = SyntheticTokens(vocab=cfg.vocab_size)
+    card, c1 = LMFamily(data, device='cuda').prune(params, cfg, 0.3)
+    host, c2 = LMFamily(data, device='cpu').prune(cpu, cfg, 0.3)
+    assert c1 == c2 and c1.n_experts == 5
+    for a, b in zip(_leaves_of(card), _leaves_of(host)):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_q_pass_step_on_card_matches_cpu(cuda_device):

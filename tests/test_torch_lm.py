@@ -79,8 +79,7 @@ def test_configs_match_reference():
         (22, 2048, 32, 4, 64, 5632, 32000)
 
 
-@pytest.mark.parametrize('name', ['mixtral-8x7b', 'deepseek-v3-671b',
-                                  'recurrentgemma-9b', 'mamba2-2.7b'])
+@pytest.mark.parametrize('name', ['recurrentgemma-9b', 'mamba2-2.7b'])
 def test_build_model_refuses_unported_blocks(name):
     cfg = ModelConfig(**dataclasses.asdict(j_get_smoke_config(name)))
     with pytest.raises(NotImplementedError, match='not ported'):

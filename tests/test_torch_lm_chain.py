@@ -283,13 +283,6 @@ def test_prune_keeps_the_references_channels_in_its_order(layout):
         tf.prune(fp, tc2, 0.3)
 
 
-def test_prune_of_experts_names_its_queue():
-    _, tf = _families()
-    cfg = _cfgs()[0].replace(n_experts=4, top_k=2, moe_d_ff=64)
-    with pytest.raises(NotImplementedError, match='queue A 9'):
-        tf.prune({}, cfg, 0.3)
-
-
 def _ranks(params):
     out = {}
 
