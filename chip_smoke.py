@@ -63,9 +63,11 @@ Phases, in order; any failure exits non-zero and no result is printed:
    row with every slot masked under the softcap, and the fp32 cache at
    head_dim 256 (3 warps, the fewest of any plan); each line ends with the
    split kernel's plan (S split over a cluster, the same kernel for the
-   three caches) and the instantiation's registers and spills; last
+   three caches) and the instantiation's registers and spills;
    mixtral-8x7b's call (8, 32, 8, 128, 584), a group of 4, bf16 and
-   int8-KV.
+   int8-KV; last recurrentgemma-9b's MQA call (8, 16, 1, 256, 584), a
+   group of 16 at head_dim 256 that runs as two chunks of 8 in one launch
+   (the plan names its chunks), bf16 and int8-KV.
 3. End to end, three CNN paths, each at full width and depth with random
    weights from seed 0, exit heads at the default stages, W8A8,
    ``export_cnn(device='cuda', calibrate=<32 images>)``, the exit
@@ -105,11 +107,17 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``decode_attention_int8``.  Counted from zero: the path's kernel
    launches 22 x 64 times, the other decode kernel and the plain versions
    never.  Printed: prefill ms, ms/token, tokens/s, peak memory, and under
-   the profiler 8 more steps' device busy share and the kernel's share of
+   the profiler ``LM_PROFILE_STEPS`` more steps' device busy share and the kernel's share of
    device time.  Gates: the first-step logits within ``LM_PLAIN_TOL`` x
    max|logit| of the same model on the kernels' plain versions on the
-   card; a 2-layer fp32 cut of the config (batch 2, prompt 32, 4 steps,
-   TF32 off) within ``LM_CPU_TOL`` of the port's CPU path.
+   card (where the gap passes that limit, the model's rounding
+   sensitivity is measured: the plain path with one output of its first
+   decode-attention call one bf16 ulp up; where that alone moves the
+   logits more than ``LM_PLAIN_TOL``, as recurrentgemma-9b's on path (o),
+   the limit becomes ``LM_SENS_FACTOR`` x the sensitivity, else it
+   stays: ``first_step_sensitivity``); a 2-layer
+   fp32 cut of the config (batch 2, prompt 32, 4 steps, TF32 off) within
+   ``LM_CPU_TOL`` of the port's CPU path.
    Then (f) the paper's Q pass (QAT fine-tuning) of ``tinyllama-1.1b`` at
    full width and depth in bf16, through ``init_chain_state``, the
    registry's ``Q`` and ``ChainState.metrics``: random weights from a
@@ -236,7 +244,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    published widths, bf16, unprofiled, each gated the same way:
    ``gemma3-12b`` at prompt 1536, its 40 local layers' 1024-slot rings
    wrapped (checked slot by slot); ``qwen2-72b`` cut to 16 of its 80
-   layers (QKV bias); ``internvl2-2b`` whole, 256 zero patch rows before a
+   layers (QKV bias; its fp32 cut one layer); ``internvl2-2b`` whole, 256 zero patch rows before a
    512-token prompt, decoding from position 768; ``whisper-small`` whole,
    its 12-layer encoder over 1500 frames, a 64-token prompt and 64 steps
    with cross-attention.  Each model is freed before the next is built;
@@ -245,22 +253,40 @@ Phases, in order; any failure exits non-zero and no result is printed:
    of 14336 top-2 at capacity factor 1.25, every layer local: 17.68 G
    parameters), served as (k): bf16, then ``export_lm`` int8 weights
    (experts included, quantized slice by slice) with an int8 cache, 12
-   decode-kernel launches a token; each leg profiled over 8 steps with
+   decode-kernel launches a token; each leg profiled over ``LM_PROFILE_STEPS`` steps with
    the device ms inside ``moe_block``, inside the int8 experts'
    dequantization and of ``aten::bmm``.  Then (n) ``deepseek-v3-671b``
    at its published width cut to its 3 dense layers and one MoE layer
    (256 experts of 2048 top-8 and a shared one, MLA: 15.11 G parameters),
    bf16, MLA decoding in torch ops: no decode kernel may launch.  Each
-   has a 2-layer fp32 cut against the CPU at ``MOE_CPU_TOL``
-   (``MOE_KV8_CPU_TOL`` with the int8 cache; deepseek's keeps one dense
-   and one MoE layer with 32 of the 256 experts), every MoE routing
+   has an fp32 cut against the CPU at ``MOE_CPU_TOL``
+   (``MOE_KV8_CPU_TOL`` with the int8 cache; mixtral's one layer,
+   deepseek's one dense and one MoE layer with 32 of the 256 experts), every MoE routing
    recorded on both devices and a token routed apart only at a near-tie
    (``MOE_NEAR_TIE``); on the bf16 legs' cuts ``export_lm`` on the card
    against the CPU's, bit for bit, and on mixtral's ``LMFamily.prune``
-   keeping the same 5 experts on both devices.
+   keeping the same 5 experts on both devices.  Then (o)
+   ``recurrentgemma-9b`` at its published width and depth (38 layers:
+   RG-LRU blocks of width 4096 and 12 local MQA layers, 16 query heads
+   over one kv head of 256: 9.396 G parameters), served as (k): bf16,
+   then ``export_lm`` int8 weights with an int8 cache on the local
+   layers, 12 decode-kernel launches a token (the group of 16 in two
+   chunks); and (p) ``mamba2-2.7b`` at its published width and depth (64
+   SSD layers, d_inner 5120, 80 heads of 64, state 128, chunk 256: 2.831
+   G parameters), bf16 then int8 weights, no decode kernel (its counters
+   must read 0).  Each leg prints the weight-streaming bound with the
+   recurrent state read and written once a step, and profiles a prefill
+   and ``LM_PROFILE_STEPS`` decode steps with the device ms inside the
+   recurrent blocks
+   (``profile_recurrent``: the scan, the gates, ``ssd_chunked``, the
+   products and their int8 dequant).  Their fp32 cuts against the CPU:
+   (o) one whole (rec, rec, local) group, (p) 2 layers at prompt 300 (two
+   SSD chunks, the second padded); logits within ``REC_CPU_TOL`` (1e-3
+   with the int8 cache), the recurrent states after the prefill within
+   ``REC_STATE_TOL``, and on the bf16 legs ``export_lm`` bit for bit.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
-   each), (k) (42 each, with the softcap), (l) and (m) (12 each), and
+   each), (k) (42 each, with the softcap), (l), (m) and (o) (12 each), and
    every fake-quant
    call of one step of (f), captured at its
    inputs (132 fused, 22 two-pass), held against its plain version on the
@@ -327,7 +353,10 @@ LOWRANK = dict(energy=0.6, min_rank=2)
 # greedy decode tokens, a cache of 512 + 64 + 8 slots
 LM_ARCH = 'tinyllama-1.1b'
 LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 512, 64
-LM_PROFILE_STEPS = 8           # the cache's 8 spare slots, under the profiler
+LM_SPARE = 8                   # the cache's spare slots after the tokens
+# decode steps under the profiler, in the spare slots: the profiler's own
+# processing grows with the steps' events (about 20 s a path at 8 steps)
+LM_PROFILE_STEPS = 2
 LM_PATHS = (
     dict(key='tinyllama-bf16', int8_weights=False, kv_cache_bits=0,
          kernel='decode_attention', other='decode_attention_int8'),
@@ -353,12 +382,14 @@ K_PATHS = (
 # its 80 layers (145 GB of bf16 weights whole; 33 GB cut); internvl2-2b
 # whole, 256 zero patch rows before a 512-token prompt; whisper-small
 # whole, its 12-layer encoder over 1500 frames and a 64-token prompt (its
-# decoder holds at most 448 tokens)
+# decoder holds at most 448 tokens).  qwen2's fp32 cut against the CPU is
+# one layer (8.6 GB of host memory; its layers are all global)
 L_PATHS = tuple(
     dict(kv_cache_bits=0, int8_weights=False, kernel='decode_attention',
          other='decode_attention_int8', profile=False, **kw)
     for kw in (dict(key='gemma3-bf16', arch='gemma3-12b', prompt=1536),
-               dict(key='qwen2-bf16', arch='qwen2-72b', layers=16),
+               dict(key='qwen2-bf16', arch='qwen2-72b', layers=16,
+                    cut_layers=1),
                dict(key='internvl2-bf16', arch='internvl2-2b'),
                dict(key='whisper-bf16', arch='whisper-small', prompt=64)))
 # Path (m): mixtral-8x7b (arXiv:2401.04088) at its published width, cut in
@@ -367,18 +398,19 @@ L_PATHS = tuple(
 # 17.7 GB int8, both live while the export is made): every layer local
 # (window 4096), 32 heads over 8 kv heads of 128, 8 experts of 14336, top
 # 2; bf16 weights and cache, then export_lm int8 weights with an int8 cache.
-# Its 2-layer fp32 cut (12.7 GB) is held against the CPU at MOE_CPU_TOL
-# (MOE_KV8_CPU_TOL with the int8 cache: codes at rounding ties, ROADMAP C)
+# Its fp32 cut, one layer (6.4 GB; every layer is alike), is held against
+# the CPU at MOE_CPU_TOL (MOE_KV8_CPU_TOL with the int8 cache: codes at
+# rounding ties, ROADMAP C)
 MOE_CPU_TOL = 1e-4
 MOE_KV8_CPU_TOL = 1e-3
 M_PATHS = (
     dict(key='mixtral-bf16', arch='mixtral-8x7b', layers=12,
          int8_weights=False, kv_cache_bits=0, kernel='decode_attention',
          other='decode_attention_int8', cpu_tol=MOE_CPU_TOL, hooks=True,
-         prune=True),
+         prune=True, cut_layers=1),
     dict(key='mixtral-int8', arch='mixtral-8x7b', layers=12,
          int8_weights=True, kv_cache_bits=8, kernel='decode_attention_int8',
-         other='decode_attention', cpu_tol=MOE_KV8_CPU_TOL),
+         other='decode_attention', cpu_tol=MOE_KV8_CPU_TOL, cut_layers=1),
 )
 # Path (n): deepseek-v3-671b (arXiv:2412.19437) at its published width (MLA
 # with q/kv ranks 1536/512, 128 heads of rope 64 + nope 128, v 128; 256
@@ -394,6 +426,43 @@ N_PATHS = (
          int8_weights=False, kv_cache_bits=0, kernel=None, other=None,
          cpu_tol=MOE_CPU_TOL, hooks=True,
          cut=dict(first_dense_layers=1, n_experts=32)),
+)
+# Path (o): recurrentgemma-9b (arXiv:2402.19427) at its published width and
+# depth: 38 layers, 12 groups of (RG-LRU, RG-LRU, local attention) then 2
+# RG-LRU layers, d_model 4096, RG-LRU width 4096, MQA with 16 query heads
+# over 1 kv head of 256 (the decode kernel's group of 16 at head_dim 256:
+# two chunks of 8 in one launch), window 2048, d_ff 12288, a tied
+# 256000-row embedding: 9.396 G parameters, 18.79 GB bf16.  bf16 weights
+# and cache, then export_lm int8 weights with an int8 cache on its 12 local
+# layers (the RG-LRU states stay fp32).  Its fp32 cut against the CPU is
+# one whole (rec, rec, local) group at full width (about 7 GB of host
+# memory), so that the cut holds a local layer and the kernel
+REC_CPU_TOL = 1e-4
+REC_STATE_TOL = 1e-4           # the recurrent states after the cut's prefill
+O_PATHS = (
+    dict(key='recurrentgemma-bf16', arch='recurrentgemma-9b',
+         int8_weights=False, kv_cache_bits=0, kernel='decode_attention',
+         other='decode_attention_int8', cpu_tol=REC_CPU_TOL, hooks=True,
+         cut_layers=3),
+    dict(key='recurrentgemma-int8', arch='recurrentgemma-9b',
+         int8_weights=True, kv_cache_bits=8, kernel='decode_attention_int8',
+         other='decode_attention', cpu_tol=MOE_KV8_CPU_TOL, cut_layers=3),
+)
+# Path (p): mamba2-2.7b (arXiv:2405.21060) at its published width and depth:
+# 64 SSD layers, d_model 2560, d_inner 5120, 80 heads of 64, state 128,
+# chunk 256, untied 50280-row embeddings: 2.831 G parameters, 5.66 GB
+# bf16; its fp32 state is 1.36 GB at batch 8.  bf16, then export_lm int8
+# weights; it has no KV cache, so kv_cache_bits does not apply.  It runs no
+# TPU kernel: the decode kernels' counters must read 0.  Its 2-layer fp32
+# cut runs at prompt 300: two SSD chunks, the second padded, so that the
+# cut covers the padding and the inter-chunk scan on both devices
+P_PATHS = (
+    dict(key='mamba2-bf16', arch='mamba2-2.7b', int8_weights=False,
+         kv_cache_bits=0, kernel=None, other=None, cpu_tol=REC_CPU_TOL,
+         hooks=True, cut_prompt=300),
+    dict(key='mamba2-int8', arch='mamba2-2.7b', int8_weights=True,
+         kv_cache_bits=0, kernel=None, other=None, cpu_tol=REC_CPU_TOL,
+         cut_prompt=300),
 )
 # a token may route to other experts on the card than on the CPU only where
 # its k-th and (k+1)-th router probabilities lie within MOE_NEAR_TIE
@@ -418,6 +487,13 @@ QMM_ROUTES = {}
 LR_ROUTES = {}
 DW_ROUTES = {}
 LM_PLAIN_TOL = 2e-2            # card logits: kernel vs plain decode attention
+# Where one output of the first decode-attention call one bf16 ulp up moves
+# a model's first-step logits more than LM_PLAIN_TOL x max|logit| (its
+# sensitivity), the first-step limit is this many times the sensitivity:
+# the kernel's and the plain version's roundings differ in a few outputs
+# by a few ulps, and their gap read 0.79 and 1.06 x the sensitivity on
+# recurrentgemma-9b's two legs (PERF.md's findings)
+LM_SENS_FACTOR = 2
 LM_CPU_TOL = 1e-3              # 2-layer fp32 cut: card vs CPU
 LM_CUT = dict(layers=2, batch=2, prompt=32, tokens=4)
 # LM QAT through the Q pass (path f): tinyllama-1.1b at full width and
@@ -551,6 +627,22 @@ def bound(nbytes, ops, peak):
                                        else 'operations')
 
 
+class Laps:
+    """Wall seconds of a path's sections, in order: ``laps(name)`` closes
+    the section that began at the previous call (or at construction)."""
+
+    def __init__(self):
+        self.t, self.secs = time.perf_counter(), {}
+
+    def __call__(self, name):
+        t = time.perf_counter()
+        self.secs[name] = self.secs.get(name, 0.0) + t - self.t
+        self.t = t
+
+    def __str__(self):
+        return ', '.join(f'{k} {v:.1f}' for k, v in self.secs.items())
+
+
 def time_ms(torch, fn, iters=20):
     """Mean milliseconds per call over ``iters`` calls, CUDA events, after
     one warm-up call.  A call shorter than its host work reads as that."""
@@ -622,35 +714,60 @@ def profile_device(torch, fn):
     return (wall, *_device_kernels(events))
 
 
-def profile_moe(torch, fn):
+def profile_parts(torch, fn, targets, ops):
     """:func:`profile_device` with the device ms of the kernels launched
-    inside ``moe.moe_block`` (routing, dispatch, the expert products, the
-    combine, the shared expert), inside ``moe._maybe_quant_w`` (the int8
-    experts' dequantization) and by ``aten::bmm`` (the expert products;
-    MLA's einsums too): (wall ms, device ms, top kernels, {part: device
-    ms}).  The two functions run inside profiler ranges for the call; the
-    ranges' own device-side spans are left out of the device time."""
+    inside each function of ``targets`` ({part: (module, attribute)}; each
+    runs inside a profiler range of that name for the call, and the
+    ranges' own device-side spans are left out of the device time) and by
+    each aten op of ``ops``: (wall ms, device ms, top kernels, {part:
+    device ms}).  Nested parts overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
-    from repro_torch.models import moe
-    ranges = {'moe_block': moe.moe_block, 'moe_dequant': moe._maybe_quant_w}
+    saved = {name: getattr(m, a) for name, (m, a) in targets.items()}
 
     def ranged(name, f):
-        def run(*a, **kw):
+        def run(*args, **kw):
             with record_function(name):
-                return f(*a, **kw)
+                return f(*args, **kw)
         return run
-    for name, f in ranges.items():
-        setattr(moe, f.__name__, ranged(name, f))
+    for name, (m, a) in targets.items():
+        setattr(m, a, ranged(name, saved[name]))
     try:
         wall, events = _profiled(torch, fn)
     finally:
-        for f in ranges.values():
-            setattr(moe, f.__name__, f)
+        for name, (m, a) in targets.items():
+            setattr(m, a, saved[name])
     parts = {k: sum(getattr(e, 'device_time_total', 0.0) for e in events
                     if e.key == k and e.device_type == DeviceType.CPU) / 1e3
-             for k in (*ranges, 'aten::bmm')}
-    return (wall, *_device_kernels(events, skip=ranges), parts)
+             for k in (*targets, *ops)}
+    return (wall, *_device_kernels(events, skip=targets), parts)
+
+
+def profile_moe(torch, fn):
+    """:func:`profile_parts` inside ``moe.moe_block`` (routing, dispatch,
+    the expert products, the combine, the shared expert), inside
+    ``moe._maybe_quant_w`` (the int8 experts' dequantization) and of
+    ``aten::bmm`` (the expert products; MLA's einsums too)."""
+    from repro_torch.models import moe
+    return profile_parts(torch, fn, {
+        'moe_block': (moe, 'moe_block'),
+        'moe_dequant': (moe, '_maybe_quant_w')}, ('aten::bmm',))
+
+
+def profile_recurrent(torch, fn):
+    """:func:`profile_parts` inside the recurrent blocks
+    (``models/recurrent.py``): a decode step's ``rglru_decode`` and
+    ``mamba2_decode``; RG-LRU's gates (``_rglru_gates``); the prefill's
+    ``linear_scan`` and ``ssd_chunked``; inside every ``dense`` (the
+    products with, for int8 weights, the dequant before each) and of
+    ``aten::mm`` (the products alone)."""
+    from repro_torch.models import attention, layers, recurrent
+    targets = {k: (recurrent, k) for k in (
+        'rglru_decode', 'mamba2_decode', '_rglru_gates', 'linear_scan',
+        'ssd_chunked')}
+    targets.update({f'dense ({m.__name__.rsplit(".", 1)[-1]})': (m, 'dense')
+                    for m in (layers, attention, recurrent)})
+    return profile_parts(torch, fn, targets, ('aten::mm',))
 
 
 def same_bits(torch, a, b):
@@ -1361,21 +1478,24 @@ def need_within(c, name):
 
 def da_plan(args):
     """The split kernel's launch plan for a decode case, for its line."""
-    from repro_torch.kernels.decode_attention import (group_pad, split_plan,
+    from repro_torch.kernels.decode_attention import (group_split,
+                                                      split_plan,
                                                       split_smem_bytes)
     q, k = args[0], args[1]
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    elem, G = k.element_size(), group_pad(H // K)
-    c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
+    elem = k.element_size()
+    G, chunks = group_split(H // K, D)
+    c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G, chunks=chunks)
     tq = 'f' if q.element_size() == 4 else '13__nv_bfloat16'
     tkv = {1: 'a', 2: 'S1_', 4: 'f'}[elem]
     inst = f'decode_split_kernelI{tq}{tkv}Li{D}ELi{G}E'
     regs = [f'{r} registers; {sp}' for fn, (r, sp) in BUILD_REGS.items()
             if inst in fn]
     return (f'split C={c} slots/block={spb} warps={warps} '
-            f'{K * B * c} blocks, {split_smem_bytes(warps, G, D, elem)} B '
-            f'shared; <{D}, {G}> '
+            + (f'group chunks={chunks} of {G} heads ' if chunks > 1 else '')
+            + f'{K * chunks * B * c} blocks, '
+            f'{split_smem_bytes(warps, G, D, elem)} B shared; <{D}, {G}> '
             + (regs[0] if regs else 'registers not read (library cached)'))
 
 
@@ -1386,7 +1506,8 @@ def phase_decode_kernels(torch):
     int8-KV; the int8 cache with a prefix of 40 valid slots (blocks 1-7 of
     each cluster hold masked slots only); an fp32 cache at head_dim 128 (6
     warps, the most its shared memory allows); gemma2-9b's calls at head_dim
-    256; and mixtral-8x7b's group of 4 at head_dim 128, bf16 and int8-KV."""
+    256; mixtral-8x7b's group of 4 at head_dim 128 and recurrentgemma-9b's
+    group of 16 at head_dim 256 (two chunks), bf16 and int8-KV."""
     g = torch.Generator(device='cuda').manual_seed(SEED + 11)
     cases = [(kind, B, S, S * 7 // 8, hole, 64)
              for kind in ('fp32', 'bf16', 'int8')
@@ -1408,6 +1529,10 @@ def phase_decode_kernels(torch):
     # mixtral-8x7b's decode call (8, 32, 8, 128, 584): group 4 at head_dim
     # 128, bf16 and int8-KV (path m)
     cases += [(kind, 8, 584, 584 - 8, False, 128, (32, 8, 0.0))
+              for kind in ('bf16', 'int8')]
+    # recurrentgemma-9b's decode call (8, 16, 1, 256, 584): MQA, a group of
+    # 16 at head_dim 256 in two chunks of 8, bf16 and int8-KV (path o)
+    cases += [(kind, 8, 584, 584 - 8, False, 256, (16, 1, 0.0))
               for kind in ('bf16', 'int8')]
     for kind, B, S, valid_len, hole, D, (H, K, cap) in cases:
         args, valid = da_inputs(torch, g, B, S, kind, valid_len=valid_len,
@@ -1442,6 +1567,31 @@ def path_model(torch, spec):
     return fam, params, cfg.replace(w_bits=8, a_bits=8)
 
 
+def fed_calibration(torch, params, cfg, card, x):
+    """The CPU's calibration forward (``calibration_tensors``) on ``x``
+    with every conv's and fc's input replaced by the card's (the ``'sx'``
+    tensors of the card's record ``card``): each layer computes from the
+    card's input, so a code flipped at a rounding tie cannot carry into
+    later layers, and each scale differs only by its own layer's
+    rounding."""
+    from repro_torch.core.export import calibration_tensors, cnn_lib
+    inputs = {name: v.cpu() for name, key, v in card if key == 'sx'}
+    forward = cnn_lib.cnn_forward
+
+    def fed_forward(params, cfg, x, *, conv_fn, fc_fn, **kw):
+        def conv(p, cx, **k):
+            return conv_fn(p, inputs[k['name']], **k)
+
+        def fc(p, cx, **k):
+            return fc_fn(p, inputs[k['name']], **k)
+        return forward(params, cfg, x, conv_fn=conv, fc_fn=fc, **kw)
+    cnn_lib.cnn_forward = fed_forward
+    try:
+        return calibration_tensors(params, cfg, x)
+    finally:
+        cnn_lib.cnn_forward = forward
+
+
 def check_calibrations(torch, tag, params, cfg, x):
     """The card's calibration forward against the CPU's on the same batch,
     scale by scale in forward order (``compare_calibrations``).  Up to the
@@ -1449,11 +1599,15 @@ def check_calibrations(torch, tag, params, cfg, x):
     within SCALE_RTOL_EXACT; the codes that differ there move one step and
     lie within TIE_TOL of a rounding tie (the two devices' fp32 convs
     round their sums differently, by ulps); after it, scales agree within
-    SCALE_RTOL.  Returns the readings."""
+    SCALE_RTOL.  Where they do not, the flips' drift must be all of the
+    gap: the CPU forward fed the card's layer inputs
+    (:func:`fed_calibration`) then agrees with the card on every scale
+    within SCALE_RTOL_EXACT.  Returns the readings."""
     from repro_torch.core.export import (calibration_tensors,
                                          compare_calibrations)
-    c = compare_calibrations(calibration_tensors(params, cfg, x),
-                             calibration_tensors(params, cfg, x.cpu()))
+    card = calibration_tensors(params, cfg, x)
+    c = compare_calibrations(card, calibration_tensors(params, cfg,
+                                                       x.cpu()))
     cut = len(c['rel']) if c['flip'] is None else c['flip'] + 1
     before, after = max(c['rel'][:cut]), max(c['rel'][cut:], default=0.0)
     print(f"{tag} calibration, card vs CPU on {x.shape[0]} images: scales "
@@ -1472,10 +1626,19 @@ def check_calibrations(torch, tag, params, cfg, x):
     if c['flip'] is not None and (c['tie'] > TIE_TOL or c['step'] > 1):
         fail(f'{tag}: the first calibration codes that differ are not '
              f'rounding-tie flips')
+    fed = None
     if after > SCALE_RTOL:
+        fed = max(compare_calibrations(
+            card, fed_calibration(torch, params, cfg, card, x.cpu()))['rel'])
+        print(f"{tag}   the scales after it {after:.3e} apart, above "
+              f"{SCALE_RTOL:g}: fed the card's layer inputs, the CPU's "
+              f"scales agree with the card's within {fed:.3e} (limit "
+              f"{SCALE_RTOL_EXACT:g})")
+    if fed is not None and fed > SCALE_RTOL_EXACT:
         fail(f'{tag}: calibration scales disagree after the first code '
-             f'flip ({after:.3e})')
-    return dict(c, before=before, after=after)
+             f'flip ({after:.3e}), and fed the same layer inputs '
+             f'({fed:.3e})')
+    return dict(c, before=before, after=after, fed=fed)
 
 
 def share_scales(src, dst):
@@ -1991,39 +2154,85 @@ def routing_flips(torch, key, card, cpu, k):
     return n, tot
 
 
-def check_lm_against_cpu(torch, tag, spec):
+def n_attention(cfg):
+    """The GQA layers of a config (each calls a decode kernel a step)."""
+    return sum(k in ('global', 'local') for k in cfg.layer_kinds())
+
+
+def recurrent_state_bytes(cache, cfg):
+    """Bytes of the recurrent layers' decode states (``h`` and ``conv``) in
+    a cache."""
+    from repro_torch.models.transformer import _layers
+    return sum(t.numel() * t.element_size()
+               for kind, c in _layers(cache, cfg)
+               if kind in ('recurrent', 'ssm') for t in (c['h'], c['conv']))
+
+
+def recurrent_states(torch, cache, cfg):
+    """Copies of the recurrent layers' decode states (``h``, ``conv``) of a
+    cache, on the CPU in fp32, in layer order."""
+    from repro_torch.models.transformer import _layers
+    return [t.to('cpu', torch.float32, copy=True)
+            for kind, c in _layers(cache, cfg)
+            if kind in ('recurrent', 'ssm') for t in (c['h'], c['conv'])]
+
+
+def cut_config(spec):
+    """The path's fp32 cut: LM_CUT['layers'] layers at full width
+    (``spec['cut_layers']`` changes the depth, ``spec['cut']`` more), an
+    encoder-decoder's encoder cut to LM_CUT['layers'] too."""
+    cut = dict(num_layers=spec.get('cut_layers', LM_CUT['layers']),
+               dtype='float32', **spec.get('cut', {}))
+    if lm_config(spec).arch_kind == 'encdec':
+        cut['num_encoder_layers'] = LM_CUT['layers']
+    return lm_config(spec, **cut)
+
+
+def check_lm_against_cpu(torch, tag, spec, built=None):
     """A 2-layer cut of the full-width config in fp32 (``spec['cut']``
     changes more: deepseek's keeps one dense and one MoE layer and 32
-    experts; weights from the same CUDA generator, int8-exported on the
-    card for an int8 path; an encoder-decoder's encoder cut to 2 layers
-    too) against the port's CPU path on the same weights and inputs:
-    prefill and LM_CUT['tokens'] decode steps, both fed the CPU's greedy
-    tokens, every step's logits within ``spec['cpu_tol']`` (LM_CPU_TOL)
-    x max|logit|, TF32 off.  An MoE cut records every routing on both
-    devices: a token may route apart only at a near-tie."""
+    experts; ``spec['cut_layers']`` and ``spec['cut_prompt']`` change the
+    depth and the prompt; weights from the same CUDA generator,
+    int8-exported on the card for an int8 path; an encoder-decoder's
+    encoder cut to 2 layers too) against the port's CPU path on the same
+    weights and inputs: prefill and LM_CUT['tokens'] decode steps, both
+    fed the CPU's greedy tokens, every step's logits within
+    ``spec['cpu_tol']`` (LM_CPU_TOL) x max|logit|, TF32 off; a recurrent
+    cut's states after the prefill within REC_STATE_TOL x max.  An MoE cut
+    records every routing on both devices: a token may route apart only
+    at a near-tie.  ``built`` is (model, card params, their CPU copy) of
+    the bf16 cut that :func:`check_export_against_cpu` made already."""
     from repro_torch.core.export import to_device
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch import serve
-    cut = dict(num_layers=LM_CUT['layers'], dtype='float32',
-               **spec.get('cut', {}))
-    if lm_config(spec).arch_kind == 'encdec':
-        cut['num_encoder_layers'] = LM_CUT['layers']
-    cfg = lm_config(spec, **cut)
+    prompt_len = spec.get('cut_prompt', LM_CUT['prompt'])
+    cfg = cut_config(spec)
+    n_cut = cfg.num_layers
     tol = spec.get('cpu_tol', LM_CPU_TOL)
-    model, params = serve.build(cfg, 'cuda', seed=SEED,
-                                int8_weights=spec['int8_weights'])
+    laps = Laps()
+    if built is None:
+        model, params = serve.build(cfg, 'cuda', seed=SEED,
+                                    int8_weights=spec['int8_weights'])
+        torch.cuda.synchronize()
+        laps('build')
+        built = model, params, to_device(params, 'cpu')
+        laps('copy to the CPU')
+    model, params, host = built
+    del built
     prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
         torch.Generator().manual_seed(SEED + 2), LM_CUT['batch'],
-        LM_CUT['prompt'])['tokens']
-    pos0 = serve.decode_start(cfg, LM_CUT['prompt'])
+        prompt_len)['tokens']
+    pos0 = serve.decode_start(cfg, prompt_len)
     max_len = pos0 + LM_CUT['tokens'] + 8
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     runs = {}
     try:
         feed = None
-        for dev, p in (('cpu', to_device(params, 'cpu')), ('cuda', params)):
+        for dev, p in (('cpu', host), ('cuda', params)):
+            if dev == 'cuda':
+                laps('CPU run')
             reset_counts()
             with torch.inference_mode(), \
                     recording_routes(torch, []) as routes:
@@ -2031,6 +2240,7 @@ def check_lm_against_cpu(torch, tag, spec):
                                          LM_CUT['batch'], dev, SEED + 3)
                 logits, cache = model.prefill(
                     p, {'tokens': prompt.to(dev), **extra}, max_len=max_len)
+                states = recurrent_states(torch, cache, cfg)
                 out = [logits.cpu()]
                 tok = torch.zeros((LM_CUT['batch'],), dtype=torch.int64,
                                   device=dev)
@@ -2042,21 +2252,22 @@ def check_lm_against_cpu(torch, tag, spec):
                     out.append(logits.cpu())
                     tok = torch.argmax(logits, -1)
             runs[dev] = (out, {k: counts()[k] for k in LM_KERNEL_META},
-                         routes)
+                         routes, states)
             if feed is None:
                 feed = [torch.zeros(LM_CUT['batch'], dtype=torch.int64)] + \
                     [torch.argmax(lg, -1) for lg in out[1:-1]]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+    laps('card run')
     n_steps = LM_CUT['tokens']
-    n = 0 if spec['kernel'] is None else LM_CUT['layers'] * n_steps
+    n = 0 if spec['kernel'] is None else n_attention(cfg) * n_steps
     for name, c in runs['cuda'][1].items():
         on = name == spec['kernel']
         if c != {'launches': n if on else 0, 'plain_calls': 0} or \
                 runs['cpu'][1][name] != {'launches': 0,
                                          'plain_calls': n if on else 0}:
-            fail(f"{spec['key']}: the 2-layer cut ran {name} {c} on the "
-                 f"card and {runs['cpu'][1][name]} on the CPU")
+            fail(f"{spec['key']}: the {n_cut}-layer cut ran {name} {c} on "
+                 f"the card and {runs['cpu'][1][name]} on the CPU")
     worst = 0.0
     for a, b in zip(runs['cuda'][0], runs['cpu'][0]):
         worst = max(worst, float((a - b).abs().max() / b.abs().max()))
@@ -2068,35 +2279,51 @@ def check_lm_against_cpu(torch, tag, spec):
         moe_note = (f"; {len(runs['cpu'][2])} MoE calls ({cfg.n_experts} "
                     f"experts top-{cfg.top_k}), {flips} of {toks} tokens "
                     f"routed apart")
-    print(f"{tag} 2-layer fp32 cut ({kinds}"
+    state_note, state_err = '', None
+    if runs['cuda'][3]:
+        state_err = max(float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(runs['cuda'][3], runs['cpu'][3]))
+        state_note = (f"; recurrent states (h, conv of "
+                      f"{len(runs['cpu'][3]) // 2} layers) after the prefill "
+                      f"{state_err:.3e} x max (limit {REC_STATE_TOL:g})")
+    print(f"{tag} {n_cut}-layer fp32 cut ({kinds}"
           + (f", {cfg.first_dense_layers} dense" if cfg.first_dense_layers
              else '')
-          + f"; batch {LM_CUT['batch']}, prompt {LM_CUT['prompt']}, "
+          + f"; batch {LM_CUT['batch']}, prompt {prompt_len}, "
           f"{n_steps} decode steps), card vs CPU plain path: max |diff| / "
           f"max |logit| over prefill and every step {worst:.3e} (limit "
-          f"{tol:g}){moe_note}")
+          f"{tol:g}){moe_note}{state_note}; seconds: {laps}")
     if worst > tol:
-        fail(f"{spec['key']}: the card disagrees with the CPU on the 2-layer "
-             f"cut")
+        fail(f"{spec['key']}: the card disagrees with the CPU on the "
+             f"{n_cut}-layer cut")
+    if state_err is not None and state_err > REC_STATE_TOL:
+        fail(f"{spec['key']}: the card's recurrent states disagree with the "
+             f"CPU's after the cut's prefill")
     return worst
 
 
-def check_moe_hooks_against_cpu(torch, tag, spec):
-    """On the path's 2-layer fp32 cut (``spec['cut']`` as in
-    :func:`check_lm_against_cpu`): ``export_lm`` on the card against the
-    CPU's on the same weights, every code and scale bit for bit (the
+def check_export_against_cpu(torch, tag, spec):
+    """On the path's fp32 cut (``spec['cut']`` and ``spec['cut_layers']``
+    as in :func:`check_lm_against_cpu`): ``export_lm`` on the card against
+    the CPU's on the same weights, every code and scale bit for bit (MoE
     experts, quantized slice by slice, the router and the shared expert
-    included), and where ``spec['prune']`` says so
+    included; the recurrent blocks' projections quantized and their conv
+    taps, decays and norms kept), and where ``spec['prune']`` says so
     ``LMFamily.prune(MOE_PRUNE_RATIO)`` keeping the same 5 experts on both
-    devices."""
+    devices.  Returns (model, the cut's params on the card, their CPU
+    copy) for :func:`check_lm_against_cpu`."""
     from repro_torch.core.export import export_lm, to_device
     from repro_torch.core.family import LMFamily
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch import serve
-    cfg = lm_config(spec, num_layers=LM_CUT['layers'], dtype='float32',
-                    **spec.get('cut', {}))
-    _, params = serve.build(cfg, 'cuda', seed=SEED)
+    cfg = cut_config(spec)
+    t0 = time.perf_counter()
+    model, params = serve.build(cfg, 'cuda', seed=SEED)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cpu = to_device(params, 'cpu')
+    t_copy = time.perf_counter() - t0
     t0 = time.perf_counter()
     card_q = export_lm(params, cfg).params
     torch.cuda.synchronize()
@@ -2107,14 +2334,20 @@ def check_moe_hooks_against_cpu(torch, tag, spec):
     leaves = list(zip(_leaves(card_q), _leaves(host_q)))
     off = sum(not same_bits(torch, a.cpu(), b) if a.is_floating_point()
               else not bool(torch.equal(a.cpu(), b)) for a, b in leaves)
-    moe_q = [lp['moe'] for lp in host_q['blocks'] + host_q['tail']]
-    n_exp = sum(lp['wi']['w_q'].numel() + lp['wg']['w_q'].numel()
-                + lp['wo']['w_q'].numel() for lp in moe_q)
-    print(f'{tag} export_lm of the 2-layer cut on the card ({t_card:.2f} s) '
-          f'and on the CPU ({t_host:.2f} s): {len(leaves) - off} of '
-          f'{len(leaves)} leaves bit-equal, {n_exp / 1e9:.3f} G expert codes '
-          f'among them; router {tuple(moe_q[0]["router"]["w_q"].shape)} '
-          f'int8, expert scales {tuple(moe_q[0]["wi"]["scale"].shape)}')
+    n_int8 = sum(t.numel() for t in _leaves(host_q) if t.dtype == torch.int8)
+    what = ''
+    if cfg.is_moe:
+        moe_q = [lp['moe'] for lp in host_q['blocks'] + host_q['tail']]
+        n_exp = sum(lp['wi']['w_q'].numel() + lp['wg']['w_q'].numel()
+                    + lp['wo']['w_q'].numel() for lp in moe_q)
+        what = (f', {n_exp / 1e9:.3f} G expert codes among them; router '
+                f'{tuple(moe_q[0]["router"]["w_q"].shape)} int8, expert '
+                f'scales {tuple(moe_q[0]["wi"]["scale"].shape)}')
+    print(f'{tag} export_lm of the {cfg.num_layers}-layer cut on the card '
+          f'({t_card:.2f} s) and on the CPU ({t_host:.2f} s): '
+          f'{len(leaves) - off} of {len(leaves)} leaves bit-equal, '
+          f'{n_int8 / 1e9:.3f} G int8 codes{what}; built on the card in '
+          f'{t_build:.2f} s, copied to the CPU in {t_copy:.2f} s')
     if off:
         fail(f"{spec['key']}: the card's int8 export differs from the "
              f"CPU's in {off} leaves")
@@ -2141,8 +2374,8 @@ def check_moe_hooks_against_cpu(torch, tag, spec):
         if kept(on_card) != kept(on_host) or not same or c2.n_experts != 5:
             fail(f"{spec['key']}: the card prunes other experts than the CPU")
         del on_card, on_host
-    del params, cpu
     torch.cuda.empty_cache()
+    return model, params, cpu
 
 
 def ring_check(torch, tag, spec, cfg, cache, cur):
@@ -2169,6 +2402,30 @@ def ring_check(torch, tag, spec, cfg, cache, cur):
         return
 
 
+def first_step_sensitivity(torch, model, params, tok, pos0, cache, enc,
+                           lg_p):
+    """A model's rounding sensitivity at its first decode step: the plain
+    path on ``cache`` (a copy of the prefilled cache) with one output
+    element of its first decode-attention call one bf16 ulp up, the
+    logits' change from ``lg_p`` (the plain step) over max|logit|."""
+    from repro_torch.models import attention as attn
+
+    def bumped(q, nk, nv, c, cur, **kw):
+        out, c = attn.decode_attn_kernel(q, nk, nv, c, cur, **kw)
+        if not bumped.done:
+            out = out.clone()
+            v = out[0, 0, 0].float()
+            e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+            out[0, 0, 0] = (v + torch.exp2(e - 7)).to(out.dtype)
+            bumped.done = True
+        return out, c
+    bumped.done = False
+    with torch.inference_mode(), plain_decode_attention():
+        lg_b, _ = model.decode_step(params, tok, pos0, cache, enc=enc,
+                                    ctx={'decode_attn': bumped})
+    return max_err(torch, lg_b, lg_p) / float(lg_p.float().abs().max())
+
+
 def serve_lm_path(torch, spec):
     """An LM decode path: the arch at full width (depth cut where
     ``spec['layers']`` says) through the functions launch/serve.py uses,
@@ -2183,6 +2440,7 @@ def serve_lm_path(torch, spec):
 
     tag = f"[serve:{spec['key']}]"
     t_path = time.perf_counter()
+    laps = Laps()
     prompt_len = spec.get('prompt', LM_PROMPT)
     cfg = lm_config(spec)
     t0 = time.perf_counter()
@@ -2194,8 +2452,17 @@ def serve_lm_path(torch, spec):
     print(f"{tag} {cfg.name}: {cfg.num_layers} layers"
           + (f" (cut from {lm_config(dict(spec, layers=None)).num_layers})"
              if spec.get('layers') else '')
-          + f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
-          f"heads of {cfg.head_dim}, {param_count(params) / 1e9:.3f} G "
+          + f", d_model {cfg.d_model}, "
+          + (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+             if cfg.num_heads else '')
+          + (f"RG-LRU width {cfg.rglru_width} (conv {cfg.rglru_conv}), "
+             if cfg.rglru_width else '')
+          + (f"SSD d_inner {cfg.ssm_expand * cfg.d_model}, "
+             f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} heads of "
+             f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+             f"{cfg.ssm_chunk} (no KV cache: kv_cache_bits does not apply), "
+             if cfg.ssm_state else '')
+          + f"{param_count(params) / 1e9:.3f} G "
           f"parameters, {weight_bytes / 1e9:.3f} GB of weights "
           f"({'int8 export_lm' if spec['int8_weights'] else 'bf16'}), "
           f"kv_cache_bits {cfg.kv_cache_bits}, attn_softcap "
@@ -2214,7 +2481,7 @@ def serve_lm_path(torch, spec):
     extra, enc = lm_frontend(torch, model, params, cfg, LM_BATCH, 'cuda',
                              SEED + 3)
     pos0 = serve.decode_start(cfg, prompt_len)
-    max_len = pos0 + LM_TOKENS + 8
+    max_len = pos0 + LM_TOKENS + LM_SPARE
     zeros = torch.zeros((LM_BATCH,), dtype=torch.int64, device='cuda')
     # warm-up (cuBLAS handles and plans, the allocator): a prefill and two
     # steps on a cache of their own, before the count starts
@@ -2223,6 +2490,7 @@ def serve_lm_path(torch, spec):
     serve.decode(model, params, warm, zeros, pos0=pos0, tokens=2, enc=enc)
     del warm
     torch.cuda.synchronize()
+    laps('build and warm-up')
 
     # ---- the path, counted from zero
     reset_counts()
@@ -2241,6 +2509,7 @@ def serve_lm_path(torch, spec):
     after = counts()
     peak = torch.cuda.max_memory_allocated()
     cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    state_bytes = recurrent_state_bytes(cache, cfg)
     front = (f' after {cfg.frontend_tokens} zero patch rows'
              if cfg.arch_kind == 'vlm' else
              f' (encoder over {cfg.frontend_tokens} frames)'
@@ -2254,38 +2523,60 @@ def serve_lm_path(torch, spec):
           f"{(peak - base) / 2 ** 20:.1f} MiB above the weights; "
           f"weight-streaming bound (computed: {weight_bytes / 1e9:.3f} GB at "
           f"{HBM_BYTES_PER_S / 1e12:g} TB/s) "
-          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token"
+          + (f"; with the recurrent state read and written once a step "
+             f"({state_bytes / 1e9:.3f} GB) "
+             f"{(weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3:.3f}"
+             f" ms/token" if state_bytes else ''))
     if tuple(toks.shape) != (LM_TOKENS, LM_BATCH) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"{spec['key']}: the decoded tokens are malformed")
     ring_check(torch, tag, spec, cfg, cache, pos0 + LM_TOKENS - 1)
-    want = cfg.num_layers * LM_TOKENS
+    want = n_attention(cfg) * LM_TOKENS
     for name in LM_KERNEL_META:
         print(f"{tag} {name}: {after[name]['launches']} launches, "
               f"{after[name]['plain_calls']} plain calls")
     if spec['kernel'] is None:
         if any(after[name]['launches'] for name in LM_KERNEL_META):
-            fail(f"{spec['key']}: a decode kernel ran on an MLA path")
-        print(f'{tag} MLA decodes in its latent space in torch ops '
-              f'(attention.decode_mla_reference): no decode kernel')
+            fail(f"{spec['key']}: a decode kernel ran on a path with no "
+                 f"GQA layer")
+        print(f'{tag} ' + (
+            'MLA decodes in its latent space in torch ops '
+            '(attention.decode_mla_reference)' if cfg.use_mla else
+            'its SSD layers decode in torch ops (recurrent.mamba2_decode)')
+            + ': no decode kernel')
     elif after[spec['kernel']]['launches'] != want:
         fail(f"{spec['key']}: {spec['kernel']} launched "
              f"{after[spec['kernel']]['launches']} times, want {want} "
-             f"({cfg.num_layers} layers x {LM_TOKENS} steps)")
+             f"({n_attention(cfg)} attention layers x {LM_TOKENS} steps)")
     if spec['other'] and after[spec['other']]['launches']:
         fail(f"{spec['key']}: {spec['other']} ran on this path")
     plain = sum(c['plain_calls'] for c in after.values())
     if plain:
         fail(f"{spec['key']}: the plain versions ran {plain} times")
+    laps('counted run')
 
     # where the time goes: the cache's spare slots, under the profiler
     def more_steps():
         serve.decode(model, params, cache, zeros, pos0=pos0 + LM_TOKENS,
                      tokens=LM_PROFILE_STEPS, enc=enc)
-    parts = None
+    parts = prefill_parts = None
+    recurrent = bool(cfg.rglru_width or cfg.ssm_state)
     if spec.get('profile', True):
+        if recurrent:      # the prefill's scans, then the decode steps
+            pwall, pbusy, _, prefill_parts = profile_recurrent(
+                torch, lambda: serve.prefill_step(
+                    model, params, prompt, max_len=max_len, **extra))
+            if pbusy is not None:
+                print(f'{tag} profile: one prefill in {pwall:.3f} ms wall, '
+                      f'device kernels {pbusy:.3f} ms (busy '
+                      f'{pbusy / pwall:.1%}); by part, device ms: ' +
+                      ', '.join(f'{k} {v:.3f} ({v / pbusy:.1%})'
+                                for k, v in prefill_parts.items() if v))
         if cfg.is_moe:
             wall, busy, top, parts = profile_moe(torch, more_steps)
+        elif recurrent:
+            wall, busy, top, parts = profile_recurrent(torch, more_steps)
         else:
             wall, busy, top = profile_device(torch, more_steps)
         if busy is None:
@@ -2304,17 +2595,18 @@ def serve_lm_path(torch, spec):
                 print(f'{tag} profile by part, device ms over '
                       f'{LM_PROFILE_STEPS} steps: ' + ', '.join(
                           f'{k} {v:.3f} ({v / busy:.1%})'
-                          for k, v in parts.items()))
+                          for k, v in parts.items() if v))
             for ms, n, name in top[:8]:
                 print(f'{tag}   {ms:9.3f} ms  {n:6d} x  {name[:90]}')
     del cache
+    laps('profile')
 
     # the first step's logits against the same model served with the
     # plain decode attention on the card (the kernels' plain versions in
     # their place), and beside it the reference's decode math
     _, fresh = serve.prefill_step(model, params, prompt, max_len=max_len,
                                   **extra)
-    twins = [clone_tree(fresh), clone_tree(fresh)]
+    twins = [clone_tree(fresh) for _ in range(3)]
     with torch.inference_mode():
         lg_k, _ = model.decode_step(params, zeros, pos0, fresh, enc=enc)
         with plain_decode_attention():
@@ -2323,14 +2615,12 @@ def serve_lm_path(torch, spec):
         lg_r, _ = model.decode_step(
             params, zeros, pos0, twins[1], enc=enc,
             ctx={'decode_attn': attn.decode_attn_reference})
-    del twins
     if tuple(lg_k.shape) != (LM_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(lg_k).all()):
         fail(f"{spec['key']}: first-step logits malformed")
     scale = float(lg_p.float().abs().max())
     if spec['kernel'] is None and max_err(torch, lg_k, lg_p):
-        fail(f"{spec['key']}: the MLA step changed with no decode kernel in "
-             f"it")
+        fail(f"{spec['key']}: the step changed with no decode kernel in it")
     diff = max_err(torch, lg_k, lg_p)
     agree = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
     if spec['kernel'] is None:
@@ -2344,7 +2634,20 @@ def serve_lm_path(torch, spec):
               f'agree on {agree:.0%} of the batch; against '
               f'decode_attn_reference (q scaled in bf16, bf16 '
               f'probabilities): max |diff| {max_err(torch, lg_k, lg_r):.3e}')
-    if diff > LM_PLAIN_TOL * scale:
+    limit = LM_PLAIN_TOL
+    if spec['kernel'] is not None and diff > limit * scale:
+        sens = first_step_sensitivity(torch, model, params, zeros, pos0,
+                                      twins[2], enc, lg_p)
+        if sens > LM_PLAIN_TOL:
+            limit = LM_SENS_FACTOR * sens
+        print(f"{tag} first-step logits {diff / scale:.3e} x max apart, "
+              f"above {LM_PLAIN_TOL:g}: one output of the first "
+              f"decode-attention call one bf16 ulp up moves the plain "
+              f"path's logits {sens:.3e} x max (the model's sensitivity); limit "
+              f"{limit:.3e} x max ({LM_SENS_FACTOR} x the sensitivity where "
+              f"it passes {LM_PLAIN_TOL:g}, else {LM_PLAIN_TOL:g})")
+    del twins
+    if spec['kernel'] is not None and diff > limit * scale:
         fail(f"{spec['key']}: the kernel path disagrees with the plain "
              f"decode attention")
 
@@ -2368,18 +2671,25 @@ def serve_lm_path(torch, spec):
               f'{experts * 2 / 1e9:.1f} GB kept as bf16 (computed)')
     del params, fresh, enc, extra, model
     torch.cuda.empty_cache()
+    laps('first step')
+    built = None
     if spec.get('hooks'):
-        check_moe_hooks_against_cpu(torch, tag, spec)
-    cpu_err = check_lm_against_cpu(torch, tag, spec)
+        if spec['int8_weights']:
+            fail(f"{spec['key']}: the export check runs on a bf16 leg")
+        built = check_export_against_cpu(torch, tag, spec)
+        laps('export check')
+    cpu_err = check_lm_against_cpu(torch, tag, spec, built)
+    del built
     torch.cuda.empty_cache()
+    laps('cut')
     secs = time.perf_counter() - t_path
-    print(f'{tag} path took {secs:.1f} s')
+    print(f'{tag} path took {secs:.1f} s ({laps})')
     return {k: v['launches'] for k, v in after.items()}, calls, {
         'prefill_ms': t_prefill * 1e3,
         'ms_per_token': t_decode / LM_TOKENS * 1e3,
         'tokens_per_s': LM_BATCH * LM_TOKENS / t_decode,
         'peak_mib': peak / 2 ** 20, 'plain_diff': diff, 'cpu_err': cpu_err,
-        'secs': secs, 'parts': parts}
+        'secs': secs, 'parts': parts, 'prefill_parts': prefill_parts}
 
 
 def recording_family(losses, cfg, device):
@@ -3263,7 +3573,7 @@ def lm_chain_path(torch):
     model = build_model(exported.cfg)
     prompt = data.batch(torch.Generator().manual_seed(SEED + 1), LM_BATCH,
                         LM_PROMPT, 'cuda')['tokens']
-    max_len = LM_PROMPT + LM_TOKENS + 8
+    max_len = LM_PROMPT + LM_TOKENS + LM_SPARE
     zeros = torch.zeros((LM_BATCH,), dtype=torch.int64, device='cuda')
     _, warm = serve.prefill_step(model, p, prompt, max_len=max_len)
     serve.decode(model, p, warm, zeros, pos0=LM_PROMPT, tokens=2)
@@ -4399,7 +4709,7 @@ def main():
     print(f"[time] path {VERIFY_KEY} took {verified['secs']:.1f} s, done at "
           f"{time.perf_counter() - t_start:.1f} s")
     for label, specs in (('k', K_PATHS), ('l', L_PATHS), ('m', M_PATHS),
-                         ('n', N_PATHS)):
+                         ('n', N_PATHS), ('o', O_PATHS), ('p', P_PATHS)):
         t0 = time.perf_counter()
         for spec in specs:
             counted, calls, _ = serve_lm_path(torch, spec)

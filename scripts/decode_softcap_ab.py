@@ -2,9 +2,9 @@
 """Time the split decode-attention kernel of two sources in one process,
 in turns: the current ``csrc/decode_attention.cu`` (with the softcap and
 head_dim 256) against an earlier copy of the file given by ``--parent``
-(its C entry points without the two softcap floats), at tinyllama-1.1b's
-decode shape (B, H, K, D, S) = (8, 32, 4, 64, 584), bf16 cache and int8
-cache under bf16 q, softcap off.  Both libraries are built here with the
+(its C entry points without the two softcap floats and the group chunk
+``gc``), at tinyllama-1.1b's decode shape (B, H, K, D, S) = (8, 32, 4,
+64, 584), bf16 cache and int8 cache under bf16 q, softcap off.  Both libraries are built here with the
 same nvcc flags, in parallel, and launched on the same inputs; each turn
 is CUDA events around 200 launches, in the order parent, current,
 current, parent, repeated 5 times.  Prints each kernel's median us a
@@ -117,10 +117,12 @@ def main(argv=None):
             types = (_OLD if t == 'parent' else _NEW)[name]
             fn = launcher(lib[t], name, types)
             caps = () if t == 'parent' else (0.0, 0.0)
+            gc = () if t == 'parent' else (H // K,)
             ptrs = (q, kb, vb) if kind == 'bf16' else (q, kq, vq, ks, vs)
             a = [x.data_ptr() for x in ptrs] + [valid.data_ptr(),
                                                 outs[t].data_ptr()]
-            a += [B, S, H, K, D, da._scale(D), *caps, 1, c, spb, w, smem, st]
+            a += [B, S, H, K, D, da._scale(D), *caps, 1, *gc, c, spb, w,
+                  smem, st]
             calls[t] = (fn, a)
         for t, (fn, a) in calls.items():
             if fn(*a):

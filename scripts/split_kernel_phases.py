@@ -118,7 +118,8 @@ def main():
         def call():
             rc = fn(q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
                     vs.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H,
-                    K, D, da._scale(D), 0.0, 0.0, 1, c, spb, warps, smem,
+                    K, D, da._scale(D), 0.0, 0.0, 1, H // K, c, spb, warps,
+                    smem,
                     torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f'launch failed: {rc}')

@@ -1,9 +1,8 @@
 """Model configuration dataclass of the LM side.
 
 A copy of the reference's ``configs/base.py`` (field for field, so a
-config means the same model in both packages).  The port registers only
-the architectures whose blocks it has ported (``configs/__init__.py``);
-``models.model.build_model`` refuses a config that needs any other block.
+config means the same model in both packages).  ``configs/__init__.py``
+registers every architecture of the reference.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 Distills a reduced LM into a shallower student, prunes FFN channels,
 QAT-quantizes to int8 and adds early-exit heads: the same D→P→Q→E law,
-architecture-transferred (D→Q→E for an SSM, as the reference does; the
-port has no SSM arch yet).
+architecture-transferred (D→Q→E for an SSM such as ``mamba2-2.7b``, as
+the reference does: its layers have no MLP to prune).
 
     PYTHONPATH=src python -m repro_torch.examples.chain_lm \\
         --arch tinyllama-1.1b

@@ -27,11 +27,18 @@
 // at 3.35 TB/s, and a quarter of it for the int8 cache.
 //
 // decode_split_kernel, one template for the three caches.  S is split
-// over a thread-block cluster: the grid is (K, B, C) in clusters of C
-// blocks along z, block r owning slots [r * spb, (r + 1) * spb), with C, spb
-// and the warps a block from the wrapper's plan (kernels/decode_attention.
-// split_plan: C = 8, 73 slots and 5 warps a block, 256 blocks, at
-// tinyllama's batch 8 and 584 slots, for every cache type).  Each warp
+// over a thread-block cluster: the grid is (K x chunks, B, C) in clusters
+// of C blocks along z, block r owning slots [r * spb, (r + 1) * spb), with
+// C, spb and the warps a block from the wrapper's plan (kernels/
+// decode_attention.split_plan: C = 8, 73 slots and 5 warps a block, 256
+// blocks, at tinyllama's batch 8 and 584 slots, for every cache type).
+// A block takes gc heads of a kv head's query group, padded to a power of
+// two G, gc from the wrapper's plan (kernels/decode_attention.group_split):
+// the whole group, or where G x head_dim would be too large, chunks of gc
+// heads, one block column each, each chunk reading the kv head's cache
+// again (recurrentgemma's MQA, 16 heads over 1 kv head at head_dim 256:
+// two chunks of 8, as a <256, 16> instantiation would hold 16 x 256
+// accumulators over 8 warps' registers).  Each warp
 // walks 16-slot sub-tiles, two lanes a slot: they copy its k and v rows
 // (and, for int8, its scales) into shared memory with 16-byte (4-byte)
 // cp.async, double-buffered across tiles, the k rows swizzled against bank
@@ -88,6 +95,7 @@ struct SplitArgs {
   const uint8_t* valid;   // (S,) bool
   void* out;              // (B, H, D) TQ
   int B, S, H, K, g;
+  int gc;                 // query heads a block takes (the plan's chunk)
   int spb;                // slots a block of the cluster owns
   float scale;            // fp32(D**-0.5)
   float cap, inv_cap;     // attention softcap and fp32(1/cap); cap 0 = off
@@ -192,9 +200,10 @@ __device__ __forceinline__ int swizzle(int t, int c) {
   }
 }
 
-// Block (kh, b, r) of the grid (K, B, C), in clusters of C along z, runs
-// the online softmax of the g heads of kv-head kh of row b over slots
-// [r * spb, min((r + 1) * spb, S)); the C ranks merge the partials.  Within
+// Block (kh * chunks + ci, b, r) of the grid (K x chunks, B, C), in
+// clusters of C along z, runs the online softmax of chunk ci's heads (up to
+// gc of the g heads of kv-head kh) of row b over slots [r * spb, min((r +
+// 1) * spb, S)); the C ranks merge the partials.  Within
 // a block each warp walks 16-slot sub-tiles of 16 * W-slot tiles.  Lane
 // pair (2t, 2t+1) of a warp owns slot t of its sub-tile: each copies half
 // of its k and v rows (and, for int8, one of its two scales)
@@ -236,9 +245,11 @@ decode_split_kernel(const SplitArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int C = static_cast<int>(cluster.num_blocks());
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int chunks = (a.g + a.gc - 1) / a.gc;
+  const int kh = blockIdx.x / chunks, ci = blockIdx.x % chunks;
+  const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int S = a.S, K = a.K, g = a.g;
+  const int S = a.S, K = a.K, g = min(a.gc, a.g - ci * a.gc);
   const int lo = min(S, rank * a.spb), hi = min(S, lo + a.spb);
   const int ntiles = (hi - lo + TS - 1) / TS;
   const int t = warp * 16 + lane / 2, half = lane % 2;   // slot in the tile
@@ -279,7 +290,8 @@ decode_split_kernel(const SplitArgs a) {
   if (ntiles > 0) copy_tile(0, 0);
 
   const size_t head0 = static_cast<size_t>(b) * a.H +
-                       static_cast<size_t>(kh) * g;
+                       static_cast<size_t>(kh) * a.g +
+                       static_cast<size_t>(ci) * a.gc;
   const TQ* q = static_cast<const TQ*>(a.q) + head0 * D;
 #pragma unroll 4
   for (int i = threadIdx.x; i < G * D; i += blockDim.x)
@@ -501,7 +513,7 @@ int launch_split_g(const SplitArgs& a, int C, int W, size_t smem,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.K, a.B, C);
+  cfg.gridDim = dim3(a.K * ((a.g + a.gc - 1) / a.gc), a.B, C);
   cfg.blockDim = dim3(32 * W, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -517,17 +529,18 @@ int launch_split_g(const SplitArgs& a, int C, int W, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Groups up to 16, and up to 8 at head_dim 256 (G * D <= 2048: the
-// archs with head_dim 256, gemma2 and gemma3, have groups of 2).
+// Chunks of up to 16 heads, and up to 8 at head_dim 256 (gemma2 and
+// gemma3 have groups of 2, recurrentgemma's 16 run as two chunks of 8).
 template <typename TQ, typename TKV, int D>
 int launch_split_d(const SplitArgs& a, int C, int W, size_t smem,
                    cudaStream_t st) {
-  if (a.g <= 1) return launch_split_g<TQ, TKV, D, 1>(a, C, W, smem, st);
-  if (a.g <= 2) return launch_split_g<TQ, TKV, D, 2>(a, C, W, smem, st);
-  if (a.g <= 4) return launch_split_g<TQ, TKV, D, 4>(a, C, W, smem, st);
-  if (a.g <= 8) return launch_split_g<TQ, TKV, D, 8>(a, C, W, smem, st);
+  if (a.gc <= 1) return launch_split_g<TQ, TKV, D, 1>(a, C, W, smem, st);
+  if (a.gc <= 2) return launch_split_g<TQ, TKV, D, 2>(a, C, W, smem, st);
+  if (a.gc <= 4) return launch_split_g<TQ, TKV, D, 4>(a, C, W, smem, st);
+  if (a.gc <= 8) return launch_split_g<TQ, TKV, D, 8>(a, C, W, smem, st);
   if constexpr (D <= 128) {
-    if (a.g <= 16) return launch_split_g<TQ, TKV, D, 16>(a, C, W, smem, st);
+    if (a.gc <= 16)
+      return launch_split_g<TQ, TKV, D, 16>(a, C, W, smem, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -545,28 +558,30 @@ int launch_split_t(const SplitArgs& a, int D, int C, int W, size_t smem,
 }
 
 // The plan's limits, checked before any launch.
-bool plan_ok(int S, int C, int spb, int W, int smem_bytes) {
-  return C >= 1 && C <= MAX_CLUSTER && W >= 1 && W <= WARPS && spb >= 1 &&
-         static_cast<long long>(C) * spb >= S && smem_bytes >= 0;
+bool plan_ok(int S, int g, int gc, int C, int spb, int W, int smem_bytes) {
+  return gc >= 1 && gc <= g && C >= 1 && C <= MAX_CLUSTER && W >= 1 &&
+         W <= WARPS && spb >= 1 && static_cast<long long>(C) * spb >= S &&
+         smem_bytes >= 0;
 }
 
 }  // namespace
 
-// q, k, v, out all fp32 (bf16 == 0) or all bf16 (bf16 == 1).  The split (C
-// blocks of spb slots, W warps a block, smem bytes) comes from
-// kernels/decode_attention.split_plan; cap 0 means no softcap.
+// q, k, v, out all fp32 (bf16 == 0) or all bf16 (bf16 == 1).  The plan (gc
+// heads a block, C blocks of spb slots, W warps a block, smem bytes) comes
+// from kernels/decode_attention.group_split and split_plan; cap 0 means no
+// softcap.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid,
                                        void* out, int B, int S, int H, int K,
                                        int D, float scale, float cap,
-                                       float inv_cap, int bf16, int C,
-                                       int spb, int W, int smem_bytes,
+                                       float inv_cap, int bf16, int gc,
+                                       int C, int spb, int W, int smem_bytes,
                                        void* stream) {
-  if (!plan_ok(S, C, spb, W, smem_bytes))
+  if (K < 1 || H % K || !plan_ok(S, H / K, gc, C, spb, W, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitArgs a{q, k, v, nullptr, nullptr,
                     static_cast<const uint8_t*>(valid), out, B, S, H, K,
-                    H / K, spb, scale, cap, inv_cap};
+                    H / K, gc, spb, scale, cap, inv_cap};
   auto st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   return bf16 ? launch_split_t<__nv_bfloat16, __nv_bfloat16>(a, D, C, W,
@@ -578,14 +593,14 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
 extern "C" int decode_attention_int8_launch(
     const void* q, const void* k_q, const void* v_q, const void* k_s,
     const void* v_s, const void* valid, void* out, int B, int S, int H,
-    int K, int D, float scale, float cap, float inv_cap, int q_bf16, int C,
-    int spb, int W, int smem_bytes, void* stream) {
-  if (!plan_ok(S, C, spb, W, smem_bytes))
+    int K, int D, float scale, float cap, float inv_cap, int q_bf16, int gc,
+    int C, int spb, int W, int smem_bytes, void* stream) {
+  if (K < 1 || H % K || !plan_ok(S, H / K, gc, C, spb, W, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitArgs a{q, k_q, v_q, static_cast<const float*>(k_s),
                     static_cast<const float*>(v_s),
                     static_cast<const uint8_t*>(valid), out, B, S, H, K,
-                    H / K, spb, scale, cap, inv_cap};
+                    H / K, gc, spb, scale, cap, inv_cap};
   auto st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   return q_bf16 ? launch_split_t<__nv_bfloat16, int8_t>(a, D, C, W, smem, st)

@@ -18,7 +18,11 @@ a divisor of S; the CUDA kernel reads the (B, S, K, D) layout in place and
 masks a ragged last tile.  One template serves the three caches: S is
 split over a cluster of C blocks (:func:`split_plan`), and an int8 cache
 folds its dequantization into one multiply a slot, ``ks[s] * (q . code)``
-and ``(p * vs[s]) * code``.
+and ``(p * vs[s]) * code``.  A block takes a kv head's query group padded
+to a power of two while that times head_dim is at most ``MAX_GROUP_X_D``;
+a larger group runs in chunks of ``MAX_GROUP_X_D // D`` heads, one block
+column each, in the same launch (:func:`group_split`: recurrentgemma-9b's
+16 query heads over one kv head at head_dim 256 run as two chunks of 8).
 
 :func:`decode_attention` and :func:`decode_attention_int8` launch their
 kernel for CUDA tensors and run :func:`decode_attention_plain` /
@@ -44,7 +48,7 @@ from repro_torch.kernels.tiling import SMEM_BUDGET
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)   # head_dim the kernel is instantiated for
 MAX_GROUP = 16                # largest query group H / K it takes
-MAX_GROUP_X_D = 2048          # ... and the padded group times head_dim
+MAX_GROUP_X_D = 2048          # a block's padded group (chunk) x head_dim
 # The kernel's split of S over a cluster (csrc/decode_attention.cu): C
 # blocks a (kv head, batch row), doubled while the grid has fewer than
 # SPLIT_MIN_BLOCKS blocks and each block keeps SPLIT_MIN_SLOTS slots, up
@@ -57,9 +61,9 @@ SPLIT_MIN_SLOTS = 32
 SPLIT_MAX_WARPS = 8
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ARGTYPES_INT8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _LAUNCH = {}         # the bound C entry points, set up on first launch
 
 
@@ -72,13 +76,16 @@ def _launcher(name, argtypes):
     return fn
 
 
-def split_plan(B: int, K: int, S: int, *, elem: int, D: int, G: int):
+def split_plan(B: int, K: int, S: int, *, elem: int, D: int, G: int,
+               chunks: int = 1):
     """The kernel's split of S: ``(C, slots_per_block, warps)`` for a cache
-    of ``elem``-byte elements (1 int8, 2 bf16, 4 fp32), head_dim D and a
-    padded query group G.  Block r of the C in a cluster
-    owns slots [r * slots_per_block, min((r + 1) * slots_per_block, S))."""
+    of ``elem``-byte elements (1 int8, 2 bf16, 4 fp32), head_dim D, a
+    block's padded query group G and ``chunks`` blocks for each kv head's
+    group (:func:`group_split`): the grid has B * K * chunks * C blocks.
+    Block r of the C in a cluster owns slots [r * slots_per_block,
+    min((r + 1) * slots_per_block, S))."""
     c = 1
-    while c < SPLIT_MAX_CLUSTER and B * K * c < SPLIT_MIN_BLOCKS and \
+    while c < SPLIT_MAX_CLUSTER and B * K * chunks * c < SPLIT_MIN_BLOCKS and \
             -(-S // (2 * c)) >= SPLIT_MIN_SLOTS:
         c *= 2
     spb = max(1, -(-S // c))
@@ -92,6 +99,19 @@ def group_pad(g: int) -> int:
     """The query group rounded up to the power of two the kernels are
     instantiated for."""
     return 1 << (g - 1).bit_length()
+
+
+def group_split(g: int, D: int):
+    """``(G, chunks)``: the padded query group a block takes and the blocks
+    a kv head's group of g heads is split into: the whole group padded to a
+    power of two where that times D is at most MAX_GROUP_X_D, else chunks
+    of MAX_GROUP_X_D // D heads.  A block takes ``min(g, G)`` heads (the
+    kernel's ``gc``)."""
+    G = group_pad(g)
+    if G * D <= MAX_GROUP_X_D:
+        return G, 1
+    G = MAX_GROUP_X_D // D
+    return G, -(-g // G)
 
 
 def split_smem_bytes(warps: int, G: int, D: int, elem: int) -> int:
@@ -171,12 +191,10 @@ def _check(kernel, q, kv_dtype, caches, scales, valid):
     if caches[0].shape[0] != B or caches[0].shape[3] != D or H % K:
         raise ValueError(f'{kernel}: q {tuple(q.shape)} does not fit the '
                          f'cache {tuple(caches[0].shape)}')
-    if D not in HEAD_DIMS or H // K > MAX_GROUP or \
-            group_pad(H // K) * D > MAX_GROUP_X_D:
+    if D not in HEAD_DIMS or H // K > MAX_GROUP:
         raise ValueError(f'{kernel}: head_dim {D} and group {H // K} are '
                          f'outside the kernel (head_dim in {HEAD_DIMS}, '
-                         f'group <= {MAX_GROUP}, padded group x head_dim '
-                         f'<= {MAX_GROUP_X_D})')
+                         f'group <= {MAX_GROUP})')
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'{kernel}: q must be fp32 or bf16, got {q.dtype}')
     want = [(q, q.dtype, None), (valid, torch.bool, (S,))]
@@ -197,8 +215,9 @@ def da_call_plan(q, **kw):
     k = kw['k'] if 'k' in kw else kw['k_q']
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    elem, G = k.element_size(), group_pad(H // K)
-    plan = split_plan(B, K, S, elem=elem, D=D, G=G)
+    elem = k.element_size()
+    G, chunks = group_split(H // K, D)
+    plan = split_plan(B, K, S, elem=elem, D=D, G=G, chunks=chunks)
     return 'split', plan, split_smem_bytes(plan[2], G, D, elem)
 
 
@@ -212,12 +231,13 @@ def decode_attention(q, k, v, valid, attn_softcap=0.0):
     B, S, H, K, D = _check('decode_attention', q, q.dtype, (k, v), (),
                            valid)
     out = torch.empty_like(q)
-    elem, G = k.element_size(), group_pad(H // K)
-    c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G)
+    elem = k.element_size()
+    G, chunks = group_split(H // K, D)
+    c, spb, warps = split_plan(B, K, S, elem=elem, D=D, G=G, chunks=chunks)
     rc = _launcher('decode_attention_launch', _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         out.data_ptr(), B, S, H, K, D, _scale(D), *_caps(attn_softcap),
-        int(q.dtype == torch.bfloat16), c, spb, warps,
+        int(q.dtype == torch.bfloat16), min(H // K, G), c, spb, warps,
         split_smem_bytes(warps, G, D, elem),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
@@ -241,14 +261,13 @@ def decode_attention_int8(q, k_q, v_q, k_s, v_s, valid, attn_softcap=0.0):
     B, S, H, K, D = _check('decode_attention_int8', q, torch.int8,
                            (k_q, v_q), (k_s, v_s), valid)
     out = torch.empty_like(q)
-    G = group_pad(H // K)
-    c, spb, warps = split_plan(B, K, S, elem=1, D=D, G=G)
+    G, chunks = group_split(H // K, D)
+    c, spb, warps = split_plan(B, K, S, elem=1, D=D, G=G, chunks=chunks)
     rc = _launcher('decode_attention_int8_launch', _ARGTYPES_INT8)(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_s.data_ptr(),
         v_s.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, K, D,
-        _scale(D), *_caps(attn_softcap), int(q.dtype == torch.bfloat16), c,
-        spb, warps,
-        split_smem_bytes(warps, G, D, 1),
+        _scale(D), *_caps(attn_softcap), int(q.dtype == torch.bfloat16),
+        min(H // K, G), c, spb, warps, split_smem_bytes(warps, G, D, 1),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         _build.check(_build.load('decode_attention'), rc,

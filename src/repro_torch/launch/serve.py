@@ -13,13 +13,17 @@ decode steps (:func:`serve_step`, the counterpart of the reference's
 ``build_serve_step``, whose cache buffer is donated: here it is written in
 place).  As in the reference (``serve.py:55``), decoding starts from token
 0 after the prefill: the prefill's own greedy token is not fed back.
-Every GQA layer of every step runs the decode-attention kernel
+Every GQA layer of every step (global or local; recurrentgemma-9b's
+local MQA layers) runs the decode-attention kernel
 (``decode_attention``, or ``decode_attention_int8`` with
 ``--kv-cache-bits 8``); an MLA layer (deepseek-v3-671b) attends in its
 latent space in torch ops (``attention.decode_mla_reference``: the
 reference has no kernel for it), and its cache ignores
 ``--kv-cache-bits``, as the reference's does (the launcher says so).
-An MoE layer (mixtral-8x7b, deepseek-v3-671b) runs ``models/moe.py``.
+An MoE layer (mixtral-8x7b, deepseek-v3-671b) runs ``models/moe.py``; an
+RG-LRU or SSD layer (recurrentgemma-9b, mamba2-2.7b) runs
+``models/recurrent.py`` in torch ops and keeps an fp32 state whatever
+``--kv-cache-bits`` says (mamba2-2.7b has no KV cache at all).
 Prints the ms/token.  ``--arch`` takes every
 ported arch; the default is the reference's, ``gemma2-9b``.  A VLM's
 prompt gets ``frontend_tokens`` zero patch embeddings before its tokens,

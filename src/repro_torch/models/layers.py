@@ -15,7 +15,9 @@ where they live, full-width ones on the card) and a ``stack`` prefix that
 gives a scan-stacked ``(G, ...)`` leaf in one draw, where the reference
 vmaps the init over split keys.  The two packages draw different numbers
 from the same seed: tests carry weights across with ``interop``.
-The recurrent blocks' causal conv is not ported (no ported config has one).
+The recurrent blocks (``models/recurrent.py``) share the causal depthwise
+conv: :func:`causal_conv1d` over a sequence and :func:`conv1d_step` for
+one decode step.
 """
 from __future__ import annotations
 
@@ -149,3 +151,39 @@ def unembed(p, x, *, quant=(0, 0)):
     if quant[1]:
         x = fake_quant_act(x, quant[1])
     return torch.matmul(x, w.to(x.dtype).t())
+
+
+# ------------------------------------------------------ causal depthwise conv
+
+
+def init_conv1d(gen, width, k, dtype=torch.float32, device='cpu', stack=()):
+    return {'w': he_init(gen, (*stack, k, width), k, dtype, device),
+            'b': torch.zeros((*stack, width), dtype=dtype, device=device)}
+
+
+def causal_conv1d(p, x):
+    """Depthwise causal conv.  x: (B, S, C) -> (B, S, C): ``y[t] = sum_j
+    w[j] * x[t + j - (k - 1)]`` over k - 1 leading zeros (the reference's
+    ``conv_general_dilated`` with ``feature_group_count=C``), a k-tap sum
+    in fp32 rounded to x's dtype, then the bias."""
+    w = p['w']
+    k, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0)).to(torch.float32)
+    wf = w.to(x.dtype).to(torch.float32)
+    y = xp[:, 0:S] * wf[0]
+    for j in range(1, k):
+        y = y + xp[:, j:j + S] * wf[j]
+    return y.to(x.dtype) + p['b'].to(x.dtype)
+
+
+def conv1d_step(p, x_t, conv_state):
+    """One decode step of the causal depthwise conv.
+
+    x_t: (B, C); conv_state: (B, k-1, C), the past inputs.  Returns
+    (y_t, new_state), the state the last k - 1 inputs."""
+    k = p['w'].shape[0]
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B,k,C)
+    y = torch.einsum('bkc,kc->bc', window.to(torch.float32),
+                     p['w'].to(x_t.dtype).to(torch.float32)).to(x_t.dtype)
+    y = y + p['b'].to(y.dtype)
+    return y, window[:, 1:k, :]

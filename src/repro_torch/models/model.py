@@ -1,14 +1,13 @@
 """Unified model API of the LM side: ``build_model(cfg) -> Model``.
 
-The port's counterpart of the reference's ``models/model.py`` for the
-blocks it has ported: stacks of attention layers (GQA, 'global' and
-'local', with softcaps and QKV bias; or MLA) with a dense MLP or an MoE
-feed-forward (top-k experts, shared experts, leading dense layers), as a
-decoder, a VLM (a batch's ``'patches'`` are a frontend prefix) or an
-encoder-decoder (a batch's ``'frames'`` go through :attr:`Model.encode`,
-and ``decode_step`` takes the encoder output as ``enc``).
-:func:`build_model` raises NotImplementedError for a config that needs
-anything else (recurrent or SSM blocks). ``init`` takes a
+The port's counterpart of the reference's ``models/model.py``, for every
+block kind of the reference: stacks of attention layers (GQA, 'global'
+and 'local', with softcaps and QKV bias; or MLA), RG-LRU ('recurrent')
+and Mamba-2 SSD ('ssm') layers, with a dense MLP or an MoE feed-forward
+(top-k experts, shared experts, leading dense layers), as a decoder, a
+VLM (a batch's ``'patches'`` are a frontend prefix) or an encoder-decoder
+(a batch's ``'frames'`` go through :attr:`Model.encode`, and
+``decode_step`` takes the encoder output as ``enc``).  ``init`` takes a
 ``torch.Generator`` and a device where the reference takes a key.
 ``init`` and ``init_cache`` run on the card unless the caller asks for
 ``device='cpu'``: without a card they raise (``export.resolve_device``)
@@ -36,12 +35,6 @@ class Model:
     encode: Any = None      # encdec only: (params, frames) -> enc
 
 
-def unported_blocks(cfg: ModelConfig) -> list[str]:
-    """What ``cfg`` needs that the port has not ported (empty if none)."""
-    kinds = sorted(set(cfg.layer_kinds()) - {'global', 'local'})
-    return [f'{"/".join(kinds)} blocks'] if kinds else []
-
-
 def _batch_parts(cfg, batch):
     """Split a batch dict into (tokens, embeds, frames)."""
     tokens = batch['tokens']
@@ -56,11 +49,6 @@ def _positions(x):
 
 def build_model(cfg: ModelConfig) -> Model:
     from repro_torch.core.export import resolve_device
-    why = unported_blocks(cfg)
-    if why:
-        raise NotImplementedError(
-            f'{cfg.name} needs {", ".join(why)}, not ported yet (ROADMAP, '
-            f'queue A: the other LM blocks)')
 
     def init(gen, device='cuda'):
         return tfm.init_lm(gen, cfg, resolve_device(device))

@@ -1,7 +1,7 @@
 """Transformer assembly of the LM side: the reference's
-``models/transformer.py`` for attention blocks (decoder LM, VLM with a
-frontend prefix, encoder-decoder; GQA or MLA attention; dense MLP or MoE
-feed-forward), in PyTorch.
+``models/transformer.py`` (decoder LM, VLM with a frontend prefix,
+encoder-decoder; GQA or MLA attention, RG-LRU or SSD blocks; dense MLP or
+MoE feed-forward), in PyTorch.
 
 Layers are grouped as in the reference into (prefix, scanned groups,
 tail), and the param and cache trees keep that shape: ``params['blocks']``
@@ -26,9 +26,15 @@ every later layer of an MoE config has ``'moe'`` in its place
 (:func:`_is_moe_layer`); MLA (``cfg.use_mla``) replaces the GQA attention
 of every layer, and its cache holds the latent and the rope key.
 
-Dropped, each not needed on one card or by a ported config:
-``shard_act`` (identity on one device), ``remat``, and the recurrent and
-SSM blocks (``models.model.build_model`` refuses configs that need them).
+Recurrent blocks (``models/recurrent.py``): a ``'recurrent'`` layer
+(recurrentgemma) has an RG-LRU (``'rglru'``) where an attention layer has
+``'attn'``, and its MLP; an ``'ssm'`` layer (mamba2) has a Mamba-2 block
+(``'mamba'``) and no MLP and no ``norm2``.  Their caches are the decode
+states ``{'h', 'conv'}``, written in place like the attention caches; a
+prefill fills them from the scan's last state and the conv's last inputs.
+
+Dropped, each not needed on one card: ``shard_act`` (identity on one
+device) and ``remat``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (embed, init_embedding, init_mlp,
                                        init_norm, mlp, rms_norm, softcap,
                                        unembed)
@@ -86,12 +93,18 @@ def _layers(tree, cfg):
 
 def _init_layer(gen, cfg, kind, *, moe_layer, dtype, device, stack=(),
                 cross=False):
-    if kind not in ('global', 'local', 'encoder'):
-        raise NotImplementedError(f'{kind!r} blocks are not ported')
     kw = dict(dtype=dtype, device=device, stack=stack)
-    p = {'norm1': init_norm(cfg.d_model, **kw),
-         'attn': (attn.init_mla if cfg.use_mla
-                  else attn.init_attention)(gen, cfg, **kw)}
+    p = {'norm1': init_norm(cfg.d_model, **kw)}
+    if kind in ('global', 'local', 'encoder'):
+        p['attn'] = (attn.init_mla if cfg.use_mla
+                     else attn.init_attention)(gen, cfg, **kw)
+    elif kind == 'recurrent':
+        p['rglru'] = rec.init_rglru(gen, cfg, **kw)
+    elif kind == 'ssm':
+        p['mamba'] = rec.init_mamba2(gen, cfg, **kw)
+        return p                                   # mamba block has no MLP
+    else:
+        raise ValueError(kind)
     if cross:
         p['norm_x'] = init_norm(cfg.d_model, **kw)
         p['xattn'] = attn.init_attention(gen, cfg, **kw)
@@ -147,10 +160,19 @@ def _ffn(lp, h, cfg, quant):
 
 def layer_forward(lp, x, kind, cfg, *, positions, quant, enc=None,
                   enc_pos=None, want_cache=False):
-    """Full-sequence layer.  Returns (x, cache entries | None): (k, v), or
-    MLA's (ckv, k_rope)."""
+    """Full-sequence layer.  Returns (x, cache entries | None): (k, v),
+    MLA's (ckv, k_rope), RG-LRU's state dict or SSD's (state, conv
+    tail)."""
     h = rms_norm(lp['norm1'], x, cfg.norm_eps)
-    if cfg.use_mla:
+    if kind == 'ssm':
+        o = rec.mamba2_forward(lp['mamba'], h, cfg, quant=quant,
+                               return_state=want_cache)
+        return (x + o[0], o[1]) if want_cache else (x + o, None)
+    if kind == 'recurrent':
+        o = rec.rglru_forward(lp['rglru'], h, cfg, quant=quant,
+                              return_state=want_cache)
+        o, kvs = o if want_cache else (o, None)
+    elif cfg.use_mla:
         o, kvs = attn.mla_forward(lp['attn'], h, positions, cfg, quant=quant)
     else:
         o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
@@ -169,7 +191,12 @@ def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant, enc=None,
                  enc_pos=None):
     """One-token layer step.  x: (B, d).  Returns (x, cache)."""
     h = rms_norm(lp['norm1'], x, cfg.norm_eps)
-    if cfg.use_mla:
+    if kind == 'ssm':
+        o, c = rec.mamba2_decode(lp['mamba'], h, cache, cfg, quant=quant)
+        return x + o, c
+    if kind == 'recurrent':
+        o, c = rec.rglru_decode(lp['rglru'], h, cache, cfg, quant=quant)
+    elif cfg.use_mla:
         o, c = attn.mla_decode(lp['attn'], h, cur, cfg, cache=cache, ctx=ctx,
                                quant=quant)
     else:
@@ -189,6 +216,10 @@ def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant, enc=None,
 
 
 def init_layer_cache(cfg, kind, batch, max_len, dtype, device='cpu'):
+    if kind == 'ssm':
+        return rec.init_mamba2_cache(cfg, batch, dtype, device)
+    if kind == 'recurrent':
+        return rec.init_rglru_cache(cfg, batch, dtype, device)
     if cfg.use_mla:
         return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
     return attn.init_attn_cache(cfg, batch, kind, max_len, dtype, device)
@@ -215,7 +246,14 @@ def init_cache(cfg: ModelConfig, batch, max_len, device='cpu'):
 
 
 def _fill_cache(cfg, kind, cache, kvs, positions):
-    """Insert prefill outputs into an empty cache entry (in place)."""
+    """Insert prefill outputs into an empty cache entry (in place).  A
+    recurrent layer's state replaces its zeros."""
+    if kind == 'ssm':
+        kvs = {'h': kvs[0], 'conv': kvs[1]}
+    if kind in ('ssm', 'recurrent'):
+        for k, t in kvs.items():
+            cache[k].copy_(t)
+        return cache
     if cfg.use_mla:
         return attn.prefill_mla_cache_write(cache, kvs[0], kvs[1], positions)
     return attn.prefill_cache_write(cache, kvs[0], kvs[1], positions)

@@ -141,7 +141,8 @@ def test_registry_keeps_the_reference_order():
     from repro.configs import ARCH_NAMES as J_NAMES
     assert ARCH_NAMES == tuple(n for n in J_NAMES if n in ARCH_NAMES)
     assert set(NEW_ARCHS) | {'tinyllama-1.1b', 'mixtral-8x7b',
-                             'deepseek-v3-671b'} == set(ARCH_NAMES)
+                             'deepseek-v3-671b', 'recurrentgemma-9b',
+                             'mamba2-2.7b'} == set(ARCH_NAMES)
 
 
 @pytest.mark.parametrize('case', CASES)

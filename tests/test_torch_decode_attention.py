@@ -434,15 +434,19 @@ def test_split_plan_at_gemma2_decode_shape():
         assert split_smem_bytes(w, 2, 256, e) <= SMEM_BUDGET
         if w < 8:
             assert split_smem_bytes(w + 1, 2, 256, e) > SMEM_BUDGET
-    # the group and head_dim the kernel is instantiated for
-    from repro_torch.kernels.decode_attention import MAX_GROUP_X_D
+    # the group and head_dim the kernel is instantiated for: gemma2's
+    # group of 2 in one block; a head_dim or a group it has no
+    # instantiation for is refused
+    from repro_torch.kernels.decode_attention import (MAX_GROUP_X_D, _check,
+                                                      group_split)
     assert 256 in HEAD_DIMS and group_pad(2) * 256 <= MAX_GROUP_X_D
-    q = torch.zeros((1, 16, 256))
-    kv = torch.zeros((1, 4, 1, 256))
-    with pytest.raises(ValueError, match='head_dim'):
-        from repro_torch.kernels.decode_attention import _check
-        _check('decode_attention', q, torch.float32, (kv, kv), (),
-               torch.ones(4, dtype=torch.bool))
+    assert group_split(2, 256) == (2, 1)
+    for H, D in ((16, 96), (17, 64)):
+        q = torch.zeros((1, H, D))
+        kv = torch.zeros((1, 4, 1, D))
+        with pytest.raises(ValueError, match='head_dim'):
+            _check('decode_attention', q, torch.float32, (kv, kv), (),
+                   torch.ones(4, dtype=torch.bool))
 
 
 def test_phase_script_finds_every_stamp_marker():

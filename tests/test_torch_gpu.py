@@ -7,9 +7,11 @@ launch plan), the decode-attention kernels within their stated tolerance
 slot), the scheduler on the card launching the kernels exactly as the
 plan counts them, one LM decode step and one Q-pass (QAT) step on the
 card against the CPU, the MoE and MLA smoke archs' decode, int8 export
-and expert pruning against the CPU, the CNN compression chain on the card (its
-initial weights, P and L on the card's checkpoints against the CPU, a
-checkpoint saved on the card and read on the CPU, ``serve_cnn --steps``),
+and expert pruning against the CPU, the recurrent smoke archs' decode
+and a Q-pass step of each against the CPU, the CNN compression chain on
+the card (its initial weights, P and L on the card's checkpoints against
+the CPU, a checkpoint saved on the card and read on the CPU,
+``serve_cnn --steps``),
 the LM chain hooks on a full-width cut against the CPU, the fake quant at
 the factored LM shapes, the dynamic-scale CNN export against its
 plain-version twin, the replica pool under a seeded kill on the card
@@ -743,6 +745,110 @@ def test_q_pass_step_on_card_matches_cpu(cuda_device):
             assert near <= 1e-3 * n
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize('arch,kv_bits', [('recurrentgemma-9b', 0),
+                                          ('recurrentgemma-9b', 8),
+                                          ('mamba2-2.7b', 0)])
+def test_recurrent_decode_on_card_matches_cpu(cuda_device, arch, kv_bits):
+    """The recurrent archs' smoke models (fp32): a prefill of 40 tokens
+    (mamba2's SSD as one chunk of 32 and a padded second) and two decode
+    steps on the card (recurrentgemma's local layer on the decode kernel,
+    the RG-LRU and SSD in torch ops) against the CPU's plain path on the
+    same weights: the recurrent states after the prefill within 1e-4 x
+    max, the logits within 1e-4 x max|logit| (1e-3 with an int8 cache),
+    TF32 off."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.export import to_device
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import _layers
+    cfg = get_smoke_config(arch).replace(kv_cache_bits=kv_bits)
+    model, params = serve.build(cfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, p in ((cuda_device, params),
+                       (torch.device('cpu'), to_device(params, 'cpu'))):
+            reset_counts()
+            with torch.inference_mode():
+                first, cache = model.prefill(p, {'tokens': tokens.to(dev)},
+                                             max_len=48)
+                states = [t.cpu().clone() for kind, c in _layers(cache, cfg)
+                          if kind in ('recurrent', 'ssm') for t in
+                          (c['h'], c['conv'])]
+                logits = [first.cpu()]
+                for t in range(2):
+                    lg, cache = model.decode_step(
+                        p, torch.tensor([3, 9], device=dev), 40 + t, cache)
+                    logits.append(lg.cpu())
+            out[dev.type] = (logits, counts(), states)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    kern = 'decode_attention_int8' if kv_bits else 'decode_attention'
+    n = 2 * sum(k == 'local' for k in cfg.layer_kinds())
+    assert out['cuda'][1][kern] == {'launches': n, 'plain_calls': 0}
+    assert out['cpu'][1][kern] == {'launches': 0, 'plain_calls': n}
+    assert len(out['cuda'][2]) == 2 * sum(
+        k in ('recurrent', 'ssm') for k in cfg.layer_kinds())
+    for a, b in zip(out['cuda'][2], out['cpu'][2]):
+        assert _rel_err(a, b) <= 1e-4
+    for a, b in zip(out['cuda'][0], out['cpu'][0]):
+        assert _rel_err(a, b) <= (1e-3 if kv_bits else 1e-4)
+
+
+@pytest.mark.parametrize('arch', ['recurrentgemma-9b', 'mamba2-2.7b'])
+def test_recurrent_q_step_on_card_matches_cpu(cuda_device, arch):
+    """One W8A0 Q-pass step of each recurrent smoke arch (fp32) on the card
+    (the fake-quant kernels) and on the CPU (no kernel), same params and
+    batch, TF32 off: the new params' loss on a held-out batch within 1e-4
+    x |loss|, the new params within 2.5 x lr and at most 0.1% of them more
+    than 1e-2 x lr apart, as the tinyllama step above."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import registry
+    from repro_torch.core.export import to_device
+    from repro_torch.core.family import LMFamily
+    from repro_torch.core.passes import ChainState, Trainer
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke_config(arch)
+    params = tfm.init_lm(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg, cuda_device)
+    tr = Trainer(batch=2, steps=1, lr=1e-3)
+    lr = tr.lr / 10
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            fam = LMFamily(SyntheticTokens(cfg.vocab_size), seq=32,
+                           device=dev)
+            st = ChainState(family=fam, cfg=cfg,
+                            params=to_device(params, dev), key=0)
+            reset_counts()
+            new = registry.get_pass('Q').apply(st, {'w_bits': 8,
+                                                    'a_bits': 0}, tr)
+            launched = counts()
+            with torch.no_grad():
+                loss, _ = fam.loss(new.params, new.cfg, fam.train_batch(
+                    torch.Generator().manual_seed(9), 2))
+            out[dev] = (float(loss), to_device(new.params, 'cpu'), launched)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert sum(c['launches'] for c in out['cuda'][2].values()) > 0
+    assert all(c == {'launches': 0, 'plain_calls': 0}
+               for c in out['cpu'][2].values())
+    assert abs(out['cuda'][0] - out['cpu'][0]) <= 1e-4 * abs(out['cpu'][0])
+    near = n = 0
+    for a, b in zip(tree_leaves(out['cuda'][1]), tree_leaves(out['cpu'][1])):
+        d = (a - b).abs()
+        assert float(d.max()) <= 2.5 * lr
+        near += int((d > 1e-2 * lr).sum())
+        n += d.numel()
+    assert near <= 1e-3 * n
 
 
 def _leaves_of(tree):

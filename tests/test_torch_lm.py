@@ -31,7 +31,6 @@ from repro.data import SyntheticTokens as JTokens
 from repro.models import attention as j_attn
 from repro.models import build_model as j_build_model
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.core.export import export_lm
 from repro_torch.data import SyntheticTokens
 from repro_torch.interop import from_jax_params, to_numpy
@@ -77,13 +76,6 @@ def test_configs_match_reference():
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
         (22, 2048, 32, 4, 64, 5632, 32000)
-
-
-@pytest.mark.parametrize('name', ['recurrentgemma-9b', 'mamba2-2.7b'])
-def test_build_model_refuses_unported_blocks(name):
-    cfg = ModelConfig(**dataclasses.asdict(j_get_smoke_config(name)))
-    with pytest.raises(NotImplementedError, match='not ported'):
-        build_model(cfg)
 
 
 def test_param_tree_matches_reference():
