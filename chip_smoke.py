@@ -284,6 +284,33 @@ Phases, in order; any failure exits non-zero and no result is printed:
    SSD chunks, the second padded); logits within ``REC_CPU_TOL`` (1e-3
    with the int8 cache), the recurrent states after the prefill within
    ``REC_STATE_TOL``, and on the bf16 legs ``export_lm`` bit for bit.
+   Then (q), the training launcher and the mesh code on one rank
+   (``train_mesh_path``; a world of one rank, backend nccl, its store a
+   ``HashStore``; the 1 x 1 mesh, every placement ``Replicate()``): (q1)
+   ``launch.train.main --drill`` at tinyllama-1.1b's published width and
+   depth (bf16 params, fp32 AdamW moments), batch 8 x 128, ``Q_STEPS``
+   steps, a failure at the middle step: printing ms/step (the median after
+   the first), tokens/s, peak memory, the checkpoint's bytes (about 11 GB
+   a step), its save seconds (the host snapshot and the write) and the
+   restore's seconds, and the device busy share of one profiled step; the
+   checkpoint directory goes after the leg.  (q2) the drill's check: one
+   restart, and the losses step for step and the final params and moments
+   bit-equal to a plain loop of the same step (``build_train_step``, as
+   ``main`` wires it) with no failure and no checkpoint.  (q3) a 2-layer
+   fp32 cut: one ``build_train_step`` step on the card against the same
+   step on a CPU mesh (TF32 off), the loss, the grad norm and every
+   moment leaf within ``Q_CPU_TOL`` x its max, every updated param within
+   ``Q_NEAR_MAX`` x lr (``Q_NEAR_SHARE`` of them at most beyond
+   ``Q_NEAR_LR`` x lr).  (q4)
+   ``build_prefill_step`` + ``build_serve_step`` at full width, batch 8,
+   prompt 512, ``Q_SERVE_TOKENS`` greedy tokens (the plain decode math,
+   as the reference's mesh path runs it): the tokens equal to
+   ``launch/serve.py``'s kernel path on the same weights (a token may
+   differ only where the kernel path's two candidates lie within
+   ``LM_PLAIN_TOL`` x max|logit|, a near tie; the steps after it are not
+   compared), the first-step logits within ``LM_PLAIN_TOL`` x max|logit|.
+   No kernel is on path (q): the reference's train step runs
+   ``model.forward`` at quant (0, 0) and its mesh decode the plain math.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), (k) (42 each, with the softcap), (l), (m) and (o) (12 each), and
@@ -466,6 +493,23 @@ P_PATHS = (
 )
 # a token may route to other experts on the card than on the CPU only where
 # its k-th and (k+1)-th router probabilities lie within MOE_NEAR_TIE
+# Path (q): the training launcher and the mesh code on the card's 1 x 1
+# mesh: tinyllama-1.1b at its published width and depth through
+# launch.train.main (batch 8 x 128, Q_STEPS steps), the drill cut in
+# depth, a 2-layer fp32 cut against a CPU mesh, and the mesh serve steps
+Q_KEY = 'tinyllama-train'
+Q_STEPS = 4
+Q_BATCH, Q_SEQ = 8, 128
+Q_LR = 3e-4
+Q_CUT_BATCH, Q_CUT_SEQ = 1, 32
+Q_CPU_TOL = 1e-4
+# the updated params of the cut: AdamW's first step is g / (|g| + eps)
+# times lr, about +-lr whatever |g| is, so a gradient within float noise
+# of 0 moves its element by up to lr either way (tests/test_torch_train.py
+# holds the Q step so): no element more than Q_NEAR_MAX x lr apart, at
+# most Q_NEAR_SHARE of them more than Q_NEAR_LR x lr
+Q_NEAR_MAX, Q_NEAR_LR, Q_NEAR_SHARE = 0.25, 1e-2, 1e-3
+Q_SERVE_TOKENS = 8
 MOE_NEAR_TIE = 1e-6
 MOE_PRUNE_RATIO = 0.3          # mixtral's cut keeps max(2, int(8 x 0.7)) = 5
 # Decode attention against its plain version, max|kernel - plain| over
@@ -2885,6 +2929,334 @@ def train_lm_path(torch):
         'losses': loss, 'record': rec, 'cut': cut}
 
 
+def full_leaves(tree):
+    """The leaves of a tree of DTensors as whole tensors."""
+    return [x.full_tensor() if hasattr(x, 'full_tensor') else x
+            for x in _leaves(tree)]
+
+
+def leaf_gap(torch, a, b):
+    """max over leaves of max|a - b| / max|b| (0 where b is all zero)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        scale = float(y.to(torch.float64).abs().max())
+        if scale:
+            worst = max(worst, max_err(torch, x, y) / scale)
+    return worst
+
+
+def train_mesh_leg(torch, tag, args):
+    """(q1, q2): ``launch.train.main(args + ['--drill'])`` counted, its
+    checkpoints timed (the snapshot in ``save``, the write in
+    ``checkpoint.manager._write``, the restore in ``restore_latest``), one
+    more step profiled; then the same step in a plain loop from the same
+    seed, with no failure and no checkpoint, against the drill's losses
+    and final state.  Returns the readings."""
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as mgr_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw
+
+    ckpt = tempfile.mkdtemp(prefix='q_ckpt_')
+    free = shutil.disk_usage(ckpt).free
+    print(f'{tag} checkpoint directory {ckpt}: {free / 1e9:.1f} GB free')
+    snaps, writes, restores = [], [], []
+    orig_write = mgr_mod._write
+
+    def timed_write(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_write(*a, **k)
+        writes.append(time.perf_counter() - t0)
+        return out
+
+    class TimedManager(CheckpointManager):
+        def save(self, step, tree):
+            self.wait()                 # the previous write, not this save
+            t0 = time.perf_counter()
+            super().save(step, tree)
+            snaps.append(time.perf_counter() - t0)
+
+        def restore_latest(self, tree_like):
+            self.wait()
+            t0 = time.perf_counter()
+            out = super().restore_latest(tree_like)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t0)
+            return out
+
+    mgr_mod._write, train.CheckpointManager = timed_write, TimedManager
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, end, loop = train.main(args + ['--drill', '--ckpt', ckpt])
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+    finally:
+        mgr_mod._write, train.CheckpointManager = orig_write, \
+            CheckpointManager
+    peak = torch.cuda.max_memory_allocated()
+    dts = [e[2] for e in loop.events if e[0] == 'step']
+    by_step = {e[1] - 1: e[3]['loss'] for e in loop.events if e[0] == 'step'}
+    losses = [by_step.get(i, float('nan')) for i in range(Q_STEPS)]
+    last = max(int(d.split('_')[1]) for d in os.listdir(ckpt))
+    sdir = os.path.join(ckpt, f'step_{last:08d}')
+    nbytes = sum(os.path.getsize(os.path.join(sdir, f))
+                 for f in os.listdir(sdir))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ms = statistics.median(dts[1:]) * 1e3
+    tokens = Q_BATCH * Q_SEQ
+    print(f'{tag} (q1) launch.train.main {" ".join(args)} --drill: finished '
+          f'at step {end}, restarts {loop.restarts}, events '
+          f'{[(e[0], e[1]) for e in loop.events]}, in {t_main:.1f} s; '
+          f'ms/step {ms:.3f} (median of the {len(dts) - 1} steps after the '
+          f'first, {dts[0] * 1e3:.3f}), {tokens / ms * 1e3:.1f} training '
+          f'tokens/s; peak memory {peak / 2 ** 30:.2f} GiB; loss by step: '
+          + ', '.join(f'{v:.6f}' for v in losses))
+    print(f'{tag} (q1) checkpoint: {len(writes)} saves of {nbytes / 1e9:.3f} '
+          f'GB; host snapshot s ' + ', '.join(f'{v:.2f}' for v in snaps)
+          + '; write s ' + ', '.join(f'{v:.2f}' for v in writes)
+          + '; restore s ' + ', '.join(f'{v:.2f}' for v in restores))
+    if end != Q_STEPS or loop.restarts != 1 or len(restores) != 1 or \
+            not all(math.isfinite(v) for v in losses):
+        fail(f'{Q_KEY}: launch.train.main --drill did not run {Q_STEPS} '
+             f'finite steps with one restart')
+
+    # one more step under the profiler
+    cfg = get_config(LM_ARCH)
+    data = SyntheticTokens(vocab=cfg.vocab_size)
+
+    def batch_fn(step):
+        return data.batch(torch.Generator().manual_seed(step), Q_BATCH,
+                          Q_SEQ)
+    mesh = make_local_mesh('cuda')
+    fn, model, (_, _, p_sh, o_sh) = steps.build_train_step(
+        cfg, mesh, batch_fn(0), lr=Q_LR)
+    want = [x.to_local().clone() for x in _leaves(state)]
+    params, opt_state = state
+    batch = batch_fn(end)
+
+    def one_step():
+        fn(params, opt_state, batch)
+    wall, busy, top = profile_device(torch, one_step)
+    if busy is None:
+        print(f'{tag} (q1) profile: one step in {wall:.3f} ms wall; device '
+              f'time not measured (the profiler recorded no device '
+              f'activity)')
+    else:
+        print(f'{tag} (q1) profile: one step in {wall:.3f} ms wall, device '
+              f'kernels {busy:.3f} ms: device busy {busy / wall:.1%}')
+        for ms_, n, name in top[:8]:
+            print(f'{tag}   {ms_:9.3f} ms  {n:6d} x  {name[:90]}')
+    del state, params, opt_state
+
+    # (q2) the plain loop of the same step from the same seed
+    with torch.no_grad():
+        p = model.init(torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    st = (steps.place_tree(p, p_sh),
+          steps.place_tree(adamw(Q_LR).init(p), o_sh))
+    del p
+    clean = []
+    t0 = time.perf_counter()
+    for s_ in range(Q_STEPS):
+        pp, oo, m = fn(st[0], st[1], batch_fn(s_))
+        st = (pp, oo)
+        clean.append(float(m['loss']))
+    t_clean = time.perf_counter() - t0
+    same = all(torch.equal(a.to_local(), b)
+               for a, b in zip(_leaves(st), want))
+    gap = 0.0 if same else leaf_gap(torch, [a.to_local() for a in
+                                            _leaves(st)], want)
+    print(f'{tag} (q2) the drill against a plain loop of the same step '
+          f'({Q_STEPS} steps in {t_clean:.1f} s, no checkpoint): losses '
+          + ', '.join(f'{v:.6f}' for v in clean) + f'; equal step for step: '
+          f'{losses == clean}; final params and moments equal bit for bit: '
+          f'{same}' + ('' if same else f' (max |diff| {gap:.3e} x max)'))
+    if losses != clean or not same:
+        fail(f'{Q_KEY}: the drill did not replay the plain loop exactly')
+    del st, want
+    return {'ms_per_step': ms, 'tokens_per_s': tokens / ms * 1e3,
+            'peak_gib': peak / 2 ** 30, 'ckpt_gb': nbytes / 1e9,
+            'snapshot_s': snaps, 'write_s': writes, 'restore_s': restores,
+            'busy': None if busy is None else busy / wall, 'losses': losses,
+            'restarts': loop.restarts}
+
+
+def train_cut_leg(torch, tag, mesh):
+    """(q3): one build_train_step step of a 2-layer fp32 cut at full width
+    on the card and on a CPU mesh, from the same params and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.export import to_device
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_ARCH).replace(num_layers=2, dtype='float32')
+    params = tfm.init_lm(torch.Generator(device='cuda').manual_seed(SEED),
+                         cfg, 'cuda')
+    batch = SyntheticTokens(vocab=cfg.vocab_size).batch(
+        torch.Generator().manual_seed(SEED + 5), Q_CUT_BATCH, Q_CUT_SEQ)
+    runs = {}
+    for name, m, p in (('cuda', mesh, params),
+                       ('cpu', make_local_mesh('cpu'),
+                        to_device(params, 'cpu'))):
+        fn, _, _ = steps.build_train_step(cfg, m, batch, lr=Q_LR)
+        t0 = time.perf_counter()
+        p_new, o_new, met = fn(clone_tree(p), adamw(Q_LR).init(p), batch)
+        t_step = time.perf_counter() - t0
+        # both legs' leaves compared on the card
+        runs[name] = (float(met['loss']), float(met['grad_norm']),
+                      [x.to('cuda') for x in full_leaves(p_new)],
+                      [x.to('cuda') for x in full_leaves(o_new.mu)
+                       + full_leaves(o_new.nu)], t_step)
+    (lg, ng, pg, og, tg), (lc, nc, pc, oc, tc) = runs['cuda'], runs['cpu']
+    loss_rel, norm_rel = abs(lg - lc) / abs(lc), abs(ng - nc) / abs(nc)
+    p_gap, o_gap = leaf_gap(torch, pg, pc), leaf_gap(torch, og, oc)
+    worst, near, n = 0.0, 0, 0
+    for a, b in zip(pg, pc):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        near += int((d > Q_NEAR_LR * Q_LR).sum())
+        n += d.numel()
+    print(f'{tag} (q3) 2-layer fp32 cut, one build_train_step step (batch '
+          f'{Q_CUT_BATCH} x {Q_CUT_SEQ}), card vs CPU: loss {lg:.7f} vs '
+          f'{lc:.7f} ({loss_rel:.3e} x), grad norm {ng:.6f} vs {nc:.6f} '
+          f'({norm_rel:.3e} x), moments max |diff| {o_gap:.3e} x max '
+          f'(limit {Q_CPU_TOL:g} each); updated params max |diff| '
+          f'{worst / Q_LR:.3e} x lr (limit {Q_NEAR_MAX:g}; {p_gap:.3e} x '
+          f'max|param|), {near} of {n} elements ({near / n:.3e}) more than '
+          f'{Q_NEAR_LR:g} x lr apart (limit {Q_NEAR_SHARE:g}); the step '
+          f'took {tg:.3f} s on the card, {tc:.3f} s on the CPU')
+    if max(loss_rel, norm_rel, o_gap) > Q_CPU_TOL or \
+            worst > Q_NEAR_MAX * Q_LR or near > Q_NEAR_SHARE * n:
+        fail(f"{Q_KEY}: the card's train step disagrees with the CPU's")
+    return {'loss_rel': loss_rel, 'norm_rel': norm_rel,
+            'params_lr': worst / Q_LR, 'params_near': near / n,
+            'moments': o_gap}
+
+
+def serve_mesh_leg(torch, tag, mesh):
+    """(q4): build_prefill_step + build_serve_step at full width against
+    launch/serve.py's kernel path on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import jitted_scales
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.serving import make_decode_ctx
+
+    cfg = get_config(LM_ARCH)
+    B, S, T = LM_BATCH, LM_PROMPT, Q_SERVE_TOKENS
+    max_len = S + T + LM_SPARE
+    model, params = serve.build(cfg, 'cuda', seed=SEED)
+    prompt = SyntheticTokens(vocab=cfg.vocab_size).batch(
+        torch.Generator().manual_seed(SEED + 1), B, S, 'cuda')['tokens']
+    zeros = torch.zeros((B,), dtype=torch.int64, device='cuda')
+
+    # the kernel path: launch/serve.py's prefill, then its decode step
+    # with every step's logits kept
+    _, cache = serve.prefill_step(model, params, prompt, max_len=max_len)
+    k_toks, k_logits, tok = [], [], zeros
+    with torch.inference_mode(), jitted_scales():
+        for t in range(T):
+            lg, cache = model.decode_step(params, tok, S + t, cache)
+            tok = torch.argmax(lg, -1)
+            k_toks.append(tok)
+            k_logits.append(lg.float())
+    del cache
+
+    # the mesh path
+    pre, _, (_, p_sh) = steps.build_prefill_step(
+        cfg, mesh, {'tokens': prompt}, max_len=max_len)
+    step, _, _ = steps.build_serve_step(cfg, mesh, batch=B, max_len=max_len)
+    placed = steps.place_tree(params, p_sh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, mcache = pre(placed, {'tokens': prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    from repro_torch.tree import tree_map
+    first = tree_map(lambda x: x.to_local().clone(), mcache)
+    m_toks, tok = [], zeros.to(torch.int32)
+    t0 = time.perf_counter()
+    for t in range(T):
+        tok, mcache = step(placed, tok, S + t, mcache)
+        m_toks.append(tok.full_tensor())
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    with torch.inference_mode(), jitted_scales():
+        lg_m, _ = model.decode_step(params, zeros, S, first,
+                                    ctx=make_decode_ctx(mesh, cfg))
+    lg_k = k_logits[0]
+    scale = float(lg_k.abs().max())
+    diff = max_err(torch, lg_m.float(), lg_k)
+    flip = None
+    for t in range(T):
+        bad = (m_toks[t].to(torch.int64) != k_toks[t]).nonzero()
+        if len(bad):
+            flip = (t, int(bad[0, 0]))
+            break
+    near = None
+    if flip is not None:
+        t, b = flip
+        lg = k_logits[t][b]
+        near = float((lg[k_toks[t][b]] - lg[int(m_toks[t][b])]).abs())
+    print(f'{tag} (q4) build_prefill_step + build_serve_step at batch {B}, '
+          f'prompt {S}: prefill {t_prefill * 1e3:.3f} ms, {T} greedy steps '
+          f'{t_decode / T * 1e3:.3f} ms/token (the plain decode math); '
+          f'first-step logits against the kernel path: max |diff| '
+          f'{diff:.3e} (max |logit| {scale:.3e}, limit {LM_PLAIN_TOL:g} x '
+          f'that); greedy tokens equal to the kernel path\'s '
+          + ('at every step' if flip is None else
+             f'up to step {flip[0]}, where batch row {flip[1]} picks '
+             f'another token: the kernel path\'s logits of the two lie '
+             f'{near:.3e} apart (limit {LM_PLAIN_TOL:g} x max|logit| = '
+             f'{LM_PLAIN_TOL * scale:.3e}, a near tie)'))
+    if diff > LM_PLAIN_TOL * scale:
+        fail(f'{Q_KEY}: the mesh serve step disagrees with the kernel path')
+    if flip is not None and near > LM_PLAIN_TOL * scale:
+        fail(f"{Q_KEY}: the mesh serve step's greedy tokens differ from "
+             f"the kernel path's away from a near tie")
+    return {'prefill_ms': t_prefill * 1e3, 'ms_per_token': t_decode / T * 1e3,
+            'logit_gap': diff / scale, 'flip': flip}
+
+
+def train_mesh_path(torch):
+    """Path (q): the training launcher and the mesh code on the card's one
+    rank.  Returns readings."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    tag = f'[train:{Q_KEY}]'
+    t_path = time.perf_counter()
+    laps = Laps()
+    started = init_distributed('cuda')
+    try:
+        print(f'{tag} process group: world {dist.get_world_size()}, '
+              f'backend {dist.get_backend()}')
+        mesh = make_local_mesh('cuda')
+        out = {'q1': train_mesh_leg(torch, tag, [
+            '--steps', str(Q_STEPS), '--batch', str(Q_BATCH), '--seq',
+            str(Q_SEQ), '--lr', str(Q_LR)])}
+        laps('q1-q2 main and drill')
+        out['q3'] = train_cut_leg(torch, tag, mesh)
+        laps('q3 cut')
+        out['q4'] = serve_mesh_leg(torch, tag, mesh)
+        laps('q4 serve')
+    finally:
+        if started:
+            dist.destroy_process_group()
+    secs = time.perf_counter() - t_path
+    print(f'{tag} path took {secs:.1f} s ({laps})')
+    return out
+
+
 def tree_bits_equal(torch, a, b):
     """Two trees of tensors, leaf for leaf, bit for bit (on the CPU)."""
     la, lb = _leaves(a), _leaves(b)
@@ -4719,6 +5091,8 @@ def main():
             print(f"[time] path {spec['key']} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
         print(f'[time] path ({label}) took {time.perf_counter() - t0:.1f} s')
+    train_mesh_path(torch)
+    print(f'[time] path (q) done at {time.perf_counter() - t_start:.1f} s')
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,
                             H_KEY: h_calls}, dyn) + \

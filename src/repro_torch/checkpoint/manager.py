@@ -15,10 +15,19 @@ a preempted save never becomes the latest step.  ``CheckpointManager``
 adds asynchronous saves (the tree is copied to host memory first, so the
 caller may go on changing it) and retention.
 
-Where the port departs from the reference: leaves load as CPU tensors
-(the caller places them), and ``load_checkpoint`` and
-``CheckpointManager.restore_latest`` take no ``shardings=``, which has no
-meaning for one device.
+Where the port departs from the reference: ``load_checkpoint`` and
+``CheckpointManager.restore_latest`` take no ``shardings=``; a leaf loads
+as a CPU tensor (the caller places it), except where the leaf of
+``tree_like`` is a DTensor: the full array is then placed on that
+DTensor's mesh and placements, each rank keeping its own chunk (the
+reference's reshard-on-load).
+
+Sharded states (``torch.distributed``): a DTensor leaf is gathered to its
+full array on every rank (a collective, so every rank saves), and only
+rank 0 writes, as ``proc_0.npz``: a step holds full arrays, as the
+reference's docstring says, and any mesh can read it back.  A restore
+waits for this rank's write and then for every rank (a barrier), so no
+rank reads a step that rank 0 has not committed.
 """
 from __future__ import annotations
 
@@ -28,9 +37,12 @@ import os
 import shutil
 import threading
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from repro_torch.tree import rebuild
 
 log = logging.getLogger('repro_torch.checkpoint')
 
@@ -43,9 +55,28 @@ _BITCAST = {'bfloat16': (torch.bfloat16, torch.int16, np.uint16),
 _NAMES = {t: name for name, (t, _, _) in _BITCAST.items()}
 
 
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _rank() -> int:
+    """This process's rank (0 outside ``torch.distributed``)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _encode(leaf):
     """A leaf as (numpy array npz can store, its dtype string), copied to
-    host memory."""
+    host memory; a DTensor is gathered to its full array first."""
+    if isinstance(leaf, _dtensor()):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to('cpu', copy=True)
         if t.dtype in _NAMES:
@@ -90,17 +121,54 @@ def _fill(tree, leaves, prefix=()):
         return {k: _fill(v, leaves, prefix + (str(k),))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_fill(v, leaves, prefix + (str(i),))
-                          for i, v in enumerate(tree))
-    return leaves[SEP.join(prefix)]
+        return rebuild(tree, (_fill(v, leaves, prefix + (str(i),))
+                              for i, v in enumerate(tree)))
+    return _place(leaves[SEP.join(prefix)], tree)
+
+
+def _place(full: torch.Tensor, like):
+    """``full`` as ``like`` holds it: a DTensor on ``like``'s mesh and
+    placements (this rank's chunk of a full array every rank has read),
+    else the CPU tensor itself."""
+    if not isinstance(like, _dtensor()):
+        return full
+    from torch.distributed.tensor import distribute_tensor
+    mesh = like.device_mesh
+    return distribute_tensor(full.to(mesh.device_type), mesh,
+                             like.placements, src_data_rank=None)
+
+
+def _savez(path: str, arrays: dict):
+    """``np.savez(path, **arrays)``'s file (a stored zip of ``.npy``
+    members), each array's bytes handed to the zip in one call from its
+    own buffer: numpy's writer copies every 16 MiB chunk twice first."""
+    with zipfile.ZipFile(path, mode='w', compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for k, a in arrays.items():
+            a = np.require(a, requirements='C')
+            with zf.open(k + '.npy', 'w', force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(a))
+                f.write(memoryview(a.reshape(-1)).cast('B'))
+
+
+def _load_leaves(path: str, dtypes: dict) -> dict:
+    """{key: tensor} of the npz at ``path``, the members read by a pool
+    of threads (each with its own handle: zip reads, CRCs and copies
+    release the GIL)."""
+    def one(k):
+        with np.load(path) as data:
+            return k, _decode(data[k], dtypes[k])
+    with ThreadPoolExecutor(max_workers=max(1, min(8, len(dtypes)))) as ex:
+        return dict(ex.map(one, dtypes))
 
 
 def _write(ckpt_dir: str, step: int, flat: dict, process_index=0) -> str:
     final = os.path.join(ckpt_dir, f'step_{step:08d}')
     tmp = final + '.tmp'
     os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, f'proc_{process_index}.npz'),
-             **{k: a for k, (a, _) in flat.items()})
+    _savez(os.path.join(tmp, f'proc_{process_index}.npz'),
+           {k: a for k, (a, _) in flat.items()})
     manifest = {'step': step,
                 'leaves': {k: {'shape': list(a.shape), 'dtype': d}
                            for k, (a, d) in flat.items()}}
@@ -115,9 +183,13 @@ def _write(ckpt_dir: str, step: int, flat: dict, process_index=0) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, process_index=0):
-    """Write ``tree`` (dicts, lists and tuples of tensors or arrays) as
-    committed step ``step``; returns the step directory."""
-    return _write(ckpt_dir, step, _flatten(tree), process_index)
+    """Write ``tree`` (dicts, lists and tuples of tensors, DTensors or
+    arrays) as committed step ``step``; returns the step directory (None
+    on a rank other than 0, which only takes part in the gathers)."""
+    flat = _flatten(tree)
+    if _rank() != 0:
+        return None
+    return _write(ckpt_dir, step, flat, process_index)
 
 
 def committed_steps(ckpt_dir: str) -> list[int]:
@@ -136,8 +208,8 @@ def latest_step(ckpt_dir: str) -> int | None:
 def load_checkpoint(ckpt_dir: str, step: int | None, tree_like, *,
                     process_index=0):
     """Restore step ``step`` (None: the newest committed one) into the
-    structure of ``tree_like``, every leaf a CPU tensor.  Returns (tree,
-    step)."""
+    structure of ``tree_like``, every leaf a CPU tensor, or placed as the
+    DTensor leaf of ``tree_like`` is.  Returns (tree, step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -145,9 +217,9 @@ def load_checkpoint(ckpt_dir: str, step: int | None, tree_like, *,
     d = os.path.join(ckpt_dir, f'step_{step:08d}')
     with open(os.path.join(d, 'manifest.json')) as f:
         manifest = json.load(f)
-    with np.load(os.path.join(d, f'proc_{process_index}.npz')) as data:
-        leaves = {k: _decode(data[k], manifest['leaves'][k]['dtype'])
-                  for k, _ in _paths(tree_like)}
+    leaves = _load_leaves(
+        os.path.join(d, f'proc_{process_index}.npz'),
+        {k: manifest['leaves'][k]['dtype'] for k, _ in _paths(tree_like)})
     return _fill(tree_like, leaves), step
 
 
@@ -166,8 +238,11 @@ class CheckpointManager:
 
     def save(self, step: int, tree):
         self.wait()
-        # copy to host memory synchronously (cheap), write asynchronously
+        # copy to host memory synchronously (cheap), write asynchronously;
+        # every rank gathers, rank 0 writes
         flat = _flatten(tree)
+        if _rank() != 0:
+            return
 
         def _run():
             _write(self.dir, step, flat)
@@ -194,6 +269,7 @@ class CheckpointManager:
         recent one that loads.  Raises FileNotFoundError only when no
         committed step is readable."""
         self.wait()
+        _barrier()
         steps = committed_steps(self.dir)
         if not steps:
             raise FileNotFoundError(f'no checkpoints under {self.dir}')

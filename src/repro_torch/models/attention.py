@@ -25,12 +25,20 @@ The reference's ``models/attention.py``:
   reference has no kernel for it).  The MLA cache ignores
   ``kv_cache_bits``, as the reference's does.
 
-Single device only.  The reference's sequence-sharded decode
-(``axis_names``, the pmax/psum merge inside shard_map) is dropped:
-``meta['slots']`` is ``arange(Sc)`` and ``meta['total']`` equals ``Sc``,
-so the ring slot is ``cur % Sc`` (the GQA and the MLA caches
-alike).  ``cur`` is the position as a Python
-int (a 0-dim tensor is read with ``int()``): the host picks the slot.
+Sequence-sharded decode.  On one device ``meta['slots']`` is
+``arange(Sc)`` and ``meta['total']`` equals ``Sc``, so the ring slot is
+``cur % Sc`` (the GQA and the MLA caches alike).  The reference's
+``axis_names`` (the sequence axes of its shard_map) become ``groups``: the
+process groups of those axes, as ``launch/serving.py``'s
+``make_decode_ctx`` passes them to :func:`decode_attn_reference` and
+:func:`decode_mla_reference`.  Each rank then holds a chunk of the cache
+(``make_cache_meta(n, local_offset, local_len)``: ``slots`` carries the
+global slot indices it owns); the new token is written only by the rank
+that owns slot ``cur % total``, and the partial softmax statistics merge
+as in the reference: an all-reduce max of ``m``, then sums of ``l`` and
+``o``, over each group in turn.  With no groups both are the
+single-device functions.  ``cur`` is the position as a Python int (a
+0-dim tensor is read with ``int()``): the host picks the slot.
 
 In place.  JAX returns a new cache from every write; the port writes the
 cache's tensors in place and returns the same dict (the single-device form
@@ -140,10 +148,38 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 # ------------------------------------------------------- decode attention
 
 
-def _ring_write(cache, new_k, new_v, cur: int):
+def _owned_slot(cache, n_local: int, cur: int, groups):
+    """The local index of ring slot ``cur % total`` in this cache chunk, or
+    None where another rank owns it.  With no groups the cache is whole
+    and the slot is ``cur % n_local``."""
+    if not groups:
+        return cur % n_local
+    meta = cache['meta']
+    slot = cur % int(meta['total']) - int(meta['slots'][0])
+    return slot if 0 <= slot < n_local else None
+
+
+def _merge(m, l_fn, groups):
+    """The reference's softmax merge over the sequence groups: ``m`` maxed
+    over every group (in place), floored at -1e29; then ``l_fn(m)`` gives
+    the local (l, o), each summed over every group."""
+    import torch.distributed as dist
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    l, o = l_fn(torch.clamp_min(m, -1e29))
+    for g in groups:
+        dist.all_reduce(l, group=g)
+        dist.all_reduce(o, group=g)
+    return l, o
+
+
+def _ring_write(cache, new_k, new_v, cur: int, groups=()):
     """Write the new token's k/v (int8 codes and scales for an int8 cache)
-    into ring slot ``cur % Sc`` and record its position, in place."""
-    slot = cur % cache['k'].shape[1]
+    into its ring slot and record its position, in place (on the rank
+    that owns the slot)."""
+    slot = _owned_slot(cache, cache['k'].shape[1], cur, groups)
+    if slot is None:
+        return
     if 'k_s' in cache:
         nk_q, nk_s = kv_quantize(new_k)
         nv_q, nv_s = kv_quantize(new_v)
@@ -185,13 +221,15 @@ def decode_attn_kernel(q, new_k, new_v, cache, cur, *, window=0,
 
 
 def decode_attn_reference(q, new_k, new_v, cache, cur, *, window=0,
-                          attn_softcap=0.0):
-    """The reference's single-device decode math in plain torch: ring
-    write, then attention over the dequantized cache with q scaled in its
-    own dtype and the softmax max floored at -1e29 (a row with no valid
-    slot gives zeros).  Writes the cache in place; returns (out, cache)."""
+                          attn_softcap=0.0, groups=()):
+    """The reference's decode math in plain torch: ring write, then
+    attention over the dequantized cache with q scaled in its own dtype
+    and the softmax max floored at -1e29 (a row with no valid slot gives
+    zeros).  ``groups``: the sequence axes' process groups when ``cache``
+    is this rank's chunk (the merge then spans them).  Writes the cache in
+    place; returns (out, cache)."""
     cur = int(cur)
-    _ring_write(cache, new_k, new_v, cur)
+    _ring_write(cache, new_k, new_v, cur, groups)
     B, Sc, K, Dq = cache['k'].shape
     H = q.shape[1]
     g = H // K
@@ -209,11 +247,12 @@ def decode_attn_reference(q, new_k, new_v, cache, cur, *, window=0,
     valid = _valid(cache['meta']['pos'], cur, window)
     logits = torch.where(valid[None, None, None, :], logits,
                          torch.full((), NEG_INF, device=q.device))
-    m = torch.clamp_min(torch.amax(logits, dim=-1), -1e29)
-    p = torch.exp(logits - m[..., None])
-    l = torch.sum(p, dim=-1)
-    o = torch.einsum('bkgs,bskv->bkgv', p.to(v_eff.dtype),
-                     v_eff).to(torch.float32)
+
+    def partials(m):
+        p = torch.exp(logits - m[..., None])
+        return torch.sum(p, dim=-1), torch.einsum(
+            'bkgs,bskv->bkgv', p.to(v_eff.dtype), v_eff).to(torch.float32)
+    l, o = _merge(torch.amax(logits, dim=-1), partials, groups)
     out = (o / torch.clamp_min(l, 1e-30)[..., None]).reshape(B, H, Dv)
     return out.to(q.dtype), cache
 
@@ -308,19 +347,22 @@ def mla_forward(p, x, positions, cfg, *, quant=(0, 0)):
     return out, (ckv, k_rope)
 
 
-def decode_mla_reference(q_nope_lat, q_rope, new_ckv, new_kr, cache, cur):
+def decode_mla_reference(q_nope_lat, q_rope, new_ckv, new_kr, cache, cur,
+                         *, groups=()):
     """Absorbed-MLA decode, the reference's math in torch ops: the latent
-    ``new_ckv`` (B, r) and rope key ``new_kr`` (B, dr) written into slot
-    ``cur % Sc`` in place, then attention in the latent space in fp32 with
+    ``new_ckv`` (B, r) and rope key ``new_kr`` (B, dr) written into their
+    ring slot in place, then attention in the latent space in fp32 with
     q_nope already absorbed through wk_b (``q_nope_lat`` (B, H, r)) and
     both halves of q pre-scaled by the caller; the softmax max is floored
-    at -1e29.  Returns (out_latent (B, H, r) fp32, cache); the caller
-    up-projects through wv_b."""
+    at -1e29.  ``groups`` as in :func:`decode_attn_reference`.  Returns
+    (out_latent (B, H, r) fp32, cache); the caller up-projects through
+    wv_b."""
     cur = int(cur)
-    slot = cur % cache['ckv'].shape[1]
-    cache['ckv'][:, slot] = new_ckv.to(cache['ckv'].dtype)
-    cache['kr'][:, slot] = new_kr.to(cache['kr'].dtype)
-    cache['meta']['pos'][slot] = cur
+    slot = _owned_slot(cache, cache['ckv'].shape[1], cur, groups)
+    if slot is not None:
+        cache['ckv'][:, slot] = new_ckv.to(cache['ckv'].dtype)
+        cache['kr'][:, slot] = new_kr.to(cache['kr'].dtype)
+        cache['meta']['pos'][slot] = cur
     positions = cache['meta']['pos']
     ckv = cache['ckv'].to(torch.float32)
     logits = (torch.einsum('bhr,bsr->bhs', q_nope_lat.to(torch.float32), ckv)
@@ -329,10 +371,11 @@ def decode_mla_reference(q_nope_lat, q_rope, new_ckv, new_kr, cache, cur):
     valid = _valid(positions, cur, 0)
     logits = torch.where(valid[None, None, :], logits,
                          torch.full((), NEG_INF, device=logits.device))
-    m = torch.clamp_min(torch.amax(logits, dim=-1), -1e29)
-    pr = torch.exp(logits - m[..., None])
-    l = torch.sum(pr, dim=-1)
-    o = torch.einsum('bhs,bsr->bhr', pr, ckv)
+
+    def partials(m):
+        pr = torch.exp(logits - m[..., None])
+        return torch.sum(pr, dim=-1), torch.einsum('bhs,bsr->bhr', pr, ckv)
+    l, o = _merge(torch.amax(logits, dim=-1), partials, groups)
     return o / torch.clamp_min(l, 1e-30)[..., None], cache
 
 
@@ -366,10 +409,14 @@ def mla_decode(p, x, cur, cfg, *, cache, ctx, quant=(0, 0)):
 # --------------------------------------------------------- cache builders
 
 
-def make_cache_meta(n_slots: int, device='cpu'):
-    return {'slots': torch.arange(n_slots, dtype=torch.int32, device=device),
-            'pos': torch.full((n_slots,), -1, dtype=torch.int32,
-                              device=device),
+def make_cache_meta(n_slots: int, local_offset: int = 0,
+                    local_len: int | None = None, device='cpu'):
+    """A ring's meta: the global slot indices this cache (chunk) holds,
+    each slot's position (-1 = empty) and the ring's total slots."""
+    ll = n_slots if local_len is None else local_len
+    return {'slots': local_offset + torch.arange(ll, dtype=torch.int32,
+                                                 device=device),
+            'pos': torch.full((ll,), -1, dtype=torch.int32, device=device),
             'total': torch.tensor(n_slots, dtype=torch.int32, device=device)}
 
 
@@ -393,7 +440,7 @@ def kv_dequantize(q, s, dtype):
 def init_attn_cache(cfg, batch, kind, max_len, dtype, device='cpu'):
     n = min(cfg.window, max_len) if kind == 'local' else max_len
     K, hd = cfg.num_kv_heads, cfg.head_dim
-    c = {'meta': make_cache_meta(n, device)}
+    c = {'meta': make_cache_meta(n, device=device)}
     if cfg.kv_cache_bits == 8:
         # int8 KV cache with per-(token, head) scales: halves the cache
         # bytes every decode step reads
@@ -439,7 +486,7 @@ def init_mla_cache(cfg, batch, max_len, dtype, device='cpu'):
                                dtype=dtype, device=device),
             'kr': torch.zeros((batch, max_len, cfg.rope_head_dim),
                               dtype=dtype, device=device),
-            'meta': make_cache_meta(max_len, device)}
+            'meta': make_cache_meta(max_len, device=device)}
 
 
 def prefill_mla_cache_write(cache, ckv, kr, positions):

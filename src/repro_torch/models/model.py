@@ -28,7 +28,7 @@ from repro_torch.models import transformer as tfm
 class Model:
     cfg: ModelConfig
     init: Callable          # (gen, device) -> params
-    forward: Callable       # (params, batch) -> logits
+    forward: Callable       # (params, batch, *, remat) -> logits
     prefill: Callable       # (params, batch, *, max_len) -> (logits, cache)
     decode_step: Callable   # (params, token, cur, cache, *, enc, ctx) -> ...
     init_cache: Callable    # (batch, max_len, device) -> cache
@@ -58,11 +58,12 @@ def build_model(cfg: ModelConfig) -> Model:
             return None, None
         return tfm.encode(params, cfg, frames), _positions(frames)
 
-    def forward(params, batch, *, collect_hiddens=False):
+    def forward(params, batch, *, remat=False, collect_hiddens=False):
         tokens, embeds, frames = _batch_parts(cfg, batch)
         enc, enc_pos = encoded(params, frames)
         return tfm.forward(params, cfg, tokens, embeds=embeds, enc=enc,
-                           enc_pos=enc_pos, collect_hiddens=collect_hiddens)
+                           enc_pos=enc_pos, remat=remat,
+                           collect_hiddens=collect_hiddens)
 
     def prefill(params, batch, *, max_len):
         tokens, embeds, frames = _batch_parts(cfg, batch)

@@ -33,17 +33,30 @@ Recurrent blocks (``models/recurrent.py``): a ``'recurrent'`` layer
 states ``{'h', 'conv'}``, written in place like the attention caches; a
 prefill fills them from the scan's last state and the conv's last inputs.
 
-Dropped, each not needed on one card: ``shard_act`` (identity on one
-device) and ``remat``.
+``shard_act`` marks the layer boundaries where the reference calls it
+(the identity unless a policy is installed, ``models/actsharding.py``),
+and :func:`~repro_torch.models.actsharding.gather_params` runs on each
+layer's param tree just before the layer (and on the embedding, the final
+norm and the unembedding): the identity unless the launcher's mesh policy
+is installed, which then gathers a sharded leaf to its full tensor
+(``launch/steps.py``).  ``remat=True`` runs each layer of
+:func:`forward` under ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, the gather inside it: the numbers are the same,
+the activations kept for the backward pass are each layer's input only,
+and a sharded leaf is gathered again for the recomputation.  The
+reference checkpoints each scanned group; the port's groups are a Python
+loop, so each layer is its own checkpoint.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
+from repro_torch.models.actsharding import gather_params, shard_act
 from repro_torch.models.layers import (embed, init_embedding, init_mlp,
                                        init_norm, mlp, rms_norm, softcap,
                                        unembed)
@@ -263,15 +276,16 @@ def _fill_cache(cfg, kind, cache, kvs, positions):
 
 
 def _head(params, cfg, x, quant):
-    x = rms_norm(params['final_norm'], x, cfg.norm_eps)
-    logits = unembed(params.get('unembed', params['embed']), x, quant=quant)
+    x = rms_norm(gather_params(params['final_norm']), x, cfg.norm_eps)
+    logits = unembed(gather_params(params.get('unembed', params['embed'])),
+                     x, quant=quant)
     return softcap(logits, cfg.logit_softcap)
 
 
 def _embed(params, cfg, tokens, embeds):
     """Token embeddings, after the frontend prefix ``embeds`` if given."""
     dtype = torch_dtype(cfg.dtype)
-    x = embed(params['embed'], tokens, dtype)
+    x = shard_act(embed(gather_params(params['embed']), tokens, dtype))
     if embeds is not None:
         x = torch.cat([embeds.to(dtype), x], dim=1)
     return x
@@ -285,16 +299,18 @@ def encode(params, cfg: ModelConfig, frames):
                        device=frames.device)
     quant = (cfg.w_bits, cfg.a_bits)
     for lp in params['encoder']['layers']:
-        x, _ = layer_forward(lp, x, 'encoder', cfg, positions=pos,
-                             quant=quant)
-    return rms_norm(params['encoder']['final_norm'], x, cfg.norm_eps)
+        x, _ = layer_forward(gather_params(lp), x, 'encoder', cfg,
+                             positions=pos, quant=quant)
+    return rms_norm(gather_params(params['encoder']['final_norm']), x,
+                    cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
-            enc_pos=None, collect_hiddens=False):
+            enc_pos=None, remat=False, collect_hiddens=False):
     """Logits (B, S, vocab) of a token batch (B, S); with a frontend prefix
     ``embeds`` (B, F, d), logits of the whole (B, F + S) sequence.
 
+    ``remat``: checkpoint each layer (recompute it in the backward pass).
     ``collect_hiddens``: also return the residual stream after each scan
     group (``hiddens[g]``, (B, S, d), before the tail and the final norm),
     the early-exit heads' inputs: ``(logits, hiddens)``.  The reference
@@ -304,13 +320,22 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     n_prefix, G, P, _ = layer_groups(cfg)
     group_ends = {n_prefix + (g + 1) * P - 1 for g in range(G)}
+
+    def apply_one(lp, x, kind):
+        y, _ = layer_forward(gather_params(lp), x, kind, cfg,
+                             positions=positions, quant=quant, enc=enc,
+                             enc_pos=enc_pos)
+        return shard_act(y)
+
     hiddens = []
     for i, (kind, lp) in enumerate(_layers(params, cfg)):
-        x, _ = layer_forward(lp, x, kind, cfg, positions=positions,
-                             quant=quant, enc=enc, enc_pos=enc_pos)
+        if remat:
+            x = checkpoint(apply_one, lp, x, kind, use_reentrant=False)
+        else:
+            x = apply_one(lp, x, kind)
         if collect_hiddens and i in group_ends:
             hiddens.append(x)
-    logits = _head(params, cfg, x, quant)
+    logits = shard_act(_head(params, cfg, x, quant), 'logits')
     return (logits, hiddens) if collect_hiddens else logits
 
 
@@ -324,9 +349,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
     cache = init_cache(cfg, B, max_len or cfg.max_seq_len, x.device)
     for (kind, lp), (_, centry) in zip(_layers(params, cfg),
                                        _layers(cache, cfg)):
-        x, kvs = layer_forward(lp, x, kind, cfg, positions=positions,
-                               quant=quant, enc=enc, enc_pos=enc_pos,
-                               want_cache=True)
+        x, kvs = layer_forward(gather_params(lp), x, kind, cfg,
+                               positions=positions, quant=quant, enc=enc,
+                               enc_pos=enc_pos, want_cache=True)
+        if kind not in ('ssm', 'recurrent'):
+            x = shard_act(x)
         _fill_cache(cfg, kind, centry, kvs, positions)
     return _head(params, cfg, x[:, -1:], quant)[:, 0], cache
 
@@ -340,9 +367,12 @@ def decode_step(params, cfg: ModelConfig, token, cur, cache, *, ctx=None,
     ctx = ctx or {}
     cur = int(cur)
     quant = (cfg.w_bits, cfg.a_bits)
-    x = embed(params['embed'], token, torch_dtype(cfg.dtype))
+    x = shard_act(embed(gather_params(params['embed']), token,
+                        torch_dtype(cfg.dtype)), 'residual1')
     for (kind, lp), (_, centry) in zip(_layers(params, cfg),
                                        _layers(cache, cfg)):
-        x, _ = layer_decode(lp, x, kind, cfg, cur=cur, cache=centry, ctx=ctx,
-                            quant=quant, enc=enc, enc_pos=enc_pos)
+        x, _ = layer_decode(gather_params(lp), x, kind, cfg, cur=cur,
+                            cache=centry, ctx=ctx, quant=quant, enc=enc,
+                            enc_pos=enc_pos)
+        x = shard_act(x, 'residual1')
     return _head(params, cfg, x, quant), cache

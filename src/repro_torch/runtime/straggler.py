@@ -10,8 +10,7 @@ collectives act as barriers).  Mitigation implemented here:
     permuting host_ids (no data loss, no resharding);
   * escalation — after ``evict_after`` consecutive flags the host is
     reported for eviction, which triggers the elastic path
-    (the reference's runtime/elastic.py, not ported yet: ROADMAP queue A
-    item 10) on the next restart.
+    (runtime/elastic.py) on the next restart.
 
 On-device timing comes from the launcher; in tests times are injected.
 

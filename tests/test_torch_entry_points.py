@@ -127,7 +127,8 @@ def test_examples_run_on_the_cpu(example, args, expect):
 @pytest.mark.parametrize('module', [
     'repro_torch.examples.quickstart', 'repro_torch.examples.chain_cnn',
     'repro_torch.examples.chain_lm', 'repro_torch.examples.serve_lm',
-    'repro_torch.launch.serve_cnn', 'repro_torch.launch.serve'])
+    'repro_torch.launch.serve_cnn', 'repro_torch.launch.serve',
+    'repro_torch.launch.train'])
 def test_entry_points_refuse_without_a_card(module):
     if torch.cuda.is_available():
         pytest.skip('this host has a card')

@@ -16,7 +16,9 @@ the LM chain hooks on a full-width cut against the CPU, the fake quant at
 the factored LM shapes, the dynamic-scale CNN export against its
 plain-version twin, the replica pool under a seeded kill on the card
 bit-exact against ``fn_exits``, ``ModelRegistry.restore`` on the card and
-a measure-mode export timed by CUDA events.
+a measure-mode export timed by CUDA events, and the training launcher
+(one ``build_train_step`` step on the card's 1 x 1 mesh against a CPU
+mesh, ``launch.train --smoke --drill`` on the card).
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -1227,3 +1229,75 @@ def test_verify_strict_on_card_is_green_with_calls_equal_to_counters(
         want[call.kernel] = want.get(call.kernel, 0) + 1
     assert want == {k: v['launches'] for k, v in c.items() if v['launches']}
     assert all(v['plain_calls'] == 0 for v in c.values())
+
+
+# ------------------------------------------------ the training launcher
+
+
+def test_mesh_train_step_on_card_matches_cpu(cuda_device):
+    """One ``build_train_step`` step of the fp32 tinyllama smoke config on
+    the card's 1 x 1 mesh and on a CPU mesh, in a world of one rank: the
+    loss, the grad norm and every moment within 1e-4 x its max (the
+    matmuls sum in other orders); the updated params no element more than
+    0.25 x lr apart and at most 0.1% of elements more than 1e-2 x lr
+    (AdamW's first step is ``g / (|g| + eps)`` times lr: a gradient
+    within float noise of 0 moves its element by up to lr either way)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config('tinyllama-1.1b')
+    params = tfm.init_lm(torch.Generator().manual_seed(0), cfg, 'cpu')
+    batch = SyntheticTokens(vocab=cfg.vocab_size).batch(
+        torch.Generator().manual_seed(1), 4, 32)
+    started = init_distributed('cuda')
+    try:
+        runs = []
+        for dev in ('cuda', 'cpu'):
+            fn, _, _ = steps.build_train_step(cfg, make_local_mesh(dev),
+                                              batch, lr=1e-3)
+            p = tree_map(lambda t: t.clone().to(dev), params)
+            p, o, m = fn(p, adamw(1e-3).init(p), batch)
+            runs.append((float(m['loss']), float(m['grad_norm']),
+                         [x.full_tensor().cpu() for x in tree_leaves(p)],
+                         [x.full_tensor().cpu() for x in
+                          tree_leaves(o.mu) + tree_leaves(o.nu)]))
+    finally:
+        if started:
+            dist.destroy_process_group()
+    (lg, ng, pg, og), (lc, nc, pc, oc) = runs
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert abs(ng - nc) <= 1e-4 * abs(nc)
+    for a, b in zip(og, oc):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * max(scale, 1e-30)
+    for a, b in zip(pg, pc):
+        d = (a - b).abs()
+        assert float(d.max()) <= 0.25 * 1e-3
+        assert float((d > 1e-2 * 1e-3).float().mean()) <= 1e-3
+
+
+def test_train_cli_drill_on_card(cuda_device, tmp_path):
+    """``launch.train --smoke --steps 4 --drill`` on the card: one
+    restart, and the final loss of the run without the drill."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, 'src'))
+    lines = {}
+    for drill in (False, True):
+        r = subprocess.run(
+            [sys.executable, '-m', 'repro_torch.launch.train', '--smoke',
+             '--steps', '4', '--ckpt-every', '1', '--ckpt',
+             str(tmp_path / f'c{drill}')] + (['--drill'] if drill else []),
+            env=env, capture_output=True, text=True, timeout=600, cwd=root)
+        assert r.returncode == 0, r.stderr[-4000:]
+        lines[drill] = [ln for ln in r.stdout.splitlines()
+                        if ln.startswith('finished at step 4;')][0]
+    assert 'restarts=0' in lines[False] and 'restarts=1' in lines[True]
+    assert lines[True].split('loss ')[1] == lines[False].split('loss ')[1]
