@@ -311,6 +311,35 @@ Phases, in order; any failure exits non-zero and no result is printed:
    compared), the first-step logits within ``LM_PLAIN_TOL`` x max|logit|.
    No kernel is on path (q): the reference's train step runs
    ``model.forward`` at quant (0, 0) and its mesh decode the plain math.
+   Then (r), pipeline-parallel serving (``pipeline_path``): path (a)'s
+   export (``resnet34-cifar``, exits after stages 1 and 2, int8-resident)
+   served by ``PipelineParallelScheduler`` over ``R_ORDINALS`` ordinals of
+   the one card (``devices=(cuda:0,) * 4``, ``place_stages``) on the
+   card's measured stage costs, the 256-request trace in compacting,
+   static and chaos modes (a kill at ``R_KILL_AT`` of the compacting
+   makespan), counted from zero: every completion's exit stage and logits
+   bit-exact against ``fn_exits`` on the request alone at 32 slots, a
+   strict ``check_trace``, ``placement-consistency`` strict-green on the
+   placed model, ``transfer.carry`` spans, under chaos a kill and a
+   re-solve, ``quant_matmul``'s launches those of the plan over the landed
+   batches (plus at most one flight's per kill), no plain call; printed:
+   each placement, the simulated makespan and throughput, batches and
+   carry transfers by ordinal, the wall seconds.  Then ``serve_cnn
+   --server --pipeline --chaos`` in process on the card's one device,
+   where the seeded kill must be ``kill_skipped``.  Then (s), the MoE
+   block's expert-parallel path on the card's 1 x 1 mesh
+   (``moe_ep_path``; a world of one rank, NCCL): one ``mixtral-8x7b`` MoE
+   layer at its published width (8 experts of 14336, top 2, d_model
+   4096), fp32, through ``moe_block`` under the mesh policy (a2a mode over
+   a group of one: two all-to-alls) within ``S_TOL`` x max of the dense
+   block on the card, both timed; then ``launch.train.main`` on
+   ``mixtral-8x7b`` cut in depth to ``S_LAYERS`` layers at full width,
+   fp32, ``S_STEPS`` steps (the launcher's loop keeping no checkpoint:
+   37 GB a save at this size), with the EP path and under
+   ``REPRO_MOE_MODE=dense``: loss and grad norm within ``S_TOL``
+   relative, params within (q)'s AdamW band.  No TPU kernel runs on (s)
+   (the expert products are ``torch.bmm``, as on (m)); the multi-rank
+   collectives are checked on gloo ranks in the CPU tests only.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), (k) (42 each, with the softcap), (l), (m) and (o) (12 each), and
@@ -334,7 +363,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    launches over all the paths' counted runs (path (g): its chain and
    its serving; (h): its chain and its decode; (i): its export, stage
    costs, SLO, pool and measure-mode runs; (j): its exports and the
-   analyzer's runs), and ``excess_ms``: those
+   analyzer's runs; (r): its three runs and the CLI's serving; (s): none),
+   and ``excess_ms``: those
    launches times (its time a call less its bound a call).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -510,6 +540,28 @@ Q_CPU_TOL = 1e-4
 # most Q_NEAR_SHARE of them more than Q_NEAR_LR x lr
 Q_NEAR_MAX, Q_NEAR_LR, Q_NEAR_SHARE = 0.25, 1e-2, 1e-3
 Q_SERVE_TOKENS = 8
+# Path (r): pipeline-parallel serving of path (a)'s export over R_ORDINALS
+# ordinals of the one card (PipelineParallelScheduler, place_stages) in
+# compacting, static and chaos modes on the card's measured stage costs,
+# the chaos kill at R_KILL_AT of the compacting makespan; then
+# serve_cnn --pipeline --chaos on the card's one device, its Poisson rate
+# R_CLI_RATE (arrivals then outlast the seeded kill's 0.6-0.9 of the
+# horizon, so the kill falls inside the run, as kill_skipped)
+R_KEY = 'resnet34-pipeline'
+R_ORDINALS = 4
+R_KILL_AT = 0.4
+R_CLI_RATE = 1000.0
+# Path (s): mixtral-8x7b's MoE block on the expert-parallel path under the
+# card's 1 x 1 mesh policy (a2a mode over a group of one), fp32 at the
+# published width, against the dense block; then launch.train cut in depth
+# to S_LAYERS layers at full width, fp32, S_STEPS steps with the EP path
+# and the same steps under REPRO_MOE_MODE=dense
+S_KEY = 'mixtral-ep'
+S_ARCH = 'mixtral-8x7b'
+S_BATCH, S_SEQ = 8, 128
+S_TOL = 1e-5
+S_LAYERS, S_STEPS = 2, 3
+S_TRAIN_BATCH, S_TRAIN_SEQ = 2, 128
 MOE_NEAR_TIE = 1e-6
 MOE_PRUNE_RATIO = 0.3          # mixtral's cut keeps max(2, int(8 x 0.7)) = 5
 # Decode attention against its plain version, max|kernel - plain| over
@@ -3257,6 +3309,374 @@ def train_mesh_path(torch):
     return out
 
 
+def pipeline_run(torch, tag, model, xs, t_arr, threshold, costs, oracle,
+                 calib, mode, compact, plan):
+    """One (r) run: the trace through ``PipelineParallelScheduler`` over
+    R_ORDINALS ordinals of the card, gated.  Returns (launches, makespan,
+    the run's readings)."""
+    from repro_torch.analysis import AnalysisError, check
+    from repro_torch.kernels import counts
+    from repro_torch.obs import TraceInvariantError, Tracer, check_trace
+    from repro_torch.serving import PipelineParallelScheduler, Request
+    tracer = Tracer()
+    reqs = [Request(i, xs[i], float(t_arr[i])) for i in range(N_REQUESTS)]
+    sched = PipelineParallelScheduler(
+        model, slots=SLOTS, threshold=threshold, stage_costs=costs,
+        devices=(torch.device('cuda', 0),) * R_ORDINALS, compact=compact,
+        chaos=plan, tracer=tracer)
+    placement0 = sched.placement.summary()
+    before = counts()
+    t0 = time.perf_counter()
+    comp, metrics = sched.run_trace(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = count_delta(before)
+    tag = f'{tag}[{mode}]'
+    m = metrics.summary()
+    makespan = max(c.t_done for c in comp.values()) - float(t_arr[0])
+    kinds = [e[0] for e in metrics.events]
+    batches, transfers = {}, {}
+    for _, _, dev in metrics.device_samples:
+        batches[dev] = batches.get(dev, 0) + 1
+    for sp in tracer.spans:
+        if sp.name == 'transfer.carry':
+            d = sp.args['dst_device']
+            transfers[d] = transfers.get(d, 0) + 1
+    print(f"{tag} placement over {placement0['n_devices']} ordinals: "
+          f"{placement0['assignment']} loads {placement0['loads']} balance "
+          f"{placement0['balance']} (LPT bound {placement0['bound']})"
+          + (f'; after the kill: {sched.placement.summary()["assignment"]} '
+             f'over ordinals {sched.alive}' if plan is not None else ''))
+    print(f"{tag} served {m['n_requests']} of {N_REQUESTS} in {wall:.3f} s "
+          f"wall: simulated makespan {makespan * 1e3:.4f} ms, throughput "
+          f"{m['throughput_rps']} req/s, p50 {m['p50_latency_s'] * 1e3:.4f} "
+          f"ms, p99 {m['p99_latency_s'] * 1e3:.4f} ms, exit mix "
+          f"{m['exit_mix']}; batches by ordinal "
+          f"{dict(sorted(batches.items()))}, carry transfers by ordinal "
+          f"{dict(sorted(transfers.items()))}; "
+          f"events {kinds}")
+    if len(comp) != N_REQUESTS:
+        fail(f'{R_KEY}: {mode} completed {len(comp)} of {N_REQUESTS}')
+    check_against_oracle(tag, R_KEY, comp, oracle)
+    try:
+        check_trace(tracer, comp, strict=True)
+    except TraceInvariantError as e:
+        fail(f'{R_KEY}: the {mode} trace breaks its invariants: {e}')
+    if not transfers:
+        fail(f'{R_KEY}: {mode} moved no carry between ordinals')
+    if plan is not None and ('kill' not in kinds
+                             or kinds.count('placement') < 2):
+        fail(f'{R_KEY}: {mode} saw no kill and re-solve ({kinds})')
+    plain = sum(v['plain_calls'] for v in delta.values())
+    got = delta['quant_matmul']['launches']
+    want = sum(model.segment_launches[k].get('quant_matmul', 0)
+               for k, _, _ in metrics.batches)
+    most = max(sum(seg.values()) for seg in model.segment_launches)
+    lost = kinds.count('kill') * most      # a killed flight ran, then died
+    print(f'{tag} quant_matmul launches {got} (the plan over the '
+          f'{len(metrics.batches)} landed segment batches: {want}'
+          + (f', plus at most {lost} of killed flights' if lost else '')
+          + f'); plain-version calls {plain}')
+    if plain or not want <= got <= want + lost:
+        fail(f'{R_KEY}: {mode} launched quant_matmul {got} times (plan '
+             f'{want}), plain versions {plain}')
+    try:
+        rep = check(sched.model, x=calib, rules=('placement-consistency',),
+                    strict=True)
+    except AnalysisError as e:
+        fail(f'{R_KEY}: placement-consistency is red on the {mode} '
+             f'placement: {e}')
+    if 'placement-consistency' not in rep.checked:
+        fail(f'{R_KEY}: placement-consistency did not run ({rep.skipped})')
+    print(f'{tag} placement-consistency strict-green on the placed model '
+          f'(stage devices {[str(d) for d in sched.model.stage_devices]})')
+    return delta, makespan, dict(
+        wall_s=wall, makespan_ms=makespan * 1e3,
+        throughput_rps=m['throughput_rps'], batches=batches,
+        transfers=transfers, events=kinds)
+
+
+def pipeline_path(torch, model):
+    """Path (r): path (a)'s export served pipeline-parallel over
+    R_ORDINALS ordinals of the card in compacting, static and chaos modes
+    (counted from zero; the oracle and the analyzer's runs excluded), then
+    ``serve_cnn --pipeline --chaos`` on the card's one device.  Returns
+    (launches, readings)."""
+    import numpy as np
+    from repro_torch.core.export import calibrate_exit_threshold
+    from repro_torch.core.family import CNNFamily
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.launch import serve_cnn
+    from repro_torch.launch.serve_cnn import _measure_stage_costs
+    from repro_torch.serving import ChaosPlan
+    tag = f'[pipeline:{R_KEY}]'
+    t_path = time.perf_counter()
+    laps = Laps()
+    fam = CNNFamily(SyntheticImages(), device='cuda')
+    stream = fam.eval_batches(N_REQUESTS // 64 + 1, 64)
+    xs = torch.cat([x for x, _ in stream])
+    calib, xs = xs[:SLOTS], xs[SLOTS:SLOTS + N_REQUESTS]
+    t_arr = np.cumsum(np.random.default_rng(SEED).exponential(
+        1.0 / RATE, size=N_REQUESTS))
+    threshold = calibrate_exit_threshold(model, calib)
+    costs = _measure_stage_costs(model, calib, iters=RT_COST_ITERS)
+    oracle = runtime_oracle(torch, model, xs, threshold)
+    laps('costs and oracle')
+    print(f'{tag} {model.cfg.name} (path (a)\'s export), exit threshold '
+          f'{threshold:.6f}; stage costs at {SLOTS} slots (CUDA events, '
+          f'median of {RT_COST_ITERS}): '
+          + ', '.join(f'seg{k} {c * 1e3:.4f} ms' for k, c in enumerate(costs)))
+    torch.cuda.synchronize()
+    reset_counts()
+    launches, out, makespan = {}, {}, None
+    for mode, compact, chaos in (('compacting', True, False),
+                                 ('static', False, False),
+                                 ('chaos', True, True)):
+        plan = (ChaosPlan(kills=((float(t_arr[0]) + R_KILL_AT * makespan,
+                                  None),)) if chaos else None)
+        delta, span, out[mode] = pipeline_run(
+            torch, tag, model, xs, t_arr, threshold, costs, oracle, calib,
+            mode, compact, plan)
+        add_launches(launches, delta)
+        if makespan is None:
+            makespan = span
+        laps(mode)
+    # the CLI on the card's one device: its kill is kill_skipped
+    t0 = time.perf_counter()
+    comp, metrics = serve_cnn.main([
+        '--server', '--pipeline', '--chaos', '--config', PATHS[0]['config'],
+        '--steps', '0', '--requests', str(N_REQUESTS), '--slots',
+        str(SLOTS), '--rate', str(R_CLI_RATE)])
+    torch.cuda.synchronize()
+    add_launches(launches, counts())       # serve_cnn counts from zero
+    kinds = [e[0] for e in metrics.events]
+    print(f'{tag}[cli] serve_cnn --server --pipeline --chaos --rate '
+          f'{R_CLI_RATE:.0f} on the card\'s one device in '
+          f'{time.perf_counter() - t0:.1f} s: {len(comp)} served, events '
+          f'{kinds}')
+    if len(comp) != N_REQUESTS or 'kill_skipped' not in kinds or \
+            'kill' in kinds:
+        fail(f'{R_KEY}: serve_cnn --pipeline --chaos on one device served '
+             f'{len(comp)} and recorded {kinds}: the kill must be '
+             f'kill_skipped')
+    laps('cli')
+    if not launches.get('quant_matmul'):
+        fail(f'{R_KEY}: quant_matmul was never launched on this path')
+    secs = time.perf_counter() - t_path
+    print(f'{tag} path took {secs:.1f} s ({laps})')
+    out['secs'] = secs
+    return launches, out
+
+
+class _NoCheckpoints:
+    """A checkpoint manager that keeps nothing: path (s)'s launcher runs
+    write no checkpoint (37 GB a save at its size; path (q) times them)."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def save(self, step, tree):
+        pass
+
+    def wait(self):
+        pass
+
+    def restore_latest(self, tree_like):
+        raise FileNotFoundError('no checkpoints are kept')
+
+
+def moe_ep_train(torch, tag, mode, on_host):
+    """One ``launch.train.main`` run of mixtral-8x7b cut to S_LAYERS layers
+    at full width, fp32, S_STEPS steps, under ``REPRO_MOE_MODE=mode``:
+    (losses, grad norms, final params (copied to the host where
+    ``on_host``, else the card's), EP collectives called, ms/step, peak
+    GiB)."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import moe
+    cut = get_config(S_ARCH).replace(num_layers=S_LAYERS, dtype='float32')
+    norms, calls = [], {'a2a': 0, 'sum': 0}
+    build0, get0, mgr0 = (steps.build_train_step, train.get_config,
+                          train.CheckpointManager)
+    a2a0, sum0 = moe._AllToAll.apply, moe._Sum.apply
+
+    def build(*a, **k):
+        fn, model, rest = build0(*a, **k)
+
+        def step(params, opt_state, batch):
+            out = fn(params, opt_state, batch)
+            norms.append(float(out[2]['grad_norm']))
+            return out
+        return step, model, rest
+
+    def counted(key, apply):
+        def f(*a):
+            calls[key] += 1
+            return apply(*a)
+        return f
+    env0 = os.environ.get('REPRO_MOE_MODE')
+    os.environ['REPRO_MOE_MODE'] = mode
+    steps.build_train_step, train.get_config = build, lambda arch: cut
+    train.CheckpointManager = _NoCheckpoints
+    moe._AllToAll.apply = counted('a2a', a2a0)
+    moe._Sum.apply = counted('sum', sum0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, end, loop = train.main([
+            '--arch', S_ARCH, '--steps', str(S_STEPS), '--batch',
+            str(S_TRAIN_BATCH), '--seq', str(S_TRAIN_SEQ), '--lr',
+            str(Q_LR)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        steps.build_train_step, train.get_config = build0, get0
+        train.CheckpointManager = mgr0
+        moe._AllToAll.apply, moe._Sum.apply = a2a0, sum0
+        if env0 is None:
+            os.environ.pop('REPRO_MOE_MODE', None)
+        else:
+            os.environ['REPRO_MOE_MODE'] = env0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dts = [e[2] for e in loop.events if e[0] == 'step']
+    losses = [e[3]['loss'] for e in loop.events if e[0] == 'step']
+    params = [x.to_local().cpu() if on_host else x.to_local()
+              for x in _leaves(state[0])]
+    del state
+    ms = statistics.median(dts[1:]) * 1e3
+    print(f'{tag}[train {mode}] launch.train.main --arch {S_ARCH} cut to '
+          f'{S_LAYERS} layers at full width, fp32, {end} steps of '
+          f'{S_TRAIN_BATCH} x {S_TRAIN_SEQ} tokens in {wall:.1f} s: ms/step '
+          f'{ms:.3f} (median after the first, {dts[0] * 1e3:.3f}), peak '
+          f'memory {peak:.2f} GiB; losses '
+          + ', '.join(f'{v:.6f}' for v in losses) + '; grad norms '
+          + ', '.join(f'{v:.6f}' for v in norms)
+          + f'; all-to-alls {calls["a2a"]}, f-TP sums {calls["sum"]}')
+    if end != S_STEPS or len(norms) != S_STEPS or not all(
+            math.isfinite(v) for v in losses + norms):
+        fail(f'{S_KEY}: launch.train ({mode}) did not run {S_STEPS} '
+             f'finite steps')
+    return losses, norms, params, calls, ms, peak
+
+
+def moe_ep_path(torch):
+    """Path (s): the MoE block's expert-parallel path on the card's 1 x 1
+    mesh (a world of one rank, NCCL), counted from zero: one mixtral-8x7b
+    MoE layer at its published width, fp32, through ``moe_block`` under
+    the mesh policy (a2a mode over a group of one) against the dense block
+    on the card; then ``launch.train`` cut in depth with the EP path
+    against the same steps under ``REPRO_MOE_MODE=dense``.  No TPU kernel
+    is on this path (the expert products are ``torch.bmm``).  Returns
+    (launches, readings)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.actsharding import (activation_sharding,
+                                                make_mesh_policy)
+    tag = f'[moe-ep:{S_KEY}]'
+    t_path = time.perf_counter()
+    laps = Laps()
+    cfg = get_config(S_ARCH).replace(dtype='float32')
+    out = {}
+    started = init_distributed('cuda')
+    try:
+        policy = make_mesh_policy(make_local_mesh('cuda'))
+        g = torch.Generator(device='cuda').manual_seed(SEED)
+        p = moe.init_moe(g, cfg, device='cuda')
+        x = torch.randn((S_BATCH, S_SEQ, cfg.d_model), generator=g,
+                        device='cuda') * 0.3
+        torch.cuda.synchronize()
+        reset_counts()
+        calls = {'a2a': 0}
+        a2a0 = moe._AllToAll.apply
+
+        def counted(*a):
+            calls['a2a'] += 1
+            return a2a0(*a)
+        moe._AllToAll.apply = counted
+        try:
+            with torch.no_grad(), activation_sharding(policy):
+                y_ep = moe.moe_block(p, x, cfg)
+            n_a2a = calls['a2a']
+
+            def ep():
+                with torch.no_grad(), activation_sharding(policy):
+                    moe.moe_block(p, x, cfg)
+            ms_ep = time_ms(torch, ep, iters=5)
+        finally:
+            moe._AllToAll.apply = a2a0
+        with torch.no_grad():
+            y_dense = moe._moe_block_dense(p, x, cfg)
+
+            def dense():
+                moe._moe_block_dense(p, x, cfg)
+            ms_dense = time_ms(torch, dense, iters=5)
+        torch.cuda.synchronize()
+        err = max_err(torch, y_ep, y_dense) / float(y_dense.abs().max())
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        print(f'{tag} one {S_ARCH} MoE layer at its published width ({E} '
+              f'experts of {f}, top {cfg.top_k}, d_model {cfg.d_model}), '
+              f'fp32, x ({S_BATCH}, {S_SEQ}, {cfg.d_model}): moe_block under '
+              f'the 1 x 1 mesh policy took the a2a path ({n_a2a} '
+              f'all-to-alls over a group of one) in {ms_ep:.3f} ms, the '
+              f'dense block {ms_dense:.3f} ms; max|ep - dense| {err:.3e} x '
+              f'max|dense|')
+        if n_a2a != 2 or err > S_TOL:
+            fail(f'{S_KEY}: the EP layer ran {n_a2a} all-to-alls and lies '
+                 f'{err:.3e} x max from the dense one (limit {S_TOL})')
+        out['layer'] = dict(ms_ep=ms_ep, ms_dense=ms_dense, err=err)
+        del p, x, y_ep, y_dense
+        torch.cuda.empty_cache()
+        laps('layer')
+        runs = {}
+        for mode in ('auto', 'dense'):       # the EP params wait on the host
+            runs[mode] = moe_ep_train(torch, tag, mode, mode == 'auto')
+            torch.cuda.empty_cache()
+            laps(f'train {mode}')
+        (l_ep, n_ep, p_ep, c_ep, ms_ep, pk_ep), \
+            (l_d, n_d, p_d, c_d, ms_d, pk_d) = runs['auto'], runs['dense']
+        if not c_ep['a2a'] or c_ep['sum'] or c_d['a2a'] or c_d['sum']:
+            fail(f'{S_KEY}: the EP run called {c_ep}, the dense run {c_d}: '
+                 f'the EP run must take the a2a path and the dense none')
+        worst = max(abs(a - b) / abs(b) for a, b in zip(l_ep + n_ep,
+                                                       l_d + n_d))
+        far, n_el, near = 0, 0, 0.0
+        for a, b in zip(p_ep, p_d):
+            d = (a.to(b.device) - b).abs()
+            near = max(near, float(d.max()) / Q_LR)
+            far += int((d > Q_NEAR_LR * Q_LR).sum())
+            n_el += d.numel()
+        print(f'{tag} EP against dense over {S_STEPS} steps: loss and grad '
+              f'norm within {worst:.3e} relative (limit {S_TOL}); params: '
+              f'max |diff| {near:.3e} x lr (limit {Q_NEAR_MAX}), {far} of '
+              f'{n_el} elements beyond {Q_NEAR_LR} x lr (limit '
+              f'{Q_NEAR_SHARE:.0e} of them)')
+        if worst > S_TOL or near > Q_NEAR_MAX or far > Q_NEAR_SHARE * n_el:
+            fail(f'{S_KEY}: the EP train steps left the dense ones\' bands')
+        out['train'] = dict(ms_ep=ms_ep, ms_dense=ms_d, peak_gib=max(
+            pk_ep, pk_d), loss_gap=worst, param_gap_lr=near)
+        del p_ep, p_d
+        laps('compare')
+    finally:
+        if started:
+            dist.destroy_process_group()
+    launched = {k: v['launches'] for k, v in counts().items()}
+    plain = sum(v['plain_calls'] for v in counts().values())
+    if any(launched.values()) or plain:
+        fail(f'{S_KEY}: a TPU kernel ran on path (s): {launched}, plain '
+             f'calls {plain}')
+    secs = time.perf_counter() - t_path
+    print(f'{tag} no TPU kernel launched (the expert products are '
+          f'torch.bmm); path took {secs:.1f} s ({laps})')
+    out['secs'] = secs
+    return {k: 0 for k in counts()}, out
+
+
 def tree_bits_equal(torch, a, b):
     """Two trees of tensors, leaf for leaf, bit for bit (on the CPU)."""
     la, lb = _leaves(a), _leaves(b)
@@ -5093,6 +5513,10 @@ def main():
         print(f'[time] path ({label}) took {time.perf_counter() - t0:.1f} s')
     train_mesh_path(torch)
     print(f'[time] path (q) done at {time.perf_counter() - t_start:.1f} s')
+    launches[R_KEY], _ = pipeline_path(torch, served[PATHS[0]['key']][0])
+    print(f'[time] path (r) done at {time.perf_counter() - t_start:.1f} s')
+    launches[S_KEY], _ = moe_ep_path(torch)
+    print(f'[time] path (s) done at {time.perf_counter() - t_start:.1f} s')
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,
                             H_KEY: h_calls}, dyn) + \

@@ -126,18 +126,14 @@ def mutant_placement_consistency():
     """A placed stage-split export whose placement lost a stage: the last
     segment has no assigned device (and no committed params copy) — the
     exact inconsistency a buggy re-solve after a device kill would ship.
-    The port has no ``place_stages`` yet (ROADMAP, queue A 10), so the
-    placed export is a stand-in built by hand around a clean one: every
-    stage on the CPU, then one assignment truncated."""
+    Works on a single device: the clean placement pins every stage to the
+    model's device, the mutant then truncates one assignment."""
     model, _, _, x = _resnet_export(exits=True)
-    n = model.n_stages
-    fields = {f.name: getattr(model, f.name)
-              for f in dataclasses.fields(model)}
-    placed = SimpleNamespace(
-        **fields, n_stages=n,
-        stage_devices=(model.device,) * (n - 1) + (None,),
-        stage_params=(model.params,) * (n - 1) + (None,))
-    return {'model': placed, 'x': x, 'rules': ('placement-consistency',),
+    placed = model.place_stages((model.device,) * model.n_stages)
+    broken = dataclasses.replace(
+        placed, stage_devices=placed.stage_devices[:-1] + (None,),
+        stage_params=placed.stage_params[:-1] + (None,))
+    return {'model': broken, 'x': x, 'rules': ('placement-consistency',),
             'target': 'mutant:placement-consistency'}
 
 

@@ -49,7 +49,7 @@ as the reference does.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import torch
@@ -80,6 +80,14 @@ def resolve_device(device) -> torch.device:
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: this entry point runs on the card '
                            "unless the caller asks for device='cpu'")
+    return device
+
+
+def _indexed(device) -> torch.device:
+    """``device`` as a torch.device, a bare ``cuda`` as the current card."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
     return device
 
 
@@ -672,6 +680,8 @@ class ServingModel:
     device: torch.device = torch.device('cpu')
     backend: str = 'plain'             # 'cuda' kernels | 'plain' versions
     analysis: Any = None               # AnalysisReport from export verify=
+    stage_devices: tuple = ()          # torch device pinned per segment
+    stage_params: tuple | None = None  # params on stage_devices
 
     def serve(self, x):
         return self.fn(self.params, x)
@@ -698,11 +708,41 @@ class ServingModel:
         """Run segment ``i``: ``carry`` is the input batch for ``i == 0``,
         else the carry segment ``i - 1`` returned (an int8 ``QAct``).
         Intermediate segments return ``(exits, carry)``; the last returns
-        logits."""
+        logits.  On a placed model (:meth:`place_stages`) the segment reads
+        the params copy on its device, so it runs where the placement put
+        it (the carry must be there too)."""
         if not self.stage_fns:
             raise ValueError('model was exported without exit heads '
                              '(no stage boundaries to resume at)')
-        return self.stage_fns[i](self.params, carry)
+        params = (self.stage_params[i] if self.stage_params is not None
+                  else self.params)
+        return self.stage_fns[i](params, carry)
+
+    def place_stages(self, devices) -> 'ServingModel':
+        """Pin segment ``k`` to ``devices[k]`` (one torch device a stage).
+
+        Returns a NEW ServingModel whose ``stage_params[k]`` is the params
+        tree on ``devices[k]`` (one copy a *distinct* device, shared by the
+        stages on it; on the model's own device the params themselves,
+        ``.to`` copying nothing).  The compiled math is unchanged, so
+        answers stay bit-exact with the unplaced model.  The int8 ``QAct``
+        carry between segments is NOT moved here: moving it across stage
+        boundaries is the scheduler's job (serving/placement.py).  A
+        ``cuda`` device without an index is read as the current card."""
+        if not self.stage_fns:
+            raise ValueError('model was exported without exit heads '
+                             '(no stages to place)')
+        devices = tuple(_indexed(d) for d in devices)
+        if len(devices) != self.n_stages:
+            raise ValueError(
+                f'need one device per stage: got {len(devices)} devices '
+                f'for {self.n_stages} stages')
+        per_dev = {}
+        for d in devices:
+            if d not in per_dev:
+                per_dev[d] = to_device(self.params, d)
+        return replace(self, stage_devices=devices,
+                       stage_params=tuple(per_dev[d] for d in devices))
 
     def serve_stages(self, x):
         """Chain every stage segment: ``(logits, exits)``, value-identical

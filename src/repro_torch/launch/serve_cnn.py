@@ -41,8 +41,19 @@ records the export's and the scheduler's spans, checks their invariants
 
 ``--verify [strict|warn]`` runs the analyzer over the export before
 serving and prints its report (``strict``, the default, stops on an error
-finding); it implies ``--resident``.  The reference's ``--pipeline``
-(ROADMAP queue A item 10) raises until its slice lands.
+finding); it implies ``--resident``.
+
+``--pipeline`` serves the trace pipeline-parallel across every card of
+the host (``serving.pipeline_devices``; with ``--device cpu``, the one
+CPU): the placement solver packs stage *k* onto a device by measured
+cost (greedy LPT, the reported load-balance bound), the int8 carry moves
+between devices, and the run prints the placement next to the usual
+latency numbers.  ``--chaos`` composes: a seeded device kill mid-trace,
+survivors re-solved; with one device the kill is recorded as
+``kill_skipped`` (the last device is never killed).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --server \
+        --pipeline --chaos --requests 256 --slots 32
 """
 from __future__ import annotations
 
@@ -102,8 +113,9 @@ def _serve_trace(model, fam, cfg, args, tracer=None):
     from repro_torch.core.export import calibrate_exit_threshold
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.serving import (ChaosPlan, ContinuousBatchScheduler,
+                                     PipelineParallelScheduler,
                                      ReplicaPoolScheduler, Request,
-                                     SLOPolicy)
+                                     SLOPolicy, pipeline_devices)
 
     rng = np.random.default_rng(args.seed)
     stream = fam.eval_batches(-(-args.requests // args.batch), args.batch)
@@ -119,7 +131,7 @@ def _serve_trace(model, fam, cfg, args, tracer=None):
         deadlines = [float(ti) + args.deadline_ms * 1e-3 for ti in t]
     reqs = [Request(i, xs[i], float(t[i]), deadline=deadlines[i])
             for i in range(args.requests)]
-    simulated = args.chaos or args.deadline_ms is not None
+    simulated = args.chaos or args.deadline_ms is not None or args.pipeline
     if simulated:
         # the SLO layer and the replica pool need a deterministic clock:
         # measure per-segment batch costs here and simulate on them
@@ -128,7 +140,24 @@ def _serve_trace(model, fam, cfg, args, tracer=None):
               + ' '.join(f'{c * 1e3:.2f}ms' for c in costs))
         slo = SLOPolicy(stage_costs=costs) \
             if args.deadline_ms is not None else None
-        if args.chaos:
+        if args.pipeline:
+            devices = (pipeline_devices() if model.device.type == 'cuda'
+                       else (model.device,))
+            plan = None
+            if args.chaos:
+                horizon = max(float(t[-1]),
+                              args.requests / args.slots * sum(costs))
+                plan = ChaosPlan.seeded(args.chaos_seed, len(devices),
+                                        horizon)
+            sched = PipelineParallelScheduler(
+                model, slots=args.slots, threshold=threshold,
+                stage_costs=costs, devices=devices, max_wait=args.max_wait,
+                chaos=plan, tracer=tracer)
+            p = sched.placement.summary()
+            print(f"placement over {p['n_devices']} devices: "
+                  f"{p['assignment']} loads={p['loads']} "
+                  f"balance={p['balance']} (LPT bound {p['bound']})")
+        elif args.chaos:
             horizon = max(float(t[-1]),
                           args.requests / args.slots * sum(costs)
                           / args.replicas)
@@ -258,7 +287,12 @@ def main(argv=None):
                     help='record the export and scheduler spans, check '
                          'their invariants and write a Chrome trace')
     ap.add_argument('--pipeline', action='store_true',
-                    help='pipeline-parallel serving (not ported yet)')
+                    help='pipeline-parallel over every card of the host '
+                         '(the CPU with --device cpu): the placement solver '
+                         'packs stages onto devices by measured cost, the '
+                         'int8 carry moves between them; implies --server '
+                         '(simulated clock); composes with --chaos (seeded '
+                         'device kill)')
     ap.add_argument('--verify', nargs='?', const='strict', default=None,
                     choices=('strict', 'warn'),
                     help='run the analyzer (repro_torch/analysis) over the '
@@ -266,11 +300,11 @@ def main(argv=None):
                          'strict (default) aborts on any error finding. '
                          'Implies --resident')
     args = ap.parse_args(argv)
-    if args.pipeline:
-        ap.error('--pipeline is not ported yet (ROADMAP, queue A item 10: '
-                 'distributed and launch code)')
-    if args.chaos:
+    if args.chaos or args.pipeline:
         args.server = True
+    if args.pipeline and args.deadline_ms is not None:
+        ap.error('--pipeline does not compose with --deadline-ms (the '
+                 'SLO layer lives in the replica pool)')
     if args.server or args.verify:
         args.resident = True
     try:

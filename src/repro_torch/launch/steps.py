@@ -31,10 +31,13 @@ tensors (where the reference's GSPMD partitions one program):
 * the loss is the mean over every rank's tokens (a VLM's over its text
   positions only).
 
-Tensor-parallel compute that never gathers on 'model' (Megatron column
-and row products) is a later item (ROADMAP).  On a mesh of one rank every
-placement is ``Replicate()``, no collective runs, and the step is the
-single-device step.  The decode runs the plain decode math through
+The MoE block is the exception: under the policy it runs expert-parallel
+(``models/moe.py``), its expert leaves gathered over the DP axes only and
+kept on their 'model' shards.  Tensor-parallel compute that never gathers
+on 'model' (Megatron column and row products) is a later item (ROADMAP).
+On a mesh of one rank every placement is ``Replicate()``, no collective
+runs but the MoE block's (over groups of one), and the step computes the
+single-device step's numbers.  The decode runs the plain decode math through
 ``launch/serving.py``'s ctx, as the reference's mesh path does, not the
 decode-attention kernel.
 """
@@ -131,6 +134,14 @@ def _local_batch(batch, b_sh):
     return tree_map(lambda x, s: _local(place(x, s)), batch, b_sh)
 
 
+def _batch_split(spec, mesh) -> bool:
+    """The batch spec ``spec`` splits dim 0 over every DP axis (the
+    reference's ``B % dp == 0``, which its MoE block tests before its
+    expert-parallel path)."""
+    first = tuple(spec)[0] if len(spec) else None
+    return set(sh._axes(first)) == set(data_axes(mesh))
+
+
 def _dp_mean(x, mesh):
     """The mean of ``x`` over the DP ranks (in place)."""
     import torch.distributed as dist
@@ -182,7 +193,8 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
             AdamWState(step=sh.NamedSharding(mesh, sh.P()), mu=p_sh,
                        nu=p_sh))
     b_sh = sh.batch_shardings(batch_aval, mesh)
-    policy = make_mesh_policy(mesh)
+    policy = make_mesh_policy(
+        mesh, batch_split=_batch_split(b_sh['tokens'].spec, mesh))
     p_flat, m_flat = tree_leaves(p_sh), tree_leaves(o_sh.mu)
 
     def train_step(params, opt_state, batch):
@@ -212,7 +224,9 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
                             tree_leaves(opt_state.nu))
             g_m, p_m = [], []
             for g, p, ps, ms in zip(grads, p_dt, p_flat, m_flat):
-                g = g * scale.to(g.dtype)
+                # in place: a second copy of the gradients beside the
+                # moments and the updates does not fit at full width
+                g = g.mul_(scale.to(g.dtype))
                 g_m.append(_as(g, ps, ms))
                 p_m.append(_as(p.to_local(), ps, ms))
             step = opt_state.step
@@ -266,7 +280,8 @@ def build_prefill_step(cfg, mesh, batch_aval, *, max_len, fsdp=True):
     c_sh = sh.cache_shardings(c_aval, cfg, mesh, long_ctx=False)
     tok_sh = sh.NamedSharding(mesh, sh.batch_spec((n,), mesh))
     tok_aval = torch.empty((n,), dtype=torch.int32, device='meta')
-    policy = make_mesh_policy(mesh)
+    policy = make_mesh_policy(
+        mesh, batch_split=_batch_split(b_sh['tokens'].spec, mesh))
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -319,7 +334,8 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
                                dtype=torch_dtype(cfg.dtype), device='meta')
         enc_sh = sh.NamedSharding(mesh, sh.batch_spec(enc_aval.shape, mesh))
         avals.append(enc_aval)
-    policy = make_mesh_policy(mesh)
+    policy = make_mesh_policy(mesh,
+                              batch_split=_batch_split(tok_sh.spec, mesh))
 
     @torch.no_grad()
     def serve_step(params, token, cur, cache, enc=None):

@@ -21,9 +21,19 @@ unless the installed policy has a ``gather``.  The mesh policy's gather
 turns each :class:`LocalShard` (a rank's chunk of a leaf, with its
 placements) into the full leaf: an all-gather in the forward pass; in the
 backward pass the gradient is summed over the DP axes, divided by their
-size (the global batch's mean) and cut back to the rank's chunk.  The
-``'moe_buf'`` kind is left as it is: the expert-parallel dispatch comes
-with the MoE mesh path (ROADMAP queue A item 10.3).
+size (the global batch's mean) and cut back to the rank's chunk.
+
+The MoE expert leaves (``moe``'s ``wi``, ``wg``, ``wo``) are the one
+exception: ``gather_params`` leaves them as :class:`LocalShard` for
+``models/moe.py``, which knows its mode.  Its expert-parallel path takes
+them through :func:`ep_weight` (gathered over the DP axes only; in a2a
+mode the rank keeps its stored expert shard, in f-TP mode the leaf is
+redistributed to its FFN dim cut over 'model', the layout of the
+reference's ``shard_map`` in_specs), and its dense path through
+:func:`gather_leaf`.  The ``'moe_buf'`` kind follows the reference's
+rules for the dispatch buffer (experts over 'model' where they divide,
+else the capacity over the mesh); like every kind it acts on DTensors
+only.
 """
 from __future__ import annotations
 
@@ -66,15 +76,34 @@ def current_mesh():
     return _MESH
 
 
+def current_policy():
+    """The installed policy (None on single device)."""
+    return _POLICY
+
+
+#: MoE leaves that ``gather_params`` leaves to ``models/moe.py``
+EXPERT_LEAVES = ('wi', 'wg', 'wo')
+
+
 def gather_params(tree):
     """``tree`` with every :class:`LocalShard` leaf gathered to its full
     tensor by the installed policy's ``gather``; the tree itself when no
-    policy (or one without a gather) is installed."""
+    policy (or one without a gather) is installed.  The MoE expert leaves
+    stay :class:`LocalShard` (module docstring)."""
     gather = getattr(_POLICY, 'gather', None)
     if gather is None:
         return tree
-    from repro_torch.tree import tree_map
-    return tree_map(gather, tree)
+    from repro_torch.tree import rebuild
+
+    def walk(node, moe=False):
+        if isinstance(node, dict):
+            return {k: v if moe and k in EXPERT_LEAVES
+                    and isinstance(v, LocalShard) else walk(v, k == 'moe')
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return rebuild(node, (walk(v) for v in node))
+        return gather(node)
+    return walk(tree)
 
 
 # ------------------------------------------------------- sharded parameters
@@ -102,57 +131,81 @@ def _dp_dims(mesh) -> tuple:
     return tuple(a for a in mesh.mesh_dim_names if a != 'model')
 
 
-class _Gather(torch.autograd.Function):
-    """Forward: a rank's chunk -> the full leaf (all-gather).  Backward:
-    the full leaf's gradient -> summed over the DP axes, divided by their
-    size, this rank's chunk of it."""
+def _dp_mean(g, mesh):
+    """A copy of ``g`` summed over the DP axes and divided by their
+    size."""
+    import torch.distributed as dist
+    from repro_torch.kernels.ref import true_div
+    g = g.contiguous().clone()
+    dims = _dp_dims(mesh)
+    for d in dims:
+        dist.all_reduce(g, group=mesh.get_group(d))
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(d)) for d in dims)
+    return true_div(g, float(n)) if n > 1 else g
+
+
+class _Redistribute(torch.autograd.Function):
+    """Forward: a rank's chunk under ``src`` -> its chunk under ``dst``
+    (``dst`` replicated over the DP axes; all of it replicated gathers the
+    full leaf).  Backward: the gradient of the ``dst`` chunk summed over
+    the DP axes, divided by their size (the global batch's mean), and
+    redistributed back to this rank's ``src`` chunk."""
 
     @staticmethod
-    def forward(ctx, local, mesh, placements):
-        from torch.distributed.tensor import DTensor, Shard
-        ctx.mesh, ctx.placements = mesh, placements
-        if not any(isinstance(p, Shard) for p in placements):
-            return local.clone()
-        full = DTensor.from_local(local, mesh, placements,
-                                  run_check=False).full_tensor()
-        return full.wait() if hasattr(full, 'wait') else full
+    def forward(ctx, local, mesh, src, dst):
+        from torch.distributed.tensor import DTensor
+        ctx.mesh, ctx.src, ctx.dst = mesh, src, dst
+        out = DTensor.from_local(local, mesh, src, run_check=False) \
+            .redistribute(mesh, dst).to_local()
+        out = out.wait() if hasattr(out, 'wait') else out
+        return out.clone() if out is local else out
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-        from torch.distributed.tensor import DTensor, Replicate
-        from repro_torch.kernels.ref import true_div
-        mesh = ctx.mesh
-        g = g.contiguous().clone()
-        dims = _dp_dims(mesh)
-        for d in dims:
-            dist.all_reduce(g, group=mesh.get_group(d))
-        n = math.prod(mesh.size(mesh.mesh_dim_names.index(d)) for d in dims)
-        if n > 1:
-            g = true_div(g, float(n))
-        chunk = DTensor.from_local(
-            g, mesh, [Replicate()] * mesh.ndim, run_check=False
-        ).redistribute(mesh, ctx.placements).to_local()
+        from torch.distributed.tensor import DTensor
+        g = _dp_mean(g, ctx.mesh)
+        chunk = DTensor.from_local(g, ctx.mesh, ctx.dst, run_check=False) \
+            .redistribute(ctx.mesh, ctx.src).to_local()
         chunk = chunk.wait() if hasattr(chunk, 'wait') else chunk
-        return chunk.contiguous(), None, None
+        return chunk.contiguous(), None, None, None
+
+
+def ep_weight(x, mesh, dim: int):
+    """An MoE expert leaf as the expert-parallel path takes it: replicated
+    over the DP axes and cut over 'model' along ``dim`` (0, the expert
+    axis, in a2a mode; the FFN dim in f-TP mode), differentiable.  ``x``
+    is a :class:`LocalShard`, or a whole tensor (the same on every rank),
+    which is cut here.  On a mesh of one rank the chunk is the leaf."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not isinstance(x, LocalShard):
+        x = LocalShard(x, mesh, (Replicate(),) * mesh.ndim)
+    if mesh.size() == 1:
+        return x.local
+    dst = tuple(Shard(dim) if n == 'model' else Replicate()
+                for n in mesh.mesh_dim_names)
+    return _Redistribute.apply(x.local, mesh, x.placements, dst)
 
 
 def gather_leaf(x):
     """A :class:`LocalShard` as its full tensor (differentiable), any other
     leaf as it is.  On a mesh of one rank the chunk is the leaf."""
+    from torch.distributed.tensor import Replicate
     if not isinstance(x, LocalShard):
         return x
     if x.mesh.size() == 1:
         return x.local
-    return _Gather.apply(x.local, x.mesh, x.placements)
+    return _Redistribute.apply(x.local, x.mesh, x.placements,
+                               (Replicate(),) * x.mesh.ndim)
 
 
-def make_mesh_policy(mesh):
+def make_mesh_policy(mesh, *, batch_split=True):
     """Standard policy: batch dim over DP axes, features unsharded (TP on
     features emerges from the weight shardings); vocab-sharded logits.
     Plain tensors (a rank's local activations) pass as they are; a
     DTensor is redistributed to the kind's spec.  ``policy.gather`` is
-    :func:`gather_leaf`."""
+    :func:`gather_leaf`.  ``batch_split``: the step split its batch over
+    every DP axis (the reference's ``B % dp == 0``, which the MoE block's
+    expert-parallel path asks for)."""
     from repro_torch.launch.mesh import mesh_axes
     sizes = mesh_axes(mesh)
     dp = tuple(a for a in sizes if a != 'model')
@@ -175,6 +228,16 @@ def make_mesh_policy(mesh):
             if x.shape[0] % n_dp == 0:
                 return constrain(x, dps, None)
             return x
+        if kind == 'moe_buf':                        # (E, C, D) dispatch buf
+            E, C = x.shape[0], x.shape[1]
+            m = sizes['model']
+            if E % m == 0 and C % n_dp == 0:
+                return constrain(x, 'model', dps, None)
+            if C % (n_dp * m) == 0:
+                return constrain(x, None, dp + ('model',), None)
+            if C % m == 0:
+                return constrain(x, None, 'model', None)
+            return x
         if kind == 'logits':                         # (..., vocab)
             spec = (dps,) + (None,) * (x.ndim - 2) + ('model',)
             if x.shape[0] % n_dp == 0 \
@@ -185,4 +248,5 @@ def make_mesh_policy(mesh):
 
     policy.mesh = mesh
     policy.gather = gather_leaf
+    policy.batch_split = batch_split
     return policy

@@ -6,14 +6,14 @@ admission and graceful degradation through the exit heads (``slo.py``),
 an elastic replica pool with straggler de-prioritization and chaos-tested
 checkpoint-backed failover (``replica.py``), a registry that loads and
 restores models from chain checkpoints (``registry.py``), the placement
-solver (``placement.py``) and the latency/throughput/occupancy/SLO/
-resilience metrics (``metrics.py``).  Driven by ``launch/serve_cnn.py
---server``.  The reference's pipeline-parallel scheduler and
-``pipeline_devices`` come with the distributed slice (ROADMAP queue A
-item 10)."""
+solver and the pipeline-parallel scheduler over several devices
+(``placement.py``) and the latency/throughput/occupancy/SLO/resilience
+metrics (``metrics.py``).  Driven by ``launch/serve_cnn.py --server``
+(``--pipeline`` for the placed pipeline)."""
 from repro_torch.serving.metrics import ServingMetrics, percentile  # noqa: F401
-from repro_torch.serving.placement import (Placement,  # noqa: F401
-                                           lpt_ratio, solve_placement)
+from repro_torch.serving.placement import (  # noqa: F401
+    PipelineParallelScheduler, Placement, lpt_ratio, pipeline_devices,
+    solve_placement)
 from repro_torch.serving.registry import ModelRegistry  # noqa: F401
 from repro_torch.serving.replica import (ChaosPlan,  # noqa: F401
                                          ReplicaPoolScheduler)

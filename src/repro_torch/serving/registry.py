@@ -1,8 +1,6 @@
 """Serving model registry: named endpoints over exported artifacts (the
 reference's ``serving/registry.py``; ``device`` takes the place of the
-reference's ``use_pallas``, as in ``export_chain``, and ``place`` comes
-with ``ServingModel.place_stages`` in the distributed slice, ROADMAP queue
-A item 10).
+reference's ``use_pallas``, as in ``export_chain``).
 
 The runtime's front door: a finished chain is persisted with
 ``checkpoint.save_chain_state`` (what ``Pipeline.run(checkpoint_dir=...)``
@@ -106,6 +104,19 @@ class ModelRegistry:
         return solve_placement(
             {name: stage_costs[name] for name in self.names()},
             n_devices, seed=seed)
+
+    def place(self, name: str, placement, devices):
+        """Apply a solved placement to a registered model: re-points the
+        entry at ``model.place_stages(...)`` with stage *k* pinned to
+        ``devices[placement.device_of(k, model=name)]``, and returns the
+        placed model.  ``devices`` is the ordinal -> torch device list the
+        placement was solved over."""
+        model = self.get(name)
+        placed = model.place_stages(tuple(
+            devices[placement.device_of(k, model=name)]
+            for k in range(model.n_stages)))
+        self._models[name] = placed
+        return placed
 
     def get(self, name: str):
         if name not in self._models:

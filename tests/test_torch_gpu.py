@@ -16,9 +16,11 @@ the LM chain hooks on a full-width cut against the CPU, the fake quant at
 the factored LM shapes, the dynamic-scale CNN export against its
 plain-version twin, the replica pool under a seeded kill on the card
 bit-exact against ``fn_exits``, ``ModelRegistry.restore`` on the card and
-a measure-mode export timed by CUDA events, and the training launcher
-(one ``build_train_step`` step on the card's 1 x 1 mesh against a CPU
-mesh, ``launch.train --smoke --drill`` on the card).
+a measure-mode export timed by CUDA events, the training launcher (one
+``build_train_step`` step on the card's 1 x 1 mesh against a CPU mesh,
+``launch.train --smoke --drill`` on the card), ``place_stages`` and the
+pipeline scheduler over four ordinals of the card, and the MoE block's
+expert-parallel path on a one-rank NCCL group against the dense block.
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX:
@@ -1301,3 +1303,94 @@ def test_train_cli_drill_on_card(cuda_device, tmp_path):
                         if ln.startswith('finished at step 4;')][0]
     assert 'restarts=0' in lines[False] and 'restarts=1' in lines[True]
     assert lines[True].split('loss ')[1] == lines[False].split('loss ')[1]
+
+
+def test_place_stages_on_card_keeps_run_stage_bit_exact(cuda_device,
+                                                       tmp_path):
+    """``place_stages`` on ``cuda:0`` (a bare ``cuda`` is read as the
+    current card): ``run_stage`` chained bit for bit against the unplaced
+    model, and the pipeline scheduler over four ordinals of the one card,
+    through a kill, bit-exact against ``fn_exits`` on the request alone,
+    every segment on the kernels."""
+    import numpy as np
+    from repro_torch.analysis import check
+    from repro_torch.core.export import calibrate_exit_threshold
+    from repro_torch.serving import (ChaosPlan, PipelineParallelScheduler,
+                                     exit_decisions)
+    _, model, xs = _resnet8_on_card(tmp_path)
+    placed = model.place_stages(('cuda',) * model.n_stages)
+    assert placed.stage_devices == (torch.device('cuda', 0),) * \
+        model.n_stages
+    from repro_torch.tree import tree_leaves
+    assert {t.device for t in tree_leaves(placed.stage_params[0])
+            if torch.is_tensor(t)} == {torch.device('cuda', 0)}
+    a, b = placed.serve_stages(xs), model.serve_stages(xs)
+    assert torch.equal(_bits(a[0]), _bits(b[0]))
+    for s in a[1]:
+        assert torch.equal(_bits(a[1][s]), _bits(b[1][s]))
+    assert check(placed, x=xs, rules=('placement-consistency',),
+                 strict=True).ok
+    threshold = calibrate_exit_threshold(model, xs)
+    costs = [3e-3, 2e-3, 1e-3]
+    t = np.cumsum(np.random.default_rng(0).exponential(1 / 4000.0, 24))
+    reqs = [Request(i, xs[i % 8], float(t[i])) for i in range(24)]
+    reset_counts()
+    comp, metrics = PipelineParallelScheduler(
+        model, slots=8, threshold=threshold, stage_costs=costs,
+        devices=('cuda:0',) * 4, chaos=ChaosPlan(kills=((2e-3, None),)),
+    ).run_trace(reqs)
+    c = counts()['quant_matmul']
+    assert c['plain_calls'] == 0 and c['launches'] > 0
+    assert len(comp) == 24
+    kinds = [e[0] for e in metrics.events]
+    assert 'kill' in kinds and kinds.count('placement') == 2
+    for r in reqs:
+        xb = torch.cat([r.x[None], torch.zeros((7,) + tuple(r.x.shape),
+                                               device=cuda_device)])
+        stage, ans = exit_decisions(*model.fn_exits(model.params, xb),
+                                    threshold)
+        assert comp[r.rid].exit_stage == int(stage[0])
+        assert np.array_equal(comp[r.rid].logits.view(np.int32),
+                              ans[0].view(np.int32))
+
+
+def test_moe_ep_block_on_one_rank_nccl_equals_dense(cuda_device):
+    """The expert-parallel MoE block under the card's 1 x 1 mesh policy
+    (a world of one rank, its collectives on NCCL over a group of one:
+    a2a mode at S > 1, f-TP at S = 1) against the dense block on the
+    card: the output and the gradients of x, the router and every expert
+    leaf within 1e-6 x max."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.actsharding import (activation_sharding,
+                                                make_mesh_policy)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config('mixtral-8x7b')
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = moe.init_moe(g, cfg, device=cuda_device)
+    started = init_distributed('cuda')
+    try:
+        policy = make_mesh_policy(make_local_mesh('cuda'))
+        for S in (16, 1):
+            x = torch.randn((4, S, cfg.d_model), generator=g,
+                            device=cuda_device) * 0.3
+            outs = []
+            for ep in (True, False):
+                pp = tree_map(lambda t: t.clone().requires_grad_(), p)
+                xx = x.clone().requires_grad_()
+                if ep:
+                    with activation_sharding(policy):
+                        y = moe.moe_block(pp, xx, cfg)
+                else:
+                    y = moe._moe_block_dense(pp, xx, cfg)
+                y.square().sum().backward()
+                outs.append([y.detach(), xx.grad]
+                            + [t.grad for t in tree_leaves(pp)])
+            for a, b in zip(*outs):
+                scale = max(float(b.abs().max()), 1e-30)
+                assert float((a - b).abs().max()) <= 1e-6 * scale
+    finally:
+        if started:
+            dist.destroy_process_group()

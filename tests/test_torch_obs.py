@@ -448,7 +448,9 @@ def test_serve_cli_slo_chaos_and_trace(tmp_path, monkeypatch, capsys):
             'export.calibrate'} <= {s.name for s in spans}
     assert check_trace(spans) == []
     r = _serve_cli('--requests', '8', '--pipeline')
-    assert r.returncode != 0 and 'item 10' in r.stderr
+    assert r.returncode == 0, r.stderr
+    assert 'placement over 1 devices' in r.stdout
+    assert 'served 8 requests' in r.stdout
     r = _serve_cli('--requests', '8', '--verify')
     assert r.returncode == 0, r.stderr
     assert 'analysis[resnet8-cifar]: OK' in r.stdout
