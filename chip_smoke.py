@@ -309,6 +309,21 @@ Phases, in order; any failure exits non-zero and no result is printed:
    differ only where the kernel path's two candidates lie within
    ``LM_PLAIN_TOL`` x max|logit|, a near tie; the steps after it are not
    compared), the first-step logits within ``LM_PLAIN_TOL`` x max|logit|.
+   The mesh steps compute tensor-parallel on 'model' (``models/tp.py``)
+   where the axis has more than one rank; on the card's one rank the
+   policy has no tensor-parallel axis, every shard is the whole leaf, and
+   (q1)-(q4) compute what the single-device step computes.  (q5)
+   (``tp_parts_leg``) checks the tensor-parallel math at tinyllama-1.1b's
+   full width (d_model 2048, 32 heads, 4 kv heads of 64, d_ff 5632, vocab
+   32000), fp32, on a (1, ``Q5_MODEL``) layout played out in one process:
+   for each of the four 'model' ranks one layer's attention and MLP on
+   that rank's column and row shards through the rank-local functions
+   (``attention.gqa_partial``, ``layers.mlp_partial``: the parts before
+   the all-reduce), the four parts summed as the all-reduce would, within
+   ``Q5_TOL`` x max|out| of the unsharded layer on the card; the
+   vocab-parallel embedding's parts bit-equal to the lookup, and the
+   cross-entropy from four vocab chunks' parts within ``Q5_TOL`` of the
+   plain one (its lap in (q)'s ``Laps`` line).
    No kernel is on path (q): the reference's train step runs
    ``model.forward`` at quant (0, 0) and its mesh decode the plain math.
    Then (r), pipeline-parallel serving (``pipeline_path``): path (a)'s
@@ -540,6 +555,14 @@ Q_CPU_TOL = 1e-4
 # most Q_NEAR_SHARE of them more than Q_NEAR_LR x lr
 Q_NEAR_MAX, Q_NEAR_LR, Q_NEAR_SHARE = 0.25, 1e-2, 1e-3
 Q_SERVE_TOKENS = 8
+# (q5): tinyllama-1.1b's attention and MLP at full width, fp32, cut over a
+# model axis of Q5_MODEL played out in one process, on Q5_BATCH x Q5_SEQ
+# tokens: the ranks' parts before the all-reduce summed against the whole
+# layer, and the vocab-parallel cross-entropy's chunk parts against the
+# plain one, within Q5_TOL x max (relative for the loss)
+Q5_MODEL = 4
+Q5_BATCH, Q5_SEQ = 2, 256
+Q5_TOL = 1e-5
 # Path (r): pipeline-parallel serving of path (a)'s export over R_ORDINALS
 # ordinals of the one card (PipelineParallelScheduler, place_stages) in
 # compacting, static and chaos modes on the card's measured stage costs,
@@ -3280,6 +3303,87 @@ def serve_mesh_leg(torch, tag, mesh):
             'logit_gap': diff / scale, 'flip': flip}
 
 
+def tp_parts_leg(torch, tag):
+    """(q5): the tensor-parallel math at full width on a (1, Q5_MODEL)
+    layout played out in one process: each rank's column and row shards
+    of one layer's attention and MLP through the rank-local functions
+    (``gqa_partial``, ``mlp_partial``: the parts before the all-reduce),
+    the parts summed as the all-reduce would, against the unsharded
+    layer; the vocab-parallel embedding's parts against the lookup and
+    the cross-entropy from Q5_MODEL vocab chunks against the plain one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import (init_embedding, init_mlp, mlp,
+                                           mlp_partial)
+    from repro_torch.models.tp import (TPAxis, ce_from_parts, rank_shard,
+                                       vocab_ce_parts, vocab_embed)
+    cfg = get_config(LM_ARCH).replace(dtype='float32')
+    m, B, S = Q5_MODEL, Q5_BATCH, Q5_SEQ
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    a = attn.init_attention(gen, cfg, device='cuda')
+    f = init_mlp(gen, cfg, device='cuda')
+    table = init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                           device='cuda')
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device='cuda')
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device='cuda')
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device='cuda')
+    pos = torch.arange(S, dtype=torch.int32, device='cuda')
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        whole_a, _ = attn.gqa_forward(a, x, pos, cfg, kind='global')
+        whole_f = mlp(f, x)
+        sum_a = sum_f = emb = 0
+        for r in range(m):
+            tp = TPAxis(m, r)
+            pa = {n: rank_shard(a[n], 'col', r, m)
+                  for n in ('wq', 'wk', 'wv')}
+            pa['wo'] = rank_shard(a['wo'], 'row', r, m)
+            pf = {n: rank_shard(f[n], 'col', r, m) for n in ('wi', 'wg')}
+            pf['wo'] = rank_shard(f['wo'], 'row', r, m)
+            part, (k, _) = attn.gqa_partial(pa, x, pos, cfg, kind='global',
+                                            tp=tp)
+            if k.shape[2] != cfg.num_kv_heads // m:
+                fail(f'{Q_KEY}: (q5) rank {r} holds {k.shape[2]} kv heads, '
+                     f'not {cfg.num_kv_heads // m}')
+            sum_a = sum_a + part
+            sum_f = sum_f + mlp_partial(pf, x, tp)
+            emb = emb + vocab_embed(rank_shard(table, 'vocab', r, m)['table'],
+                                    toks, torch.float32, tp)
+        logits = torch.matmul(whole_f, table['table'].t())
+        plain = -torch.gather(torch.log_softmax(logits, -1), -1,
+                              labels[..., None])[..., 0].mean()
+        n = cfg.vocab_size // m
+        chunks = [logits[..., r * n:(r + 1) * n] for r in range(m)]
+        mx = torch.stack([c.amax(-1) for c in chunks]).amax(0)
+        s = t = 0
+        for r, c in enumerate(chunks):
+            sr, tr = vocab_ce_parts(c, labels, r * n, mx)
+            s, t = s + sr, t + tr
+        ce = ce_from_parts(s, t, mx)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err_a = float((sum_a - whole_a).abs().max() / whole_a.abs().max())
+    err_f = float((sum_f - whole_f).abs().max() / whole_f.abs().max())
+    err_ce = abs(float(ce) - float(plain)) / abs(float(plain))
+    emb_same = bool(torch.equal(emb, table['table'][toks]))
+    print(f'{tag} (q5) tensor-parallel parts at full width (d_model '
+          f'{cfg.d_model}, {cfg.num_heads} heads, {cfg.num_kv_heads} kv '
+          f'heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab '
+          f'{cfg.vocab_size}), fp32, model axis {m} in one process, '
+          f'{B} x {S} tokens: attention parts summed vs the whole layer '
+          f'{err_a:.3e} x max, MLP {err_f:.3e} x max, cross-entropy from '
+          f'{m} vocab chunks {float(ce):.7f} vs {float(plain):.7f} '
+          f'({err_ce:.3e} x), embedding parts bit-equal {emb_same} (limit '
+          f'{Q5_TOL:g} each); {secs:.2f} s')
+    if max(err_a, err_f, err_ce) > Q5_TOL or not emb_same:
+        fail(f'{Q_KEY}: (q5) the rank-local parts disagree with the whole '
+             f'layer: attention {err_a:.3e}, MLP {err_f:.3e}, cross-entropy '
+             f'{err_ce:.3e}, embedding bit-equal {emb_same}')
+    return {'attn': err_a, 'mlp': err_f, 'ce': err_ce, 'secs': secs}
+
+
 def train_mesh_path(torch):
     """Path (q): the training launcher and the mesh code on the card's one
     rank.  Returns readings."""
@@ -3301,6 +3405,8 @@ def train_mesh_path(torch):
         laps('q3 cut')
         out['q4'] = serve_mesh_leg(torch, tag, mesh)
         laps('q4 serve')
+        out['q5'] = tp_parts_leg(torch, tag)
+        laps('q5 tp parts')
     finally:
         if started:
             dist.destroy_process_group()

@@ -13,13 +13,29 @@ DTensor.  A plain tensor given where the reference's jit would reshard
 (the whole array, the same on every rank) is placed the same way: each
 rank keeps its chunk.
 
-Compute is the simple correct form, one program per rank on local
-tensors (where the reference's GSPMD partitions one program):
+Compute is one program per rank on local tensors (where the reference's
+GSPMD partitions one program), on this rank's chunk of the batch:
 
-* each layer's leaves are gathered to full just before the layer runs
-  (``models/actsharding.py``'s mesh policy, through the model's
-  ``gather_params`` hook: the all-gathers GSPMD inserts per layer;
-  'model' is gathered too), on this rank's chunk of the batch;
+* each layer's leaves are gathered over the DP axes just before the layer
+  runs (``models/actsharding.py``'s mesh policy, through the model's
+  ``gather_params`` hook: the all-gathers GSPMD inserts per layer);
+* on 'model' the dense blocks compute tensor-parallel
+  (``models/tp.py``): the attention on this rank's heads (``wq``/``wk``/
+  ``wv`` by columns, ``wo`` by rows, its part all-reduced over 'model';
+  where 'model' cuts a kv head, that layer's k/v are all-gathered over
+  'model'), the MLP on its columns of the hidden dim (``wo``'s part
+  all-reduced), the embedding on its vocab rows (a masked lookup,
+  all-reduced) and the logits on its vocab chunk: the loss is the
+  vocab-parallel cross-entropy (the max, the sum of exponentials and the
+  label's logit all-reduced over 'model'), and no rank holds a whole
+  (B, S, V) logits tensor.  The prefill and the decode take the greedy
+  token from the vocab chunks (each rank's max and its index gathered
+  over 'model'); the prefill gathers the k/v heads the cache holds
+  (sequence-sharded over 'model', every head on every rank); the decode
+  gathers its q/k/v
+  heads and runs ``wo`` on this rank's rows.  Every other 'model' leaf
+  (MLA's, the RG-LRU's, Mamba-2's, the causal conv) is gathered whole
+  (ROADMAP A 12);
 * gradients go back to each leaf's placement: summed over the DP axes,
   divided by their size (the global batch's mean), this rank's chunk;
 * the global-norm clip reads the sum of squares over all shards (each
@@ -31,15 +47,14 @@ tensors (where the reference's GSPMD partitions one program):
 * the loss is the mean over every rank's tokens (a VLM's over its text
   positions only).
 
-The MoE block is the exception: under the policy it runs expert-parallel
-(``models/moe.py``), its expert leaves gathered over the DP axes only and
-kept on their 'model' shards.  Tensor-parallel compute that never gathers
-on 'model' (Megatron column and row products) is a later item (ROADMAP).
-On a mesh of one rank every placement is ``Replicate()``, no collective
-runs but the MoE block's (over groups of one), and the step computes the
-single-device step's numbers.  The decode runs the plain decode math through
-``launch/serving.py``'s ctx, as the reference's mesh path does, not the
-decode-attention kernel.
+The MoE block runs expert-parallel (``models/moe.py``), its expert
+leaves gathered over the DP axes only and kept on their 'model' shards.
+On a mesh of one rank every placement is ``Replicate()``, the policy has
+no tensor-parallel axis, no collective runs but the MoE block's (over
+groups of one), and the step computes the single-device step's numbers.
+The decode runs the plain decode math through ``launch/serving.py``'s
+ctx, as the reference's mesh path does, not the decode-attention
+kernel.
 """
 from __future__ import annotations
 
@@ -55,6 +70,7 @@ from repro_torch.launch.serving import (cache_dims, decode_spec,
 from repro_torch.models.actsharding import (LocalShard, activation_sharding,
                                             make_mesh_policy)
 from repro_torch.models.model import build_model
+from repro_torch.models.tp import logits_tp, vocab_argmax, vocab_parallel_ce
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
@@ -183,7 +199,8 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
     """``fn(params, opt_state, batch) -> (params, opt_state, metrics)``
     (``metrics``: the global mean ``'loss'`` and the pre-clip
     ``'grad_norm'``), the model, and (abstract params, abstract opt state,
-    param shardings, opt-state shardings)."""
+    param shardings, opt-state shardings).  ``fn.policy`` is the step's
+    mesh policy (its ``counts``)."""
     model = build_model(cfg)
     opt = adamw(lr, weight_decay=0.1)
     p_aval = abstract_params(model)
@@ -194,7 +211,7 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
                        nu=p_sh))
     b_sh = sh.batch_shardings(batch_aval, mesh)
     policy = make_mesh_policy(
-        mesh, batch_split=_batch_split(b_sh['tokens'].spec, mesh))
+        mesh, batch_split=_batch_split(b_sh['tokens'].spec, mesh), cfg=cfg)
     p_flat, m_flat = tree_leaves(p_sh), tree_leaves(o_sh.mu)
 
     def train_step(params, opt_state, batch):
@@ -207,7 +224,9 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
             labels = local['labels']
             if cfg.arch_kind == 'vlm':   # loss only over text positions
                 logits = logits[:, -labels.shape[1]:]
-            loss = _ce_loss(logits, labels)
+            vocab = logits_tp(shards, policy.tp)
+            loss = (vocab_parallel_ce(logits, labels, vocab) if vocab
+                    else _ce_loss(logits, labels))
             del logits
             # inside the policy: remat recomputes each layer, and its
             # gather, in the backward pass
@@ -241,6 +260,7 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
                 mu=opt_state.mu, nu=opt_state.nu)
         return params, opt_state, {'loss': loss, 'grad_norm': gnorm}
 
+    train_step.policy = policy
     return train_step, model, (p_aval, o_aval, p_sh, o_sh)
 
 
@@ -268,6 +288,13 @@ def _cache_from_local(cache, mesh, batch_entry, c_sh):
     return tree_map_with_path(one, cache, c_sh)
 
 
+def _greedy(logits, vocab):
+    """The greedy tokens of the logits, a vocab chunk on ``vocab``'s
+    ranks (None: the whole vocab)."""
+    tok = vocab_argmax(logits, vocab) if vocab else torch.argmax(logits, -1)
+    return tok.to(torch.int32)
+
+
 def build_prefill_step(cfg, mesh, batch_aval, *, max_len, fsdp=True):
     """``fn(params, batch) -> (greedy tokens, cache)``: the prompt's
     forward and its cache on the cache shardings (sequence over 'model')."""
@@ -281,7 +308,7 @@ def build_prefill_step(cfg, mesh, batch_aval, *, max_len, fsdp=True):
     tok_sh = sh.NamedSharding(mesh, sh.batch_spec((n,), mesh))
     tok_aval = torch.empty((n,), dtype=torch.int32, device='meta')
     policy = make_mesh_policy(
-        mesh, batch_split=_batch_split(b_sh['tokens'].spec, mesh))
+        mesh, batch_split=_batch_split(b_sh['tokens'].spec, mesh), cfg=cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -290,11 +317,12 @@ def build_prefill_step(cfg, mesh, batch_aval, *, max_len, fsdp=True):
         shards, _ = _shards(params, p_sh)
         with activation_sharding(policy):
             logits, cache = model.prefill(shards, local, max_len=max_len)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+            tok = _greedy(logits, logits_tp(shards, policy.tp))
         entry = tuple(tok_sh.spec)[0] if len(tok_sh.spec) else None
         return (_from_local(tok, mesh, tok_sh.spec, tok_aval),
                 _cache_from_local(cache, mesh, entry, c_sh))
 
+    prefill_step.policy = policy
     return prefill_step, model, (p_aval, p_sh)
 
 
@@ -335,7 +363,8 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
         enc_sh = sh.NamedSharding(mesh, sh.batch_spec(enc_aval.shape, mesh))
         avals.append(enc_aval)
     policy = make_mesh_policy(mesh,
-                              batch_split=_batch_split(tok_sh.spec, mesh))
+                              batch_split=_batch_split(tok_sh.spec, mesh),
+                              cfg=cfg)
 
     @torch.no_grad()
     def serve_step(params, token, cur, cache, enc=None):
@@ -349,9 +378,10 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
             logits, _ = model.decode_step(shards, token, cur,
                                           tree_map(_local, cache), enc=enc,
                                           ctx=ctx)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+            tok = _greedy(logits, logits_tp(shards, policy.tp))
         return (_from_local(tok, mesh, tok_sh.spec, avals[1]),
                 place_tree(cache, c_sh))
 
     in_sh = [p_sh, tok_sh, None, c_sh] + ([enc_sh] if enc_sh else [])
+    serve_step.policy = policy
     return serve_step, model, (avals, in_sh)

@@ -19,12 +19,29 @@ model calls on each layer's param tree just before the layer runs (and on
 the embedding, the final norm and the unembedding), is the identity
 unless the installed policy has a ``gather``.  The mesh policy's gather
 turns each :class:`LocalShard` (a rank's chunk of a leaf, with its
-placements) into the full leaf: an all-gather in the forward pass; in the
-backward pass the gradient is summed over the DP axes, divided by their
-size (the global batch's mean) and cut back to the rank's chunk.
+placements) into the tensor the layer computes on: an all-gather over the
+DP axes in the forward pass; in the backward pass the gradient is summed
+over the DP axes, divided by their size (the global batch's mean) and cut
+back to the rank's chunk.
+
+Tensor parallelism on 'model' (``models/tp.py``).  With a policy whose
+``tp`` is set (a model axis of more than one rank), a leaf of a block
+with a tensor-parallel form keeps its 'model' shard: the attention's
+``wq``/``wk``/``wv`` (columns over the heads) and ``wo`` (rows), the dense
+MLP's ``wi``/``wg`` (columns) and ``wo`` (rows), and the embedding and
+unembedding tables (vocab rows).  ``models/tp.py`` decides which blocks
+have that form and marks their dense dicts ``'tp'`` (``'col'``, ``'row'``
+or ``'vocab'``), as the layers read them.  Every other leaf is gathered
+whole, over 'model' too: MLA's, the RG-LRU's and Mamba-2's, the causal
+conv, an attention block whose 'model' shard would cut a query head, a
+factored or fake-quantized block (the policy then has no ``tp``).
+``policy.counts`` counts the leaves gathered by mesh dim (``('gather',
+dim)``, and ``('gather_tp', dim)`` for a leaf of a block with a
+tensor-parallel form gathered whole) and the collectives over 'model'
+with their bytes.
 
 The MoE expert leaves (``moe``'s ``wi``, ``wg``, ``wo``) are the one
-exception: ``gather_params`` leaves them as :class:`LocalShard` for
+other exception: ``gather_params`` leaves them as :class:`LocalShard` for
 ``models/moe.py``, which knows its mode.  Its expert-parallel path takes
 them through :func:`ep_weight` (gathered over the DP axes only; in a2a
 mode the rank keeps its stored expert shard, in f-TP mode the leaf is
@@ -85,28 +102,58 @@ def current_policy():
 EXPERT_LEAVES = ('wi', 'wg', 'wo')
 
 
+def count(key, n=1):
+    """``n`` more ``key`` in the installed policy's ``counts``, if any."""
+    counts = getattr(_POLICY, 'counts', None)
+    if counts is not None:
+        counts[key] += n
+
+
 def gather_params(tree):
-    """``tree`` with every :class:`LocalShard` leaf gathered to its full
-    tensor by the installed policy's ``gather``; the tree itself when no
-    policy (or one without a gather) is installed.  The MoE expert leaves
-    stay :class:`LocalShard` (module docstring)."""
+    """``tree`` with every :class:`LocalShard` leaf gathered by the
+    installed policy's ``gather``: to its full tensor, or to its 'model'
+    shard in a block with a tensor-parallel form (``models/tp.py``
+    decides which, and marks their dense dicts ``'tp'``); the tree itself
+    when no policy (or one without a gather) is installed.  The MoE
+    expert leaves stay :class:`LocalShard` (module docstring)."""
     gather = getattr(_POLICY, 'gather', None)
     if gather is None:
         return tree
+    from repro_torch.models import tp as tpm
     from repro_torch.tree import rebuild
+    tp, cfg = getattr(_POLICY, 'tp', None), getattr(_POLICY, 'cfg', None)
 
-    def walk(node, moe=False):
+    def leaf(x, keep, tp_leaf=False):
+        if isinstance(x, LocalShard):
+            for i, (n, p) in enumerate(zip(x.mesh.mesh_dim_names,
+                                           x.placements)):
+                if p.is_shard() and x.mesh.size(i) > 1 \
+                        and not (keep and n == 'model'):
+                    count(('gather', n))
+                    if tp_leaf:
+                        count(('gather_tp', n))
+        return gather(x, keep_model=keep)
+
+    def walk(node, key=None, tp_leaf=False):
         if isinstance(node, dict):
-            return {k: v if moe and k in EXPERT_LEAVES
-                    and isinstance(v, LocalShard) else walk(v, k == 'moe')
-                    for k, v in node.items()}
+            if key == 'moe':
+                return {k: v if k in EXPERT_LEAVES
+                        and isinstance(v, LocalShard) else walk(v, k)
+                        for k, v in node.items()}
+            marks = tpm.block_marks(key, node, tp, cfg)
+            if marks is not None:
+                return {k: tpm.mark_dense(
+                    {n: leaf(x, True, True) for n, x in d.items()},
+                    marks[k], tp) for k, d in node.items()}
+            if 'table' in node and tpm.table_mark(node['table'], tp):
+                return {'table': leaf(node['table'], True, True),
+                        'tp': 'vocab'}
+            return {k: walk(v, k, tp_leaf or k == 'table' or (
+                k in tpm.TP_BLOCKS.get(key, ()))) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return rebuild(node, (walk(v) for v in node))
-        return gather(node)
+        return leaf(node, False, tp_leaf)
     return walk(tree)
-
-
-# ------------------------------------------------------- sharded parameters
 
 
 class LocalShard:
@@ -186,27 +233,38 @@ def ep_weight(x, mesh, dim: int):
     return _Redistribute.apply(x.local, mesh, x.placements, dst)
 
 
-def gather_leaf(x):
-    """A :class:`LocalShard` as its full tensor (differentiable), any other
-    leaf as it is.  On a mesh of one rank the chunk is the leaf."""
+def gather_leaf(x, keep_model=False):
+    """A :class:`LocalShard` as its full tensor (differentiable), or with
+    ``keep_model`` as its 'model' shard (gathered over the DP axes only);
+    any other leaf as it is.  On a mesh of one rank the chunk is the
+    leaf."""
     from torch.distributed.tensor import Replicate
     if not isinstance(x, LocalShard):
         return x
     if x.mesh.size() == 1:
         return x.local
-    return _Redistribute.apply(x.local, x.mesh, x.placements,
-                               (Replicate(),) * x.mesh.ndim)
+    dst = tuple(p if keep_model and n == 'model' else Replicate()
+                for n, p in zip(x.mesh.mesh_dim_names, x.placements))
+    return _Redistribute.apply(x.local, x.mesh, x.placements, dst)
 
 
-def make_mesh_policy(mesh, *, batch_split=True):
-    """Standard policy: batch dim over DP axes, features unsharded (TP on
-    features emerges from the weight shardings); vocab-sharded logits.
-    Plain tensors (a rank's local activations) pass as they are; a
-    DTensor is redistributed to the kind's spec.  ``policy.gather`` is
-    :func:`gather_leaf`.  ``batch_split``: the step split its batch over
-    every DP axis (the reference's ``B % dp == 0``, which the MoE block's
-    expert-parallel path asks for)."""
+def make_mesh_policy(mesh, *, batch_split=True, cfg=None):
+    """Standard policy: batch dim over DP axes, the residual stream's
+    features whole; vocab-sharded logits.  Plain tensors (a rank's local
+    activations) pass as they are; a DTensor is redistributed to the
+    kind's spec.  ``policy.gather`` is :func:`gather_leaf`.
+    ``batch_split``: the step split its batch over every DP axis (the
+    reference's ``B % dp == 0``, which the MoE block's expert-parallel
+    path asks for).  ``policy.tp``: the 'model' axis (``models/tp.py``'s
+    ``TPAxis``) when ``cfg`` is given, the axis has more than one rank
+    and ``cfg`` fake-quantizes nothing (a fake-quant scale spans a row
+    product's split rows); else None, and every leaf is gathered whole
+    (setting it to None after the fact gives that gather path, which the
+    tests hold the tensor-parallel one against).  ``policy.counts``
+    counts gathers and collectives (module docstring)."""
+    import collections
     from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models.tp import TPAxis
     sizes = mesh_axes(mesh)
     dp = tuple(a for a in sizes if a != 'model')
     dps = dp if len(dp) > 1 else dp[0]
@@ -249,4 +307,12 @@ def make_mesh_policy(mesh, *, batch_split=True):
     policy.mesh = mesh
     policy.gather = gather_leaf
     policy.batch_split = batch_split
+    policy.cfg = cfg
+    policy.counts = collections.Counter()
+    policy.tp = None
+    if cfg is not None and sizes['model'] > 1 \
+            and not cfg.w_bits and not cfg.a_bits:
+        m = list(sizes).index('model')
+        policy.tp = TPAxis(sizes['model'], int(mesh.get_local_rank(m)),
+                           mesh.get_group(m))
     return policy

@@ -59,7 +59,10 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import recip32
 from repro_torch.models.layers import (dense, he_init, init_dense,
-                                       init_norm, rms_norm, rope, softcap)
+                                       init_norm, rms_norm, rope, row_bias,
+                                       row_part, softcap)
+from repro_torch.models.tp import (copy_in, current_tp, gather_cols,
+                                   rank_cols, reduce_out)
 
 NEG_INF = -1e30
 
@@ -260,11 +263,19 @@ def decode_attn_reference(q, new_k, new_v, cache, cur, *, window=0,
 # ---------------------------------------------------------- GQA block apply
 
 
-def gqa_forward(p, x, positions, cfg, *, kind, quant=(0, 0), kv=None):
+def gqa_forward(p, x, positions, cfg, *, kind, quant=(0, 0), kv=None,
+                full_kv=True):
     """Train/prefill attention.  Returns (out, (k, v)) for the cache fill.
     ``kind`` 'encoder' attends without the causal mask; ``kv`` = (enc,
     enc_pos) makes it cross-attention over the encoder output (no rope on
-    q or k, no causal mask)."""
+    q or k, no causal mask).  On 'model' shards (``wo`` marked ``'row'``)
+    each rank's part (:func:`gqa_partial`) is summed over 'model'; (k, v)
+    then hold every kv head only with ``full_kv``."""
+    if p['wo'].get('tp') == 'row':
+        tp = current_tp()
+        y, kvs = gqa_partial(p, x, positions, cfg, kind=kind, tp=tp, kv=kv,
+                             full_kv=full_kv)
+        return row_bias(p['wo'], reduce_out(y, tp)), kvs
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(p['wq'], x, quant=quant).reshape(B, S, H, hd)
@@ -287,14 +298,102 @@ def gqa_forward(p, x, positions, cfg, *, kind, quant=(0, 0), kv=None):
     return out, (k, v)
 
 
+def _kv_for(k, v, klo, qlo, Hl, g):
+    """The kv heads that query heads ``qlo .. qlo + Hl`` read, from k/v
+    holding heads ``klo ..``: a slice where the query heads share them
+    evenly, else one kv head per query head."""
+    need = [(qlo + j) // g for j in range(Hl)]
+    lo, n = need[0], need[-1] - need[0] + 1
+    if Hl % n == 0 and need == [lo + j // (Hl // n) for j in range(Hl)]:
+        return k[:, :, lo - klo:lo - klo + n], v[:, :, lo - klo:lo - klo + n]
+    idx = torch.tensor([h - klo for h in need], device=k.device)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def gqa_partial(p, x, positions, cfg, *, kind, tp, kv=None, full_kv=False):
+    """This rank's part of the attention on its 'model' shards, before the
+    sum over 'model' (``wo``'s bias, if any, is added once after it).
+    Returns (part, (k, v)).
+
+    ``wq`` split by columns (marked ``'col'``) gives this rank whole query
+    heads ``rank * H/m ..``; ``wk``/``wv`` split so give it kv heads
+    ``rank * K/m ..`` where m divides K, else a shard that cuts a kv head,
+    whose columns are gathered over 'model' (the layer's k and v whole on
+    every rank; each rank reads the heads its queries need), and whole
+    ``wk``/``wv`` give k/v whole.  A whole ``wq`` (``cfg.shard_heads``
+    off) gives every head on every rank, and the rank multiplies its rows
+    of ``wo`` by its chunk of the heads' output.  (k, v) hold this rank's
+    kv heads, or every kv head with ``full_kv`` (gathered where split)."""
+    B, S, d = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    m, r = tp.size, tp.rank
+    xs = copy_in(x, tp)
+    if p['wq'].get('tp') == 'col':
+        Hl, qlo = H // m, r * (H // m)
+        q = dense(p['wq'], xs).reshape(B, S, Hl, hd)
+    else:
+        Hl, qlo = H, 0
+        q = dense(p['wq'], x).reshape(B, S, H, hd)
+    src, k_pos, causal = ((x, positions, kind != 'encoder') if kv is None
+                          else (kv[0], kv[1], False))
+    srcs = xs if kv is None else copy_in(src, tp)
+    T = src.shape[1]
+
+    def proj(name):
+        w = p[name]
+        if w.get('tp') != 'col':
+            y = dense(w, src)
+            # whole on every rank; each reads its query heads' kv heads
+            return (copy_in(y, tp) if Hl < H else y).reshape(B, T, K, hd), 0
+        y = dense(w, srcs)
+        if K % m == 0:
+            return y.reshape(B, T, K // m, hd), r * (K // m)
+        return gather_cols(y, tp).reshape(B, T, K, hd), 0
+
+    (k, klo), (v, _) = proj('wk'), proj('wv')
+    if kv is None:
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+    ks, vs = _kv_for(k, v, klo, qlo, Hl, H // K)
+    window = cfg.window if kind == 'local' else 0
+    out = chunked_attention(q, ks, vs, positions, k_pos, causal=causal,
+                            window=window, attn_softcap=cfg.attn_softcap)
+    out = out.reshape(B, S, Hl * hd)
+    if Hl == H:
+        out = rank_cols(out, tp)
+    if full_kv and k.shape[2] < K:
+        k, v = (gather_cols(t.reshape(B, T, -1), tp).reshape(B, T, K, hd)
+                for t in (k, v))
+    return row_part(p['wo'], out), (k, v)
+
+
+def _whole(p, x, quant):
+    """``dense(p, x)``, its columns gathered over 'model' where ``p`` is a
+    column shard."""
+    y = dense(p, x, quant=quant)
+    return gather_cols(y, current_tp()) if p.get('tp') == 'col' else y
+
+
+def _out_proj(p, o, quant):
+    """``o`` (every head) through ``wo``; on a row shard, this rank's rows
+    times its chunk of ``o``, summed over 'model'."""
+    if p.get('tp') != 'row':
+        return dense(p, o, quant=quant)
+    tp = current_tp()
+    return row_bias(p, reduce_out(row_part(p, rank_cols(o, tp)), tp))
+
+
 def gqa_decode(p, x, cur, cfg, *, kind, cache, ctx, quant=(0, 0)):
-    """One-token decode.  x: (B, d).  Returns (out, cache)."""
+    """One-token decode.  x: (B, d).  Returns (out, cache).  On 'model'
+    shards q, k and v are gathered to every head (the cache is
+    sequence-sharded over 'model', every head on every rank) and ``wo``
+    runs on this rank's rows."""
     B, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos1 = torch.full((1,), int(cur), dtype=torch.int32, device=x.device)
-    q = dense(p['wq'], x[:, None], quant=quant).reshape(B, 1, H, hd)
-    nk = dense(p['wk'], x[:, None], quant=quant).reshape(B, 1, K, hd)
-    nv = dense(p['wv'], x[:, None], quant=quant).reshape(B, 1, K, hd)
+    q = _whole(p['wq'], x[:, None], quant).reshape(B, 1, H, hd)
+    nk = _whole(p['wk'], x[:, None], quant).reshape(B, 1, K, hd)
+    nv = _whole(p['wv'], x[:, None], quant).reshape(B, 1, K, hd)
     q = rope(q, pos1, theta=cfg.rope_theta)[:, 0]
     nk = rope(nk, pos1, theta=cfg.rope_theta)[:, 0]
     nv = nv[:, 0]
@@ -302,7 +401,7 @@ def gqa_decode(p, x, cur, cfg, *, kind, cache, ctx, quant=(0, 0)):
     fn = ctx.get('decode_attn', decode_attn_kernel)
     out, cache = fn(q, nk, nv, cache, cur, window=window,
                     attn_softcap=cfg.attn_softcap)
-    out = dense(p['wo'], out.reshape(B, H * hd), quant=quant)
+    out = _out_proj(p['wo'], out.reshape(B, H * hd), quant)
     return out, cache
 
 
@@ -312,13 +411,13 @@ def gqa_cross_decode(p, x, enc, enc_pos, cfg, *, quant=(0, 0)):
     B, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     T = enc.shape[1]
-    q = dense(p['wq'], x, quant=quant).reshape(B, 1, H, hd)
-    k = dense(p['wk'], enc, quant=quant).reshape(B, T, K, hd)
-    v = dense(p['wv'], enc, quant=quant).reshape(B, T, K, hd)
+    q = _whole(p['wq'], x, quant).reshape(B, 1, H, hd)
+    k = _whole(p['wk'], enc, quant).reshape(B, T, K, hd)
+    v = _whole(p['wv'], enc, quant).reshape(B, T, K, hd)
     out = chunked_attention(q, k, v, torch.zeros((1,), dtype=torch.int32,
                                                  device=x.device),
                             enc_pos, causal=False)
-    return dense(p['wo'], out.reshape(B, H * hd), quant=quant)
+    return _out_proj(p['wo'], out.reshape(B, H * hd), quant)
 
 
 # ---------------------------------------------------------- MLA block apply

@@ -15,6 +15,11 @@ where they live, full-width ones on the card) and a ``stack`` prefix that
 gives a scan-stacked ``(G, ...)`` leaf in one draw, where the reference
 vmaps the init over split keys.  The two packages draw different numbers
 from the same seed: tests carry weights across with ``interop``.
+Under the mesh policy's tensor parallelism (``models/tp.py``) a dense
+dict marked ``'tp'`` is this rank's 'model' shard: :func:`mlp` then runs
+:func:`mlp_partial` and sums it over 'model', :func:`embed` looks up this
+rank's vocab rows and sums, and :func:`unembed` gives this rank's vocab
+chunk of the logits.
 The recurrent blocks (``models/recurrent.py``) share the causal depthwise
 conv: :func:`causal_conv1d` over a sequence and :func:`conv1d_step` for
 one decode step.
@@ -27,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantization import fake_quant_act, fake_quant_weight
+from repro_torch.models.tp import (copy_in, current_tp, reduce_out,
+                                   vocab_embed)
 
 # --------------------------------------------------------------------- init
 
@@ -123,13 +130,39 @@ def init_mlp(gen, cfg, d_ff=None, *, gated=True, dtype=torch.float32,
             'wo': init_dense(gen, f, d, **kw)}
 
 
-def mlp(p, x, *, quant=(0, 0)):
+def _hidden(p, x, quant):
     if 'wg' in p:  # gated (swiglu)
-        h = F.silu(dense(p['wg'], x, quant=quant)) * \
+        return F.silu(dense(p['wg'], x, quant=quant)) * \
             dense(p['wi'], x, quant=quant)
-    else:          # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(dense(p['wi'], x, quant=quant), approximate='tanh')
-    return dense(p['wo'], h, quant=quant)
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(dense(p['wi'], x, quant=quant), approximate='tanh')
+
+
+def mlp(p, x, *, quant=(0, 0)):
+    """The MLP; on 'model' shards (``p['wo']`` marked ``'row'``, the
+    mesh policy's tensor-parallel form) each rank's part summed over
+    'model'."""
+    if p['wo'].get('tp') == 'row':
+        tp = current_tp()
+        return row_bias(p['wo'], reduce_out(mlp_partial(p, x, tp), tp))
+    return dense(p['wo'], _hidden(p, x, quant), quant=quant)
+
+
+def mlp_partial(p, x, tp):
+    """This rank's part of the MLP before the sum over 'model': ``wi`` and
+    ``wg`` its columns of the hidden dim, ``wo`` its rows (``wo``'s bias,
+    if any, is added once after the sum)."""
+    return row_part(p['wo'], _hidden(p, copy_in(x, tp), (0, 0)))
+
+
+def row_part(p, x):
+    """A row product's part: ``x`` times this rank's rows, no bias."""
+    return dense({k: v for k, v in p.items() if k not in ('b', 'tp')}, x)
+
+
+def row_bias(p, y):
+    """``y`` (a row product's sum) plus its bias, if any."""
+    return y + p['b'].to(y.dtype) if 'b' in p else y
 
 
 # ---------------------------------------------------------------- embedding
@@ -141,11 +174,20 @@ def init_embedding(gen, vocab, d, dtype=torch.float32, device='cpu'):
 
 
 def embed(p, tokens, dtype):
+    """The rows of ``tokens``; on a vocab shard (marked ``'vocab'``) each
+    rank's rows summed over 'model'."""
+    if p.get('tp') == 'vocab':
+        tp = current_tp()
+        return reduce_out(vocab_embed(p['table'], tokens, dtype, tp), tp)
     return p['table'][tokens].to(dtype)
 
 
 def unembed(p, x, *, quant=(0, 0)):
+    """Logits over the vocab; on a vocab shard, this rank's chunk of
+    them."""
     w = p['table']
+    if p.get('tp') == 'vocab':
+        x = copy_in(x, current_tp())
     if quant[0]:
         w = fake_quant_weight(w, quant[0], axis=0)
     if quant[1]:

@@ -38,14 +38,17 @@ prefill fills them from the scan's last state and the conv's last inputs.
 and :func:`~repro_torch.models.actsharding.gather_params` runs on each
 layer's param tree just before the layer (and on the embedding, the final
 norm and the unembedding): the identity unless the launcher's mesh policy
-is installed, which then gathers a sharded leaf to its full tensor
-(``launch/steps.py``).  ``remat=True`` runs each layer of
-:func:`forward` under ``torch.utils.checkpoint.checkpoint(...,
-use_reentrant=False)``, the gather inside it: the numbers are the same,
-the activations kept for the backward pass are each layer's input only,
-and a sharded leaf is gathered again for the recomputation.  The
-reference checkpoints each scanned group; the port's groups are a Python
-loop, so each layer is its own checkpoint.
+is installed, which then gathers a sharded leaf to its full tensor, or
+to its 'model' shard in a block with a tensor-parallel form
+(``launch/steps.py``, ``models/tp.py``): the logits are then this rank's
+vocab chunk.
+``remat=True`` runs each layer of :func:`forward` under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+gather inside it: the numbers are the same, the activations kept for the
+backward pass are each layer's input only, and a sharded leaf is
+gathered again for the recomputation.  The reference checkpoints each
+scanned group; the port's groups are a Python loop, so each layer is its
+own checkpoint.
 """
 from __future__ import annotations
 
@@ -189,12 +192,12 @@ def layer_forward(lp, x, kind, cfg, *, positions, quant, enc=None,
         o, kvs = attn.mla_forward(lp['attn'], h, positions, cfg, quant=quant)
     else:
         o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
-                                  quant=quant)
+                                  quant=quant, full_kv=want_cache)
     x = x + o
     if 'xattn' in lp:
         hx = rms_norm(lp['norm_x'], x, cfg.norm_eps)
         o, _ = attn.gqa_forward(lp['xattn'], hx, positions, cfg, kind='cross',
-                                quant=quant, kv=(enc, enc_pos))
+                                quant=quant, kv=(enc, enc_pos), full_kv=False)
         x = x + o
     x = x + _ffn(lp, rms_norm(lp['norm2'], x, cfg.norm_eps), cfg, quant)
     return x, (kvs if want_cache else None)
@@ -276,6 +279,7 @@ def _fill_cache(cfg, kind, cache, kvs, positions):
 
 
 def _head(params, cfg, x, quant):
+    """Logits of ``x``: on a vocab shard this rank's chunk of the vocab."""
     x = rms_norm(gather_params(params['final_norm']), x, cfg.norm_eps)
     logits = unembed(gather_params(params.get('unembed', params['embed'])),
                      x, quant=quant)

@@ -111,7 +111,11 @@ class SLOPolicy:
         """The segment that must run NOW (partial batch allowed) because
         some pending deadline's latest safe start falls within one
         worst-case blocking execution of ``now``; None when no deadline
-        is at risk.  Ties break toward the tightest latest start."""
+        is at risk.  Ties break toward the tightest latest start.  The
+        test is written as ``ls - max_cost <= now``, the same float
+        difference :meth:`wake` returns: ``ls <= now + max_cost`` can round
+        the other way at that horizon, and the scheduler, woken there with
+        nothing urgent, would wait at it forever."""
         best = None
         for j, buf in enumerate(pend):
             for item in buf:
@@ -119,7 +123,7 @@ class SLOPolicy:
                 if d is None:
                     continue
                 ls = self.latest_start(j, d)
-                if ls <= now + self.max_cost and \
+                if ls - self.max_cost <= now and \
                         (best is None or ls < best[0]):
                     best = (ls, j)
         return None if best is None else best[1]

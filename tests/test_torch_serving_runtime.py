@@ -239,6 +239,29 @@ def test_slo_policy_decisions_match_reference():
     assert 4e-3 < got[-5] < 8e-3                  # the EWMA blend
 
 
+def test_slo_wake_horizon_is_urgent():
+    """Woken at :meth:`SLOPolicy.wake`'s horizon, the scheduler finds a
+    segment urgent: were the two tests to round apart, it would sleep
+    until the same horizon again and never advance its clock.  Random
+    costs, arrival times and deadlines; about 1.5% of them round apart
+    when the urgency test is written ``ls <= now + max_cost``."""
+    rng = np.random.default_rng(0)
+    n = 0
+    for _ in range(20000):
+        slo = T.SLOPolicy()
+        slo.seed(list(rng.uniform(3e-3, 9e-3, 3)))
+        now = float(rng.uniform(0.0, 0.2))
+        j = int(rng.integers(0, 3))
+        pend = [[] for _ in range(3)]
+        pend[j].append((T.Request(0, None, now, deadline=now + float(
+            rng.uniform(12e-3, 80e-3))),))
+        wake = slo.wake(pend, now)
+        if wake > now:
+            n += 1
+            assert slo.urgent_segment(pend, wake) == j
+    assert n > 19000
+
+
 def test_request_queue_requeue_fifo():
     for pkg in (T, J):
         q = pkg.RequestQueue([pkg.Request(i, None, float(i))
