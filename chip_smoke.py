@@ -355,6 +355,30 @@ Phases, in order; any failure exits non-zero and no result is printed:
    relative, params within (q)'s AdamW band.  No TPU kernel runs on (s)
    (the expert products are ``torch.bmm``, as on (m)); the multi-rank
    collectives are checked on gloo ranks in the CPU tests only.
+   Then (u), the grouped-conv fp32 fallback, served
+   (``grouped_conv_path``): path (a)'s resnet34-cifar with ``U_LAYER``
+   cut into ``U_GROUPS`` groups of depth 32 (its input ``U_SHAPE``),
+   ``cnn_forward`` reading each conv's groups off its weight (no
+   configuration has such a conv), through ``export_cnn`` at both tiers
+   (calibrated with ``verify='strict'``, and dynamic) and ``serve`` on 32
+   images: the served model's plan marks the layer ``fallback`` with 0
+   launches and is the only fallback, ``quant_matmul`` launches as often
+   as the plan counts, the one fallback call (int8 ``U_SHAPE`` codes in,
+   fp32 out) within ``U_TOL`` x max|y| of ``ref.quant_conv_ref`` on the
+   CPU on the same codes, and the served logits of 4 images against the
+   CPU export's fed the card's codes, as (a) and (a') are held.  Last
+   (t), the multi-pod dry-run (``start_dryruns`` after the timed kernel
+   phases, ``dryrun_path`` here): (t1) ``python -m
+   repro_torch.launch.dryrun`` on each of ``T_CELLS`` (a fake world of
+   256 or 512 ranks, fake tensors on the card's device type), each in a
+   process of its own beside the paths, its record printed, its argument
+   bytes equal to the sharding rules' shard bytes, its collective kinds
+   among ``T_KINDS``; (t2) the dry-run of (q1)'s step (the 1 x 1 mesh, 8
+   x 128): its FLOPs equal to ``FlopCounterMode`` over one more real step
+   after (q2)'s comparison (``step_readings``; FlopCounterMode decomposes
+   composite ops, which moves the step's bits and its peak), its argument
+   + temp bytes within ``T_MEM_TOL`` of the peak memory over (q2)'s last
+   plain step plus that step's params and AdamW state.
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), (k) (42 each, with the softcap), (l), (m) and (o) (12 each), and
@@ -387,6 +411,7 @@ This script imports no JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -587,6 +612,26 @@ S_LAYERS, S_STEPS = 2, 3
 S_TRAIN_BATCH, S_TRAIN_SEQ = 2, 128
 MOE_NEAR_TIE = 1e-6
 MOE_PRUNE_RATIO = 0.3          # mixtral's cut keeps max(2, int(8 x 0.7)) = 5
+# (t): the multi-pod dry-run, each cell in a process of its own started
+# after the timed kernel phases and run beside the other paths (fake
+# tensors on the card's device type: no memory, no kernel); T_WAIT_S from
+# their start
+T_CELLS = (('tinyllama-1.1b', 'train_4k', 'pod'),
+           ('deepseek-v3-671b', 'decode_32k', 'pod'),
+           ('mamba2-2.7b', 'long_500k', 'multipod'))
+T_WAIT_S = 900
+T_KINDS = ('all-gather', 'all-reduce', 'reduce-scatter', 'all-to-all',
+           'collective-permute')
+# (t2): the dry-run's argument + temp bytes of (q1)'s step against the
+# card's peak over a plain step of it (argument bytes added), either way
+T_MEM_TOL = 0.25
+# (u): the grouped-conv fp32 fallback: path (a)'s resnet34-cifar with the
+# second conv of stage 1's second block cut into U_GROUPS groups (per-group
+# depth 32; its input U_SHAPE at a batch of 32 images)
+U_BLOCK, U_GROUPS = (1, 1), 4
+U_LAYER = 's1b1.conv2'
+U_SHAPE = (32, 16, 16, 128)
+U_TOL = 1e-5                   # x max|y|: card against CPU, fp32 convs
 # Decode attention against its plain version, max|kernel - plain| over
 # max|plain|: fp32 sums in another order; a bf16 output within about one
 # bf16 ulp (the int8-KV path serves bf16 q and output)
@@ -3140,7 +3185,17 @@ def train_mesh_leg(torch, tag, args):
     clean = []
     t0 = time.perf_counter()
     for s_ in range(Q_STEPS):
+        last = s_ == Q_STEPS - 1
+        if last:                         # (t2)'s memory reading, plain step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            arg_bytes = sum(x.to_local().untyped_storage().nbytes()
+                            for x in _leaves(st))
         pp, oo, m = fn(st[0], st[1], batch_fn(s_))
+        if last:
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated() - base
         st = (pp, oo)
         clean.append(float(m['loss']))
     t_clean = time.perf_counter() - t0
@@ -3155,12 +3210,36 @@ def train_mesh_leg(torch, tag, args):
           f'{same}' + ('' if same else f' (max |diff| {gap:.3e} x max)'))
     if losses != clean or not same:
         fail(f'{Q_KEY}: the drill did not replay the plain loop exactly')
-    del st, want
+    del want
+    # (t2)'s FLOPs on one more step, after the comparison: FlopCounterMode
+    # decomposes composite ops, which moves the step's bits (and its peak)
+    _, reads = step_readings(torch, fn, st, batch_fn(Q_STEPS))
+    reads.update(step_peak_bytes=step_peak, step_arg_bytes=arg_bytes)
+    print(f'{tag} (q2) the last plain step\'s peak above its arguments '
+          f'{step_peak} B, its params and AdamW state {arg_bytes} B; one '
+          f'more step under FlopCounterMode for (t2): {reads}')
+    del st
     return {'ms_per_step': ms, 'tokens_per_s': tokens / ms * 1e3,
             'peak_gib': peak / 2 ** 30, 'ckpt_gb': nbytes / 1e9,
             'snapshot_s': snaps, 'write_s': writes, 'restore_s': restores,
             'busy': None if busy is None else busy / wall, 'losses': losses,
-            'restarts': loop.restarts}
+            'restarts': loop.restarts, **reads}
+
+
+def step_readings(torch, fn, st, batch):
+    """One call of the train step ``fn`` on the state ``st`` under
+    ``FlopCounterMode``: (its outputs, {'step_flops', 'step_peak_counted':
+    its peak memory above what was allocated before it, which the mode's
+    decompositions move, printed beside the plain step's})."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(st[0], st[1], batch)
+    torch.cuda.synchronize()
+    return out, {'step_flops': fc.get_total_flops(), 'step_peak_counted':
+                 torch.cuda.max_memory_allocated() - base}
 
 
 def train_cut_leg(torch, tag, mesh):
@@ -3268,7 +3347,8 @@ def serve_mesh_leg(torch, tag, mesh):
     t_decode = time.perf_counter() - t0
     with torch.inference_mode(), jitted_scales():
         lg_m, _ = model.decode_step(params, zeros, S, first,
-                                    ctx=make_decode_ctx(mesh, cfg))
+                                    ctx=make_decode_ctx(mesh, cfg,
+                                                        max_len=max_len))
     lg_k = k_logits[0]
     scale = float(lg_k.abs().max())
     diff = max_err(torch, lg_m.float(), lg_k)
@@ -3689,6 +3769,10 @@ def moe_ep_path(torch):
     laps = Laps()
     cfg = get_config(S_ARCH).replace(dtype='float32')
     out = {}
+    torch.cuda.empty_cache()
+    print(f'{tag} on the card before the path: '
+          f'{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, '
+          f'{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved')
     started = init_distributed('cuda')
     try:
         policy = make_mesh_policy(make_local_mesh('cuda'))
@@ -3781,6 +3865,313 @@ def moe_ep_path(torch):
           f'torch.bmm); path took {secs:.1f} s ({laps})')
     out['secs'] = secs
     return {k: 0 for k in counts()}, out
+
+
+T2_SCRIPT = '''
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_local_mesh
+a = json.loads(sys.argv[1])
+with dryrun.fake_world(1):
+    res = dryrun.trace_cell(get_config(a['arch']), make_local_mesh(),
+                            dict(kind='train', batch=a['batch'],
+                                 seq=a['seq']))
+print(json.dumps(res))
+'''
+
+
+def start_dryruns():
+    """(t): start ``python -m repro_torch.launch.dryrun`` on each of
+    ``T_CELLS`` (t1) and the dry-run of (q1)'s step on the 1 x 1 mesh
+    (t2), each in a process of its own at a lower priority, one thread
+    each, beside the paths that follow; :func:`dryrun_path` reads them."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix='dryrun_')
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, 'src'),
+               OMP_NUM_THREADS='1')
+    jobs = [(f'{a}/{sh}/{m}', ['-m', 'repro_torch.launch.dryrun', '--arch',
+                               a, '--shape', sh, '--mesh', m, '--out', d])
+            for a, sh, m in T_CELLS]
+    jobs.append(('t2', ['-c', T2_SCRIPT, json.dumps(
+        {'arch': LM_ARCH, 'batch': Q_BATCH, 'seq': Q_SEQ})]))
+    procs = {}
+    for name, argv in jobs:
+        log = open(os.path.join(d, name.replace('/', '__') + '.log'), 'w')
+        procs[name] = (subprocess.Popen(
+            [sys.executable] + argv, cwd=HERE, env=env, stdout=log,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10)), log)
+    atexit.register(_stop, procs)     # a failed phase leaves none behind
+    print(f'[dryrun] started {len(procs)} dry-runs beside the paths '
+          f'(output under {d})')
+    return {'dir': d, 'procs': procs, 't0': time.perf_counter()}
+
+
+def _stop(procs):
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _dryrun_log(jobs, name):
+    with open(os.path.join(jobs['dir'], name.replace('/', '__') + '.log')) \
+            as f:
+        return f.read()
+
+
+def dryrun_path(torch, jobs, q1):
+    """Path (t): the dry-runs :func:`start_dryruns` started, awaited.  (t1)
+    each cell completes, its record printed; its ``argument_bytes`` equal
+    the rules' shard bytes of the same trees (``rule_argument_bytes``,
+    computed from the specs alone), every collective kind is one of
+    ``T_KINDS``.  (t2) the dry-run of (q1)'s step: its FLOPs equal
+    ``FlopCounterMode`` over the card's step exactly (the same op stream),
+    its argument + temp bytes within ``T_MEM_TOL`` of the card's peak over
+    (q2)'s last plain step with that step's argument bytes added (the
+    peak under FlopCounterMode printed beside it).  Returns readings."""
+    import shutil
+    tag = '[dryrun]'
+    t_wait = time.perf_counter()
+    out = {}
+    try:
+        for name, (proc, log) in jobs['procs'].items():
+            left = T_WAIT_S - (time.perf_counter() - jobs['t0'])
+            try:
+                proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f'(t) {name}: no result within {T_WAIT_S} s of its '
+                     f'start:\n{_dryrun_log(jobs, name)[-3000:]}')
+            if proc.returncode != 0:
+                fail(f'(t) {name} exited {proc.returncode}:\n'
+                     f'{_dryrun_log(jobs, name)[-3000:]}')
+        waited = time.perf_counter() - t_wait
+        for arch, shape, mesh in T_CELLS:
+            path = os.path.join(jobs['dir'], mesh, f'{arch}__{shape}.json')
+            with open(path) as f:
+                rec = json.load(f)
+            print(f'{tag} (t1) {json.dumps(rec)}')
+            mem = rec['memory']
+            kinds = set(rec['collective_bytes'])
+            live = (mem['argument_bytes'] + mem['temp_bytes']) / 2 ** 30
+            print(f'{tag} (t1) {arch} {shape} {mesh}: traced in '
+                  f"{rec['trace_s']} s; argument bytes "
+                  f"{mem['argument_bytes']} (the rules: "
+                  f"{rec['rule_argument_bytes']}), argument + temp "
+                  f'{live:.2f} GiB a device, collectives {sorted(kinds)}')
+            if mem['argument_bytes'] != rec['rule_argument_bytes']:
+                fail(f'(t1) {arch} {shape} {mesh}: the recorded argument '
+                     f'bytes are not the rules\' shard bytes')
+            if not kinds <= set(T_KINDS):
+                fail(f'(t1) {arch} {shape} {mesh}: collective kinds '
+                     f'{sorted(kinds - set(T_KINDS))} of no known name')
+            out[(arch, shape, mesh)] = rec
+        t2 = json.loads(_dryrun_log(jobs, 't2').strip().splitlines()[-1])
+    finally:
+        _stop(jobs['procs'])
+        shutil.rmtree(jobs['dir'], ignore_errors=True)
+    dry = t2['memory']['argument_bytes'] + t2['memory']['temp_bytes']
+    card = q1['step_peak_bytes'] + q1['step_arg_bytes']
+    ratio = dry / card
+    counted = (q1['step_peak_counted'] + q1['step_arg_bytes']) / card
+    print(f'{tag} (t2) {LM_ARCH} train step {Q_BATCH} x {Q_SEQ} on the '
+          f"1 x 1 mesh: FLOPs dry-run {t2['flops']:.6e}, FlopCounterMode "
+          f"over the card's step {q1['step_flops']:.6e}; argument + temp "
+          f'{dry / 2 ** 30:.3f} GiB against the card\'s peak '
+          f"{q1['step_peak_bytes'] / 2 ** 30:.3f} GiB over (q2)'s last "
+          f"plain step + its arguments {q1['step_arg_bytes'] / 2 ** 30:.3f} "
+          f'GiB: ratio {ratio:.4f} (limit {T_MEM_TOL} either way); the '
+          f'step under FlopCounterMode peaks at {counted:.4f} x the plain '
+          f"step's; traced in {t2['trace_s']} s")
+    if t2['flops'] != q1['step_flops']:
+        fail('(t2): the dry-run\'s FLOPs are not those of the card\'s step')
+    if abs(ratio - 1) > T_MEM_TOL:
+        fail(f'(t2): the dry-run\'s memory is {ratio:.3f} x the card\'s')
+    print(f'{tag} (t) waited {waited:.1f} s for the dry-runs '
+          f'({time.perf_counter() - jobs["t0"]:.1f} s since their start)')
+    return {'t1': out, 't2': t2, 't2_mem_ratio': ratio, 'waited_s': waited}
+
+
+def grouped_by_weight(forward, default_conv):
+    """``forward`` (``cnn_forward``) with every unfactored conv's groups
+    read off its weight: the input's depth over the weight's input depth,
+    which is what the forward passes for every conv of a configuration.
+    No configuration has a grouped conv of per-group depth > 1; so a model
+    with one goes through ``export_cnn`` and serving."""
+    def fwd(params, cfg, x, *, conv_fn=None, **kw):
+        inner = conv_fn or default_conv
+
+        def conv(p, h, *, groups=1, **k):
+            if 'u' not in p:
+                w = p['w'] if 'w' in p else p['w_q']
+                groups = h.shape[-1] // w.shape[2]
+            return inner(p, h, groups=groups, **k)
+        return forward(params, cfg, x, conv_fn=conv, **kw)
+    return fwd
+
+
+@contextlib.contextmanager
+def grouped_forward():
+    from repro_torch.models import cnn as cnn_lib
+    real = cnn_lib.cnn_forward
+    cnn_lib.cnn_forward = grouped_by_weight(real, cnn_lib.conv)
+    try:
+        yield
+    finally:
+        cnn_lib.cnn_forward = real
+
+
+@contextlib.contextmanager
+def recording_fallback(calls):
+    """Append (args, kwargs, output) of every ``ref.quant_conv_ref`` call
+    outside a kernel wrapper (the fp32 fallback at both tiers) to
+    ``calls``."""
+    from repro_torch.kernels import inside_wrapper, ref
+    real = ref.quant_conv_ref
+
+    def spy(*a, **k):
+        y = real(*a, **k)
+        if not inside_wrapper():
+            calls.append((a, k, y))
+        return y
+    ref.quant_conv_ref = spy
+    try:
+        yield
+    finally:
+        ref.quant_conv_ref = real
+
+
+def grouped_tier(torch, tag, tier, params, cpu_params, cfg, x,
+                 want_launches=None):
+    """One (u) tier: ``export_cnn`` on the card (``resident``: calibrated
+    on ``x``, ``verify='strict'``; ``dynamic``: no plan) and
+    ``model.serve(x)`` counted (``quant_matmul`` launched as often as the
+    plan counts, ``want_launches`` where there is none); its one fallback
+    call held against
+    ``ref.quant_conv_ref`` on the CPU on the same int8 codes and scales;
+    the served logits of 4 images against the CPU export's with every
+    quantization site fed the card's codes (the resident tier on the
+    card's scales, as path (a))."""
+    from repro_torch.core.export import export_cnn
+    from repro_torch.kernels import counts, ref, reset_counts
+    resident = tier == 'resident'
+    small = x[:4]
+    model = export_cnn(params, cfg, device='cuda',
+                       calibrate=x if resident else None,
+                       verify='strict' if resident else None)
+    out = {}
+    if resident:
+        e, summ = model.plan.layers[U_LAYER], model.plan.summary()
+        want_launches = summ['kernel_launches']
+        out.update(mac_fraction=summ['fallback_mac_fraction'],
+                   plan_launches=want_launches)
+        print(f"{tag} {tier}: the served model's plan: {U_LAYER} "
+              f"fallback={e['fallback']} launches={e['launches']} groups "
+              f"{e['groups']} macs {e['macs']}; n_fallback "
+              f"{summ['n_fallback']}, fallback MAC fraction "
+              f"{summ['fallback_mac_fraction']:.4f}, kernel launches "
+              f"{summ['kernel_launches']}; analyzer ok "
+              f'{model.analysis.ok}')
+        if not e['fallback'] or e['launches'] != 0 or \
+                summ['n_fallback'] != 1 or not model.analysis.ok:
+            fail(f'(u) {tier}: the grouped conv is not the plan\'s only '
+                 f'fallback, or the analyzer found an error')
+    calls = []
+    torch.cuda.synchronize()
+    reset_counts()
+    with recording_fallback(calls):
+        lg = model.serve(x)
+        torch.cuda.synchronize()
+    launched = {k: v['launches'] for k, v in counts().items()
+                if v['launches']}
+    plain = sum(v['plain_calls'] for v in counts().values())
+    out['launches'] = launched
+    if len(calls) != 1:
+        fail(f'(u) {tier}: {len(calls)} fallback calls in one pass')
+    a, k, y = calls[0]
+    host = [t.cpu() if torch.is_tensor(t) else t for t in a]
+    want = ref.quant_conv_ref(*host, **k)
+    err = max_err(torch, y.cpu(), want) / float(want.abs().max())
+    out['err'] = err
+    print(f'{tag} {tier}: served {tuple(x.shape)} -> {tuple(lg.shape)}; '
+          f'launches {launched}, plain calls {plain}; the fallback on '
+          f'{tuple(a[0].shape)} {a[0].dtype} codes, groups '
+          f"{k.get('groups')}, {tuple(y.shape)} {y.dtype} out: card against "
+          f'the CPU on the same codes {err:.3e} x max|y| (limit {U_TOL})')
+    if tuple(a[0].shape) != U_SHAPE or a[0].dtype != torch.int8 or \
+            y.dtype != torch.float32 or err > U_TOL:
+        fail(f'(u) {tier}: the card\'s fallback conv is {err:.3e} x max '
+             f'from the CPU\'s, or not int8 {U_SHAPE} in and fp32 out')
+    if plain or launched != {'quant_matmul': want_launches}:
+        fail(f'(u) {tier}: served on other kernels than the plan counts')
+    if tuple(lg.shape) != (x.shape[0], cfg.num_classes) or \
+            not bool(torch.isfinite(lg).all()):
+        fail(f'(u) {tier}: the served logits are malformed')
+    cpu = export_cnn(cpu_params, cfg, device='cpu',   # on the card's scales
+                     calibrate=small.cpu() if resident else None)
+    if resident:
+        share_scales(model.plan, cpu.plan)
+        lg4, sites, _ = static_sites(torch, lambda: model.serve(small))
+        fed = fed_check(torch, lg4, sites, lambda: cpu.serve(small.cpu()))
+        ok, diff = fed['ok'], fed['diff'] / fed['scale']
+        print(f"{tag} {tier}: card vs CPU on 4 images, the CPU on the "
+              f"card's scales and fed its codes at each of {fed['sites']} "
+              f"static requantizes: {fed['flips']} of {fed['codes']} codes "
+              f"differ, by at most {fed['step']:g} step, the farthest "
+              f"{fed['tie']:.3e} from a tie (limit {TIE_TOL:g}); logits "
+              f'{diff:.3e} x max|logit| (limit 4e-2)')
+    else:
+        lg4, sites, _ = act_sites(torch, lambda: model.serve(small))
+        fed, _, cmp = act_sites(torch, lambda: cpu.serve(small.cpu()),
+                                forced=sites)
+        rel = max(c['rel'] for c in cmp)
+        step = max(c['step'] for c in cmp)
+        tie = max(c['tie'] for c in cmp)
+        diff = float((lg4.cpu() - fed).abs().max()) / max(
+            float(fed.abs().max()), 1.0)
+        ok = rel <= SCALE_RTOL_EXACT and step <= 1 and tie <= TIE_TOL and \
+            diff <= DYN_TOL
+        print(f'{tag} {tier}: card vs CPU on 4 images, each CPU layer fed '
+              f"the card's int8 input at {len(cmp)} dynamic scales: scales "
+              f'within {rel:.3e} (limit {SCALE_RTOL_EXACT:g}), '
+              f"{sum(c['codes'] for c in cmp)} codes differ, by at most "
+              f'{step:g} step, the farthest {tie:.3e} from a tie; logits '
+              f'{diff:.3e} x max(max|logit|, 1) (limit {DYN_TOL:g})')
+    out['cpu_diff'] = diff
+    if not ok:
+        fail(f'(u) {tier}: the served model disagrees with the CPU\'s '
+             f'export fed the card\'s codes')
+    return out
+
+
+def grouped_conv_path(torch):
+    """Path (u): the grouped-conv fp32 fallback, served.  Path (a)'s
+    resnet34-cifar (W8A8, random weights from SEED, exit heads) with
+    ``U_LAYER`` cut to ``U_GROUPS`` groups of depth 32, ``cnn_forward``
+    reading each conv's groups off its weight (``grouped_forward``):
+    ``export_cnn`` at both tiers on the card and on the CPU and
+    ``serve`` (:func:`grouped_tier`).  Returns readings."""
+    from repro_torch.core.export import to_device
+    tag = '[grouped-conv]'
+    t0 = time.perf_counter()
+    fam, params, cfg = path_model(torch, PATHS[0])
+    conv = params['stages'][U_BLOCK[0]][U_BLOCK[1]]['conv2']
+    depth = conv['w'].shape[2] // U_GROUPS
+    conv['w'] = conv['w'][:, :, :depth, :].contiguous()
+    x = fam.eval_batches(1, U_SHAPE[0])[0][0]
+    cpu_params = to_device(params, 'cpu')
+    out = {}
+    with grouped_forward():
+        out['resident'] = grouped_tier(torch, tag, 'resident', params,
+                                       cpu_params, cfg, x)
+        out['dynamic'] = grouped_tier(
+            torch, tag, 'dynamic', params, cpu_params, cfg, x,
+            want_launches=out['resident']['plan_launches'])
+    out['secs'] = time.perf_counter() - t0
+    print(f"{tag} {cfg.name} with {U_LAYER} in {U_GROUPS} groups of depth "
+          f"{depth}: path took {out['secs']:.1f} s")
+    return out
 
 
 def tree_bits_equal(torch, a, b):
@@ -5552,6 +5943,7 @@ def main():
     launch_us = phase_kernels(torch, path_model(torch, PATHS[2])[1])
     phase_decode_kernels(torch)
     print(f'[time] kernels done at {time.perf_counter() - t_start:.1f} s')
+    dryruns = start_dryruns()            # after the timed kernel phases
     served, launches = {}, {}
     for spec in PATHS:
         model, params, counted, _ = serve_path(torch, spec, launch_us)
@@ -5617,12 +6009,16 @@ def main():
             print(f"[time] path {spec['key']} done at "
                   f"{time.perf_counter() - t_start:.1f} s")
         print(f'[time] path ({label}) took {time.perf_counter() - t0:.1f} s')
-    train_mesh_path(torch)
+    q = train_mesh_path(torch)
     print(f'[time] path (q) done at {time.perf_counter() - t_start:.1f} s')
     launches[R_KEY], _ = pipeline_path(torch, served[PATHS[0]['key']][0])
     print(f'[time] path (r) done at {time.perf_counter() - t_start:.1f} s')
     launches[S_KEY], _ = moe_ep_path(torch)
     print(f'[time] path (s) done at {time.perf_counter() - t_start:.1f} s')
+    grouped_conv_path(torch)
+    print(f'[time] path (u) done at {time.perf_counter() - t_start:.1f} s')
+    dryrun_path(torch, dryruns, q['q1'])
+    print(f'[time] path (t) done at {time.perf_counter() - t_start:.1f} s')
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,
                             H_KEY: h_calls}, dyn) + \

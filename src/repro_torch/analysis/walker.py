@@ -22,6 +22,7 @@ to the host; a copy from the host to the card is an upload, kept apart.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -56,20 +57,36 @@ _SYNC_OPS = ('aten._local_scalar_dense', 'aten.item')
 
 
 def _storage(t) -> int:
-    return t.untyped_storage().data_ptr() if t.numel() else 0
+    """The identity of ``t``'s storage (a fake tensor's too, whose data
+    pointer is 0); 0 for an empty tensor."""
+    return t.untyped_storage()._cdata if t.numel() else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _writes(func) -> tuple:
+    """Per return of ``func``: whether it writes an input in place."""
+    return tuple(r.alias_info is not None and r.alias_info.is_write
+                 for r in func._schema.returns)
+
+
+def written_bytes(func, ins, outs) -> int:
+    """Bytes the op ``func`` wrote, given its input and output tensors:
+    each output that owns new storage, or that the op writes in place; a
+    view writes nothing."""
+    shared = {_storage(t) for t in ins} - {0}
+    writes = _writes(func)
+    nbytes = 0
+    for i, t in enumerate(outs):
+        if (i < len(writes) and writes[i]) or _storage(t) not in shared:
+            nbytes += t.numel() * t.element_size()
+    return nbytes
 
 
 def _op_record(func, args, kwargs, out) -> OpRecord:
     name = func._schema.name.replace('::', '.')
     ins = tensors_in(args) + tensors_in(kwargs)
     outs = tensors_in(out)
-    shared = {_storage(t) for t in ins} - {0}
-    writes = [r.alias_info is not None and r.alias_info.is_write
-              for r in func._schema.returns]
-    nbytes = 0
-    for i, t in enumerate(outs):
-        if (i < len(writes) and writes[i]) or _storage(t) not in shared:
-            nbytes += t.numel() * t.element_size()
+    nbytes = written_bytes(func, ins, outs)
     dev = outs[0].device.type if outs else \
         (ins[0].device.type if ins else 'cpu')
     in_cuda = any(t.is_cuda for t in ins)

@@ -36,10 +36,12 @@ not needed for that; ``ServingModel.backend`` names which ran).  Measure
 mode (``select_kernels='measure'``) races the two low-rank lowerings on
 the export's device: CUDA events on the card, ``perf_counter`` on the
 CPU (where it times the plain versions).  ``verify=`` runs the analyzer
-(``repro_torch.analysis``) over the fresh export.  Not ported yet, raising
-NotImplementedError that names its ROADMAP item: grouped convs with
-per-group depth > 1 (the reference's declared fp32 fallback, which no
-configuration has).
+(``repro_torch.analysis``) over the fresh export.  A grouped conv with
+per-group depth > 1 (no configuration has one) is the reference's declared
+fp32 fallback at both tiers: its plan entry says ``'fallback'`` with no
+launch, and it serves as ``ref.quant_conv_ref`` on the dequantized
+operands (``F.conv2d`` with ``groups``), int8 in and fp32 out, the next
+glue requantizing, as the reference serves it through ``lax.conv``.
 
 :func:`export_lm` is the LM family's int8 weight export.
 :func:`export_chain` exports a finished compression chain through a
@@ -167,7 +169,7 @@ class LayerPlan:
 
     def summary(self) -> dict:
         """Deployed-cost summary: MACs, launch counts, the MAC fraction
-        served by a fp32 fallback (0 on this plan), the depthwise and
+        served by the fp32 fallback, the depthwise and
         low-rank layer counts, and the per-layer fused-vs-chained selection
         with its reason.  Counts cover the plain serving path
         (``ServingModel.fn``); the exit heads, executed only by
@@ -270,12 +272,8 @@ def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
         factored = 'u' in p
         depthwise = groups > 1 and not factored and fits_depthwise(
             p['w'].shape)
-        if groups > 1 and not depthwise:
-            raise NotImplementedError(
-                f'{name}: a grouped conv with per-group depth > 1 is the '
-                f"reference's declared fp32 fallback, not ported (ROADMAP, "
-                f'queue A: grouped-conv fallback)')
-        e = {'sx': scale(name, 'sx', cx), 'kind': 'conv', 'fallback': False,
+        e = {'sx': scale(name, 'sx', cx), 'kind': 'conv',
+             'fallback': groups > 1 and not depthwise,
              'depthwise': depthwise, 'factored': factored, 'fused': False,
              'stride': stride, 'in_shape': tuple(cx.shape), 'groups': groups,
              'w_shape': None if factored else tuple(p['w'].shape)}
@@ -300,7 +298,7 @@ def _compile_layer_plan(params, cfg, x, a_qmax, fuse_lowrank=True,
             kh, kw, cin, cout = p['w'].shape
             oh, ow = y.shape[1], y.shape[2]
             e['macs'] = oh * ow * kh * kw * cin * cout
-            e['launches'] = 1
+            e['launches'] = 0 if e['fallback'] else 1
         e['kernel'] = (kh, kw)
         e['out_scale'] = scale(name, 'out_scale', y)
         e['out_shape'] = tuple(y.shape)
@@ -525,9 +523,13 @@ def _resident_layers(plan: LayerPlan):
         return QAct(ref.requantize(x, sx, qmax), sx)
 
     def conv_fn(p, x, *, stride=1, quant=(0, 0), groups=1, name=None):
-        del quant, groups
+        del quant
         e = plan.layers[name]
         xq = as_qact(x, e['sx'])
+        if e['fallback']:                 # fp32 out; the next glue requantizes
+            return ref.quant_conv_ref(xq.q, p['w_q'], xq.scale, p['scale'],
+                                      p.get('b'), stride=stride,
+                                      groups=groups)
         kw = dict(out_scale=e['out_scale'], out_qmax=qmax)
         if e['depthwise']:
             y = ops.depthwise_conv_static(

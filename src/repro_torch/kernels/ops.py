@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (  # noqa: F401
     decode_attention, decode_attention_int8)
 from repro_torch.kernels.depthwise_conv import depthwise_conv, fits_depthwise
@@ -112,15 +113,15 @@ def quant_conv_nhwc(x, w_q, sw, bias=None, *, stride=1, groups=1,
     dynamic per-tensor scale (the QAT grid); w_q int8 (KH,KW,CIN,COUT);
     sw (COUT,) static.  A grouped conv with per-group depth 1 runs on
     ``depthwise_conv``; the rest through im2col on ``quant_matmul``.  A
-    grouped conv with per-group depth > 1, the reference's declared fp32
-    fallback (no configuration has one), raises.  Returns fp32."""
+    grouped conv with per-group depth > 1 (no configuration has one) is
+    the reference's declared fp32 fallback: ``ref.quant_conv_ref`` on the
+    dequantized operands, as the reference runs ``lax.conv``.  Returns
+    fp32."""
     xq, sx = quantize_act(x, a_bits=a_bits)
     if groups > 1:
         if not fits_depthwise(w_q.shape):
-            raise NotImplementedError(
-                "a grouped conv with per-group depth > 1 is the reference's "
-                'declared fp32 fallback, not ported (ROADMAP, queue A: '
-                'grouped-conv fallback)')
+            return ref.quant_conv_ref(xq, w_q, sx, sw, bias, stride=stride,
+                                      relu=relu, groups=groups)
         return depthwise_conv(xq, w_q, float(sx), sw.reshape(-1), bias,
                               stride=stride, relu=relu)
     return quant_conv(xq, w_q, sx, sw.reshape(-1), bias, stride=stride,

@@ -137,10 +137,17 @@ def quant_conv_ref(x_q, w_q, sx, sw, bias=None, *, stride=1, relu=False,
                    out_qmax=127.0):
     """fp32-conv oracle for quant_conv: dequantize both operands and run the
     SAME conv (bilinear, so it equals the int8 path up to fp32 rounding).
-    x_q int8 NHWC, w_q int8 HWIO, sx scalar, sw (COUT,)."""
+    x_q int8 NHWC, w_q int8 HWIO, sx scalar, sw (COUT,).  The conv runs in
+    fp32 on the card too (cuDNN's TF32 off), as it serves the grouped-conv
+    fp32 fallback."""
     x = x_q.to(torch.float32) * float(sx)
     w = w_q.to(torch.float32) * sw.to(torch.float32)[None, None, None, :]
-    y = conv2d_same_nhwc(x, w, stride, groups)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = conv2d_same_nhwc(x, w, stride, groups)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
     if bias is not None:
         y = y + bias.to(torch.float32)
     if relu:

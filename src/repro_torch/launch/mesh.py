@@ -16,7 +16,10 @@ so :class:`AbstractMesh` (names and sizes, no ranks) stands in for a
 init method with an explicit rank and world size, or else as a world of
 one rank in this process over a ``HashStore`` (no network).  Its backend
 is ``cpu:gloo,cuda:nccl`` where torch has NCCL, so one group serves CPU
-and card tensors, and ``gloo`` where it has not.
+and card tensors, and ``gloo`` where it has not.  With ``fake=True`` it
+starts one rank of a fake world instead (torch's fake process group over
+a ``FakeStore``: no peer runs, and a collective returns at once without
+moving data), the 256- or 512-rank world of ``launch/dryrun.py``.
 """
 from __future__ import annotations
 
@@ -56,14 +59,16 @@ def mesh_axes(mesh) -> dict:
 
 
 def init_distributed(device='cuda', *, init_method=None, rank=None,
-                     world_size=None,
+                     world_size=None, fake=False,
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
     """Start the default process group unless one is running.  Returns
     True when this call started it (the caller then destroys it).
 
     ``init_method`` (e.g. ``file:///path``) needs ``rank`` and
     ``world_size``; without it the ``torchrun`` environment is read, and
-    without that this process is a world of one rank."""
+    without that this process is a world of one rank.  ``fake=True``
+    (with ``rank`` and ``world_size``) makes this process ``rank`` of a
+    fake world of ``world_size`` ranks (module docstring)."""
     import torch.distributed as dist
     if dist.is_initialized():
         return False
@@ -71,7 +76,11 @@ def init_distributed(device='cuda', *, init_method=None, rank=None,
     timeout = timedelta(seconds=timeout_s)
     if torch.device(device).type == 'cuda':
         torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', 0)))
-    if init_method is not None:
+    if fake:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group('fake', store=FakeStore(), rank=rank,
+                                world_size=world_size)
+    elif init_method is not None:
         dist.init_process_group(backend, init_method=init_method,
                                 rank=rank, world_size=world_size,
                                 timeout=timeout)

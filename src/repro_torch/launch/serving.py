@@ -71,35 +71,49 @@ def decode_spec(path, leaf, mesh, *, long_ctx=False):
                for d, s in enumerate(spec)))
 
 
-def make_decode_ctx(mesh, cfg, *, long_ctx=False):
-    """ctx dict with the sequence-sharded decode_attn / decode_mla."""
+def make_decode_ctx(mesh, cfg, *, max_len, long_ctx=False):
+    """ctx dict with the sequence-sharded decode_attn / decode_mla.
+
+    ``max_len``: the caches' ``max_len``.  A ring holds ``max_len``
+    slots, or ``min(window, max_len)`` for a local layer's as
+    ``init_cache`` builds it, so the host reads nothing off the device to
+    tell a whole ring from a chunk of one.  A rank's chunk of a ring
+    starts at its index over the sequence axes (row-major in mesh order,
+    as DTensor splits a dim) times the chunk's length."""
     sizes = mesh_axes(mesh)
     axes = seq_axes(mesh, long_ctx)
     n_seq = math.prod(sizes[a] for a in axes)
     groups = tuple(mesh.get_group(a) for a in axes if sizes[a] > 1)
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + (mesh.get_local_rank(a) if sizes[a] > 1
+                                    else 0)
 
-    def merge_over(cache, key):
-        """The groups to merge over: none where this rank holds the whole
-        sequence (on a mesh of one rank, without reading the ring's size
-        off the device)."""
+    def merge_over(cache, key, window=0):
+        """The groups to merge over and this rank's chunk of the ring:
+        none where this rank holds the whole sequence (on a mesh of one
+        rank, without reading the ring's size off the device)."""
         if not groups:
-            return ()
-        n_local, total = cache[key].shape[1], int(cache['meta']['total'])
-        if n_local == total:
-            return ()
-        if n_local * n_seq != total:
+            return (), None
+        n_local = cache[key].shape[1]
+        rings = (max_len, min(window, max_len)) if window else (max_len,)
+        if n_local in rings:
+            return (), None
+        total = n_local * n_seq
+        if total not in rings:
             raise ValueError(f'a cache chunk of {n_local} slots is not 1/'
-                             f'{n_seq} of the ring of {total}')
-        return groups
+                             f'{n_seq} of a ring of {rings}')
+        return groups, (index * n_local, total)
 
     def decode_attn(q, nk, nv, cache, cur, *, window=0, attn_softcap=0.0):
-        g = merge_over(cache, 'k')
+        g, chunk = merge_over(cache, 'k', window)
         return decode_attn_reference(q, nk, nv, cache, cur, window=window,
-                                     attn_softcap=attn_softcap, groups=g)
+                                     attn_softcap=attn_softcap, groups=g,
+                                     chunk=chunk)
 
     def decode_mla(q_lat, q_rope, new_ckv, new_kr, cache, cur):
-        g = merge_over(cache, 'ckv')
+        g, chunk = merge_over(cache, 'ckv')
         return decode_mla_reference(q_lat, q_rope, new_ckv, new_kr, cache,
-                                    cur, groups=g)
+                                    cur, groups=g, chunk=chunk)
 
     return {'decode_attn': decode_attn, 'decode_mla': decode_mla}

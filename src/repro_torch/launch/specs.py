@@ -50,7 +50,12 @@ def _meta(shape, dtype):
 
 def input_specs(cfg, shape_name: str):
     """Abstract inputs for the given cell: dict for train/prefill batches."""
-    info = SHAPES[shape_name]
+    return input_specs_for(cfg, SHAPES[shape_name])
+
+
+def input_specs_for(cfg, info: dict):
+    """:func:`input_specs` of a ``SHAPES``-style entry (``kind``,
+    ``batch``, ``seq``, optionally ``long_ctx``)."""
     B, S = info['batch'], info['seq']
     dt = torch_dtype(cfg.dtype)
 

@@ -171,12 +171,13 @@ def _dp_mean(x, mesh):
     return true_div(x, float(n)) if n > 1 else x
 
 
-def _global_norm(grads, shardings, mesh):
+def _global_norm(grads, shardings, mesh, counts):
     """sqrt of the sum of squares of every leaf over all its shards: each
     leaf's local sum in fp32 in tree order, summed over the mesh dims that
-    shard it."""
+    shard it (each all-reduce noted as ``'grad_norm'`` in ``counts``)."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
+    from repro_torch.models.actsharding import note
     by_dims = {}
     for g, s in zip(grads, shardings):
         dims = tuple(i for i, p in enumerate(s.placements)
@@ -186,7 +187,9 @@ def _global_norm(grads, shardings, mesh):
     total = None
     for dims, sq in by_dims.items():
         for i in dims:
-            dist.all_reduce(sq, group=mesh.get_group(i))
+            if mesh.size(i) > 1:
+                note('grad_norm', sq, mesh.mesh_dim_names[i], counts)
+                dist.all_reduce(sq, group=mesh.get_group(i))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -235,7 +238,7 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
         del shards
         with torch.no_grad():
             loss = _dp_mean(loss.detach().clone(), mesh)
-            gnorm = _global_norm(grads, p_flat, mesh)
+            gnorm = _global_norm(grads, p_flat, mesh, policy.counts)
             scale = torch.clamp(
                 torch.full((), 1.0, dtype=torch.float32, device=gnorm.device)
                 / torch.clamp_min(gnorm, 1e-9), max=1.0)
@@ -351,7 +354,7 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
     d_sh = tree_map_with_path(
         lambda p, x: sh.NamedSharding(mesh, decode_spec(
             p, x, mesh, long_ctx=long_ctx)), c_aval)
-    ctx = make_decode_ctx(mesh, cfg, long_ctx=long_ctx)
+    ctx = make_decode_ctx(mesh, cfg, long_ctx=long_ctx, max_len=max_len)
     tok_sh = sh.NamedSharding(mesh, sh.batch_spec((batch,), mesh))
     enc_sh = None
     avals = [p_aval, torch.empty((batch,), dtype=torch.int32, device='meta'),

@@ -50,6 +50,7 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
                                      make_mesh, make_production_mesh)
 from repro_torch.runtime import FaultTolerantLoop, SimulatedFailure
+from repro_torch.tree import tree_map
 
 
 def build_mesh(args, device):
@@ -110,15 +111,15 @@ def _run(args, device):
         return data.batch(torch.Generator().manual_seed(step), args.batch,
                           args.seq)
 
-    fn, model, (_, _, p_sh, o_sh) = steps_lib.build_train_step(
+    fn, model, (_, o_aval, p_sh, o_sh) = steps_lib.build_train_step(
         cfg, mesh, batch_fn(0), lr=args.lr)
     with torch.no_grad():
-        params = model.init(torch.Generator(device=device).manual_seed(0),
-                            device)
-    from repro_torch.optim import adamw
-    opt_state = adamw(args.lr).init(params)
-    params = steps_lib.place_tree(params, p_sh)
-    opt_state = steps_lib.place_tree(opt_state, o_sh)
+        params = steps_lib.place_tree(model.init(
+            torch.Generator(device=device).manual_seed(0), device), p_sh)
+    # AdamW's zero state straight onto its placements a leaf at a time: no
+    # unplaced copy of the moments (twice the params) sits beside them
+    opt_state = tree_map(lambda a, s: steps_lib.place(
+        torch.zeros(a.shape, dtype=a.dtype, device=device), s), o_aval, o_sh)
 
     def step_fn(state, batch):
         params, opt_state = state

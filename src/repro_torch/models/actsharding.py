@@ -37,8 +37,10 @@ conv, an attention block whose 'model' shard would cut a query head, a
 factored or fake-quantized block (the policy then has no ``tp``).
 ``policy.counts`` counts the leaves gathered by mesh dim (``('gather',
 dim)``, and ``('gather_tp', dim)`` for a leaf of a block with a
-tensor-parallel form gathered whole) and the collectives over 'model'
-with their bytes.
+tensor-parallel form gathered whole) and, with their bytes (:func:`note`),
+the collectives the model's tensor-parallel blocks (``models/tp.py``) and
+its sequence-sharded decode (``attention._merge``) run, by axis, and the
+train step's global-norm reductions (``('grad_norm', axis)``).
 
 The MoE expert leaves (``moe``'s ``wi``, ``wg``, ``wo``) are the one
 other exception: ``gather_params`` leaves them as :class:`LocalShard` for
@@ -107,6 +109,29 @@ def count(key, n=1):
     counts = getattr(_POLICY, 'counts', None)
     if counts is not None:
         counts[key] += n
+
+
+def note(kind, x, axis, counts=None):
+    """One more ``kind`` collective over the mesh axis ``axis`` with
+    operand ``x``: ``(kind, axis)`` and ``(kind + '_bytes', axis)`` in
+    ``counts``, by default the installed policy's (if any)."""
+    if counts is None:
+        counts = getattr(_POLICY, 'counts', None)
+    if counts is not None:
+        counts[(kind, axis)] += 1
+        counts[(kind + '_bytes', axis)] += x.numel() * x.element_size()
+
+
+def note_group(kind, x, group):
+    """:func:`note` for a collective over the process group ``group``,
+    named by the installed mesh's axis whose group it is."""
+    mesh = _MESH
+    if mesh is None:
+        return
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if mesh.get_group(i).group_name == group.group_name:
+            note(kind, x, name)
+            return
 
 
 def gather_params(tree):
@@ -186,7 +211,8 @@ def _dp_mean(g, mesh):
     g = g.contiguous().clone()
     dims = _dp_dims(mesh)
     for d in dims:
-        dist.all_reduce(g, group=mesh.get_group(d))
+        if mesh.size(mesh.mesh_dim_names.index(d)) > 1:
+            dist.all_reduce(g, group=mesh.get_group(d))
     n = math.prod(mesh.size(mesh.mesh_dim_names.index(d)) for d in dims)
     return true_div(g, float(n)) if n > 1 else g
 

@@ -33,8 +33,10 @@ process groups of those axes, as ``launch/serving.py``'s
 ``make_decode_ctx`` passes them to :func:`decode_attn_reference` and
 :func:`decode_mla_reference`.  Each rank then holds a chunk of the cache
 (``make_cache_meta(n, local_offset, local_len)``: ``slots`` carries the
-global slot indices it owns); the new token is written only by the rank
-that owns slot ``cur % total``, and the partial softmax statistics merge
+global slot indices it owns, and the ctx passes the chunk's first slot
+and the ring's size as Python ints, ``chunk``); the new token is written
+only by the rank that owns slot ``cur % total``, and the partial softmax
+statistics merge
 as in the reference: an all-reduce max of ``m``, then sums of ``l`` and
 ``o``, over each group in turn.  With no groups both are the
 single-device functions.  ``cur`` is the position as a Python int (a
@@ -151,14 +153,16 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 # ------------------------------------------------------- decode attention
 
 
-def _owned_slot(cache, n_local: int, cur: int, groups):
+def _owned_slot(n_local: int, cur: int, chunk=None):
     """The local index of ring slot ``cur % total`` in this cache chunk, or
-    None where another rank owns it.  With no groups the cache is whole
-    and the slot is ``cur % n_local``."""
-    if not groups:
+    None where another rank owns it.  ``chunk``: (the chunk's first ring
+    slot, the ring's slots), Python ints, so the host reads nothing off
+    the device; None where the cache is whole, and the slot is ``cur %
+    n_local``."""
+    if chunk is None:
         return cur % n_local
-    meta = cache['meta']
-    slot = cur % int(meta['total']) - int(meta['slots'][0])
+    offset, total = chunk
+    slot = cur % total - offset
     return slot if 0 <= slot < n_local else None
 
 
@@ -167,20 +171,24 @@ def _merge(m, l_fn, groups):
     over every group (in place), floored at -1e29; then ``l_fn(m)`` gives
     the local (l, o), each summed over every group."""
     import torch.distributed as dist
+    from repro_torch.models.actsharding import note_group
     for g in groups:
+        note_group('all_reduce', m, g)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
     l, o = l_fn(torch.clamp_min(m, -1e29))
     for g in groups:
+        note_group('all_reduce', l, g)
         dist.all_reduce(l, group=g)
+        note_group('all_reduce', o, g)
         dist.all_reduce(o, group=g)
     return l, o
 
 
-def _ring_write(cache, new_k, new_v, cur: int, groups=()):
+def _ring_write(cache, new_k, new_v, cur: int, chunk=None):
     """Write the new token's k/v (int8 codes and scales for an int8 cache)
     into its ring slot and record its position, in place (on the rank
     that owns the slot)."""
-    slot = _owned_slot(cache, cache['k'].shape[1], cur, groups)
+    slot = _owned_slot(cache['k'].shape[1], cur, chunk)
     if slot is None:
         return
     if 'k_s' in cache:
@@ -224,15 +232,16 @@ def decode_attn_kernel(q, new_k, new_v, cache, cur, *, window=0,
 
 
 def decode_attn_reference(q, new_k, new_v, cache, cur, *, window=0,
-                          attn_softcap=0.0, groups=()):
+                          attn_softcap=0.0, groups=(), chunk=None):
     """The reference's decode math in plain torch: ring write, then
     attention over the dequantized cache with q scaled in its own dtype
     and the softmax max floored at -1e29 (a row with no valid slot gives
     zeros).  ``groups``: the sequence axes' process groups when ``cache``
-    is this rank's chunk (the merge then spans them).  Writes the cache in
-    place; returns (out, cache)."""
+    is this rank's chunk (the merge then spans them), and ``chunk`` its
+    place in the ring (:func:`_owned_slot`).  Writes the cache in place;
+    returns (out, cache)."""
     cur = int(cur)
-    _ring_write(cache, new_k, new_v, cur, groups)
+    _ring_write(cache, new_k, new_v, cur, chunk)
     B, Sc, K, Dq = cache['k'].shape
     H = q.shape[1]
     g = H // K
@@ -447,17 +456,18 @@ def mla_forward(p, x, positions, cfg, *, quant=(0, 0)):
 
 
 def decode_mla_reference(q_nope_lat, q_rope, new_ckv, new_kr, cache, cur,
-                         *, groups=()):
+                         *, groups=(), chunk=None):
     """Absorbed-MLA decode, the reference's math in torch ops: the latent
     ``new_ckv`` (B, r) and rope key ``new_kr`` (B, dr) written into their
     ring slot in place, then attention in the latent space in fp32 with
     q_nope already absorbed through wk_b (``q_nope_lat`` (B, H, r)) and
     both halves of q pre-scaled by the caller; the softmax max is floored
-    at -1e29.  ``groups`` as in :func:`decode_attn_reference`.  Returns
+    at -1e29.  ``groups`` and ``chunk`` as in
+    :func:`decode_attn_reference`.  Returns
     (out_latent (B, H, r) fp32, cache); the caller up-projects through
     wv_b."""
     cur = int(cur)
-    slot = _owned_slot(cache, cache['ckv'].shape[1], cur, groups)
+    slot = _owned_slot(cache['ckv'].shape[1], cur, chunk)
     if slot is not None:
         cache['ckv'][:, slot] = new_ckv.to(cache['ckv'].dtype)
         cache['kr'][:, slot] = new_kr.to(cache['kr'].dtype)

@@ -60,9 +60,8 @@ def current_tp():
 
 def _note(kind, x):
     """One more ``kind`` collective over 'model' with operand ``x``."""
-    from repro_torch.models.actsharding import count
-    count((kind, 'model'))
-    count((kind + '_bytes', 'model'), x.numel() * x.element_size())
+    from repro_torch.models.actsharding import note
+    note(kind, x, 'model')
 
 
 def _needs_group(tp, what):

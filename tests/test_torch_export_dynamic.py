@@ -134,10 +134,22 @@ def test_quant_conv_nhwc_matches_reference(case, a_bits):
 
 
 def test_grouped_conv_with_depth_above_one_raises():
-    x = torch.zeros((1, 4, 4, 8))
-    w_q = torch.zeros((3, 3, 2, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match='grouped-conv fallback'):
-        ops.quant_conv_nhwc(x, w_q, torch.ones(8), groups=4)
+    """A grouped conv with per-group depth > 1 no longer raises: it is the
+    reference's declared fp32 fallback, ``ref.quant_conv_ref`` on the
+    dynamic codes, with no kernel call (``tests/test_torch_grouped_conv.py``
+    holds it against the reference)."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 4, 8)).astype(np.float32))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (3, 3, 2, 8)
+                                        ).astype(np.int8))
+    sw = torch.full((8,), 0.01)
+    reset_counts()
+    got = ops.quant_conv_nhwc(x, w_q, sw, groups=4)
+    assert all(c == {'launches': 0, 'plain_calls': 0}
+               for c in counts().values())
+    xq, sx = ops.quantize_act(x)
+    assert torch.equal(got, ref.quant_conv_ref(xq, w_q, sx, sw, groups=4))
 
 
 def test_quantized_params_bits_matches_reference():

@@ -248,28 +248,17 @@ def test_scheduler_empty_trace_and_no_exit_heads(setup):
 
 
 def test_export_refuses_unported_paths(setup):
-    """What is still to be ported raises and names its ROADMAP item:
-    grouped convs with per-group depth > 1, on the resident and the
-    dynamic-scale path; an unknown selection mode is an error.  (Measure
-    mode is ported: ``tests/test_torch_obs.py``.)"""
+    """An unknown selection mode is an error, and an export asked for the
+    card raises without one.  Nothing of the CNN export is left to port:
+    a model with a grouped conv of per-group depth > 1 exports and serves
+    through the declared fp32 fallback at both tiers
+    (``tests/test_torch_grouped_conv.py``).  (Measure mode is ported:
+    ``tests/test_torch_obs.py``.)"""
     p, cfg, x, _ = setup
     xt = torch.from_numpy(x)
     with pytest.raises(ValueError, match='select_kernels'):
         export_cnn(from_jax_params(p), cfg, device='cpu', calibrate=xt,
                    select_kernels='fastest')
-    from repro_torch.configs.cnn import MOBILENET_SMALL_CIFAR
-    from repro_torch.core.family import CNNFamily
-    from repro_torch.data import SyntheticImages
-    mp = CNNFamily(SyntheticImages(), device='cpu').init(
-        torch.Generator().manual_seed(0), MOBILENET_SMALL_CIFAR)
-    dw = mp['stages'][0][0]['dw']
-    dw['w'] = dw['w'].repeat(1, 1, 2, 1)          # per-group depth 2
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        export_cnn(mp, MOBILENET_SMALL_CIFAR, device='cpu',
-                   calibrate=xt[:2])
-    dyn = export_cnn(mp, MOBILENET_SMALL_CIFAR, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        dyn.serve(xt[:2])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             export_cnn(from_jax_params(p), cfg,

@@ -76,7 +76,9 @@ def decode(inp, mesh):
         for long_ctx in (False, True):
             dp = data_axes(mesh)
             bspec = None if long_ctx else (dp if len(dp) > 1 else dp[0])
-            ctx = make_decode_ctx(mesh, cfg, long_ctx=long_ctx)
+            ctx = make_decode_ctx(
+                mesh, cfg, max_len=int(case['cache']['meta']['total']),
+                long_ctx=long_ctx)
             shs = tree_map_with_path(
                 lambda p, x: NamedSharding(mesh, decode_spec(
                     p, x, mesh, long_ctx=long_ctx)),
