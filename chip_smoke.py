@@ -323,7 +323,23 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``Q5_TOL`` x max|out| of the unsharded layer on the card; the
    vocab-parallel embedding's parts bit-equal to the lookup, and the
    cross-entropy from four vocab chunks' parts within ``Q5_TOL`` of the
-   plain one (its lap in (q)'s ``Laps`` line).
+   plain one (its lap in (q)'s ``Laps`` line).  (q6)
+   (``ssm_parts_leg``) does the same for Mamba-2's SSD block at
+   mamba2-2.7b's full width (d_model 2560, 80 heads of 64, state 128,
+   ``in_proj`` 10576 columns), fp32, on 2 x 256 tokens and one decode
+   step from that prefill's state: each rank's heads
+   (``recurrent.mamba2_rank_shard``) through the rank-local stages
+   (``ssm_in``, ``ssm_mix``/``ssm_step``, ``ssm_out``), the collectives
+   done in the script (the all-gathers of ``in_proj``'s columns, of the
+   conv's taps and of the conv state; the sums of the gated norm's
+   squares and of the parts), against the whole layer within ``Q6_TOL``
+   x max for the outputs and the conv states, ``Q6_STATE_TOL`` for the
+   SSD states (cuBLAS rounds a slice of ``in_proj``'s columns other than
+   the whole product, 1.3e-06 x max on the card, and a state sums 256
+   decayed products of it: 1.078e-05 x max in the first card run, the
+   bound 5x that).  (q4) also
+   reads the card's peak over its prefill step (reset first) for
+   (t3).
    No kernel is on path (q): the reference's train step runs
    ``model.forward`` at quant (0, 0) and its mesh decode the plain math.
    Then (r), pipeline-parallel serving (``pipeline_path``): path (a)'s
@@ -378,7 +394,13 @@ Phases, in order; any failure exits non-zero and no result is printed:
    after (q2)'s comparison (``step_readings``; FlopCounterMode decomposes
    composite ops, which moves the step's bits and its peak), its argument
    + temp bytes within ``T_MEM_TOL`` of the peak memory over (q2)'s last
-   plain step plus that step's params and AdamW state.
+   plain step plus that step's params and AdamW state; (t3) the dry-run
+   of (q4)'s prefill step (the 1 x 1 mesh, 8 x 512, a cache of 528
+   slots): its argument + temp bytes within ``T3_MEM_TOL`` of the card's
+   peak over that prefill (``max_memory_allocated`` after a reset, read
+   in (q4)) plus its params and prompt, its ``peak_by_op`` printed (the
+   check that a tensor the card never holds, such as a stride worked out
+   on the meta device, is not counted).
 4. Every kernel call of one full-depth 32-slot pass of each CNN path,
    every decode-attention call of one decode step of (d) and (e) (22
    each), (k) (42 each, with the softcap), (l), (m) and (o) (12 each), and
@@ -588,6 +610,19 @@ Q_SERVE_TOKENS = 8
 Q5_MODEL = 4
 Q5_BATCH, Q5_SEQ = 2, 256
 Q5_TOL = 1e-5
+# (q6): one Q6_ARCH layer (Mamba-2's SSD block) at full width, fp32, cut
+# over a model axis of Q5_MODEL by heads, played out in one process on
+# Q5_BATCH x Q5_SEQ tokens and one decode step from that prefill's state:
+# the ranks' parts summed against the whole layer within Q6_TOL x max
+# (the outputs and the conv states) and the SSD states within
+# Q6_STATE_TOL x max.  cuBLAS rounds a 2644-column slice of in_proj
+# other than the 10576-column product (1.299e-06 x max on the conv
+# tail, which is that product's output, in the first card run); the
+# state sums 256 decayed products of it, and lay 1.078e-05 x max apart
+# there (the outputs 5.795e-06 and 1.299e-06): the bound is 5x that
+Q6_ARCH = 'mamba2-2.7b'
+Q6_TOL = 1e-5
+Q6_STATE_TOL = 5e-5
 # Path (r): pipeline-parallel serving of path (a)'s export over R_ORDINALS
 # ordinals of the one card (PipelineParallelScheduler, place_stages) in
 # compacting, static and chaos modes on the card's measured stage costs,
@@ -625,6 +660,9 @@ T_KINDS = ('all-gather', 'all-reduce', 'reduce-scatter', 'all-to-all',
 # (t2): the dry-run's argument + temp bytes of (q1)'s step against the
 # card's peak over a plain step of it (argument bytes added), either way
 T_MEM_TOL = 0.25
+# (t3): the dry-run's argument + temp bytes of (q4)'s prefill step against
+# the card's peak over that prefill (argument bytes added), either way
+T3_MEM_TOL = 0.05
 # (u): the grouped-conv fp32 fallback: path (a)'s resnet34-cifar with the
 # second conv of stage 1's second block cut into U_GROUPS groups (per-group
 # depth 32; its input U_SHAPE at a batch of 32 images)
@@ -3331,11 +3369,19 @@ def serve_mesh_leg(torch, tag, mesh):
         cfg, mesh, {'tokens': prompt}, max_len=max_len)
     step, _, _ = steps.build_serve_step(cfg, mesh, batch=B, max_len=max_len)
     placed = steps.place_tree(params, p_sh)
+    # (t3)'s reading: the prefill's peak above what was allocated before
+    # it, and its arguments' storages
+    stores = [x.to_local().untyped_storage() for x in _leaves(placed)]
+    arg_bytes = sum({st.data_ptr(): st.nbytes() for st in
+                     stores + [prompt.untyped_storage()]}.values())
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     _, mcache = pre(placed, {'tokens': prompt})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated() - base
     from repro_torch.tree import tree_map
     first = tree_map(lambda x: x.to_local().clone(), mcache)
     m_toks, tok = [], zeros.to(torch.int32)
@@ -3379,8 +3425,11 @@ def serve_mesh_leg(torch, tag, mesh):
     if flip is not None and near > LM_PLAIN_TOL * scale:
         fail(f"{Q_KEY}: the mesh serve step's greedy tokens differ from "
              f"the kernel path's away from a near tie")
+    print(f'{tag} (q4) the prefill step peaks {prefill_peak} B above its '
+          f'{arg_bytes} B of arguments (params and prompt), for (t3)')
     return {'prefill_ms': t_prefill * 1e3, 'ms_per_token': t_decode / T * 1e3,
-            'logit_gap': diff / scale, 'flip': flip}
+            'logit_gap': diff / scale, 'flip': flip,
+            'prefill_peak_bytes': prefill_peak, 'prefill_arg_bytes': arg_bytes}
 
 
 def tp_parts_leg(torch, tag):
@@ -3464,6 +3513,90 @@ def tp_parts_leg(torch, tag):
     return {'attn': err_a, 'mlp': err_f, 'ce': err_ce, 'secs': secs}
 
 
+def ssm_parts_leg(torch, tag):
+    """(q6): Mamba-2's tensor-parallel form at full width on a (1,
+    Q5_MODEL) layout played out in one process: each rank's shards of one
+    layer (``recurrent.mamba2_rank_shard``) through the rank-local stages
+    (``ssm_in``, ``ssm_mix``/``ssm_step``, ``ssm_out``), the collectives
+    done here (the all-gathers of ``in_proj``'s columns, of the conv's
+    taps and of the conv state; the sums of the norm's squares and of the
+    parts), against the whole layer's forward and one decode step from
+    the prefill's state; the ranks' states against the whole one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.tp import TPAxis
+    cfg = get_config(Q6_ARCH).replace(dtype='float32')
+    m, B, S = Q5_MODEL, Q5_BATCH, Q5_SEQ
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
+    p = rec.init_mamba2(gen, cfg, device='cuda')
+    # the leaves init sets to constants drawn, so each rank's cut matters
+    for k, s in (('A_log', 0.5), ('D', 1.0), ('dt_bias', 0.5)):
+        p[k] = s * torch.randn(p[k].shape, generator=gen, device='cuda')
+    p['norm']['scale'] = 1 + 0.1 * torch.randn(
+        p['norm']['scale'].shape, generator=gen, device='cuda')
+    p['conv']['b'] = 0.1 * torch.randn(p['conv']['b'].shape, generator=gen,
+                                       device='cuda')
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device='cuda')
+    xt = torch.randn((B, cfg.d_model), generator=gen, device='cuda')
+    parts = [rec.mamba2_rank_shard(p, r, m) for r in range(m)]
+    tps = [TPAxis(m, r) for r in range(m)]
+
+    def gathered(xs):
+        zx = torch.cat([rec.ssm_in(parts[r], xs, tps[r]) for r in range(m)],
+                       -1)
+        conv = {k: torch.cat([q['conv'][k] for q in parts], -1)
+                for k in p['conv']}
+        return zx, conv
+
+    def summed(outs):
+        ss = sum(o[1] for o in outs)
+        return sum(rec.ssm_out(parts[r], outs[r][0], ss, cfg)
+                   for r in range(m))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        whole, (h, tail) = rec.mamba2_forward(p, x, cfg, return_state=True)
+        zx, conv = gathered(x)
+        mix = [rec.ssm_mix(parts[r], zx, conv, cfg, tps[r],
+                           return_state=True) for r in range(m)]
+        fwd = summed(mix)
+        h_parts = torch.cat([o[2][0] for o in mix], 1)
+        tail_parts = torch.cat([o[2][1] for o in mix], -1)
+        cache = {'h': h.clone(), 'conv': tail.clone()}
+        whole_t, cache = rec.mamba2_decode(p, xt, cache, cfg)
+        hs = [o[2][0].clone() for o in mix]
+        zx, _ = gathered(xt)
+        steps_ = [rec.ssm_step(parts[r], zx, conv, tail_parts, hs[r], cfg,
+                               tps[r], xt.dtype) for r in range(m)]
+        dec = summed(steps_)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    errs = {'forward': rel(fwd, whole), 'state': rel(h_parts, h),
+            'conv_tail': rel(tail_parts, tail), 'decode': rel(dec, whole_t),
+            'decode_state': rel(torch.cat(hs, 1), cache['h']),
+            'decode_conv': rel(torch.cat([o[2] for o in steps_], -1),
+                               cache['conv'])}
+    d_in = cfg.ssm_expand * cfg.d_model
+    print(f'{tag} (q6) {Q6_ARCH} SSD block on its heads at full width '
+          f'(d_model {cfg.d_model}, {d_in // cfg.ssm_headdim} heads of '
+          f'{cfg.ssm_headdim}, state {cfg.ssm_state}, in_proj '
+          f'{2 * d_in + 2 * cfg.ssm_state + d_in // cfg.ssm_headdim} '
+          f'columns), fp32, model axis {m} in one process, {B} x {S} '
+          f'tokens and one decode step, the parts summed against the whole '
+          f'layer (x max): ' + ', '.join(f'{k} {v:.3e}'
+                                        for k, v in errs.items())
+          + f' (limit {Q6_TOL:g}, the SSD states {Q6_STATE_TOL:g}); '
+          f'{secs:.2f} s')
+    states = ('state', 'decode_state')
+    if max(v for k, v in errs.items() if k not in states) > Q6_TOL or \
+            max(errs[k] for k in states) > Q6_STATE_TOL:
+        fail(f'{Q_KEY}: (q6) the Mamba-2 rank parts disagree with the '
+             f'whole layer: {errs}')
+    return {**errs, 'secs': secs}
+
+
 def train_mesh_path(torch):
     """Path (q): the training launcher and the mesh code on the card's one
     rank.  Returns readings."""
@@ -3487,6 +3620,8 @@ def train_mesh_path(torch):
         laps('q4 serve')
         out['q5'] = tp_parts_leg(torch, tag)
         laps('q5 tp parts')
+        out['q6'] = ssm_parts_leg(torch, tag)
+        laps('q6 ssm parts')
     finally:
         if started:
             dist.destroy_process_group()
@@ -3875,17 +4010,17 @@ from repro_torch.launch.mesh import make_local_mesh
 a = json.loads(sys.argv[1])
 with dryrun.fake_world(1):
     res = dryrun.trace_cell(get_config(a['arch']), make_local_mesh(),
-                            dict(kind='train', batch=a['batch'],
-                                 seq=a['seq']))
+                            a['info'])
 print(json.dumps(res))
 '''
 
 
 def start_dryruns():
     """(t): start ``python -m repro_torch.launch.dryrun`` on each of
-    ``T_CELLS`` (t1) and the dry-run of (q1)'s step on the 1 x 1 mesh
-    (t2), each in a process of its own at a lower priority, one thread
-    each, beside the paths that follow; :func:`dryrun_path` reads them."""
+    ``T_CELLS`` (t1), the dry-run of (q1)'s step on the 1 x 1 mesh (t2)
+    and that of (q4)'s prefill step (t3), each in a process of its own at
+    a lower priority, one thread each, beside the paths that follow;
+    :func:`dryrun_path` reads them."""
     import tempfile
     d = tempfile.mkdtemp(prefix='dryrun_')
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, 'src'),
@@ -3894,7 +4029,12 @@ def start_dryruns():
                                a, '--shape', sh, '--mesh', m, '--out', d])
             for a, sh, m in T_CELLS]
     jobs.append(('t2', ['-c', T2_SCRIPT, json.dumps(
-        {'arch': LM_ARCH, 'batch': Q_BATCH, 'seq': Q_SEQ})]))
+        {'arch': LM_ARCH, 'info': dict(kind='train', batch=Q_BATCH,
+                                       seq=Q_SEQ)})]))
+    jobs.append(('t3', ['-c', T2_SCRIPT, json.dumps(
+        {'arch': LM_ARCH, 'info': dict(
+            kind='prefill', batch=LM_BATCH, seq=LM_PROMPT,
+            max_len=LM_PROMPT + Q_SERVE_TOKENS + LM_SPARE)})]))
     procs = {}
     for name, argv in jobs:
         log = open(os.path.join(d, name.replace('/', '__') + '.log'), 'w')
@@ -3921,7 +4061,7 @@ def _dryrun_log(jobs, name):
         return f.read()
 
 
-def dryrun_path(torch, jobs, q1):
+def dryrun_path(torch, jobs, q):
     """Path (t): the dry-runs :func:`start_dryruns` started, awaited.  (t1)
     each cell completes, its record printed; its ``argument_bytes`` equal
     the rules' shard bytes of the same trees (``rule_argument_bytes``,
@@ -3930,7 +4070,12 @@ def dryrun_path(torch, jobs, q1):
     ``FlopCounterMode`` over the card's step exactly (the same op stream),
     its argument + temp bytes within ``T_MEM_TOL`` of the card's peak over
     (q2)'s last plain step with that step's argument bytes added (the
-    peak under FlopCounterMode printed beside it).  Returns readings."""
+    peak under FlopCounterMode printed beside it).  (t3) the dry-run of
+    (q4)'s prefill step: its argument + temp bytes within ``T3_MEM_TOL``
+    of the card's peak over that prefill with its argument bytes added,
+    its ``peak_by_op`` printed.  ``q``: path (q)'s readings.  Returns
+    readings."""
+    q1 = q['q1']
     import shutil
     tag = '[dryrun]'
     t_wait = time.perf_counter()
@@ -3968,6 +4113,7 @@ def dryrun_path(torch, jobs, q1):
                      f'{sorted(kinds - set(T_KINDS))} of no known name')
             out[(arch, shape, mesh)] = rec
         t2 = json.loads(_dryrun_log(jobs, 't2').strip().splitlines()[-1])
+        t3 = json.loads(_dryrun_log(jobs, 't3').strip().splitlines()[-1])
     finally:
         _stop(jobs['procs'])
         shutil.rmtree(jobs['dir'], ignore_errors=True)
@@ -3988,9 +4134,27 @@ def dryrun_path(torch, jobs, q1):
         fail('(t2): the dry-run\'s FLOPs are not those of the card\'s step')
     if abs(ratio - 1) > T_MEM_TOL:
         fail(f'(t2): the dry-run\'s memory is {ratio:.3f} x the card\'s')
+    q4 = q['q4']
+    dry3 = t3['memory']['argument_bytes'] + t3['memory']['temp_bytes']
+    card3 = q4['prefill_peak_bytes'] + q4['prefill_arg_bytes']
+    ratio3 = dry3 / card3
+    print(f'{tag} (t3) {LM_ARCH} prefill step {LM_BATCH} x {LM_PROMPT} on '
+          f'the 1 x 1 mesh: argument + temp {dry3} B ({dry3 / 2 ** 30:.3f} '
+          f"GiB; temp {t3['memory']['temp_bytes']} B) against the card's "
+          f"peak {q4['prefill_peak_bytes']} B over (q4)'s prefill + its "
+          f"arguments {q4['prefill_arg_bytes']} B: ratio {ratio3:.4f} "
+          f'(limit {T3_MEM_TOL} either way); traced in {t3["trace_s"]} s; '
+          f'at the peak, by op and port line:')
+    for g in t3['memory']['peak_by_op']:
+        print(f"{tag}   {g['bytes']:12d} B  {g['count']:4d} x  {g['op']}  "
+              f"{g['line']}  largest {g['shape']} {g['dtype']}")
+    if abs(ratio3 - 1) > T3_MEM_TOL:
+        fail(f'(t3): the dry-run\'s prefill memory is {ratio3:.4f} x the '
+             f'card\'s')
     print(f'{tag} (t) waited {waited:.1f} s for the dry-runs '
           f'({time.perf_counter() - jobs["t0"]:.1f} s since their start)')
-    return {'t1': out, 't2': t2, 't2_mem_ratio': ratio, 'waited_s': waited}
+    return {'t1': out, 't2': t2, 't2_mem_ratio': ratio, 't3': t3,
+            't3_mem_ratio': ratio3, 'waited_s': waited}
 
 
 def grouped_by_weight(forward, default_conv):
@@ -6017,7 +6181,7 @@ def main():
     print(f'[time] path (s) done at {time.perf_counter() - t_start:.1f} s')
     grouped_conv_path(torch)
     print(f'[time] path (u) done at {time.perf_counter() - t_start:.1f} s')
-    dryrun_path(torch, dryruns, q['q1'])
+    dryrun_path(torch, dryruns, q)
     print(f'[time] path (t) done at {time.perf_counter() - t_start:.1f} s')
     kernels = phase_report(torch, served, launches,
                            {QAT_KEY: qat_calls, CHAIN_KEY: chain_calls,

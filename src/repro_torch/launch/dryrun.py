@@ -19,7 +19,9 @@ as a DTensor on the builder's sharding, and the step runs once under
 position of its cache (every slot valid).
 
 Fields: the reference's, with ``lower_s`` and ``compile_s`` one
-``trace_s``, and ``collective_bytes_by_axis`` added.  The reference's
+``trace_s``, and ``collective_bytes_by_axis``, ``flops_by_op`` and
+``memory['peak_by_op']`` (``op_analysis``: what holds the peak, by op
+and port line) added.  The reference's
 ``xla_flops_unscaled`` and ``xla_bytes_unscaled`` (XLA's cost analysis,
 which counts a loop body once) have no counterpart and are dropped, and no
 ``.hlo.gz`` is written.  ``bytes_per_device`` is what the rank's ops
@@ -92,7 +94,9 @@ def _fake_arg(aval, sharding, device):
 def cell_step(cfg, mesh, info, *, fsdp=True, int8=False, device='cuda'):
     """The cell's step function, and ``(aval, sharding)`` trees of its
     arguments in order (``cur``, a decode step's position, is a Python
-    int in their place).  ``info`` is a ``specs.SHAPES`` entry."""
+    int in their place).  ``info`` is a ``specs.SHAPES`` entry (a
+    prefill's cache holds ``info['max_len']`` slots where given, else
+    ``info['seq']``)."""
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import steps
     from repro_torch.launch.specs import input_specs_for
@@ -105,7 +109,8 @@ def cell_step(cfg, mesh, info, *, fsdp=True, int8=False, device='cuda'):
     if info['kind'] == 'prefill':
         batch = input_specs_for(cfg, info)
         fn, _, (p_aval, p_sh) = steps.build_prefill_step(
-            cfg, mesh, batch, max_len=info['seq'], fsdp=fsdp)
+            cfg, mesh, batch, max_len=info.get('max_len', info['seq']),
+            fsdp=fsdp)
         return fn, [(p_aval, p_sh), (batch, sh.batch_shardings(batch, mesh))]
     fn, _, (avals, in_sh) = steps.build_serve_step(
         cfg, mesh, batch=info['batch'], max_len=info['seq'],
@@ -174,6 +179,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, *, fsdp=True,
         'arch': arch, 'shape': shape, 'mesh': mesh_name,
         'devices': int(mesh.size()),
         'flops_per_device': ana['flops'],
+        'flops_by_op': ana['flops_by_op'],
         'bytes_per_device': ana['bytes'],
         'memory': ana['memory'],
         'collective_bytes': ana['collectives'],

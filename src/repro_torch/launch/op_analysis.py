@@ -39,12 +39,25 @@ size allocates nothing; on real tensors it counts the same op stream.
   ``output_bytes``: the storages the outputs hold; ``alias_bytes``: those
   of them that are argument storages, written in place (AdamW's update,
   the cache's); ``temp_bytes``: the peak over the call of the bytes of
-  live storages that are not arguments.
+  live storages that are not arguments.  A tensor on the ``meta`` device
+  (a stride or a shape worked out on one) holds no memory on any card
+  and is not counted.  ``peak_by_op``: the live non-argument storages at
+  the peak, grouped by the aten op that made each and the port's source
+  line that called it (the innermost frame under ``src/repro_torch/``),
+  the :data:`PEAK_GROUPS` largest groups with their bytes, count and
+  the shape and dtype of their largest storage.  Each storage notes its
+  op and line when it appears (a walk up the Python frames, no source
+  read); the peak's set is picked out at the end by each storage's
+  first and last op, so the peak itself costs nothing to follow.
+* ``flops_by_op``: ``flops`` by aten op (``FlopCounterMode``'s global
+  counts), to set beside the reference's HLO dot by dot.
 """
 from __future__ import annotations
 
 import collections
 import functools
+import os
+import sys
 import weakref
 
 import torch
@@ -84,6 +97,48 @@ _NOT_COLLECTIVES = ('wait_tensor', 'recv_', 'irecv', '_wrap_tensor_autograd',
                     'mesh_get_process_group')
 #: the schema's operand argument, by name
 _OPERANDS = ('tensors', 'input_tensors', 'input_tensor', 'inputs', 'input')
+#: the groups ``peak_by_op`` keeps
+PEAK_GROUPS = 10
+_PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+_SRC = os.path.dirname(os.path.dirname(_PORT.rstrip(os.sep))) + os.sep
+
+
+_FILES = {}                  # a code object's file name -> its port path
+
+
+def _port_file(fn):
+    """``'src/repro_torch/...'`` of the file ``fn`` under the port's
+    package (this module left out), else None."""
+    if fn not in _FILES:
+        full = os.path.abspath(fn)
+        _FILES[fn] = (full[len(_SRC):] if full.startswith(_PORT)
+                      and full != os.path.abspath(__file__) else None)
+    return _FILES[fn]
+
+
+def port_line(depth: int = 1) -> str:
+    """``'src/repro_torch/<file>:<line>'`` of the innermost frame under
+    the port's package (this module's own left out) above the caller's
+    ``depth``-th frame; ``'?'`` where none is."""
+    f = sys._getframe(depth)
+    while f is not None:
+        rel = _port_file(f.f_code.co_filename)
+        if rel is not None:
+            return f'{rel}:{f.f_lineno}'
+        f = f.f_back
+    return '?'
+
+
+class _Storage:
+    """One storage the call made: its bytes, the op and port line that
+    made it, its first tensor's shape and dtype, and the ticks (counts of
+    storages made so far) at which it appeared and was freed."""
+    __slots__ = ('nbytes', 'op', 'line', 'shape', 'dtype', 'born', 'died')
+
+    def __init__(self, nbytes, op, line, shape, dtype, born):
+        self.nbytes, self.op, self.line = nbytes, op, line
+        self.shape, self.dtype = shape, dtype
+        self.born, self.died = born, None
 
 
 def fake_mode():
@@ -159,27 +214,65 @@ class OpAnalysis(TorchDispatchMode):
         self.out_bytes = self.alias_bytes = 0
         self._finalizers = []
         self._flops = None
+        self._made = {}           # storage key -> its _Storage
+        self._history = []        # every _Storage, in order made
+        self._tick = self._peak_tick = 0
 
     # ---------------------------------------------------------- storages
 
     def _free(self, key):
         n = self.live.pop(key, 0)
+        rec = self._made.pop(key, None)
+        if rec is not None:
+            rec.died = self._tick
         if key not in self.args:
             self.cur -= n
 
-    def _track(self, t) -> int:
-        """Register the storage of tensor ``t``; returns its key."""
-        s = _local(t).untyped_storage()
+    def _track(self, t, op=None):
+        """Register the storage of tensor ``t`` (made by the op ``op``);
+        returns its key, None for a tensor on the ``meta`` device, which
+        holds no memory."""
+        t = _local(t)
+        if t.device.type == 'meta':
+            return None
+        s = t.untyped_storage()
         key = s._cdata
         if key not in self.live:
             n = s.nbytes()
             self.live[key] = n
             self.cur += n
-            self.peak = max(self.peak, self.cur)
+            self._tick += 1
+            if op is not None:
+                rec = _Storage(n, op, port_line(3), tuple(t.shape),
+                               str(t.dtype).replace('torch.', ''),
+                               self._tick)
+                self._made[key] = rec
+                self._history.append(rec)
+            if self.cur > self.peak:
+                self.peak, self._peak_tick = self.cur, self._tick
             f = weakref.finalize(s, self._free, key)
             f.atexit = False
             self._finalizers.append(f)
         return key
+
+    def peak_by_op(self) -> list:
+        """The :data:`PEAK_GROUPS` largest groups, by (op, port line), of
+        the non-argument storages live at the peak."""
+        t = self._peak_tick
+        groups = {}
+        for r in self._history:
+            if r.born <= t and (r.died is None or r.died >= t):
+                g = groups.setdefault((r.op, r.line), {
+                    'op': str(r.op), 'line': r.line, 'bytes': 0, 'count': 0,
+                    'shape': list(r.shape), 'dtype': r.dtype, '_max': 0})
+                g['bytes'] += r.nbytes
+                g['count'] += 1
+                if r.nbytes > g['_max']:
+                    g['_max'], g['shape'], g['dtype'] = \
+                        r.nbytes, list(r.shape), r.dtype
+        out = sorted(groups.values(), key=lambda g: -g['bytes'])
+        return [{k: v for k, v in g.items() if k != '_max'}
+                for g in out[:PEAK_GROUPS]]
 
     def arguments(self, *trees):
         """Register the storages of every tensor in ``trees`` as the
@@ -187,7 +280,7 @@ class OpAnalysis(TorchDispatchMode):
         from repro_torch.kernels import tensors_in
         for t in tensors_in(list(trees)):
             key = self._track(t)
-            if key not in self.args:
+            if key is not None and key not in self.args:
                 self.args.add(key)
                 self.cur -= self.live[key]
         self.peak = self.cur
@@ -195,7 +288,7 @@ class OpAnalysis(TorchDispatchMode):
     def outputs(self, out):
         """Register the call's outputs (while they are live)."""
         from repro_torch.kernels import tensors_in
-        keys = {self._track(t) for t in tensors_in(out)}
+        keys = {self._track(t) for t in tensors_in(out)} - {None}
         self.out_bytes = sum(self.live[k] for k in keys)
         self.alias_bytes = sum(self.live[k] for k in keys if k in self.args)
 
@@ -221,7 +314,7 @@ class OpAnalysis(TorchDispatchMode):
         outs = [_local(t) for t in tensors_in(out)]
         self.bytes += written_bytes(func, ins, outs)
         for t in outs:
-            self._track(t)
+            self._track(t, func)
         if coll is not None:
             kind, n, group = coll
             self.coll[kind] += n
@@ -231,13 +324,16 @@ class OpAnalysis(TorchDispatchMode):
     # ------------------------------------------------------------ result
 
     def result(self) -> dict:
-        """``{'flops', 'bytes', 'collectives', 'collectives_by_axis',
-        'memory'}`` (module docstring)."""
+        """``{'flops', 'flops_by_op', 'bytes', 'collectives',
+        'collectives_by_axis', 'memory'}`` (module docstring)."""
         for f in self._finalizers:
             f.detach()
         arg_bytes = sum(self.live.get(k, 0) for k in self.args)
+        by_op = self._flops.get_flop_counts().get('Global', {})
         return {
             'flops': float(self._flops.get_total_flops()),
+            'flops_by_op': {str(op): float(n) for op, n in
+                            sorted(by_op.items(), key=lambda kv: -kv[1])},
             'bytes': float(self.bytes),
             'collectives': {k: float(self.coll[k]) for k in COLL_KINDS
                             if k in self.coll},
@@ -248,6 +344,7 @@ class OpAnalysis(TorchDispatchMode):
                 'output_bytes': int(self.out_bytes),
                 'temp_bytes': int(self.peak),
                 'alias_bytes': int(self.alias_bytes),
+                'peak_by_op': self.peak_by_op(),
             }}
 
 

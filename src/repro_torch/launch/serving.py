@@ -20,7 +20,10 @@ not divide (the rules then leave it whole on every rank) is attended with
 no merge.  :func:`decode_spec` is the layout the reference's shard_map
 gives a cache (its ``cache_specs``, every leaf of the tree): k, v, their
 int8 scales, MLA's latent and rope key, and the slots and positions are
-sequence-sharded; a recurrent state is whole but for its batch.
+sequence-sharded; a recurrent state is whole but for its batch, except a
+Mamba-2 block's on 'model' shards, which keeps its cut (``ssm_tp``).
+:func:`make_prefill_ctx` gives the prefill each ring's chunk, so a rank
+builds only its chunk of the cache.
 """
 from __future__ import annotations
 
@@ -54,11 +57,12 @@ def cache_dims(path):
     return off, None
 
 
-def decode_spec(path, leaf, mesh, *, long_ctx=False):
+def decode_spec(path, leaf, mesh, *, long_ctx=False, ssm_tp=False):
     """The spec of a cache leaf inside the decode: its batch dim over the
     DP axes (none with ``long_ctx``), its sequence dim over
     :func:`seq_axes`; an axis that does not divide its dim is dropped, as
-    the rules do."""
+    the rules do.  ``ssm_tp``: the leaf is the state of a Mamba-2 block
+    on 'model' shards, its heads (or conv channels) over 'model'."""
     dp = data_axes(mesh)
     sa = seq_axes(mesh, long_ctx)
     b_dim, s_dim = cache_dims(path)
@@ -67,8 +71,39 @@ def decode_spec(path, leaf, mesh, *, long_ctx=False):
         spec[b_dim] = dp if len(dp) > 1 else dp[0]
     if s_dim is not None:
         spec[s_dim] = sa if len(sa) > 1 else sa[0]
+    if ssm_tp:
+        spec[-1 if _path_keys(path)[-1] == 'conv' else b_dim + 1] = MODEL
     return P(*(s if s is None or _div(leaf.shape[d], mesh, s) else None
                for d, s in enumerate(spec)))
+
+
+def _seq_index(mesh, axes) -> int:
+    """This rank's index over the sequence axes ``axes`` (row-major in
+    mesh order, as DTensor splits a dim)."""
+    sizes = mesh_axes(mesh)
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + (mesh.get_local_rank(a) if sizes[a] > 1
+                                    else 0)
+    return index
+
+
+def make_prefill_ctx(mesh, cfg, tp=None):
+    """The prefill's ctx (``models/transformer.prefill``): each ring's
+    chunk on this rank under the cache shardings (sequence over 'model';
+    the whole ring where 'model' does not divide its slots, as the rules
+    drop such a cut), as Python ints, and ``tp`` where a Mamba-2 block's
+    state is cut by heads (``models/tp.ssm_tp``)."""
+    from repro_torch.models.tp import ssm_tp
+    m = mesh_axes(mesh)[MODEL]
+    index = _seq_index(mesh, (MODEL,))
+
+    def cache_chunk(n):
+        if m == 1 or n % m:
+            return None
+        return index * (n // m), n // m
+
+    return {'cache_chunk': cache_chunk, 'ssm_tp': ssm_tp(cfg, tp)}
 
 
 def make_decode_ctx(mesh, cfg, *, max_len, long_ctx=False):
@@ -84,10 +119,7 @@ def make_decode_ctx(mesh, cfg, *, max_len, long_ctx=False):
     axes = seq_axes(mesh, long_ctx)
     n_seq = math.prod(sizes[a] for a in axes)
     groups = tuple(mesh.get_group(a) for a in axes if sizes[a] > 1)
-    index = 0
-    for a in axes:
-        index = index * sizes[a] + (mesh.get_local_rank(a) if sizes[a] > 1
-                                    else 0)
+    index = _seq_index(mesh, axes)
 
     def merge_over(cache, key, window=0):
         """The groups to merge over and this rank's chunk of the ring:

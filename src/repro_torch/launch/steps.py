@@ -33,9 +33,12 @@ GSPMD partitions one program), on this rank's chunk of the batch:
   over 'model'); the prefill gathers the k/v heads the cache holds
   (sequence-sharded over 'model', every head on every rank); the decode
   gathers its q/k/v
-  heads and runs ``wo`` on this rank's rows.  Every other 'model' leaf
-  (MLA's, the RG-LRU's, Mamba-2's, the causal conv) is gathered whole
-  (ROADMAP A 12);
+  heads and runs ``wo`` on this rank's rows.  A Mamba-2 block computes
+  on its heads (``models/recurrent.py``: ``in_proj``'s columns
+  all-gathered, the gated norm's sum of squares and ``out_proj``'s rows
+  all-reduced), its decode state kept on its 'model' chunks.  Every other
+  'model' leaf (MLA's, the RG-LRU's and its causal conv) is gathered
+  whole (ROADMAP A 12);
 * gradients go back to each leaf's placement: summed over the DP axes,
   divided by their size (the global batch's mean), this rank's chunk;
 * the global-norm clip reads the sum of squares over all shards (each
@@ -66,11 +69,12 @@ from torch.distributed.tensor import DTensor
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import data_axes, mesh_axes
 from repro_torch.launch.serving import (cache_dims, decode_spec,
-                                        make_decode_ctx)
+                                        make_decode_ctx, make_prefill_ctx)
 from repro_torch.models.actsharding import (LocalShard, activation_sharding,
                                             make_mesh_policy)
 from repro_torch.models.model import build_model
-from repro_torch.models.tp import logits_tp, vocab_argmax, vocab_parallel_ce
+from repro_torch.models.tp import (logits_tp, ssm_tp, vocab_argmax,
+                                   vocab_parallel_ce)
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
@@ -270,25 +274,43 @@ def build_train_step(cfg, mesh, batch_aval, *, lr=3e-4, remat=True,
 # ------------------------------------------------------------ prefill step
 
 
-def _cache_from_local(cache, mesh, batch_entry, c_sh):
-    """A rank's whole-sequence cache of its batch chunk (the tokens' batch
-    spec ``batch_entry``) -> DTensors on the cache shardings ``c_sh``
-    (each rank keeps its sequence chunk)."""
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (torch's rule: a
+    dim of size 0 counts as 1), with no tensor made."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(out))
+
+
+def _cache_from_local(cache, mesh, batch_entry, c_sh, c_aval):
+    """A rank's cache of its batch chunk (the tokens' batch spec
+    ``batch_entry``) -> DTensors on the cache shardings ``c_sh``.  A leaf
+    the prefill built as this rank's chunk of a dim (smaller there than
+    its global aval in ``c_aval``) is that chunk under ``c_sh``; a dim
+    built whole is cut to it here (each rank keeps its chunk)."""
     sizes = mesh_axes(mesh)
 
-    def one(path, t, s):
+    def one(path, t, s, aval):
         b_dim = cache_dims(path)[0]
         spec = [None] * t.dim()
         shape = list(t.shape)
         if b_dim is not None and batch_entry is not None:
             spec[b_dim] = batch_entry
             shape[b_dim] *= math.prod(sizes[a] for a in sh._axes(batch_entry))
+        for d in range(t.dim()):
+            if d != b_dim and t.shape[d] != aval.shape[d]:
+                if s.spec[d] is None:
+                    raise ValueError(f'cache leaf {path}: dim {d} holds '
+                                     f'{t.shape[d]} of {aval.shape[d]}, '
+                                     f'which the rules do not cut')
+                spec[d], shape[d] = s.spec[d], aval.shape[d]
         out = DTensor.from_local(t, mesh, sh.placements(sh.P(*spec), mesh),
-                                    run_check=False, shape=torch.Size(shape),
-                                    stride=torch.empty(shape,
-                                                       device='meta').stride())
+                                 run_check=False, shape=torch.Size(shape),
+                                 stride=contiguous_strides(shape))
         return place(out, s)
-    return tree_map_with_path(one, cache, c_sh)
+    return tree_map_with_path(one, cache, c_sh, c_aval)
 
 
 def _greedy(logits, vocab):
@@ -300,7 +322,9 @@ def _greedy(logits, vocab):
 
 def build_prefill_step(cfg, mesh, batch_aval, *, max_len, fsdp=True):
     """``fn(params, batch) -> (greedy tokens, cache)``: the prompt's
-    forward and its cache on the cache shardings (sequence over 'model')."""
+    forward and its cache on the cache shardings (sequence over 'model').
+    Each rank builds only its chunk of each ring (``make_prefill_ctx``),
+    a layer's k/v written there as the layer ends."""
     model = build_model(cfg)
     p_aval = abstract_params(model)
     p_sh = sh.params_shardings(p_aval, cfg, mesh, fsdp=fsdp)
@@ -318,18 +342,28 @@ def build_prefill_step(cfg, mesh, batch_aval, *, max_len, fsdp=True):
         params = place_tree(params, p_sh)
         local = _local_batch(batch, b_sh)
         shards, _ = _shards(params, p_sh)
+        ctx = make_prefill_ctx(mesh, cfg, policy.tp)
         with activation_sharding(policy):
-            logits, cache = model.prefill(shards, local, max_len=max_len)
+            logits, cache = model.prefill(shards, local, max_len=max_len,
+                                          ctx=ctx)
             tok = _greedy(logits, logits_tp(shards, policy.tp))
         entry = tuple(tok_sh.spec)[0] if len(tok_sh.spec) else None
         return (_from_local(tok, mesh, tok_sh.spec, tok_aval),
-                _cache_from_local(cache, mesh, entry, c_sh))
+                _cache_from_local(cache, mesh, entry, c_sh, c_aval))
 
     prefill_step.policy = policy
     return prefill_step, model, (p_aval, p_sh)
 
 
 # -------------------------------------------------------------- serve step
+
+
+def _layer_kind(path, cfg):
+    """The kind of the layer whose cache holds the leaf at ``path``."""
+    from repro_torch.models.transformer import layer_groups
+    n_prefix, G, P, _ = layer_groups(cfg)
+    base = {'prefix': 0, 'blocks': n_prefix, 'tail': n_prefix + G * P}
+    return cfg.layer_kinds()[base[path[0]] + path[1]]
 
 
 def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
@@ -351,9 +385,6 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
     p_sh = sh.params_shardings(p_aval, cfg, mesh, fsdp=fsdp)
     c_aval = model.init_cache(batch, max_len, 'meta')
     c_sh = sh.cache_shardings(c_aval, cfg, mesh, long_ctx=long_ctx)
-    d_sh = tree_map_with_path(
-        lambda p, x: sh.NamedSharding(mesh, decode_spec(
-            p, x, mesh, long_ctx=long_ctx)), c_aval)
     ctx = make_decode_ctx(mesh, cfg, long_ctx=long_ctx, max_len=max_len)
     tok_sh = sh.NamedSharding(mesh, sh.batch_spec((batch,), mesh))
     enc_sh = None
@@ -369,13 +400,22 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
                               batch_split=_batch_split(tok_sh.spec, mesh),
                               cfg=cfg)
 
+    def decode_shardings():
+        # a Mamba-2 block on 'model' shards decodes its state's chunks in
+        # place (read when the step runs: the tests set ``policy.tp``)
+        state_tp = ssm_tp(cfg, policy.tp) is not None
+        return tree_map_with_path(
+            lambda p, x: sh.NamedSharding(mesh, decode_spec(
+                p, x, mesh, long_ctx=long_ctx,
+                ssm_tp=state_tp and _layer_kind(p, cfg) == 'ssm')), c_aval)
+
     @torch.no_grad()
     def serve_step(params, token, cur, cache, enc=None):
         params = place_tree(params, p_sh)
         token = _local_batch(token, tok_sh)
         if enc is not None:
             enc = _local_batch(enc, enc_sh)
-        cache = place_tree(place_tree(cache, c_sh), d_sh)
+        cache = place_tree(place_tree(cache, c_sh), decode_shardings())
         shards, _ = _shards(params, p_sh)
         with activation_sharding(policy):
             logits, _ = model.decode_step(shards, token, cur,

@@ -29,11 +29,14 @@ Tensor parallelism on 'model' (``models/tp.py``).  With a policy whose
 with a tensor-parallel form keeps its 'model' shard: the attention's
 ``wq``/``wk``/``wv`` (columns over the heads) and ``wo`` (rows), the dense
 MLP's ``wi``/``wg`` (columns) and ``wo`` (rows), and the embedding and
-unembedding tables (vocab rows).  ``models/tp.py`` decides which blocks
-have that form and marks their dense dicts ``'tp'`` (``'col'``, ``'row'``
-or ``'vocab'``), as the layers read them.  Every other leaf is gathered
-whole, over 'model' too: MLA's, the RG-LRU's and Mamba-2's, the causal
-conv, an attention block whose 'model' shard would cut a query head, a
+unembedding tables (vocab rows), and every leaf of a Mamba-2 block whose
+heads divide the axis (``in_proj`` by columns, ``out_proj`` by rows, the
+conv, the per-head leaves and the norm's scale on their shards).
+``models/tp.py`` decides which blocks have that form and marks their
+dense dicts ``'tp'`` (``'col'``, ``'row'`` or ``'vocab'``), as the layers
+read them.  Every other leaf is gathered whole, over 'model' too: MLA's,
+the RG-LRU's and its causal conv, an attention block whose 'model' shard
+would cut a query head, a
 factored or fake-quantized block (the policy then has no ``tp``).
 ``policy.counts`` counts the leaves gathered by mesh dim (``('gather',
 dim)``, and ``('gather_tp', dim)`` for a leaf of a block with a
@@ -167,9 +170,12 @@ def gather_params(tree):
                         for k, v in node.items()}
             marks = tpm.block_marks(key, node, tp, cfg)
             if marks is not None:
-                return {k: tpm.mark_dense(
-                    {n: leaf(x, True, True) for n, x in d.items()},
-                    marks[k], tp) for k, d in node.items()}
+                def keep(d):
+                    if isinstance(d, dict):
+                        return {n: keep(x) for n, x in d.items()}
+                    return leaf(d, True, True)
+                return {k: tpm.mark_dense(keep(d), marks.get(k), tp)
+                        for k, d in node.items()}
             if 'table' in node and tpm.table_mark(node['table'], tp):
                 return {'table': leaf(node['table'], True, True),
                         'tp': 'vocab'}

@@ -108,7 +108,11 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     """Online-softmax attention over KV chunks.
 
     q: (B,S,H,Dq)  k: (B,T,K,Dq)  v: (B,T,K,Dv)  q_pos: (S,)  k_pos: (T,)
-    Returns (B,S,H,Dv).  GQA via H = K*g.  k_pos == -1 marks padding."""
+    Returns (B,S,H,Dv).  GQA via H = K*g.  k_pos == -1 marks padding.
+    With no gradient to take, a chunk's scores are masked, shifted and
+    exponentiated in place (the same numbers, one (B,S,H,chunk) fp32
+    tensor live where there would be four)."""
+    inplace = not torch.is_grad_enabled()
     B, S, H, Dq = q.shape
     T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     g = H // K
@@ -131,21 +135,27 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
         logits = torch.einsum('bskgd,bckd->bskgc', qg.to(torch.float32),
                               kc.to(qg.dtype).to(torch.float32))
         if attn_softcap:
-            logits = softcap(logits, attn_softcap)
+            logits = (logits.div_(attn_softcap).tanh_().mul_(attn_softcap)
+                      if inplace else softcap(logits, attn_softcap))
         valid = (pc[None, :] >= 0).expand(S, -1)
         if causal:
             valid = valid & (pc[None, :] <= q_pos[:, None])
         if window:
             valid = valid & (pc[None, :] > q_pos[:, None] - window)
-        logits = torch.where(valid[None, :, None, None, :], logits,
-                             torch.full((), NEG_INF, device=q.device))
+        if inplace:
+            logits.masked_fill_(~valid[None, :, None, None, :], NEG_INF)
+        else:
+            logits = torch.where(valid[None, :, None, None, :], logits,
+                                 torch.full((), NEG_INF, device=q.device))
         m_new = torch.maximum(m, torch.amax(logits, dim=-1))
-        p = torch.exp(logits - m_new[..., None])
+        p = (logits.sub_(m_new[..., None]).exp_() if inplace
+             else torch.exp(logits - m_new[..., None]))
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(p, dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
             'bskgc,bckv->bskgv', p.to(vc.dtype), vc).to(acc.dtype)
         m = m_new
+        del logits, p        # before the next chunk's scores are made
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, S, H, Dv).to(q.dtype)
 
@@ -546,62 +556,111 @@ def kv_dequantize(q, s, dtype):
     return (q.to(torch.float32) * s[..., None]).to(dtype)
 
 
-def init_attn_cache(cfg, batch, kind, max_len, dtype, device='cpu'):
-    n = min(cfg.window, max_len) if kind == 'local' else max_len
+def ring_slots(cfg, kind, max_len) -> int:
+    """The slots of a ``kind`` layer's cache ring: ``max_len``, or the
+    window for a local layer's."""
+    return min(cfg.window, max_len) if kind == 'local' else max_len
+
+
+def _chunk_of(n, chunk):
+    """(first slot, slots) of this rank's chunk of a ring of ``n`` slots
+    under ``chunk`` (a function of ``n``, None for the whole ring)."""
+    c = chunk(n) if chunk is not None else None
+    return (0, n) if c is None else c
+
+
+def init_attn_cache(cfg, batch, kind, max_len, dtype, device='cpu',
+                    chunk=None):
+    """A fresh cache ring; with ``chunk`` (``ring slots -> (first slot,
+    slots)`` or None, Python ints) only this rank's chunk of it."""
+    n = ring_slots(cfg, kind, max_len)
+    off, nl = _chunk_of(n, chunk)
     K, hd = cfg.num_kv_heads, cfg.head_dim
-    c = {'meta': make_cache_meta(n, device=device)}
+    c = {'meta': make_cache_meta(n, off, nl, device=device)}
     if cfg.kv_cache_bits == 8:
         # int8 KV cache with per-(token, head) scales: halves the cache
         # bytes every decode step reads
-        c['k'] = torch.zeros((batch, n, K, hd), dtype=torch.int8,
+        c['k'] = torch.zeros((batch, nl, K, hd), dtype=torch.int8,
                              device=device)
         c['v'] = torch.zeros_like(c['k'])
+        # the rules keep the scales whole: only the codes are cut
         c['k_s'] = torch.zeros((batch, n, K), dtype=torch.float32,
                                device=device)
         c['v_s'] = torch.zeros_like(c['k_s'])
     else:
-        c['k'] = torch.zeros((batch, n, K, hd), dtype=dtype, device=device)
+        c['k'] = torch.zeros((batch, nl, K, hd), dtype=dtype, device=device)
         c['v'] = torch.zeros_like(c['k'])
     return c
 
 
-def prefill_cache_write(cache, k, v, positions):
+def chunk_rows(S: int, chunk, device):
+    """(prompt positions, local slots) as int64 tensors: the positions
+    of a prompt ``0 .. S - 1`` that a ring's chunk ``chunk`` = (first
+    slot, slots, ring slots) keeps after a prefill (the last ``min(S,
+    ring)`` of them, position ``p`` in slot ``p % ring``) and the chunk's
+    slots they go to, from Python ints alone."""
+    off, n_local, total = chunk
+    src, dst = [], []
+    for i in range(n_local):
+        s = off + i
+        if s < S:
+            src.append(s + total * ((S - 1 - s) // total))
+            dst.append(i)
+    return (torch.tensor(src, dtype=torch.int64, device=device),
+            torch.tensor(dst, dtype=torch.int64, device=device))
+
+
+def prefill_cache_write(cache, k, v, positions, chunk=None):
     """Write prefill k/v (B,S,K,D) into a fresh cache (ring-aware), in
-    place; returns the cache."""
-    Sc = cache['k'].shape[1]
+    place; returns the cache.  ``chunk`` = (first slot, slots, ring
+    slots): the cache's k/v and positions are that chunk of the ring (its
+    int8 scales whole, as the rules keep them) and ``positions`` are
+    ``0 .. S - 1`` (:func:`chunk_rows`)."""
     S = k.shape[1]
+    Sc = cache['k'].shape[1] if chunk is None else chunk[2]
     take = min(S, Sc)
     kt, vt = k[:, S - take:], v[:, S - take:]
     pt = positions[S - take:]
     slots = torch.remainder(pt, Sc).to(torch.int64)
     if 'k_s' in cache:
-        kq, ks = kv_quantize(kt)
-        vq, vs = kv_quantize(vt)
-        cache['k'].index_copy_(1, slots, kq)
-        cache['v'].index_copy_(1, slots, vq)
+        kt, ks = kv_quantize(kt)
+        vt, vs = kv_quantize(vt)
         cache['k_s'].index_copy_(1, slots, ks)
         cache['v_s'].index_copy_(1, slots, vs)
-    else:
-        cache['k'].index_copy_(1, slots, kt.to(cache['k'].dtype))
-        cache['v'].index_copy_(1, slots, vt.to(cache['v'].dtype))
+    if chunk is not None:
+        src, slots = chunk_rows(S, chunk, k.device)
+        src = src - (S - take)
+        kt, vt = kt.index_select(1, src), vt.index_select(1, src)
+        pt = pt.index_select(0, src)
+    cache['k'].index_copy_(1, slots, kt.to(cache['k'].dtype))
+    cache['v'].index_copy_(1, slots, vt.to(cache['v'].dtype))
     cache['meta']['pos'].index_copy_(0, slots, pt.to(torch.int32))
     return cache
 
 
-def init_mla_cache(cfg, batch, max_len, dtype, device='cpu'):
+def init_mla_cache(cfg, batch, max_len, dtype, device='cpu', chunk=None):
     """The MLA cache: the latent and the rope key of every position
-    (``kv_cache_bits`` does not apply, as in the reference)."""
-    return {'ckv': torch.zeros((batch, max_len, cfg.kv_lora_rank),
+    (``kv_cache_bits`` does not apply, as in the reference); with
+    ``chunk`` this rank's chunk (:func:`init_attn_cache`)."""
+    off, nl = _chunk_of(max_len, chunk)
+    return {'ckv': torch.zeros((batch, nl, cfg.kv_lora_rank),
                                dtype=dtype, device=device),
-            'kr': torch.zeros((batch, max_len, cfg.rope_head_dim),
+            'kr': torch.zeros((batch, nl, cfg.rope_head_dim),
                               dtype=dtype, device=device),
-            'meta': make_cache_meta(max_len, device=device)}
+            'meta': make_cache_meta(max_len, off, nl, device=device)}
 
 
-def prefill_mla_cache_write(cache, ckv, kr, positions):
+def prefill_mla_cache_write(cache, ckv, kr, positions, chunk=None):
     """Write prefill latents (B,S,r) and rope keys (B,S,dr) into a fresh
-    MLA cache, in place; returns the cache."""
-    slots = torch.remainder(positions, cache['ckv'].shape[1]).to(torch.int64)
+    MLA cache, in place; returns the cache.  ``chunk`` as
+    :func:`prefill_cache_write`'s."""
+    if chunk is not None:
+        src, slots = chunk_rows(ckv.shape[1], chunk, ckv.device)
+        ckv, kr = ckv.index_select(1, src), kr.index_select(1, src)
+        positions = positions.index_select(0, src)
+    else:
+        slots = torch.remainder(positions,
+                                cache['ckv'].shape[1]).to(torch.int64)
     cache['ckv'].index_copy_(1, slots, ckv.to(cache['ckv'].dtype))
     cache['kr'].index_copy_(1, slots, kr.to(cache['kr'].dtype))
     cache['meta']['pos'].index_copy_(0, slots, positions.to(torch.int32))

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantization import fake_quant_act, fake_quant_weight
 from repro_torch.models.tp import (copy_in, current_tp, reduce_out,
-                                   vocab_embed)
+                                   vocab_embed, whole_table_product)
 
 # --------------------------------------------------------------------- init
 
@@ -85,11 +85,17 @@ def dense(p, x, *, quant=(0, 0)):
 
 
 def rms_norm(p, x, eps=1e-6):
+    """RMSNorm in fp32, cast back.  With no gradient to take, the fp32
+    copy of a narrower ``x`` is scaled in place (the same numbers, one
+    fp32 copy live where there would be three)."""
     dt = x.dtype
-    x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * p['scale'].to(torch.float32)).to(dt)
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if xf is not x and not torch.is_grad_enabled():
+        xf.mul_(torch.rsqrt(var + eps))
+        return xf.mul_(p['scale'].to(torch.float32)).to(dt)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * p['scale'].to(torch.float32)).to(dt)
 
 
 def softcap(x, cap: float):
@@ -184,15 +190,18 @@ def embed(p, tokens, dtype):
 
 def unembed(p, x, *, quant=(0, 0)):
     """Logits over the vocab; on a vocab shard, this rank's chunk of
-    them."""
+    them.  A table whole on 'model' under tensor parallelism splits its
+    weight gradient over 'model' (``tp.whole_table_product``)."""
     w = p['table']
-    if p.get('tp') == 'vocab':
+    vocab = p.get('tp') == 'vocab'
+    if vocab:
         x = copy_in(x, current_tp())
     if quant[0]:
         w = fake_quant_weight(w, quant[0], axis=0)
     if quant[1]:
         x = fake_quant_act(x, quant[1])
-    return torch.matmul(x, w.to(x.dtype).t())
+    w = w.to(x.dtype)
+    return torch.matmul(x, w.t()) if vocab else whole_table_product(x, w)
 
 
 # ------------------------------------------------------ causal depthwise conv

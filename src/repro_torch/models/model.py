@@ -29,7 +29,7 @@ class Model:
     cfg: ModelConfig
     init: Callable          # (gen, device) -> params
     forward: Callable       # (params, batch, *, remat) -> logits
-    prefill: Callable       # (params, batch, *, max_len) -> (logits, cache)
+    prefill: Callable       # (params, batch, *, max_len, ctx) -> ...
     decode_step: Callable   # (params, token, cur, cache, *, enc, ctx) -> ...
     init_cache: Callable    # (batch, max_len, device) -> cache
     encode: Any = None      # encdec only: (params, frames) -> enc
@@ -53,23 +53,24 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(gen, device='cuda'):
         return tfm.init_lm(gen, cfg, resolve_device(device))
 
-    def encoded(params, frames):
+    def encoded(params, frames, remat=False):
         if frames is None:
             return None, None
-        return tfm.encode(params, cfg, frames), _positions(frames)
+        return (tfm.encode(params, cfg, frames, remat=remat),
+                _positions(frames))
 
     def forward(params, batch, *, remat=False, collect_hiddens=False):
         tokens, embeds, frames = _batch_parts(cfg, batch)
-        enc, enc_pos = encoded(params, frames)
+        enc, enc_pos = encoded(params, frames, remat)
         return tfm.forward(params, cfg, tokens, embeds=embeds, enc=enc,
                            enc_pos=enc_pos, remat=remat,
                            collect_hiddens=collect_hiddens)
 
-    def prefill(params, batch, *, max_len):
+    def prefill(params, batch, *, max_len, ctx=None):
         tokens, embeds, frames = _batch_parts(cfg, batch)
         enc, enc_pos = encoded(params, frames)
         return tfm.prefill(params, cfg, tokens, embeds=embeds, enc=enc,
-                           enc_pos=enc_pos, max_len=max_len)
+                           enc_pos=enc_pos, max_len=max_len, ctx=ctx)
 
     def decode_step(params, token, cur, cache, *, enc=None, ctx=None):
         enc_pos = None if enc is None else _positions(enc)

@@ -31,7 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, conv1d_step, dense,
-                                       init_conv1d, init_dense, rms_norm)
+                                       init_conv1d, init_dense, rms_norm,
+                                       row_bias, row_part)
+from repro_torch.models.tp import (copy_in, current_tp, gather_cols,
+                                   rank_shard, reduce_out)
 
 
 def linear_scan(a, b):
@@ -190,18 +193,21 @@ def ssd_chunked(x, a, B, C, chunk):
     return y, s_run[:, -1]
 
 
-def mamba2_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
-    """x: (B, S, D) -> (B, S, D).  ``return_state``: also (the final SSD
-    state (B, h, p, N) fp32, the conv's last k - 1 inputs), so that decode
-    continues after a prefill."""
-    Bsz, S, D = x.shape
-    d_in = cfg.ssm_expand * D
+def _ssm_dims(cfg):
+    """(d_in, N, headdim, heads) of the Mamba-2 block."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    return d_in, cfg.ssm_state, cfg.ssm_headdim, d_in // cfg.ssm_headdim
+
+
+def _ssd_seq(p, xBC, dt_raw, cfg):
+    """The SSD over a sequence of the conv's output ``xBC`` (B, S, x | B |
+    C) and ``dt_raw`` (B, S, heads), for the heads ``p``'s ``A_log``,
+    ``D`` and ``dt_bias`` hold (all of them, or a rank's): y (B, S, the
+    heads' channels) in ``xBC``'s dtype and the final state."""
+    Bsz, S = xBC.shape[:2]
     n, hd = cfg.ssm_state, cfg.ssm_headdim
-    h = d_in // hd
-    z, xBC_raw, dt_raw = _split_inproj(cfg, dense(p['in_proj'], x,
-                                                  quant=quant))
-    xBC = F.silu(causal_conv1d(p['conv'], xBC_raw))
-    xs, B, C = torch.split(xBC, [d_in, n, n], dim=-1)
+    h = dt_raw.shape[-1]
+    xs, B, C = torch.split(xBC, [h * hd, n, n], dim=-1)
     dt = F.softplus(dt_raw.to(torch.float32) + p['dt_bias'])      # (B,S,h)
     A = -torch.exp(p['A_log'])
     a = dt * A                                                    # log decay
@@ -219,7 +225,41 @@ def mamba2_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
     y, state = ssd_chunked(xd, a, B, C, cfg.ssm_chunk)
     y = y[:, :S]
     y = y + p['D'].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(Bsz, S, d_in)
+    return y.reshape(Bsz, S, h * hd), state
+
+
+def _ssd_step(p, xBC, dt_raw, h_state, cfg, dtype):
+    """One decode step of the SSD for ``p``'s heads: ``xBC`` (B, x | B |
+    C) after the conv, ``h_state`` (B, heads, headdim, N) fp32 updated in
+    place.  Returns y (B, the heads' channels) in ``dtype``."""
+    Bsz = xBC.shape[0]
+    n, hd = cfg.ssm_state, cfg.ssm_headdim
+    h = dt_raw.shape[-1]
+    xs, B, C = torch.split(xBC, [h * hd, n, n], dim=-1)
+    dt = F.softplus(dt_raw.to(torch.float32) + p['dt_bias'])      # (B,h)
+    A = -torch.exp(p['A_log'])
+    xh = xs.reshape(Bsz, h, hd).to(torch.float32)
+    # h * exp(dt A) + dt x B^T: the outer product is never materialized
+    hst = h_state.mul_(torch.exp(dt * A)[..., None, None]).addcmul_(
+        (dt[..., None] * xh)[..., None],
+        B.to(torch.float32)[:, None, None, :])
+    y = torch.einsum('bn,bhpn->bhp', C.to(torch.float32), hst)
+    y = y + p['D'][None, :, None] * xh
+    return y.reshape(Bsz, h * hd).to(dtype)
+
+
+def mamba2_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
+    """x: (B, S, D) -> (B, S, D).  ``return_state``: also (the final SSD
+    state (B, h, p, N) fp32, the conv's last k - 1 inputs), so that decode
+    continues after a prefill.  On 'model' shards (``out_proj`` marked
+    ``'row'``) :func:`mamba2_tp_forward`."""
+    if p['out_proj'].get('tp') == 'row':
+        return mamba2_tp_forward(p, x, cfg, current_tp(),
+                                 return_state=return_state)
+    z, xBC_raw, dt_raw = _split_inproj(cfg, dense(p['in_proj'], x,
+                                                  quant=quant))
+    xBC = F.silu(causal_conv1d(p['conv'], xBC_raw))
+    y, state = _ssd_seq(p, xBC, dt_raw, cfg)
     y = rms_norm(p['norm'], y * F.silu(z), cfg.norm_eps)
     out = dense(p['out_proj'], y, quant=quant)
     if return_state:
@@ -229,36 +269,178 @@ def mamba2_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
 
 def mamba2_decode(p, x, cache, cfg, *, quant=(0, 0)):
     """x: (B, D); cache = {'h': (B, h, p, N) fp32, 'conv': (B, k-1,
-    conv_ch)}, written in place.  Returns (out (B, D), cache)."""
-    Bsz, D = x.shape
-    d_in = cfg.ssm_expand * D
-    n, hd = cfg.ssm_state, cfg.ssm_headdim
-    h = d_in // hd
+    conv_ch)}, written in place.  Returns (out (B, D), cache).  On
+    'model' shards :func:`mamba2_tp_decode`."""
+    if p['out_proj'].get('tp') == 'row':
+        return mamba2_tp_decode(p, x, cache, cfg, current_tp())
     z, xBC0, dt_raw = _split_inproj(cfg, dense(p['in_proj'], x, quant=quant))
     xBC, conv_state = conv1d_step(p['conv'], xBC0, cache['conv'])
-    xBC = F.silu(xBC)
-    xs, B, C = torch.split(xBC, [d_in, n, n], dim=-1)
-    dt = F.softplus(dt_raw.to(torch.float32) + p['dt_bias'])      # (B,h)
-    A = -torch.exp(p['A_log'])
-    xh = xs.reshape(Bsz, h, hd).to(torch.float32)
-    # h * exp(dt A) + dt x B^T: the outer product is never materialized
-    hst = cache['h'].mul_(torch.exp(dt * A)[..., None, None]).addcmul_(
-        (dt[..., None] * xh)[..., None],
-        B.to(torch.float32)[:, None, None, :])
+    y = _ssd_step(p, F.silu(xBC), dt_raw, cache['h'], cfg, x.dtype)
     cache['conv'].copy_(conv_state)
-    y = torch.einsum('bn,bhpn->bhp', C.to(torch.float32), hst)
-    y = y + p['D'][None, :, None] * xh
-    y = y.reshape(Bsz, d_in).to(x.dtype)
     y = rms_norm(p['norm'], y * F.silu(z), cfg.norm_eps)
     out = dense(p['out_proj'], y, quant=quant)
     return out, cache
 
 
-def init_mamba2_cache(cfg, batch, dtype, device='cpu'):
+# ------------------------------------------- Mamba-2 on its 'model' shards
+#
+# The sharding rules cut ``in_proj``'s columns, the conv's channels, the
+# heads' ``A_log``/``D``/``dt_bias``, the norm's scale and ``out_proj``'s
+# rows over 'model', each contiguously.  ``out_proj``'s rows, the norm's
+# scale and the per-head leaves then hold this rank's heads (``heads / m``
+# of them, channels ``rank * d_in / m ..``), but ``in_proj``'s columns
+# [z | x | B | C | dt] and the conv's [x | B | C] are cut across their
+# parts.  So the rank computes its contiguous columns of ``in_proj``
+# (``1 / m`` of its product), all-gathers them over 'model' and reads its
+# heads' z, x and dt and B and C whole (ngroups 1: every head reads them);
+# the conv's taps, and in a decode its state, are all-gathered the same
+# way and cut to those channels.  The gated RMSNorm spans the whole d_in:
+# its sum of squares is summed over 'model'.  ``out_proj`` is a row
+# product, summed over 'model' once.  The stages are apart
+# (:func:`ssm_in`, :func:`ssm_mix`, :func:`ssm_step`, :func:`ssm_out`) so
+# that one process can play every rank and do the collectives itself.
+
+
+def _rank_cut(cfg, tp):
+    """(first channel, channels, first head, heads) of this rank."""
+    d_in, _, _, h = _ssm_dims(cfg)
+    dl, hl = d_in // tp.size, h // tp.size
+    return tp.rank * dl, dl, tp.rank * hl, hl
+
+
+def _rank_xbc(cfg, t, tp):
+    """This rank's x channels and B, C whole, of ``t``'s last dim laid out
+    as the conv's channels [x | B | C]."""
+    d_in = _ssm_dims(cfg)[0]
+    lo, dl, _, _ = _rank_cut(cfg, tp)
+    return torch.cat([t[..., lo:lo + dl], t[..., d_in:]], dim=-1)
+
+
+def _rank_inproj(cfg, zxbcdt, tp):
+    """(z, xBC, dt) of this rank's heads from the whole ``in_proj``
+    output."""
+    d_in, n, _, _ = _ssm_dims(cfg)
+    lo, dl, hlo, hl = _rank_cut(cfg, tp)
+    dt0 = 2 * d_in + 2 * n
+    return (zxbcdt[..., lo:lo + dl],
+            _rank_xbc(cfg, zxbcdt[..., d_in:dt0], tp),
+            zxbcdt[..., dt0 + hlo:dt0 + hlo + hl])
+
+
+def _conv_chunk(cfg, t, tp):
+    """This rank's contiguous chunk of the conv's channels (the rules'
+    cut of the conv state) of ``t``'s last dim."""
+    n = t.shape[-1] // tp.size
+    return t[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def ssm_in(p, x, tp):
+    """This rank's columns of ``in_proj`` (a column product)."""
+    return dense(p['in_proj'], copy_in(x, tp))
+
+
+def ssm_mix(p, zxbcdt, conv, cfg, tp, *, return_state=False):
+    """From the whole ``in_proj`` output and the whole conv taps ``conv``:
+    this rank's gated output ``y * silu(z)`` (B, S, d_in / m), its part of
+    the sum of squares over d_in (fp32) and, with ``return_state``, (its
+    heads' final state, its chunk of the conv's last k - 1 inputs)."""
+    z, xbc_raw, dt_raw = _rank_inproj(cfg, zxbcdt, tp)
+    taps = {k: _rank_xbc(cfg, v, tp) for k, v in conv.items()}
+    y, state = _ssd_seq(p, F.silu(causal_conv1d(taps, xbc_raw)), dt_raw,
+                        cfg)
+    g = y * F.silu(z)
+    ss = torch.sum(torch.square(g.to(torch.float32)), dim=-1, keepdim=True)
+    if not return_state:
+        return g, ss, None
+    d_in, n, _, _ = _ssm_dims(cfg)
+    tail = zxbcdt[:, -(cfg.ssm_conv - 1):, d_in:2 * d_in + 2 * n]
+    return g, ss, (state, _conv_chunk(cfg, tail, tp))
+
+
+def ssm_step(p, zxbcdt, conv, conv_state, h_state, cfg, tp, dtype):
+    """One decode step from the whole ``in_proj`` output (B, cols), the
+    whole conv taps and the whole conv state (B, k-1, C): this rank's
+    gated output, its part of the sum of squares and its chunk of the new
+    conv state; ``h_state`` (this rank's heads) is updated in place."""
+    d_in, n, _, _ = _ssm_dims(cfg)
+    z, xbc0, dt_raw = _rank_inproj(cfg, zxbcdt, tp)
+    taps = {k: _rank_xbc(cfg, v, tp) for k, v in conv.items()}
+    xbc, _ = conv1d_step(taps, xbc0, _rank_xbc(cfg, conv_state, tp))
+    y = _ssd_step(p, F.silu(xbc), dt_raw, h_state, cfg, dtype)
+    g = y * F.silu(z)
+    ss = torch.sum(torch.square(g.to(torch.float32)), dim=-1, keepdim=True)
+    new = torch.cat([conv_state[:, 1:],
+                     zxbcdt[:, None, d_in:2 * d_in + 2 * n]], dim=1)
+    return g, ss, _conv_chunk(cfg, new, tp)
+
+
+def ssm_out(p, g, ss, cfg):
+    """This rank's part of ``out_proj`` (its rows, no bias) of the gated
+    RMSNorm of ``g``, given the sum of squares ``ss`` over the whole
+    d_in."""
+    var = ss / _ssm_dims(cfg)[0]
+    y = g.to(torch.float32) * torch.rsqrt(var + cfg.norm_eps)
+    return row_part(p['out_proj'],
+                    (y * p['norm']['scale'].to(torch.float32)).to(g.dtype))
+
+
+def _sum_both(x, tp):
+    """The sum over 'model' whose gradient is summed over 'model' too:
+    each rank's part feeds every rank's own channels."""
+    return copy_in(reduce_out(x, tp), tp)
+
+
+def _gathered_conv(p, tp):
+    return {k: gather_cols(v, tp) for k, v in p['conv'].items()}
+
+
+def mamba2_tp_forward(p, x, cfg, tp, *, return_state=False):
+    """:func:`mamba2_forward` on this rank's 'model' shards (the comment
+    above); the state is its heads' and the conv tail its chunk."""
+    zxbcdt = gather_cols(ssm_in(p, x, tp), tp)
+    g, ss, st = ssm_mix(p, zxbcdt, _gathered_conv(p, tp), cfg, tp,
+                        return_state=return_state)
+    out = row_bias(p['out_proj'],
+                   reduce_out(ssm_out(p, g, _sum_both(ss, tp), cfg), tp))
+    return (out, st) if return_state else out
+
+
+def mamba2_tp_decode(p, x, cache, cfg, tp):
+    """:func:`mamba2_decode` on this rank's 'model' shards: ``cache['h']``
+    its heads, ``cache['conv']`` its chunk of the channels."""
+    zxbcdt = gather_cols(ssm_in(p, x, tp), tp)
+    g, ss, conv = ssm_step(p, zxbcdt, _gathered_conv(p, tp),
+                           gather_cols(cache['conv'], tp), cache['h'], cfg,
+                           tp, x.dtype)
+    cache['conv'].copy_(conv)
+    out = row_bias(p['out_proj'],
+                   reduce_out(ssm_out(p, g, reduce_out(ss, tp), cfg), tp))
+    return out, cache
+
+
+def mamba2_rank_shard(p, rank, size):
+    """A whole Mamba-2 param dict cut to one rank's 'model' shard as the
+    sharding rules cut it, and marked as the mesh policy marks it."""
+    def cut(t, dim):
+        n = t.shape[dim] // size
+        return t.narrow(dim, rank * n, n)
+    return {'in_proj': rank_shard(p['in_proj'], 'col', rank, size),
+            'out_proj': rank_shard(p['out_proj'], 'row', rank, size),
+            'conv': {k: cut(v, -1) for k, v in p['conv'].items()},
+            **{k: cut(p[k], 0) for k in ('A_log', 'D', 'dt_bias')},
+            'norm': {'scale': cut(p['norm']['scale'], 0)}}
+
+
+def init_mamba2_cache(cfg, batch, dtype, device='cpu', tp=None):
+    """The decode state; with ``tp`` (a Mamba-2 block on 'model' shards)
+    this rank's chunk of it: its heads of ``h``, its contiguous chunk of
+    the conv's channels."""
     d_in = cfg.ssm_expand * cfg.d_model
     n = cfg.ssm_state
     h = d_in // cfg.ssm_headdim
-    return {'h': torch.zeros((batch, h, cfg.ssm_headdim, n),
+    m = 1 if tp is None else tp.size
+    return {'h': torch.zeros((batch, h // m, cfg.ssm_headdim, n),
                              dtype=torch.float32, device=device),
-            'conv': torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * n),
+            'conv': torch.zeros((batch, cfg.ssm_conv - 1,
+                                 (d_in + 2 * n) // m),
                                 dtype=dtype, device=device)}

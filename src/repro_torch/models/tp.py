@@ -27,7 +27,8 @@ layer functions (``attention.gqa_partial``, ``layers.mlp_partial``,
 which a caller sums over the ranks itself.
 
 This module also decides which blocks compute on their shards
-(:func:`block_marks`, :func:`table_mark`): the mesh policy's gather only
+(:func:`block_marks`, :func:`table_mark`, :func:`ssm_tp`: the attention,
+the MLP and Mamba-2's block, ``models/recurrent.py``): the mesh policy's gather only
 calls it, and the step builders read :func:`logits_tp` to know that the
 logits are a vocab chunk.  Every collective here counts itself in the
 installed policy's ``counts``: ``(kind, 'model')`` calls and
@@ -132,6 +133,44 @@ class _GatherCols(torch.autograd.Function):
         return g[..., lo:lo + ctx.n].contiguous(), None, None, None
 
 
+class _SplitWeightGrad(torch.autograd.Function):
+    """``x @ w.T`` with ``w`` whole on every rank of the group.  Forward:
+    the product.  Backward: ``x``'s gradient whole, and ``w``'s computed
+    one chunk of its columns a rank (``1 / size`` of that product) and
+    all-gathered over the group, where every rank would compute all of
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, w, tp):
+        ctx.save_for_backward(x, w)
+        ctx.tp = tp
+        return torch.matmul(x, w.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        tp = ctx.tp
+        n = w.shape[1] // tp.size
+        gx = torch.matmul(g, w)
+        xs = x.reshape(-1, x.shape[-1])[:, tp.rank * n:(tp.rank + 1) * n]
+        gw = torch.matmul(g.reshape(-1, g.shape[-1]).t(), xs)
+        return gx, torch.cat(_all_gather(gw, tp.group, tp.size), -1), None
+
+
+def whole_table_product(x, w):
+    """``x @ w.T`` for a table ``w`` whole on 'model' (a vocab the axis
+    does not divide): under tensor parallelism with a gradient to take,
+    its weight gradient is split over 'model' by columns
+    (:class:`_SplitWeightGrad`), as the reference's compiled step splits
+    it; else the plain product."""
+    tp = current_tp()
+    if tp is None or tp.size == 1 or tp.group is None \
+            or w.shape[1] % tp.size or not torch.is_grad_enabled() \
+            or not w.requires_grad:
+        return torch.matmul(x, w.t())
+    return _SplitWeightGrad.apply(x, w, tp)
+
+
 def copy_in(x, tp):
     """``x`` entering column products on this rank's shard."""
     if tp.size == 1 or tp.group is None:
@@ -233,7 +272,9 @@ def vocab_argmax(logits, tp):
 #: key in a layer's param tree (an MLP's ``wg`` only where it is gated)
 TP_BLOCKS = {'attn': ('wq', 'wk', 'wv', 'wo'),
              'xattn': ('wq', 'wk', 'wv', 'wo'),
-             'mlp': ('wi', 'wg', 'wo')}
+             'mlp': ('wi', 'wg', 'wo'),
+             'mamba': ('in_proj', 'out_proj', 'conv', 'A_log', 'D',
+                       'dt_bias', 'norm')}
 _DENSE_KEYS = {'w', 'b', 'w_q', 'scale'}
 
 
@@ -262,12 +303,49 @@ def _dense_mark(d):
     return 'col' if dim == w.local.dim() - 1 else 'row'
 
 
+def ssm_tp(cfg, tp):
+    """``tp`` where a Mamba-2 block of ``cfg`` computes on its 'model'
+    shards (``models/recurrent.py``): its heads, ``in_proj``'s columns and
+    the conv's channels each divide the axis, so the rules cut every leaf
+    of the block over it; else None.  The caches of such a block are its
+    chunks (its heads' state, its chunk of the conv's channels)."""
+    if tp is None or cfg is None or 'ssm' not in cfg.block_pattern:
+        return None
+    d_in = cfg.ssm_expand * cfg.d_model
+    n, h = cfg.ssm_state, d_in // cfg.ssm_headdim
+    if h % tp.size or (2 * d_in + 2 * n + h) % tp.size \
+            or (d_in + 2 * n) % tp.size:
+        return None
+    return tp
+
+
+def _ssm_marks(node, tp, cfg):
+    """:func:`block_marks` of a Mamba-2 block: ``in_proj`` by columns,
+    ``out_proj`` by rows, every other leaf on its 'model' shard."""
+    if ssm_tp(cfg, tp) is None:
+        return None
+    dense_ok = all(isinstance(node.get(k), dict) and ('w' in node[k]
+                   or 'w_q' in node[k]) and set(node[k]) <= _DENSE_KEYS
+                   for k in ('in_proj', 'out_proj'))
+    if not dense_ok or _dense_mark(node['in_proj']) != 'col' \
+            or _dense_mark(node['out_proj']) != 'row' \
+            or model_dim(node['conv']['w']) != 1 \
+            or model_dim(node['A_log']) != 0:
+        raise ValueError('a Mamba-2 block the rules do not cut by heads '
+                         'on a model axis its heads divide')
+    return {'in_proj': 'col', 'out_proj': 'row'}
+
+
 def block_marks(key, node, tp, cfg):
     """``{name: 'col' | 'row' | None}`` for the dense dicts of the block
     ``node`` under ``key`` where it computes on its 'model' shards, else
     None (every leaf then gathered whole): a GQA attention or a dense MLP
     of plain dense dicts (no factored form) whose ``wo`` 'model' cuts by
-    rows, with an attention's query heads whole on each rank."""
+    rows, with an attention's query heads whole on each rank; a Mamba-2
+    block whose heads divide the axis (:func:`ssm_tp`; its other leaves
+    kept on their shards, unmarked)."""
+    if key == 'mamba' and tp is not None:
+        return _ssm_marks(node, tp, cfg)
     names = TP_BLOCKS.get(key)
     if tp is None or names is None \
             or set(node) - {'wg'} != set(names) - {'wg'} \

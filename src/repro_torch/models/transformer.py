@@ -42,8 +42,8 @@ is installed, which then gathers a sharded leaf to its full tensor, or
 to its 'model' shard in a block with a tensor-parallel form
 (``launch/steps.py``, ``models/tp.py``): the logits are then this rank's
 vocab chunk.
-``remat=True`` runs each layer of :func:`forward` under
-``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+``remat=True`` runs each layer of :func:`forward` (an encoder's too)
+under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
 gather inside it: the numbers are the same, the activations kept for the
 backward pass are each layer's input only, and a sharded leaf is
 gathered again for the recomputation.  The reference checkpoints each
@@ -194,6 +194,7 @@ def layer_forward(lp, x, kind, cfg, *, positions, quant, enc=None,
         o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
                                   quant=quant, full_kv=want_cache)
     x = x + o
+    del h, o             # with no gradient to take, their memory goes now
     if 'xattn' in lp:
         hx = rms_norm(lp['norm_x'], x, cfg.norm_eps)
         o, _ = attn.gqa_forward(lp['xattn'], hx, positions, cfg, kind='cross',
@@ -231,48 +232,66 @@ def layer_decode(lp, x, kind, cfg, *, cur, cache, ctx, quant, enc=None,
 # ----------------------------------------------------------- cache builders
 
 
-def init_layer_cache(cfg, kind, batch, max_len, dtype, device='cpu'):
+def init_layer_cache(cfg, kind, batch, max_len, dtype, device='cpu',
+                     ctx=None):
+    """A ``kind`` layer's empty cache; ``ctx`` (:func:`prefill`'s) makes
+    it this rank's chunk."""
+    ctx = ctx or {}
+    chunk = ctx.get('cache_chunk')
     if kind == 'ssm':
-        return rec.init_mamba2_cache(cfg, batch, dtype, device)
+        return rec.init_mamba2_cache(cfg, batch, dtype, device,
+                                     tp=ctx.get('ssm_tp'))
     if kind == 'recurrent':
         return rec.init_rglru_cache(cfg, batch, dtype, device)
     if cfg.use_mla:
-        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
-    return attn.init_attn_cache(cfg, batch, kind, max_len, dtype, device)
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device,
+                                   chunk=chunk)
+    return attn.init_attn_cache(cfg, batch, kind, max_len, dtype, device,
+                                chunk=chunk)
 
 
-def init_cache(cfg: ModelConfig, batch, max_len, device='cpu'):
+def init_cache(cfg: ModelConfig, batch, max_len, device='cpu', ctx=None):
+    """The empty cache tree; with ``ctx`` (:func:`prefill`'s) this rank's
+    chunk of each leaf that ``ctx`` cuts."""
     dtype = torch_dtype(cfg.dtype)
     n_prefix, G, P, R = layer_groups(cfg)
     kinds = cfg.layer_kinds()
 
+    def one(kind):
+        return init_layer_cache(cfg, kind, batch, max_len, dtype, device,
+                                ctx)
+
     def stacked(kind):
-        one = init_layer_cache(cfg, kind, batch, max_len, dtype, device)
-        return tree_map(lambda a: a.expand((G,) + a.shape).clone(), one)
+        return tree_map(lambda a: a.expand((G,) + a.shape).clone(),
+                        one(kind))
 
     tail_base = n_prefix + G * P
     return {
-        'prefix': [init_layer_cache(cfg, kinds[i], batch, max_len, dtype,
-                                    device) for i in range(n_prefix)],
+        'prefix': [one(kinds[i]) for i in range(n_prefix)],
         'blocks': [stacked(kinds[n_prefix + j]) for j in range(P)]
         if G else [],
-        'tail': [init_layer_cache(cfg, kinds[tail_base + i], batch, max_len,
-                                  dtype, device) for i in range(R)],
+        'tail': [one(kinds[tail_base + i]) for i in range(R)],
     }
 
 
-def _fill_cache(cfg, kind, cache, kvs, positions):
+def _fill_cache(cfg, kind, cache, kvs, positions, max_len, chunk=None):
     """Insert prefill outputs into an empty cache entry (in place).  A
-    recurrent layer's state replaces its zeros."""
+    recurrent layer's state replaces its zeros.  ``chunk``: the cache is
+    this rank's chunk of its ring (:func:`prefill`)."""
     if kind == 'ssm':
         kvs = {'h': kvs[0], 'conv': kvs[1]}
     if kind in ('ssm', 'recurrent'):
         for k, t in kvs.items():
             cache[k].copy_(t)
         return cache
+    n = max_len if cfg.use_mla else attn.ring_slots(cfg, kind, max_len)
+    c = chunk(n) if chunk is not None else None
+    c = None if c is None else (*c, n)
     if cfg.use_mla:
-        return attn.prefill_mla_cache_write(cache, kvs[0], kvs[1], positions)
-    return attn.prefill_cache_write(cache, kvs[0], kvs[1], positions)
+        return attn.prefill_mla_cache_write(cache, kvs[0], kvs[1], positions,
+                                            chunk=c)
+    return attn.prefill_cache_write(cache, kvs[0], kvs[1], positions,
+                                    chunk=c)
 
 
 # ------------------------------------------------------------------ forward
@@ -295,16 +314,22 @@ def _embed(params, cfg, tokens, embeds):
     return x
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, *, remat=False):
     """The encoder over (stubbed) frame embeddings (B, F, d): non-causal
-    layers, then its final norm."""
+    layers, then its final norm.  ``remat``: checkpoint each layer, as
+    :func:`forward` does the decoder's."""
     x = frames.to(torch_dtype(cfg.dtype))
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device)
     quant = (cfg.w_bits, cfg.a_bits)
+
+    def apply_one(lp, x):
+        return layer_forward(gather_params(lp), x, 'encoder', cfg,
+                             positions=pos, quant=quant)[0]
+
     for lp in params['encoder']['layers']:
-        x, _ = layer_forward(gather_params(lp), x, 'encoder', cfg,
-                             positions=pos, quant=quant)
+        x = (checkpoint(apply_one, lp, x, use_reentrant=False) if remat
+             else apply_one(lp, x))
     return rms_norm(gather_params(params['encoder']['final_norm']), x,
                     cfg.norm_eps)
 
@@ -344,13 +369,23 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
-            enc_pos=None, max_len=None):
-    """Forward and cache build.  Returns (last logits (B, vocab), cache)."""
+            enc_pos=None, max_len=None, ctx=None):
+    """Forward and cache build.  Returns (last logits (B, vocab), cache).
+
+    ``ctx`` (a mesh step's, ``launch/serving.make_prefill_ctx``) makes the
+    cache this rank's chunk: ``'cache_chunk'`` maps a ring's slots to
+    (first slot, slots) of this rank's chunk, or None for the whole ring;
+    ``'ssm_tp'`` is the model axis a Mamba-2 block's state is cut over
+    by heads.  Each layer's k/v (or latent) goes into the chunk as the
+    layer ends and is dropped: one layer's whole-sequence k/v is live at
+    a time."""
     quant = (cfg.w_bits, cfg.a_bits)
     x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = init_cache(cfg, B, max_len or cfg.max_seq_len, x.device)
+    max_len = max_len or cfg.max_seq_len
+    cache = init_cache(cfg, B, max_len, x.device, ctx=ctx)
+    chunk = (ctx or {}).get('cache_chunk')
     for (kind, lp), (_, centry) in zip(_layers(params, cfg),
                                        _layers(cache, cfg)):
         x, kvs = layer_forward(gather_params(lp), x, kind, cfg,
@@ -358,7 +393,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
                                enc_pos=enc_pos, want_cache=True)
         if kind not in ('ssm', 'recurrent'):
             x = shard_act(x)
-        _fill_cache(cfg, kind, centry, kvs, positions)
+        _fill_cache(cfg, kind, centry, kvs, positions, max_len, chunk)
+        del kvs
     return _head(params, cfg, x[:, -1:], quant)[:, 0], cache
 
 
