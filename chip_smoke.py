@@ -337,7 +337,24 @@ Phases, in order; any failure exits non-zero and no result is printed:
    SSD states (cuBLAS rounds a slice of ``in_proj``'s columns other than
    the whole product, 1.3e-06 x max on the card, and a state sums 256
    decayed products of it: 1.078e-05 x max in the first card run, the
-   bound 5x that).  (q4) also
+   bound 5x that).  (q7) (``mla_parts_leg``) does the same for MLA at
+   deepseek-v3-671b's full width (d_model 7168, 128 heads, q_lora_rank
+   1536, kv_lora_rank 512, rope 64, nope 128, v 128), fp32, by heads
+   (``tp.mla_rank_shard``): the latents whole (``mla_in``), each rank's
+   heads through ``mla_mix`` and its rows of ``wo``, summed, against the
+   whole layer's forward within ``Q5_TOL`` x max; then one decode step from
+   that prefill's latent cache: each rank's absorbed query
+   (``mla_q``), gathered to every head in the script, the latent
+   attention once over the whole cache, each rank's heads up-projected
+   (``mla_step_out``), summed, within ``Q5_TOL`` x max of the whole
+   layer's decode.  (q8) (``rglru_parts_leg``) does it for the RG-LRU at
+   recurrentgemma-9b's full width (d_model 4096, 4096 channels, conv 4),
+   fp32, by channels (``tp.rglru_rank_shard``): each rank's gate and
+   conv input (``rglru_in``), its causal conv on its channels, the conv
+   output gathered in the script, its scan (``rglru_scan``) and part of
+   ``wo`` (``rglru_out``), summed, the forward and one decode step
+   within ``Q6_TOL`` x max, the ranks' states and conv tails within
+   ``Q6_STATE_TOL`` x max.  (q4) also
    reads the card's peak over its prefill step (reset first) for
    (t3).
    No kernel is on path (q): the reference's train step runs
@@ -623,6 +640,16 @@ Q5_TOL = 1e-5
 Q6_ARCH = 'mamba2-2.7b'
 Q6_TOL = 1e-5
 Q6_STATE_TOL = 5e-5
+# (q7): one Q7_ARCH MLA layer at full width, fp32, cut over a model axis
+# of Q5_MODEL by heads, played out in one process on Q5_BATCH x Q5_SEQ
+# tokens and one decode step from that prefill's latent cache: the ranks'
+# parts summed against the whole layer within Q5_TOL x max.  (q8): one
+# Q8_ARCH RG-LRU layer the same way by channels, the outputs within
+# Q6_TOL x max and the ranks' states and conv tails within Q6_STATE_TOL
+# x max, for (q6)'s reason: cuBLAS may round a column slice of a product
+# other than the whole, and a state sums Q5_SEQ decayed terms of it
+Q7_ARCH = 'deepseek-v3-671b'
+Q8_ARCH = 'recurrentgemma-9b'
 # Path (r): pipeline-parallel serving of path (a)'s export over R_ORDINALS
 # ordinals of the one card (PipelineParallelScheduler, place_stages) in
 # compacting, static and chaos modes on the card's measured stage costs,
@@ -3513,6 +3540,11 @@ def tp_parts_leg(torch, tag):
     return {'attn': err_a, 'mlp': err_f, 'ce': err_ce, 'secs': secs}
 
 
+def _rel(a, b):
+    """max|a - b| over max|b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def ssm_parts_leg(torch, tag):
     """(q6): Mamba-2's tensor-parallel form at full width on a (1,
     Q5_MODEL) layout played out in one process: each rank's shards of one
@@ -3570,14 +3602,12 @@ def ssm_parts_leg(torch, tag):
         dec = summed(steps_)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max())
-    errs = {'forward': rel(fwd, whole), 'state': rel(h_parts, h),
-            'conv_tail': rel(tail_parts, tail), 'decode': rel(dec, whole_t),
-            'decode_state': rel(torch.cat(hs, 1), cache['h']),
-            'decode_conv': rel(torch.cat([o[2] for o in steps_], -1),
-                               cache['conv'])}
+    errs = {'forward': _rel(fwd, whole), 'state': _rel(h_parts, h),
+            'conv_tail': _rel(tail_parts, tail),
+            'decode': _rel(dec, whole_t),
+            'decode_state': _rel(torch.cat(hs, 1), cache['h']),
+            'decode_conv': _rel(torch.cat([o[2] for o in steps_], -1),
+                                cache['conv'])}
     d_in = cfg.ssm_expand * cfg.d_model
     print(f'{tag} (q6) {Q6_ARCH} SSD block on its heads at full width '
           f'(d_model {cfg.d_model}, {d_in // cfg.ssm_headdim} heads of '
@@ -3594,6 +3624,144 @@ def ssm_parts_leg(torch, tag):
             max(errs[k] for k in states) > Q6_STATE_TOL:
         fail(f'{Q_KEY}: (q6) the Mamba-2 rank parts disagree with the '
              f'whole layer: {errs}')
+    return {**errs, 'secs': secs}
+
+
+def mla_parts_leg(torch, tag):
+    """(q7): MLA's tensor-parallel form at full width on a (1, Q5_MODEL)
+    layout played out in one process: each rank's heads of one layer
+    (``tp.mla_rank_shard``) through the rank-local stages (``mla_mix``,
+    its rows of ``wo``; ``mla_q``, ``mla_step_out``), the latents
+    computed whole once (``mla_in``, ``mla_kv_step``), the collectives
+    done here (the sum of the parts, the decode query gathered to every
+    head), against the whole layer's forward and one decode step from
+    its latent cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import row_part
+    from repro_torch.models.tp import mla_rank_shard
+    cfg = get_config(Q7_ARCH).replace(dtype='float32')
+    m, B, S = Q5_MODEL, Q5_BATCH, Q5_SEQ
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    p = attn.init_mla(gen, cfg, device='cuda')
+    for k in ('q_norm', 'kv_norm'):  # the norms' scales drawn, not ones
+        p[k]['scale'] = 1 + 0.1 * torch.randn(
+            p[k]['scale'].shape, generator=gen, device='cuda')
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device='cuda')
+    xt = torch.randn((B, cfg.d_model), generator=gen, device='cuda')
+    pos = torch.arange(S, dtype=torch.int32, device='cuda')
+    parts = [mla_rank_shard(p, r, m) for r in range(m)]
+    hl = cfg.num_heads // m
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        whole, (ckv, kr) = attn.mla_forward(p, x, pos, cfg)
+        cq, ck, krr = attn.mla_in(p, x, pos, cfg)
+        fwd = sum(row_part(q['wo'], attn.mla_mix(q, cq, ck, krr, pos, cfg))
+                  for q in parts)
+        cache = attn.prefill_mla_cache_write(
+            attn.init_mla_cache(cfg, B, S + 1, torch.float32,
+                                device='cuda'), ckv, kr, pos)
+        ref_cache = {'ckv': cache['ckv'].clone(), 'kr': cache['kr'].clone(),
+                     'meta': {k: v.clone() for k, v in cache['meta'].items()}}
+        whole_t, ref_cache = attn.mla_decode(p, xt, S, cfg, cache=ref_cache,
+                                             ctx={})
+        qs = [attn.mla_q(q, xt, S, cfg) for q in parts]
+        new_ckv, new_kr = attn.mla_kv_step(p, xt, S, cfg)
+        out_lat, cache = attn.decode_mla_reference(
+            torch.cat([q[0] for q in qs], 1), torch.cat([q[1] for q in qs], 1),
+            new_ckv, new_kr, cache, S)
+        dec = sum(attn.mla_step_out(parts[r],
+                                    out_lat[:, r * hl:(r + 1) * hl], xt.dtype)
+                  for r in range(m))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    errs = {'forward': _rel(fwd, whole), 'decode': _rel(dec, whole_t),
+            'latent_cache': _rel(cache['ckv'], ref_cache['ckv'])}
+    print(f'{tag} (q7) {Q7_ARCH} MLA on its heads at full width (d_model '
+          f'{cfg.d_model}, {cfg.num_heads} heads, q_lora_rank '
+          f'{cfg.q_lora_rank}, kv_lora_rank {cfg.kv_lora_rank}, rope '
+          f'{cfg.rope_head_dim}, nope {cfg.nope_head_dim}, v '
+          f'{cfg.v_head_dim}), fp32, model axis {m} in one process, {B} x '
+          f'{S} tokens and one decode step, the parts summed against the '
+          f'whole layer (x max): ' + ', '.join(f'{k} {v:.3e}'
+                                              for k, v in errs.items())
+          + f' (limit {Q5_TOL:g}); {secs:.2f} s')
+    if max(errs.values()) > Q5_TOL:
+        fail(f'{Q_KEY}: (q7) the MLA rank parts disagree with the whole '
+             f'layer: {errs}')
+    return {**errs, 'secs': secs}
+
+
+def rglru_parts_leg(torch, tag):
+    """(q8): the RG-LRU's tensor-parallel form at full width on a (1,
+    Q5_MODEL) layout played out in one process: each rank's channels of
+    one layer (``tp.rglru_rank_shard``) through the rank-local stages
+    (``rglru_in``, the causal conv on its channels, ``rglru_scan``,
+    ``rglru_out``), the collectives done here (the conv output gathered,
+    the parts summed), against the whole layer's forward and one decode
+    step from its state; the ranks' states against the whole one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.layers import causal_conv1d, conv1d_step
+    from repro_torch.models.tp import TPAxis, rglru_rank_shard
+    cfg = get_config(Q8_ARCH).replace(dtype='float32')
+    m, B, S = Q5_MODEL, Q5_BATCH, Q5_SEQ
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 10)
+    p = rec.init_rglru(gen, cfg, device='cuda')
+    # lam and the conv's bias drawn, so each rank's cut matters
+    p['lam'] = 2 + torch.randn(p['lam'].shape, generator=gen, device='cuda')
+    p['conv']['b'] = 0.1 * torch.randn(p['conv']['b'].shape, generator=gen,
+                                       device='cuda')
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device='cuda')
+    xt = torch.randn((B, cfg.d_model), generator=gen, device='cuda')
+    parts = [rglru_rank_shard(p, r, m) for r in range(m)]
+    tps = [TPAxis(m, r) for r in range(m)]
+    k = cfg.rglru_conv
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        whole, st = rec.rglru_forward(p, x, cfg, return_state=True)
+        ins = [rec.rglru_in(q, x, t) for q, t in zip(parts, tps)]
+        us = [causal_conv1d(q['conv'], i[1]) for q, i in zip(parts, ins)]
+        u_all = torch.cat(us, -1)
+        hs = [rec.rglru_scan(q, u, u_all) for q, u in zip(parts, us)]
+        fwd = sum(rec.rglru_out(q, h, i[0])
+                  for q, h, i in zip(parts, hs, ins))
+        caches = [{'h': h[:, -1].clone(), 'conv': i[1][:, -(k - 1):].clone()}
+                  for h, i in zip(hs, ins)]
+        h_parts = torch.cat([c['h'] for c in caches], -1)
+        tail_parts = torch.cat([c['conv'] for c in caches], -1)
+        whole_t, w_cache = rec.rglru_decode(
+            p, xt, {'h': st['h'].clone(), 'conv': st['conv'].clone()}, cfg)
+        ins = [rec.rglru_in(q, xt, t) for q, t in zip(parts, tps)]
+        steps_ = [conv1d_step(q['conv'], i[1], c['conv'])
+                  for q, i, c in zip(parts, ins, caches)]
+        u_all = torch.cat([u for u, _ in steps_], -1)
+        dec = 0
+        for q, i, c, (u, conv) in zip(parts, ins, caches, steps_):
+            c['conv'].copy_(conv)
+            dec = dec + rec.rglru_out(q, rec.rglru_step(q, u, u_all, c['h']),
+                                      i[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    errs = {'forward': _rel(fwd, whole), 'state': _rel(h_parts, st['h']),
+            'conv_tail': _rel(tail_parts, st['conv']),
+            'decode': _rel(dec, whole_t),
+            'decode_state': _rel(torch.cat([c['h'] for c in caches], -1),
+                                 w_cache['h']),
+            'decode_conv': _rel(torch.cat([c['conv'] for c in caches], -1),
+                                w_cache['conv'])}
+    print(f'{tag} (q8) {Q8_ARCH} RG-LRU on its channels at full width '
+          f'(d_model {cfg.d_model}, {cfg.rglru_width} channels, conv '
+          f'{k}), fp32, model axis {m} in one process, {B} x {S} tokens and '
+          f'one decode step, the parts summed against the whole layer (x '
+          f'max): ' + ', '.join(f'{n} {v:.3e}' for n, v in errs.items())
+          + f' (limit {Q6_TOL:g}, the states {Q6_STATE_TOL:g}); '
+          f'{secs:.2f} s')
+    states = ('state', 'conv_tail', 'decode_state', 'decode_conv')
+    if max(v for n, v in errs.items() if n not in states) > Q6_TOL or \
+            max(errs[n] for n in states) > Q6_STATE_TOL:
+        fail(f'{Q_KEY}: (q8) the RG-LRU rank parts disagree with the whole '
+             f'layer: {errs}')
     return {**errs, 'secs': secs}
 
 
@@ -3622,6 +3790,10 @@ def train_mesh_path(torch):
         laps('q5 tp parts')
         out['q6'] = ssm_parts_leg(torch, tag)
         laps('q6 ssm parts')
+        out['q7'] = mla_parts_leg(torch, tag)
+        laps('q7 mla parts')
+        out['q8'] = rglru_parts_leg(torch, tag)
+        laps('q8 rglru parts')
     finally:
         if started:
             dist.destroy_process_group()

@@ -21,7 +21,8 @@ no merge.  :func:`decode_spec` is the layout the reference's shard_map
 gives a cache (its ``cache_specs``, every leaf of the tree): k, v, their
 int8 scales, MLA's latent and rope key, and the slots and positions are
 sequence-sharded; a recurrent state is whole but for its batch, except a
-Mamba-2 block's on 'model' shards, which keeps its cut (``ssm_tp``).
+Mamba-2 or RG-LRU block's on 'model' shards, which keeps its cut
+(``state_tp``).
 :func:`make_prefill_ctx` gives the prefill each ring's chunk, so a rank
 builds only its chunk of the cache.
 """
@@ -57,12 +58,14 @@ def cache_dims(path):
     return off, None
 
 
-def decode_spec(path, leaf, mesh, *, long_ctx=False, ssm_tp=False):
+def decode_spec(path, leaf, mesh, *, long_ctx=False, state_tp=False):
     """The spec of a cache leaf inside the decode: its batch dim over the
     DP axes (none with ``long_ctx``), its sequence dim over
     :func:`seq_axes`; an axis that does not divide its dim is dropped, as
-    the rules do.  ``ssm_tp``: the leaf is the state of a Mamba-2 block
-    on 'model' shards, its heads (or conv channels) over 'model'."""
+    the rules do.  ``state_tp``: the leaf is the state of a recurrent
+    block on 'model' shards, cut over 'model' as the rules cut it: a
+    Mamba-2 block's heads, an RG-LRU block's channels (the dim after the
+    batch), the conv state's channels (its last dim)."""
     dp = data_axes(mesh)
     sa = seq_axes(mesh, long_ctx)
     b_dim, s_dim = cache_dims(path)
@@ -71,7 +74,7 @@ def decode_spec(path, leaf, mesh, *, long_ctx=False, ssm_tp=False):
         spec[b_dim] = dp if len(dp) > 1 else dp[0]
     if s_dim is not None:
         spec[s_dim] = sa if len(sa) > 1 else sa[0]
-    if ssm_tp:
+    if state_tp:
         spec[-1 if _path_keys(path)[-1] == 'conv' else b_dim + 1] = MODEL
     return P(*(s if s is None or _div(leaf.shape[d], mesh, s) else None
                for d, s in enumerate(spec)))
@@ -93,8 +96,9 @@ def make_prefill_ctx(mesh, cfg, tp=None):
     chunk on this rank under the cache shardings (sequence over 'model';
     the whole ring where 'model' does not divide its slots, as the rules
     drop such a cut), as Python ints, and ``tp`` where a Mamba-2 block's
-    state is cut by heads (``models/tp.ssm_tp``)."""
-    from repro_torch.models.tp import ssm_tp
+    state is cut by heads (``models/tp.ssm_tp``) or an RG-LRU block's by
+    channels (``models/tp.rglru_tp``)."""
+    from repro_torch.models.tp import rglru_tp, ssm_tp
     m = mesh_axes(mesh)[MODEL]
     index = _seq_index(mesh, (MODEL,))
 
@@ -103,7 +107,8 @@ def make_prefill_ctx(mesh, cfg, tp=None):
             return None
         return index * (n // m), n // m
 
-    return {'cache_chunk': cache_chunk, 'ssm_tp': ssm_tp(cfg, tp)}
+    return {'cache_chunk': cache_chunk, 'ssm_tp': ssm_tp(cfg, tp),
+            'rglru_tp': rglru_tp(cfg, tp)}
 
 
 def make_decode_ctx(mesh, cfg, *, max_len, long_ctx=False):

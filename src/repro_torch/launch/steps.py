@@ -36,9 +36,16 @@ GSPMD partitions one program), on this rank's chunk of the batch:
   heads and runs ``wo`` on this rank's rows.  A Mamba-2 block computes
   on its heads (``models/recurrent.py``: ``in_proj``'s columns
   all-gathered, the gated norm's sum of squares and ``out_proj``'s rows
-  all-reduced), its decode state kept on its 'model' chunks.  Every other
-  'model' leaf (MLA's, the RG-LRU's and its causal conv) is gathered
-  whole (ROADMAP A 12);
+  all-reduced), its decode state kept on its 'model' chunks; MLA on its
+  heads (``models/attention.py``: the latents whole on every rank, or
+  on its chunk of the tokens and all-gathered where the layer's MoE
+  block cuts the sequence, ``wo``'s rows all-reduced; the decode gathers
+  its absorbed q to every head over the sequence-sharded latent cache) and the RG-LRU on its
+  channels (``models/recurrent.py``: the causal conv's output
+  all-gathered for ``w_r``/``w_i``, ``wo``'s rows all-reduced, its
+  decode state on its 'model' chunks).  Every other 'model' leaf is
+  gathered whole (ROADMAP A 12: a block whose heads 'model' does not
+  divide, a factored or fake-quantized block);
 * gradients go back to each leaf's placement: summed over the DP axes,
   divided by their size (the global batch's mean), this rank's chunk;
 * the global-norm clip reads the sum of squares over all shards (each
@@ -73,8 +80,8 @@ from repro_torch.launch.serving import (cache_dims, decode_spec,
 from repro_torch.models.actsharding import (LocalShard, activation_sharding,
                                             make_mesh_policy)
 from repro_torch.models.model import build_model
-from repro_torch.models.tp import (logits_tp, ssm_tp, vocab_argmax,
-                                   vocab_parallel_ce)
+from repro_torch.models.tp import (logits_tp, rglru_tp, ssm_tp,
+                                   vocab_argmax, vocab_parallel_ce)
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
@@ -401,13 +408,15 @@ def build_serve_step(cfg, mesh, *, batch, max_len, long_ctx=False,
                               cfg=cfg)
 
     def decode_shardings():
-        # a Mamba-2 block on 'model' shards decodes its state's chunks in
-        # place (read when the step runs: the tests set ``policy.tp``)
-        state_tp = ssm_tp(cfg, policy.tp) is not None
+        # a Mamba-2 or RG-LRU block on 'model' shards decodes its state's
+        # chunks in place (read when the step runs: the tests set
+        # ``policy.tp``)
+        cut = {'ssm': ssm_tp(cfg, policy.tp) is not None,
+               'recurrent': rglru_tp(cfg, policy.tp) is not None}
         return tree_map_with_path(
             lambda p, x: sh.NamedSharding(mesh, decode_spec(
                 p, x, mesh, long_ctx=long_ctx,
-                ssm_tp=state_tp and _layer_kind(p, cfg) == 'ssm')), c_aval)
+                state_tp=cut.get(_layer_kind(p, cfg), False))), c_aval)
 
     @torch.no_grad()
     def serve_step(params, token, cur, cache, enc=None):

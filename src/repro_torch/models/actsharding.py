@@ -28,16 +28,20 @@ Tensor parallelism on 'model' (``models/tp.py``).  With a policy whose
 ``tp`` is set (a model axis of more than one rank), a leaf of a block
 with a tensor-parallel form keeps its 'model' shard: the attention's
 ``wq``/``wk``/``wv`` (columns over the heads) and ``wo`` (rows), the dense
-MLP's ``wi``/``wg`` (columns) and ``wo`` (rows), and the embedding and
-unembedding tables (vocab rows), and every leaf of a Mamba-2 block whose
-heads divide the axis (``in_proj`` by columns, ``out_proj`` by rows, the
-conv, the per-head leaves and the norm's scale on their shards).
-``models/tp.py`` decides which blocks have that form and marks their
-dense dicts ``'tp'`` (``'col'``, ``'row'`` or ``'vocab'``), as the layers
-read them.  Every other leaf is gathered whole, over 'model' too: MLA's,
-the RG-LRU's and its causal conv, an attention block whose 'model' shard
-would cut a query head, a
-factored or fake-quantized block (the policy then has no ``tp``).
+MLP's and an MoE layer's shared expert's ``wi``/``wg`` (columns) and
+``wo`` (rows), and the embedding and unembedding tables (vocab rows),
+every leaf of a Mamba-2 block whose heads divide the axis (``in_proj``
+by columns, ``out_proj`` by rows, the conv, the per-head leaves and the
+norm's scale on their shards), of an MLA block whose heads do (``wq_b``
+by columns, ``wk_b``/``wv_b`` by heads, ``wo`` by rows; its latent
+projections whole) and of an RG-LRU block whose width does (``wgate``,
+``wx``, ``w_r``, ``w_i`` by columns, the conv and ``lam`` by channels,
+``wo`` by rows).  ``models/tp.py`` decides which blocks have that form
+and marks their dense dicts ``'tp'`` (``'col'``, ``'row'`` or
+``'vocab'``), as the layers read them.  Every other leaf is gathered
+whole, over 'model' too: an attention block whose 'model' shard would
+cut a query head, a factored or fake-quantized block (the policy then
+has no ``tp``).
 ``policy.counts`` counts the leaves gathered by mesh dim (``('gather',
 dim)``, and ``('gather_tp', dim)`` for a leaf of a block with a
 tensor-parallel form gathered whole) and, with their bytes (:func:`note`),
@@ -180,7 +184,7 @@ def gather_params(tree):
                 return {'table': leaf(node['table'], True, True),
                         'tp': 'vocab'}
             return {k: walk(v, k, tp_leaf or k == 'table' or (
-                k in tpm.TP_BLOCKS.get(key, ()))) for k, v in node.items()}
+                k in tpm.block_names(key, node))) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return rebuild(node, (walk(v) for v in node))
         return leaf(node, False, tp_leaf)

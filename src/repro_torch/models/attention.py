@@ -23,7 +23,10 @@ The reference's ``models/attention.py``:
   takes ``ctx.get('decode_mla', ...)``; the default,
   :func:`decode_mla_reference`, is the reference's math in torch ops (the
   reference has no kernel for it).  The MLA cache ignores
-  ``kv_cache_bits``, as the reference's does.
+  ``kv_cache_bits``, as the reference's does.  On 'model' shards both
+  compute on the rank's heads (:func:`mla_tp_forward`,
+  :func:`mla_tp_decode`; stages :func:`mla_in`, :func:`mla_mix`,
+  :func:`mla_q`, :func:`mla_step_out`).
 
 Sequence-sharded decode.  On one device ``meta['slots']`` is
 ``arange(Sc)`` and ``meta['total']`` equals ``Sc``, so the ring slot is
@@ -64,7 +67,7 @@ from repro_torch.models.layers import (dense, he_init, init_dense,
                                        init_norm, rms_norm, rope, row_bias,
                                        row_part, softcap)
 from repro_torch.models.tp import (copy_in, current_tp, gather_cols,
-                                   rank_cols, reduce_out)
+                                   rank_cols, reduce_out, seq_chunk)
 
 NEG_INF = -1e30
 
@@ -442,10 +445,14 @@ def gqa_cross_decode(p, x, enc, enc_pos, cfg, *, quant=(0, 0)):
 # ---------------------------------------------------------- MLA block apply
 
 
-def mla_forward(p, x, positions, cfg, *, quant=(0, 0)):
+def mla_forward(p, x, positions, cfg, *, quant=(0, 0), seq_split=False):
     """Train/prefill MLA.  Returns (out, (ckv, k_rope)) for the cache
     fill: the latent (B, S, kv_lora_rank) and the shared rope key
-    (B, S, rope_head_dim)."""
+    (B, S, rope_head_dim).  On 'model' shards (``wo`` marked ``'row'``)
+    :func:`mla_tp_forward` (``seq_split`` its argument)."""
+    if p['wo'].get('tp') == 'row':
+        return mla_tp_forward(p, x, positions, cfg, current_tp(),
+                              seq_split=seq_split)
     B, S, _ = x.shape
     H, r = cfg.num_heads, cfg.kv_lora_rank
     dr, dn, dv = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
@@ -501,7 +508,11 @@ def decode_mla_reference(q_nope_lat, q_rope, new_ckv, new_kr, cache, cur,
 def mla_decode(p, x, cur, cfg, *, cache, ctx, quant=(0, 0)):
     """One-token MLA decode.  x: (B, d).  Returns (out, cache).  q's rope
     half takes the reference's broadcast: ``rope(q[None, ..., :dr])``
-    puts the batch on the sequence axis at the one position ``cur``."""
+    puts the batch on the sequence axis at the one position ``cur``.  On
+    'model' shards :func:`mla_tp_decode`."""
+    if p['wo'].get('tp') == 'row':
+        return mla_tp_decode(p, x, cur, cfg, current_tp(), cache=cache,
+                             ctx=ctx)
     B, _ = x.shape
     H, r = cfg.num_heads, cfg.kv_lora_rank
     dr, dn, dv = cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
@@ -523,6 +534,142 @@ def mla_decode(p, x, cur, cfg, *, cache, ctx, quant=(0, 0)):
                        p['wv_b'].to(x.dtype))
     out = dense(p['wo'], out.reshape(B, H * dv), quant=quant)
     return out, cache
+
+
+# ---------------------------------------------- MLA on its 'model' shards
+#
+# The sharding rules cut ``wq_b``'s columns (whole heads, rope and nope
+# halves together), ``wk_b``/``wv_b`` on their heads dim and ``wo``'s
+# rows over 'model', and leave ``wq_a``, ``wkv_a`` and the two norms
+# whole.  So every rank computes the latents ``cq``, ``ckv`` and the rope
+# key whole (:func:`mla_in`, as GSPMD does with replicated weights), each
+# entering its heads through ``copy_in`` (their gradients summed over
+# 'model').  In a layer whose MoE block cuts the sequence over 'model'
+# (``moe.splits_sequence``) GSPMD carries that cut back into the latent
+# projections: each rank then computes them on its chunk of the tokens,
+# all-gathered along the sequence (``seq_split``; their weights'
+# gradients summed over 'model').  The rank attends with its ``H / m``
+# heads (:func:`mla_mix`) and multiplies its rows of ``wo``
+# (``layers.row_part``), summed over 'model' once.  The latent cache
+# has no heads: it stays whole, cut by sequence only.  A decode absorbs q through the rank's ``wk_b`` heads
+# (:func:`mla_q`), gathers it to every head (each rank holds a sequence
+# chunk of the cache for every head), and up-projects its heads of the
+# latent output through its ``wv_b`` (:func:`mla_step_out`).  The stages
+# are apart so that one process can play every rank.
+
+
+def mla_in(p, x, positions, cfg):
+    """The latents every rank computes whole: (``cq`` (B, S, q_lora_rank),
+    ``ckv`` (B, S, kv_lora_rank), the rope key (B, S, rope_head_dim))."""
+    r = cfg.kv_lora_rank
+    cq = rms_norm(p['q_norm'], dense(p['wq_a'], x), cfg.norm_eps)
+    kv_a = dense(p['wkv_a'], x)
+    ckv = rms_norm(p['kv_norm'], kv_a[..., :r], cfg.norm_eps)
+    k_rope = rope(kv_a[..., None, r:], positions,
+                  theta=cfg.rope_theta)[..., 0, :]
+    return cq, ckv, k_rope
+
+
+def mla_mix(p, cq, ckv, k_rope, positions, cfg):
+    """This rank's heads' attention (B, S, H/m * v_head_dim) from the
+    whole latents: q from its ``wq_b`` columns, k_nope and v through its
+    ``wk_b``/``wv_b`` heads."""
+    B, S, _ = cq.shape
+    dr, dn = cfg.rope_head_dim, cfg.nope_head_dim
+    Hl = p['wk_b'].shape[1]
+    q = dense(p['wq_b'], cq).reshape(B, S, Hl, dr + dn)
+    q_rope = rope(q[..., :dr], positions, theta=cfg.rope_theta)
+    k_nope = torch.einsum('bsr,rhn->bshn', ckv, p['wk_b'].to(ckv.dtype))
+    v = torch.einsum('bsr,rhv->bshv', ckv, p['wv_b'].to(ckv.dtype))
+    k = torch.cat([k_rope[:, :, None].expand(B, S, Hl, dr), k_nope], dim=-1)
+    q_full = torch.cat([q_rope, q[..., dr:]], dim=-1)
+    out = chunked_attention(q_full, k, v, positions, positions, causal=True)
+    return out.reshape(B, S, Hl * v.shape[-1])
+
+
+def mla_tp_forward(p, x, positions, cfg, tp, *, seq_split=False):
+    """:func:`mla_forward` on this rank's 'model' shards (the comment
+    above); the latent and the rope key come out whole.  ``seq_split``:
+    the latent projections on this rank's chunk of the tokens."""
+    if seq_split and x.shape[1] % tp.size == 0:
+        n = x.shape[1] // tp.size
+        lat = {k: {name: copy_in(t, tp) for name, t in p[k].items()}
+               for k in ('wq_a', 'q_norm', 'wkv_a', 'kv_norm')}
+        parts = mla_in(lat, seq_chunk(x, tp),
+                       positions[tp.rank * n:(tp.rank + 1) * n], cfg)
+        cq, ckv, k_rope = lats = tuple(gather_cols(t, tp, dim=1)
+                                       for t in parts)
+    else:
+        cq, ckv, k_rope = mla_in(p, x, positions, cfg)
+        lats = (copy_in(t, tp) for t in (cq, ckv, k_rope))
+    o = mla_mix(p, *lats, positions, cfg)
+    out = row_bias(p['wo'], reduce_out(row_part(p['wo'], o), tp))
+    return out, (ckv, k_rope)
+
+
+def mla_q(p, x, cur, cfg):
+    """This rank's heads of a decode step's absorbed query, pre-scaled:
+    (q_lat (B, H/m, kv_lora_rank), q_rope (B, H/m, rope_head_dim)), as
+    :func:`mla_decode` makes them for every head."""
+    B, _ = x.shape
+    dr, dn = cfg.rope_head_dim, cfg.nope_head_dim
+    Hl = p['wk_b'].shape[1]
+    pos1 = torch.full((1,), int(cur), dtype=torch.int32, device=x.device)
+    cq = rms_norm(p['q_norm'], dense(p['wq_a'], x), cfg.norm_eps)
+    q = dense(p['wq_b'], cq).reshape(B, Hl, dr + dn)
+    scale = (dr + dn) ** -0.5
+    q_rope = rope(q[None, ..., :dr], pos1, theta=cfg.rope_theta)[0] * scale
+    q_nope = q[..., dr:] * scale
+    q_lat = torch.einsum('bhn,rhn->bhr', q_nope, p['wk_b'].to(q_nope.dtype))
+    return q_lat, q_rope
+
+
+def mla_kv_step(p, x, cur, cfg):
+    """A decode step's new latent (B, kv_lora_rank) and rope key (B,
+    rope_head_dim), whole on every rank."""
+    r = cfg.kv_lora_rank
+    pos1 = torch.full((1,), int(cur), dtype=torch.int32, device=x.device)
+    kv_a = dense(p['wkv_a'], x)
+    new_ckv = rms_norm(p['kv_norm'], kv_a[..., :r], cfg.norm_eps)
+    new_kr = rope(kv_a[:, None, None, r:], pos1,
+                  theta=cfg.rope_theta)[:, 0, 0]
+    return new_ckv, new_kr
+
+
+def mla_step_out(p, out_lat, dtype):
+    """This rank's part of ``wo`` from its heads of the latent output
+    ``out_lat`` (B, H/m, kv_lora_rank), up-projected through its
+    ``wv_b``."""
+    B = out_lat.shape[0]
+    o = torch.einsum('bhr,rhv->bhv', out_lat.to(dtype), p['wv_b'].to(dtype))
+    return row_part(p['wo'], o.reshape(B, -1))
+
+
+def _heads_gathered(t, tp):
+    """(B, H/m, n) -> (B, H, n): every rank's heads, in rank order."""
+    B, hl, n = t.shape
+    return gather_cols(t.reshape(B, hl * n), tp).reshape(B, -1, n)
+
+
+def _rank_heads(t, tp):
+    """(B, H, n) -> (B, H/m, n): this rank's heads."""
+    B, h, n = t.shape
+    return rank_cols(t.reshape(B, h * n), tp).reshape(B, -1, n)
+
+
+def mla_tp_decode(p, x, cur, cfg, tp, *, cache, ctx):
+    """:func:`mla_decode` on this rank's 'model' shards: q gathered to
+    every head, the attention over this rank's chunk of the latent cache
+    through ``ctx['decode_mla']``, then this rank's heads up-projected and
+    ``wo`` by rows, summed over 'model'."""
+    q_lat, q_rope = mla_q(p, x, cur, cfg)
+    new_ckv, new_kr = mla_kv_step(p, x, cur, cfg)
+    fn = ctx.get('decode_mla', decode_mla_reference)
+    out_lat, cache = fn(_heads_gathered(q_lat, tp),
+                        _heads_gathered(q_rope, tp), new_ckv, new_kr, cache,
+                        cur)
+    part = mla_step_out(p, _rank_heads(out_lat, tp), x.dtype)
+    return row_bias(p['wo'], reduce_out(part, tp)), cache
 
 
 # --------------------------------------------------------- cache builders

@@ -48,7 +48,11 @@ all-gathers).  The expert leaves come in as ``LocalShard`` chunks
 (``gather_params`` leaves them to this block) and are gathered over the
 DP axes only (``actsharding.ep_weight``).  Where 'model' does not divide
 the FFN dim (the reference's ``shard_map`` would refuse it) the block
-takes the dense path.
+takes the dense path.  Each collective counts itself in the installed
+policy's ``counts`` over 'model' (``actsharding.note``), as the
+tensor-parallel blocks' do.  In a2a mode GSPMD carries the sequence cut
+back into the layer's MLA latent projections
+(:func:`splits_sequence`).
 
 Expert pruning (the paper's P pass at expert granularity) shrinks the
 expert axis of the stacked weights (``core/family.py``).  ``init_moe``
@@ -65,8 +69,9 @@ import torch.nn.functional as F
 from repro_torch.core.quantization import fake_quant_act, fake_quant_weight
 from repro_torch.models.actsharding import (LocalShard, current_mesh,
                                             current_policy, ep_weight,
-                                            gather_leaf, shard_act)
-from repro_torch.models.layers import dense, he_init, init_dense, init_mlp, mlp
+                                            gather_leaf, note, shard_act)
+from repro_torch.models.layers import (dense, he_init, init_dense, init_mlp,
+                                       mlp, silu)
 from repro_torch.tree import tree_map
 
 
@@ -161,16 +166,33 @@ def moe_block(p, x, cfg, *, quant=(0, 0)):
     rank's chunk) and the weights are not the int8 serving form."""
     mesh = current_mesh()
     if mesh is not None:
-        m = _model_size(mesh)
-        if os.environ.get('REPRO_MOE_MODE', 'auto') != 'dense' \
-                and x.dim() == 3 \
-                and getattr(current_policy(), 'batch_split', True) \
-                and not isinstance(p['wi'], dict) \
-                and (_a2a(cfg, x.shape[1], m) or cfg.moe_d_ff % m == 0):
+        if _ep_path(p, x, cfg, _model_size(mesh)):
             return _moe_block_ep(p, x, cfg, mesh, quant=quant)
         p = {n: gather_leaf(v) if isinstance(v, LocalShard) else v
              for n, v in p.items()}
     return _moe_block_dense(p, x, cfg, quant=quant)
+
+
+def _ep_path(p, x, cfg, m: int) -> bool:
+    """Whether :func:`moe_block` takes the expert-parallel path on ``x``
+    over a model axis of ``m`` (its docstring)."""
+    return os.environ.get('REPRO_MOE_MODE', 'auto') != 'dense' \
+        and x.dim() == 3 \
+        and getattr(current_policy(), 'batch_split', True) \
+        and not isinstance(p['wi'], dict) \
+        and (_a2a(cfg, x.shape[1], m) or cfg.moe_d_ff % m == 0)
+
+
+def splits_sequence(p, x, cfg) -> bool:
+    """Whether :func:`moe_block` cuts ``x``'s sequence over 'model' (the
+    expert-parallel path in a2a mode, the reference's shard_map in_specs,
+    from which GSPMD cuts the layer's attention input projections by
+    tokens as well: ``attention.mla_tp_forward``'s ``seq_split``)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    m = _model_size(mesh)
+    return m > 1 and _ep_path(p, x, cfg, m) and _a2a(cfg, x.shape[1], m)
 
 
 def _moe_block_dense(p, x, cfg, *, quant=(0, 0)):
@@ -192,7 +214,7 @@ def _moe_block_dense(p, x, cfg, *, quant=(0, 0)):
     wg = _maybe_quant_w(p['wg'], w_bits).to(x.dtype)
     wi = _maybe_quant_w(p['wi'], w_bits).to(x.dtype)
     wo = _maybe_quant_w(p['wo'], w_bits).to(x.dtype)
-    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+    h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
     if a_bits:
         h = fake_quant_act(h, a_bits)
     out_buf = torch.bmm(h, wo)                                # (E, cap, D)
@@ -238,6 +260,7 @@ class _GradSum(torch.autograd.Function):
     def backward(ctx, g):
         import torch.distributed as dist
         g = g.contiguous().clone()
+        note('all_reduce', g, 'model')
         dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -251,6 +274,7 @@ class _Sum(torch.autograd.Function):
     def forward(ctx, x, group):
         import torch.distributed as dist
         y = x.contiguous().clone()
+        note('all_reduce', y, 'model')
         dist.all_reduce(y, group=group)
         return y
 
@@ -269,6 +293,7 @@ class _AllToAll(torch.autograd.Function):
         ctx.group = group
         x = x.contiguous()
         out = torch.empty_like(x)
+        note('all_to_all', x, 'model')
         dist.all_to_all_single(out, x, group=group)
         return out
 
@@ -277,14 +302,17 @@ class _AllToAll(torch.autograd.Function):
         import torch.distributed as dist
         g = g.contiguous()
         out = torch.empty_like(g)
+        note('all_to_all', g, 'model')
         dist.all_to_all_single(out, g, group=ctx.group)
         return out, None
 
 
 def _gather_seq(x, group, m):
     import torch.distributed as dist
+    x = x.contiguous()
+    note('all_gather', x, 'model')
     parts = [torch.empty_like(x) for _ in range(m)]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=1)
 
 
@@ -364,7 +392,7 @@ def _moe_block_ep(p, x, cfg, mesh, *, quant=(0, 0)):
         buf = fake_quant_act(buf, a_bits)
     wi_, wg_, wo_ = (_maybe_quant_w(w, w_bits).to(x.dtype)
                      for w in (wi, wg, wo))
-    h = F.silu(torch.bmm(buf, wg_)) * torch.bmm(buf, wi_)
+    h = silu(torch.bmm(buf, wg_)) * torch.bmm(buf, wi_)
     if a_bits:
         h = fake_quant_act(h, a_bits)
     out_buf = torch.bmm(h, wo_)

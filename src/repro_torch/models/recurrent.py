@@ -3,9 +3,9 @@ Mamba-2's SSD, in PyTorch.
 
 The reference's ``models/recurrent.py``.  Prefill runs the linear
 recurrence ``h_t = a_t h_{t-1} + b_t`` over the sequence with
-:func:`linear_scan`, a log-depth doubling scan in torch ops where the
-reference calls ``jax.lax.associative_scan`` (the two associate the
-products in other orders: the same function up to fp32 rounding).  SSD
+:func:`linear_scan`, in torch ops, the combines of the reference's
+``jax.lax.associative_scan`` in its order, each multiply-add fused as
+XLA fuses it (``torch.addcmul``), so that the two round alike.  SSD
 is the chunked state-space-duality form: a quadratic intra-chunk term and
 an inter-chunk recurrence over the chunks' end states, which uses the same
 scan.  The reference has no Pallas kernel for either: both run in torch
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, conv1d_step, dense,
                                        init_conv1d, init_dense, rms_norm,
-                                       row_bias, row_part)
+                                       row_bias, row_part, silu)
 from repro_torch.models.tp import (copy_in, current_tp, gather_cols,
                                    rank_shard, reduce_out)
 
@@ -40,16 +40,30 @@ from repro_torch.models.tp import (copy_in, current_tp, gather_cols,
 def linear_scan(a, b):
     """All states of ``h_t = a_t * h_{t-1} + b_t`` along axis 1, from
     ``h_{-1} = 0``: ``a`` broadcasts against ``b`` (the same number of
-    axes).  Hillis-Steele doubling: log2(n) steps, each over the whole
-    sequence, where the reference composes ``(al, bl), (ar, br) ->
-    (al * ar, ar * bl + br)`` with ``jax.lax.associative_scan``."""
-    n, d = b.shape[1], 1
-    while d < n:
-        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
-        if 2 * d < n:
-            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
-        d *= 2
-    return b
+    axes).  The reference composes ``(al, bl), (ar, br) -> (al * ar,
+    ar * bl + br)`` with ``jax.lax.associative_scan``; this is that
+    scan's recursion (:func:`_scan_states`)."""
+    return _scan_states(a, b)
+
+
+def _scan_states(a, b):
+    """``associative_scan``'s recursion on the states: adjacent pairs
+    combined, the odd states from the scan of the pairs, each even state
+    one combine from the odd state before it.  Only the states are
+    returned, so a level's combined decays are never formed."""
+    n = b.shape[1]
+    if n < 2:
+        return b
+    ar, br = a[:, 1::2], b[:, 1::2]
+    odd = _scan_states(a[:, 0:-1:2] * ar,
+                       torch.addcmul(br, ar, b[:, 0:-1:2]))
+    b2 = b[:, 2::2]
+    even = torch.cat([b[:, :1], torch.addcmul(b2, a[:, 2::2],
+                                              odd[:, :b2.shape[1]])], dim=1)
+    if n % 2:
+        return torch.cat([torch.stack([even[:, :-1], odd], dim=2)
+                          .flatten(1, 2), even[:, -1:]], dim=1)
+    return torch.stack([even, odd], dim=2).flatten(1, 2)
 
 
 # ============================================================= RG-LRU
@@ -71,11 +85,14 @@ def init_rglru(gen, cfg, dtype=torch.float32, device='cpu', stack=()):
     }
 
 
-def _rglru_gates(p, u, quant):
+def _rglru_gates(p, u, quant, u_all=None):
     """(a, b) of the recurrence in fp32.  ``F.softplus`` returns x above
-    20, where JAX adds log1p(exp(-x)); in fp32 that rounds to x."""
-    r = torch.sigmoid(dense(p['w_r'], u, quant=quant).to(torch.float32))
-    i = torch.sigmoid(dense(p['w_i'], u, quant=quant).to(torch.float32))
+    20, where JAX adds log1p(exp(-x)); in fp32 that rounds to x.
+    ``u_all``: the whole ``u`` where ``p`` is a rank's channels (``w_r``
+    and ``w_i`` its columns, ``u`` its chunk)."""
+    ui = u if u_all is None else u_all
+    r = torch.sigmoid(dense(p['w_r'], ui, quant=quant).to(torch.float32))
+    i = torch.sigmoid(dense(p['w_i'], ui, quant=quant).to(torch.float32))
     log_a = -_RGLRU_C * F.softplus(p['lam'].to(torch.float32)) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -86,7 +103,11 @@ def _rglru_gates(p, u, quant):
 def rglru_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
     """x: (B, S, D) -> (B, S, D).  ``return_state``: also the decode state
     after the sequence, ``{'h': the last fp32 state (B, W), 'conv': the
-    last k - 1 inputs of the conv}``."""
+    last k - 1 inputs of the conv}``.  On 'model' shards (``wo`` marked
+    ``'row'``) :func:`rglru_tp_forward`."""
+    if p['wo'].get('tp') == 'row':
+        return rglru_tp_forward(p, x, cfg, current_tp(),
+                                return_state=return_state)
     gate = F.gelu(dense(p['wgate'], x, quant=quant), approximate='tanh')
     u0 = dense(p['wx'], x, quant=quant)
     a, b = _rglru_gates(p, causal_conv1d(p['conv'], u0), quant)
@@ -100,7 +121,10 @@ def rglru_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
 
 def rglru_decode(p, x, cache, cfg, *, quant=(0, 0)):
     """x: (B, D); cache = {'h': (B, W) fp32, 'conv': (B, k-1, W)}, written
-    in place.  Returns (out (B, D), cache)."""
+    in place.  Returns (out (B, D), cache).  On 'model' shards
+    :func:`rglru_tp_decode`."""
+    if p['wo'].get('tp') == 'row':
+        return rglru_tp_decode(p, x, cache, cfg, current_tp())
     gate = F.gelu(dense(p['wgate'], x, quant=quant), approximate='tanh')
     u0 = dense(p['wx'], x, quant=quant)
     u, conv_state = conv1d_step(p['conv'], u0, cache['conv'])
@@ -111,8 +135,80 @@ def rglru_decode(p, x, cache, cfg, *, quant=(0, 0)):
     return out, cache
 
 
-def init_rglru_cache(cfg, batch, dtype, device='cpu'):
-    w = cfg.rglru_width
+# -------------------------------------------- RG-LRU on its 'model' shards
+#
+# The sharding rules cut ``wgate``, ``wx``, ``w_r`` and ``w_i``'s columns,
+# the conv's channels, ``lam`` and ``wo``'s rows over 'model', each
+# contiguously: a rank holds the channels ``rank * W/m ..`` of all of
+# them.  Its gate and conv input come from its columns
+# (:func:`rglru_in`), the causal conv runs on its channels
+# (``layers.causal_conv1d``, ``conv1d_step``: elementwise, no
+# collective); ``w_r``/``w_i`` read every channel of the conv's output,
+# so it is all-gathered once a layer (``gather_cols``: the backward keeps
+# the rank's chunk of the summed gradient); the gates, ``lam`` and the
+# scan run on its channels (:func:`rglru_scan`, in a decode
+# :func:`rglru_step`) and ``wo`` is a row product (:func:`rglru_out`),
+# summed over 'model' once.  The decode state is the rank's chunk of the
+# channels.
+
+
+def rglru_in(p, x, tp):
+    """(gate, the conv's input) of this rank's channels: its columns of
+    ``wgate`` (through the gelu) and of ``wx``."""
+    xs = copy_in(x, tp)
+    gate = F.gelu(dense(p['wgate'], xs), approximate='tanh')
+    return gate, dense(p['wx'], xs)
+
+
+def rglru_scan(p, u, u_all):
+    """All fp32 states of this rank's channels from its chunk ``u`` of the
+    conv's output and the whole ``u_all``."""
+    a, b = _rglru_gates(p, u, (0, 0), u_all=u_all)
+    return linear_scan(a, b)
+
+
+def rglru_step(p, u, u_all, h_state):
+    """One decode step of this rank's channels' state ``h_state``
+    (updated in place and returned) from its chunk ``u`` of the conv's
+    output and the whole ``u_all``."""
+    a, b = _rglru_gates(p, u, (0, 0), u_all=u_all)
+    return h_state.mul_(a).add_(b)
+
+
+def rglru_out(p, h, gate):
+    """This rank's part of ``wo`` (its rows, no bias) of its states times
+    its gate."""
+    return row_part(p['wo'], h.to(gate.dtype) * gate)
+
+
+def rglru_tp_forward(p, x, cfg, tp, *, return_state=False):
+    """:func:`rglru_forward` on this rank's 'model' shards (the comment
+    above); the state is its channels'."""
+    gate, u0 = rglru_in(p, x, tp)
+    u = causal_conv1d(p['conv'], u0)
+    h = rglru_scan(p, u, gather_cols(u, tp))
+    out = row_bias(p['wo'], reduce_out(rglru_out(p, h, gate), tp))
+    if return_state:
+        k = p['conv']['w'].shape[0]
+        return out, {'h': h[:, -1], 'conv': u0[:, -(k - 1):, :]}
+    return out
+
+
+def rglru_tp_decode(p, x, cache, cfg, tp):
+    """:func:`rglru_decode` on this rank's 'model' shards: ``cache['h']``
+    and ``cache['conv']`` its channels, written in place."""
+    gate, u0 = rglru_in(p, x, tp)
+    u, conv_state = conv1d_step(p['conv'], u0, cache['conv'])
+    h = rglru_step(p, u, gather_cols(u, tp), cache['h'])
+    cache['conv'].copy_(conv_state)
+    out = row_bias(p['wo'], reduce_out(rglru_out(p, h, gate), tp))
+    return out, cache
+
+
+def init_rglru_cache(cfg, batch, dtype, device='cpu', tp=None):
+    """The decode state; with ``tp`` (an RG-LRU block on 'model' shards)
+    this rank's chunk of its channels, as the rules cut it."""
+    w = cfg.rglru_width // (1 if tp is None else tp.size)
     return {'h': torch.zeros((batch, w), dtype=torch.float32, device=device),
             'conv': torch.zeros((batch, cfg.rglru_conv - 1, w), dtype=dtype,
                                 device=device)}
@@ -258,9 +354,9 @@ def mamba2_forward(p, x, cfg, *, quant=(0, 0), return_state=False):
                                  return_state=return_state)
     z, xBC_raw, dt_raw = _split_inproj(cfg, dense(p['in_proj'], x,
                                                   quant=quant))
-    xBC = F.silu(causal_conv1d(p['conv'], xBC_raw))
+    xBC = silu(causal_conv1d(p['conv'], xBC_raw))
     y, state = _ssd_seq(p, xBC, dt_raw, cfg)
-    y = rms_norm(p['norm'], y * F.silu(z), cfg.norm_eps)
+    y = rms_norm(p['norm'], y * silu(z), cfg.norm_eps)
     out = dense(p['out_proj'], y, quant=quant)
     if return_state:
         return out, (state, xBC_raw[:, -(cfg.ssm_conv - 1):, :])
@@ -275,9 +371,9 @@ def mamba2_decode(p, x, cache, cfg, *, quant=(0, 0)):
         return mamba2_tp_decode(p, x, cache, cfg, current_tp())
     z, xBC0, dt_raw = _split_inproj(cfg, dense(p['in_proj'], x, quant=quant))
     xBC, conv_state = conv1d_step(p['conv'], xBC0, cache['conv'])
-    y = _ssd_step(p, F.silu(xBC), dt_raw, cache['h'], cfg, x.dtype)
+    y = _ssd_step(p, silu(xBC), dt_raw, cache['h'], cfg, x.dtype)
     cache['conv'].copy_(conv_state)
-    y = rms_norm(p['norm'], y * F.silu(z), cfg.norm_eps)
+    y = rms_norm(p['norm'], y * silu(z), cfg.norm_eps)
     out = dense(p['out_proj'], y, quant=quant)
     return out, cache
 
@@ -346,9 +442,9 @@ def ssm_mix(p, zxbcdt, conv, cfg, tp, *, return_state=False):
     heads' final state, its chunk of the conv's last k - 1 inputs)."""
     z, xbc_raw, dt_raw = _rank_inproj(cfg, zxbcdt, tp)
     taps = {k: _rank_xbc(cfg, v, tp) for k, v in conv.items()}
-    y, state = _ssd_seq(p, F.silu(causal_conv1d(taps, xbc_raw)), dt_raw,
+    y, state = _ssd_seq(p, silu(causal_conv1d(taps, xbc_raw)), dt_raw,
                         cfg)
-    g = y * F.silu(z)
+    g = y * silu(z)
     ss = torch.sum(torch.square(g.to(torch.float32)), dim=-1, keepdim=True)
     if not return_state:
         return g, ss, None
@@ -366,8 +462,8 @@ def ssm_step(p, zxbcdt, conv, conv_state, h_state, cfg, tp, dtype):
     z, xbc0, dt_raw = _rank_inproj(cfg, zxbcdt, tp)
     taps = {k: _rank_xbc(cfg, v, tp) for k, v in conv.items()}
     xbc, _ = conv1d_step(taps, xbc0, _rank_xbc(cfg, conv_state, tp))
-    y = _ssd_step(p, F.silu(xbc), dt_raw, h_state, cfg, dtype)
-    g = y * F.silu(z)
+    y = _ssd_step(p, silu(xbc), dt_raw, h_state, cfg, dtype)
+    g = y * silu(z)
     ss = torch.sum(torch.square(g.to(torch.float32)), dim=-1, keepdim=True)
     new = torch.cat([conv_state[:, 1:],
                      zxbcdt[:, None, d_in:2 * d_in + 2 * n]], dim=1)

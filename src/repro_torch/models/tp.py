@@ -27,10 +27,12 @@ layer functions (``attention.gqa_partial``, ``layers.mlp_partial``,
 which a caller sums over the ranks itself.
 
 This module also decides which blocks compute on their shards
-(:func:`block_marks`, :func:`table_mark`, :func:`ssm_tp`: the attention,
-the MLP and Mamba-2's block, ``models/recurrent.py``): the mesh policy's gather only
-calls it, and the step builders read :func:`logits_tp` to know that the
-logits are a vocab chunk.  Every collective here counts itself in the
+(:func:`block_marks`, :func:`table_mark`, :func:`ssm_tp`, :func:`mla_tp`,
+:func:`rglru_tp`: the attention, MLA on its heads, the MLP and an MoE
+layer's shared expert, Mamba-2's block and the RG-LRU on its channels,
+``models/recurrent.py``): the mesh policy's gather only calls it, and
+the step builders read :func:`logits_tp` to know that the logits are a
+vocab chunk.  Every collective here counts itself in the
 installed policy's ``counts``: ``(kind, 'model')`` calls and
 ``(kind + '_bytes', 'model')`` operand bytes, as the reference's
 ``hlo_analysis`` counts a compiled step's.
@@ -118,19 +120,36 @@ class _ReduceOut(torch.autograd.Function):
 
 
 class _GatherCols(torch.autograd.Function):
-    """Forward: the last dim all-gathered over the group in rank order.
+    """Forward: the dim ``dim`` all-gathered over the group in rank order.
     Backward: the gradient summed over the group, this rank's chunk."""
 
     @staticmethod
-    def forward(ctx, x, group, rank, size):
-        ctx.group, ctx.rank, ctx.n = group, rank, x.shape[-1]
-        return torch.cat(_all_gather(x, group, size), dim=-1)
+    def forward(ctx, x, group, rank, size, dim):
+        ctx.group, ctx.rank, ctx.n, ctx.dim = group, rank, x.shape[dim], dim
+        return torch.cat(_all_gather(x, group, size), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         g = _all_reduce(g, ctx.group)
-        lo = ctx.rank * ctx.n
-        return g[..., lo:lo + ctx.n].contiguous(), None, None, None
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), \
+            None, None, None, None
+
+
+class _SeqChunk(torch.autograd.Function):
+    """Forward: this rank's chunk of dim 1 of ``x`` (whole on every rank
+    of the group).  Backward: the chunks' gradients all-gathered (each
+    chunk was used on its rank only)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.group, ctx.size = group, size
+        n = x.shape[1] // size
+        return x[:, rank * n:(rank + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_all_gather(g, ctx.group, ctx.size), dim=1), \
+            None, None, None
 
 
 class _SplitWeightGrad(torch.autograd.Function):
@@ -186,13 +205,22 @@ def reduce_out(x, tp):
     return _ReduceOut.apply(x, tp.group)
 
 
-def gather_cols(x, tp):
-    """The last dim of ``x`` (this rank's columns) all-gathered over
-    'model'."""
+def gather_cols(x, tp, dim=-1):
+    """The last dim of ``x`` (this rank's columns), or its dim ``dim``,
+    all-gathered over 'model'."""
     if tp.size == 1:
         return x
     _needs_group(tp, 'the gather')
-    return _GatherCols.apply(x, tp.group, tp.rank, tp.size)
+    return _GatherCols.apply(x, tp.group, tp.rank, tp.size, dim)
+
+
+def seq_chunk(x, tp):
+    """This rank's chunk of the sequence (dim 1) of ``x``, a tensor whole
+    on every rank of 'model' (its gradient gathered back whole)."""
+    if tp.size == 1:
+        return x
+    _needs_group(tp, 'the sequence chunk')
+    return _SeqChunk.apply(x, tp.group, tp.rank, tp.size)
 
 
 def rank_cols(x, tp):
@@ -273,9 +301,22 @@ def vocab_argmax(logits, tp):
 TP_BLOCKS = {'attn': ('wq', 'wk', 'wv', 'wo'),
              'xattn': ('wq', 'wk', 'wv', 'wo'),
              'mlp': ('wi', 'wg', 'wo'),
+             'shared': ('wi', 'wg', 'wo'),
              'mamba': ('in_proj', 'out_proj', 'conv', 'A_log', 'D',
-                       'dt_bias', 'norm')}
+                       'dt_bias', 'norm'),
+             'rglru': ('wgate', 'wx', 'conv', 'w_r', 'w_i', 'lam', 'wo')}
+#: MLA's leaves (an ``'attn'`` block with ``wq_b``)
+MLA_BLOCK = ('wq_a', 'q_norm', 'wq_b', 'wkv_a', 'kv_norm', 'wk_b', 'wv_b',
+             'wo')
 _DENSE_KEYS = {'w', 'b', 'w_q', 'scale'}
+
+
+def block_names(key, node):
+    """The leaves of the block ``node`` under ``key`` that have a
+    tensor-parallel form (MLA's under ``'attn'``)."""
+    if key == 'attn' and isinstance(node, dict) and 'wq_b' in node:
+        return MLA_BLOCK
+    return TP_BLOCKS.get(key, ())
 
 
 def _weight(d):
@@ -319,15 +360,21 @@ def ssm_tp(cfg, tp):
     return tp
 
 
+def _plain_dense(node, names):
+    """Whether each of ``names`` in ``node`` is a plain dense dict (no
+    factored form)."""
+    return all(isinstance(node.get(k), dict) and ('w' in node[k]
+               or 'w_q' in node[k]) and set(node[k]) <= _DENSE_KEYS
+               for k in names)
+
+
 def _ssm_marks(node, tp, cfg):
     """:func:`block_marks` of a Mamba-2 block: ``in_proj`` by columns,
     ``out_proj`` by rows, every other leaf on its 'model' shard."""
     if ssm_tp(cfg, tp) is None:
         return None
-    dense_ok = all(isinstance(node.get(k), dict) and ('w' in node[k]
-                   or 'w_q' in node[k]) and set(node[k]) <= _DENSE_KEYS
-                   for k in ('in_proj', 'out_proj'))
-    if not dense_ok or _dense_mark(node['in_proj']) != 'col' \
+    if not _plain_dense(node, ('in_proj', 'out_proj')) \
+            or _dense_mark(node['in_proj']) != 'col' \
             or _dense_mark(node['out_proj']) != 'row' \
             or model_dim(node['conv']['w']) != 1 \
             or model_dim(node['A_log']) != 0:
@@ -336,16 +383,82 @@ def _ssm_marks(node, tp, cfg):
     return {'in_proj': 'col', 'out_proj': 'row'}
 
 
+def mla_tp(cfg, tp):
+    """``tp`` where an MLA block of ``cfg`` computes on its heads
+    (``models/attention.py``): the heads divide the axis and ``wq_b`` is
+    split by columns (``cfg.shard_heads``), so the rules cut ``wq_b``'s
+    columns, ``wk_b``/``wv_b``'s heads dim and ``wo``'s rows over it;
+    else None.  The latent projections and their norms stay whole on
+    every rank."""
+    if tp is None or cfg is None or not cfg.use_mla or not cfg.shard_heads \
+            or cfg.num_heads % tp.size:
+        return None
+    return tp
+
+
+def _mla_marks(node, tp, cfg):
+    """:func:`block_marks` of an MLA block: ``wq_b`` by columns, ``wo`` by
+    rows, ``wk_b``/``wv_b`` on their heads' shard (unmarked); a factored
+    block stays whole."""
+    if mla_tp(cfg, tp) is None \
+            or not _plain_dense(node, ('wq_a', 'wq_b', 'wkv_a', 'wo')):
+        return None
+    if _dense_mark(node['wq_b']) != 'col' or _dense_mark(node['wo']) != 'row' \
+            or any(_dense_mark(node[k]) for k in ('wq_a', 'wkv_a')) \
+            or model_dim(node['wk_b']) != 1 or model_dim(node['wv_b']) != 1:
+        raise ValueError('an MLA block the rules do not cut by heads on a '
+                         'model axis its heads divide')
+    return {'wq_b': 'col', 'wo': 'row'}
+
+
+def rglru_tp(cfg, tp):
+    """``tp`` where an RG-LRU block of ``cfg`` computes on its channels
+    (``models/recurrent.py``): its width divides the axis, so the rules
+    cut ``wgate``/``wx``/``w_r``/``w_i``'s columns, the conv's channels,
+    ``lam`` and ``wo``'s rows over it; else None.  Its decode state is
+    then its chunk of the channels."""
+    if tp is None or cfg is None or 'recurrent' not in cfg.block_pattern \
+            or cfg.rglru_width % tp.size:
+        return None
+    return tp
+
+
+_RGLRU_COLS = ('wgate', 'wx', 'w_r', 'w_i')
+
+
+def _rglru_marks(node, tp, cfg):
+    """:func:`block_marks` of an RG-LRU block: ``wgate``, ``wx``, ``w_r``
+    and ``w_i`` by columns, ``wo`` by rows, the conv and ``lam`` on their
+    channels' shard (unmarked); a factored block stays whole."""
+    if rglru_tp(cfg, tp) is None \
+            or not _plain_dense(node, _RGLRU_COLS + ('wo',)):
+        return None
+    if any(_dense_mark(node[k]) != 'col' for k in _RGLRU_COLS) \
+            or _dense_mark(node['wo']) != 'row' \
+            or model_dim(node['conv']['w']) != 1 \
+            or model_dim(node['lam']) != 0:
+        raise ValueError('an RG-LRU block the rules do not cut by channels '
+                         'on a model axis its width divides')
+    return {**{k: 'col' for k in _RGLRU_COLS}, 'wo': 'row'}
+
+
 def block_marks(key, node, tp, cfg):
     """``{name: 'col' | 'row' | None}`` for the dense dicts of the block
     ``node`` under ``key`` where it computes on its 'model' shards, else
-    None (every leaf then gathered whole): a GQA attention or a dense MLP
-    of plain dense dicts (no factored form) whose ``wo`` 'model' cuts by
-    rows, with an attention's query heads whole on each rank; a Mamba-2
-    block whose heads divide the axis (:func:`ssm_tp`; its other leaves
-    kept on their shards, unmarked)."""
-    if key == 'mamba' and tp is not None:
-        return _ssm_marks(node, tp, cfg)
+    None (every leaf then gathered whole): a GQA attention, a dense MLP or
+    an MoE layer's shared expert of plain dense dicts (no factored form)
+    whose ``wo`` 'model' cuts by rows, with an attention's query heads
+    whole on each rank; a Mamba-2 block whose heads divide the axis
+    (:func:`ssm_tp`), an MLA block whose heads do (:func:`mla_tp`) and an
+    RG-LRU block whose width does (:func:`rglru_tp`), their other leaves
+    kept on their shards, unmarked."""
+    if tp is not None:
+        if key == 'mamba':
+            return _ssm_marks(node, tp, cfg)
+        if key == 'rglru':
+            return _rglru_marks(node, tp, cfg)
+        if key == 'attn' and 'wq_b' in node:
+            return _mla_marks(node, tp, cfg)
     names = TP_BLOCKS.get(key)
     if tp is None or names is None \
             or set(node) - {'wg'} != set(names) - {'wg'} \
@@ -355,7 +468,8 @@ def block_marks(key, node, tp, cfg):
     marks = {n: _dense_mark(d) for n, d in node.items()}
     if marks['wo'] != 'row':
         return None
-    if key != 'mlp' and marks['wq'] == 'col' and cfg.num_heads % tp.size:
+    if key in ('attn', 'xattn') and marks['wq'] == 'col' \
+            and cfg.num_heads % tp.size:
         return None                       # 'model' would cut a query head
     return marks
 
@@ -388,16 +502,43 @@ def mark_dense(d, mark, tp):
     return out
 
 
+def _cut(t, dim, rank, size):
+    """One rank's contiguous chunk of ``t``'s dim ``dim``."""
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
 def rank_shard(d, mark, rank, size):
     """A whole dense dict cut to one rank's 'model' shard as the sharding
     rules cut it and marked as the mesh policy marks it: ``'col'`` the
     weight's and the bias' last dim, ``'row'`` the weight's first (its
     bias whole), ``'vocab'`` a table's rows."""
-    def cut(t, dim):
-        n = t.shape[dim] // size
-        return t.narrow(dim, rank * n, n)
     if mark == 'vocab':
-        return {'table': cut(d['table'], 0), 'tp': mark}
+        return {'table': _cut(d['table'], 0, rank, size), 'tp': mark}
     if mark == 'col':
-        return {**{k: cut(v, -1) for k, v in d.items()}, 'tp': mark}
-    return {**d, 'w': cut(d['w'], 0), 'tp': mark}
+        return {**{k: _cut(v, -1, rank, size) for k, v in d.items()},
+                'tp': mark}
+    return {**d, 'w': _cut(d['w'], 0, rank, size), 'tp': mark}
+
+
+def mla_rank_shard(p, rank, size):
+    """A whole MLA param dict cut to one rank's 'model' shard as the
+    sharding rules cut it (``wq_b`` by columns, ``wk_b``/``wv_b`` by
+    heads, ``wo`` by rows; the latent projections and norms whole), and
+    marked as the mesh policy marks it."""
+    return {**p, 'wq_b': rank_shard(p['wq_b'], 'col', rank, size),
+            'wk_b': _cut(p['wk_b'], 1, rank, size),
+            'wv_b': _cut(p['wv_b'], 1, rank, size),
+            'wo': rank_shard(p['wo'], 'row', rank, size)}
+
+
+def rglru_rank_shard(p, rank, size):
+    """A whole RG-LRU param dict cut to one rank's 'model' shard as the
+    sharding rules cut it (its channels: ``wgate``, ``wx``, ``w_r``,
+    ``w_i`` by columns, the conv and ``lam``, ``wo`` by rows), and marked
+    as the mesh policy marks it."""
+    return {**{k: rank_shard(p[k], 'col', rank, size) for k in _RGLRU_COLS},
+            'conv': {k: _cut(v, -1, rank, size)
+                     for k, v in p['conv'].items()},
+            'lam': _cut(p['lam'], -1, rank, size),
+            'wo': rank_shard(p['wo'], 'row', rank, size)}

@@ -42,13 +42,16 @@ is installed, which then gathers a sharded leaf to its full tensor, or
 to its 'model' shard in a block with a tensor-parallel form
 (``launch/steps.py``, ``models/tp.py``): the logits are then this rank's
 vocab chunk.
-``remat=True`` runs each layer of :func:`forward` (an encoder's too)
-under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
-gather inside it: the numbers are the same, the activations kept for the
-backward pass are each layer's input only, and a sharded leaf is
-gathered again for the recomputation.  The reference checkpoints each
-scanned group; the port's groups are a Python loop, so each layer is its
-own checkpoint.
+``remat=True`` runs each layer of :func:`forward`'s scanned groups (and
+of an encoder) under ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, the gather inside it: the numbers are the same,
+the activations kept for the backward pass are each layer's input only,
+and a sharded leaf is gathered again for the recomputation.  The
+reference checkpoints each scanned group and neither the prefix nor the
+tail; the port's groups are a Python loop, so each of their layers is
+its own checkpoint, and the prefix and tail layers keep their
+activations, as the reference's do (the same FLOPs: a recomputed prefix
+layer is one more forward of it).
 """
 from __future__ import annotations
 
@@ -189,7 +192,10 @@ def layer_forward(lp, x, kind, cfg, *, positions, quant, enc=None,
                               return_state=want_cache)
         o, kvs = o if want_cache else (o, None)
     elif cfg.use_mla:
-        o, kvs = attn.mla_forward(lp['attn'], h, positions, cfg, quant=quant)
+        o, kvs = attn.mla_forward(
+            lp['attn'], h, positions, cfg, quant=quant,
+            seq_split='moe' in lp and moe_lib.splits_sequence(lp['moe'], h,
+                                                              cfg))
     else:
         o, kvs = attn.gqa_forward(lp['attn'], h, positions, cfg, kind=kind,
                                   quant=quant, full_kv=want_cache)
@@ -242,7 +248,8 @@ def init_layer_cache(cfg, kind, batch, max_len, dtype, device='cpu',
         return rec.init_mamba2_cache(cfg, batch, dtype, device,
                                      tp=ctx.get('ssm_tp'))
     if kind == 'recurrent':
-        return rec.init_rglru_cache(cfg, batch, dtype, device)
+        return rec.init_rglru_cache(cfg, batch, dtype, device,
+                                    tp=ctx.get('rglru_tp'))
     if cfg.use_mla:
         return attn.init_mla_cache(cfg, batch, max_len, dtype, device,
                                    chunk=chunk)
@@ -339,7 +346,8 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
     """Logits (B, S, vocab) of a token batch (B, S); with a frontend prefix
     ``embeds`` (B, F, d), logits of the whole (B, F + S) sequence.
 
-    ``remat``: checkpoint each layer (recompute it in the backward pass).
+    ``remat``: checkpoint each layer of the scanned groups (recompute it
+    in the backward pass), as the reference checkpoints its scan body.
     ``collect_hiddens``: also return the residual stream after each scan
     group (``hiddens[g]``, (B, S, d), before the tail and the final norm),
     the early-exit heads' inputs: ``(logits, hiddens)``.  The reference
@@ -357,8 +365,9 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
         return shard_act(y)
 
     hiddens = []
+    scanned = range(n_prefix, n_prefix + G * P)
     for i, (kind, lp) in enumerate(_layers(params, cfg)):
-        if remat:
+        if remat and i in scanned:
             x = checkpoint(apply_one, lp, x, kind, use_reentrant=False)
         else:
             x = apply_one(lp, x, kind)
@@ -376,7 +385,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, enc=None,
     cache this rank's chunk: ``'cache_chunk'`` maps a ring's slots to
     (first slot, slots) of this rank's chunk, or None for the whole ring;
     ``'ssm_tp'`` is the model axis a Mamba-2 block's state is cut over
-    by heads.  Each layer's k/v (or latent) goes into the chunk as the
+    by heads, ``'rglru_tp'`` the one an RG-LRU block's is cut over by
+    channels.  Each layer's k/v (or latent) goes into the chunk as the
     layer ends and is dropped: one layer's whole-sequence k/v is live at
     a time."""
     quant = (cfg.w_bits, cfg.a_bits)

@@ -5,7 +5,8 @@ Reference side: its ``build_train_step``, ``build_prefill_step`` and
 ``build_serve_step`` at the smoke configs of tinyllama-1.1b, gemma2-9b and
 whisper-small (batch 8, sequence 32) on (1, 4) and (2, 2) meshes of forced
 host devices, and the train step on (1, 1); deepseek-v3-671b's and
-recurrentgemma-9b's train steps on (1, 4); tinyllama's train step on a
+recurrentgemma-9b's train steps on (1, 4) and (1, 1); tinyllama's train
+step on a
 (16, 16) pod (batch 16) at 16 heads (its own ``dryrun.run_cell`` fails
 under jax 0.9's Explicit mesh axes, so every mesh here has Auto axes).
 Each is compiled and read with ``hlo_analysis.analyze``, in three
@@ -20,13 +21,15 @@ cell, in another.
 * Per-device FLOPs within ``FLOP_TOL`` (5%) of the reference's where the
   port partitions the work as GSPMD does: tinyllama and gemma2 on every
   mesh, whisper on (1, 1), tinyllama at 16 heads on the pod, mamba2-2.7b's
-  train and prefill steps on (1, 4) (its SSD block on its heads); the (1, 1) /
+  train and prefill steps on (1, 4) (its SSD block on its heads),
+  deepseek-v3-671b's (MLA on its heads) and recurrentgemma-9b's (the
+  RG-LRU on its channels) train steps on (1, 4) and (1, 1); the (1, 1) /
   (1, 4) ratio of the train step within ``RATIO_TOL`` (1%) of the
-  reference's (a Mamba-2 cell's against its dot FLOPs, ``_ratio``).
-  Where the port still computes a block whole on every
+  reference's (a Mamba-2 or RG-LRU cell's against its dot FLOPs,
+  ``_ratio``).  Where the port still computes a block whole on every
   'model' rank (ROADMAP A 12: whisper's attention, whose heads the rules
-  leave whole, ``shard_heads`` off; deepseek's MLA; recurrentgemma's
-  RG-LRU) only port >= reference is held, and the ratio printed.
+  leave whole, ``shard_heads`` off) only port >= reference is held, and
+  the ratio printed.
 * The kinds of collective over 'model' (``collectives_by_axis``) lie
   among the reference's compiled step's; their operand bytes equal the
   step's own ``policy.counts`` (the tensor-parallel blocks', the decode
@@ -67,8 +70,12 @@ FLOP_TOL = 0.05
 RATIO_TOL = 0.01
 TIMEOUT_S = 300
 ARCHS = ('tinyllama-1.1b', 'gemma2-9b', 'whisper-small')
-GATHERED = ('deepseek-v3-671b', 'recurrentgemma-9b')
+#: MLA on its heads, the RG-LRU on its channels
+SHARDED = ('deepseek-v3-671b', 'recurrentgemma-9b')
 SSM = 'mamba2-2.7b'          # its SSD block on 'model' shards
+#: cells held to the reference's dot FLOPs: XLA lowers a depthwise
+#: causal conv's weight gradient as a dense conv
+CONV = (SSM, 'recurrentgemma-9b')
 KINDS = ('train', 'prefill', 'decode')
 POD16 = {'num_heads': 16, 'num_kv_heads': 16}     # no query head cut on 16
 
@@ -83,9 +90,10 @@ def _cells():
             for kind in KINDS:
                 out[f'{arch}/{mesh[0]}x{mesh[1]}/{kind}'] = (
                     arch, {}, mesh, dict(kind=kind, batch=B, seq=S))
-    for arch in GATHERED:
-        out[f'{arch}/1x4/train'] = (arch, {}, (1, 4),
-                                    dict(kind='train', batch=B, seq=S))
+    for arch in SHARDED:
+        for mesh in ((1, 4), (1, 1)):
+            out[f'{arch}/{mesh[0]}x{mesh[1]}/train'] = (
+                arch, {}, mesh, dict(kind='train', batch=B, seq=S))
     for kind in ('train', 'prefill'):
         out[f'{SSM}/1x4/{kind}'] = (SSM, {}, (1, 4),
                                     dict(kind=kind, batch=B, seq=S))
@@ -100,7 +108,7 @@ CELLS = _cells()
 FULL = ('tinyllama-1.1b', 'train_4k')
 #: cells held to FLOP_TOL; every other cell to port >= reference
 CLOSE = tuple(n for n in CELLS if (n.startswith(('tinyllama', 'gemma2',
-                                                   SSM))
+                                                   SSM) + SHARDED)
                                    and '/16x16/' not in n)
               or n.startswith('whisper-small/1x1')) \
     + ('tinyllama-1.1b/16x16/train/16heads',)
@@ -109,9 +117,6 @@ CLOSE = tuple(n for n in CELLS if (n.startswith(('tinyllama', 'gemma2',
 PREFILL_MEM = tuple(n for n in CELLS if n.endswith('/prefill')
                     and n.startswith(('tinyllama', 'gemma2')))
 WIDER = tuple(n for n in CELLS if n not in CLOSE)
-#: cells where DTensor gathers leaves whole over 'model' (ROADMAP A 12),
-#: which the policy counts as leaves, not bytes
-GATHER_WHOLE = tuple(n for n in CELLS if n.startswith(GATHERED))
 
 REF_SCRIPT = r"""
 import json, jax
@@ -243,15 +248,19 @@ def dry(tmp_path_factory):
     return run(str(tmp_path_factory.mktemp('dryrun')))
 
 
-def _ratio(dry, name):
-    """Port over reference FLOPs a device.  A Mamba-2 cell's against the
-    reference's dot FLOPs: the port's causal conv is elementwise (no FLOPs
-    to ``FlopCounterMode``), XLA's a convolution, whose weight gradient it
-    lowers as a dense one over every channel pair (14% of the smoke train
-    step's count, 3% at full size)."""
+def _ref_flops(dry, name):
+    """The reference's FLOPs a device of the cell ``name``: a Mamba-2 or
+    RG-LRU cell's its dot FLOPs.  The port's causal conv is elementwise
+    (no FLOPs to ``FlopCounterMode``), XLA's a convolution, whose weight
+    gradient it lowers as a dense one over every channel pair (Mamba-2:
+    14% of the smoke train step's count, 3% at full size)."""
     ref = dry['ref'][name]
-    return dry['port'][name]['flops'] / (
-        ref['dot_flops'] if name.startswith(SSM) else ref['flops'])
+    return ref['dot_flops'] if name.startswith(CONV) else ref['flops']
+
+
+def _ratio(dry, name):
+    """Port over reference FLOPs a device (:func:`_ref_flops`)."""
+    return dry['port'][name]['flops'] / _ref_flops(dry, name)
 
 
 @pytest.mark.parametrize('name', CLOSE)
@@ -271,12 +280,13 @@ def test_per_device_flops_where_blocks_run_whole(dry, name):
     assert r >= 1 - FLOP_TOL
 
 
-@pytest.mark.parametrize('arch', ('tinyllama-1.1b', 'gemma2-9b'))
+@pytest.mark.parametrize('arch', ('tinyllama-1.1b', 'gemma2-9b') + SHARDED)
 def test_flops_ratio_one_to_four_ranks(dry, arch):
-    def ratio(side):
-        return dry[side][f'{arch}/1x1/train']['flops'] / \
-            dry[side][f'{arch}/1x4/train']['flops']
-    assert abs(ratio('port') / ratio('ref') - 1) <= RATIO_TOL
+    port = dry['port'][f'{arch}/1x1/train']['flops'] / \
+        dry['port'][f'{arch}/1x4/train']['flops']
+    ref = _ref_flops(dry, f'{arch}/1x1/train') / \
+        _ref_flops(dry, f'{arch}/1x4/train')
+    assert abs(port / ref - 1) <= RATIO_TOL, (port, ref)
 
 
 def _model_kinds(res):
@@ -292,20 +302,20 @@ def test_model_axis_kinds_within_reference(dry, name):
     assert got and got <= want, (got, want)
 
 
-@pytest.mark.parametrize('name', [n for n in CELLS if '/1x1/' not in n
-                                  and n not in GATHER_WHOLE])
+@pytest.mark.parametrize('name', [n for n in CELLS if '/1x1/' not in n])
 def test_model_axis_bytes_equal_policy_counts(dry, name):
     """op_analysis's operand bytes over 'model' by kind against the step's
-    own counts (the global norm's all-reduces counted as ``grad_norm``).
-    The cells where DTensor gathers leaves whole over 'model' (ROADMAP
-    A 12) are left out: the policy counts those gathers as leaves, not
-    bytes; here it counts none."""
+    own counts (the global norm's all-reduces counted as ``grad_norm``;
+    the MoE block's all-to-alls too).
+    The policy counts a leaf gathered whole over 'model' as a leaf, not
+    bytes: no cell here gathers one."""
     res = dry['port'][name]
     pc = res['policy_counts']
     assert pc.get('gather/model', 0) == 0
     want = {'all-reduce': pc.get('all_reduce_bytes/model', 0)
             + pc.get('grad_norm_bytes/model', 0),
-            'all-gather': pc.get('all_gather_bytes/model', 0)}
+            'all-gather': pc.get('all_gather_bytes/model', 0),
+            'all-to-all': pc.get('all_to_all_bytes/model', 0)}
     got = {k: by.get('model', 0)
            for k, by in res['collectives_by_axis'].items()}
     assert {k: v for k, v in got.items() if v} == \

@@ -123,6 +123,30 @@ def test_bf16_params_cross_bit_for_bit():
     assert logits.dtype == torch.bfloat16 and logits.shape == (1, 4, 512)
 
 
+def test_silu_rounds_as_the_reference():
+    """``layers.silu`` and its gradient against ``jax.nn.silu`` and its
+    vjp under ``jax.jit`` on 100k fp32 inputs: bit for bit wherever
+    ``torch.sigmoid`` and XLA's logistic agree (they differ in the last
+    bit at about 0.4% of inputs), with and without a gradient to take."""
+    from repro_torch.models.layers import silu
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(100_000) * 3).astype(np.float32)
+    ct = rng.standard_normal(100_000).astype(np.float32)
+    want = np.asarray(jax.jit(jax.nn.silu)(x))
+    want_dx = np.asarray(jax.jit(
+        lambda x, c: jax.vjp(jax.nn.silu, x)[1](c)[0])(x, ct))
+    same = np.asarray(jax.jit(jax.nn.sigmoid)(x)) == \
+        torch.sigmoid(torch.from_numpy(x)).numpy()
+    assert same.mean() > 0.99
+    xt = torch.from_numpy(x).requires_grad_()
+    y = silu(xt)
+    y.backward(torch.from_numpy(ct))
+    assert (y.detach().numpy() == want)[same].all()
+    assert (xt.grad.numpy() == want_dx)[same].all()
+    with torch.no_grad():
+        assert (silu(torch.from_numpy(x)).numpy() == want)[same].all()
+
+
 def test_forward_matches_reference():
     jm, jp, tm, tp, tokens = _setup()
     want = jax.jit(jm.forward)(jp, {'tokens': tokens})

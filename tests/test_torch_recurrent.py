@@ -12,8 +12,8 @@ reference function runs under ``jax.jit``, and the port's QAT scales under
 ``quantization.jitted_scales``.  Tolerances:
 
 * outputs, states and logits within 1e-5 x max|.| (XLA and torch sum in
-  other orders, and ``linear_scan`` associates the recurrence's products
-  in another order than ``jax.lax.associative_scan``); SSD's output from
+  other orders); ``linear_scan`` bit for bit against
+  ``jax.lax.associative_scan``; SSD's output from
   bf16 B and C within 8e-3 (``C . B`` rounds to bf16 in both); an int8-KV step
   whose cache holds a code one step apart at a rounding tie within 1e-3
   (tests/test_torch_archs.py);
@@ -315,6 +315,28 @@ def test_linear_scan_matches_associative_scan(n):
     _close(rec.linear_scan(torch.from_numpy(a)[..., None, None],
                            torch.from_numpy(b4)), want)
 
+
+@pytest.mark.parametrize('n', [2, 7, 32, 513])
+def test_linear_scan_rounds_as_associative_scan(n):
+    """The port's scan combines in ``jax.lax.associative_scan``'s order
+    with its multiply-adds fused as XLA fuses them: the states equal the
+    reference's bit for bit, with ``a`` whole and broadcast."""
+    rng = np.random.default_rng(n)
+    a = rng.uniform(0.5, 1.0, (2, n, 16)).astype(np.float32)
+    b = rng.standard_normal((2, n, 16, 3, 2)).astype(np.float32)
+
+    def combine(l, r):
+        (al, bl), (ar, br) = l, r
+        return al * ar, ar * bl + br
+    scan = jax.jit(lambda a, b: jax.lax.associative_scan(
+        combine, (a, b), axis=1)[1])
+    want = np.asarray(scan(a, b[..., 0, 0]))
+    got = rec.linear_scan(torch.from_numpy(a), torch.from_numpy(b[..., 0, 0]))
+    assert np.array_equal(got.numpy(), want)
+    want = np.asarray(scan(np.broadcast_to(a[..., None, None], b.shape), b))
+    got = rec.linear_scan(torch.from_numpy(a)[..., None, None],
+                          torch.from_numpy(b))
+    assert np.array_equal(got.numpy(), want)
 
 # ------------------------------------------------------------- RG-LRU
 

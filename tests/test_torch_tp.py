@@ -37,8 +37,9 @@ against the JAX package.
   ``from_jax_params``: a train step of whisper-small (heads whole on
   every rank, ``wo`` by rows, cross-attention), gemma2-9b (softcaps, a
   tied vocab-parallel unembedding, local layers), deepseek-v3-671b (MLA
-  and MoE, gathered) and recurrentgemma-9b (the RG-LRU gathered, its one
-  kv head cut by 'model', its MLP on shards) against the reference's
+  on its heads, the MoE expert-parallel, its shared expert on shards) and
+  recurrentgemma-9b (the RG-LRU on its channels, its one kv head cut by
+  'model', its MLP on shards) against the reference's
   step on the same mesh, at the bounds above (the params' far elements
   counted over the whole tree, each with a first moment of float noise,
   as ``tests/test_torch_moe_ep.py`` holds them); 3 serve tokens with the
@@ -92,8 +93,8 @@ STEPS = (((1, 4), 'cut'), ((1, 4), 'whole'), ((2, 2), 'cut'))
 #: archs whose (1, 4) train step on the 'model' shards is held against
 #: the reference's: whisper's heads whole on every rank (shard_heads off)
 #: with ``wo`` by rows and cross-attention, gemma2's softcaps, tied
-#: unembedding and local layers, deepseek's MLA and MoE (gathered),
-#: recurrentgemma's RG-LRU (gathered) beside its MLP
+#: unembedding and local layers, deepseek's MLA (on its heads) and MoE,
+#: recurrentgemma's RG-LRU (on its channels) beside its MLP
 ARCHS = ('whisper-small', 'gemma2-9b', 'deepseek-v3-671b',
          'recurrentgemma-9b')
 #: archs served with int8 weights on (1, 4)
@@ -573,14 +574,13 @@ def test_other_archs_match_reference(worlds, arch):
     """One (1, 4) train step of each arch on the 'model' shards, the
     reference's weights, against the reference's step on the same mesh
     (:func:`_check_step`); the leaves with a tensor-parallel form kept on
-    their shards (MLA's are gathered: ROADMAP A 12)."""
+    their shards (MLA's and the RG-LRU's too)."""
     before = tree_leaves(worlds['params'][arch])
     for o in worlds['out'][4]:
         got = o['archs']['train', arch, True]
         _check_step(got, worlds['ref'], arch, before)
         assert got['counts'].get(('all_reduce', 'model'), 0) > 0
-        if arch != 'deepseek-v3-671b':
-            assert got['counts'].get(('gather_tp', 'model'), 0) == 0
+        assert got['counts'].get(('gather_tp', 'model'), 0) == 0
 
 
 @pytest.mark.parametrize('arch', ARCHS)
